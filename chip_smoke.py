@@ -61,7 +61,7 @@ LAYERS = ("nomad.scheduler.reconcile", "nomad.solver.tensorize",
           "nomad.solver.materialize", "nomad.plan.evaluate",
           "nomad.plan.apply")
 
-# H100 SXM published peaks (the on-chip-measurement guide's table)
+# H100 SXM published peaks (HBM3 bandwidth, dense f32 CUDA-core rate)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # f32 operations per evaluated dense depth / per node, read off the kernels'
