@@ -9,18 +9,29 @@ prints no result):
 
   1. device   torch/CUDA versions, whether nvcc and triton exist, the card
               (`nvidia-smi --query-gpu=name,power.limit`).
-  2. build    both CUDA kernels from nomad_tpu_torch/solver/csrc, one nvcc
-              per source, started together; ptxas register counts.
-  3. kernels  each kernel against its plain PyTorch version on the card, on
+  2. build    the CUDA kernels from nomad_tpu_torch/solver/csrc (and the
+              empty launch-floor kernel and the pow10 check), one nvcc per
+              source, started together; ptxas registers and shared memory.
+  3. pow10    the kernels' 10**x (csrc/pow10.cuh) against the float64 pow
+              rounded to float32 on every float32 in [-46, 1] and below -46,
+              enumerated on the card: 0 mismatches, 0 below -46.
+     kernels  each kernel against its plain PyTorch version on the card, on
               seeded inputs at the main path's shapes: 10,000 live nodes in
               the 16,384 bucket, the depth curve dense at K=128, on the
-              sampled grid (DEPTH_GRID <= 128), with max_per_node=1 and with
-              a block of infeasible rows; the score/capacity pass at 16,384.
-              Capacities exactly equal, densities and scores to atol 1e-4,
-              k_star exactly equal except on rows whose top two plain
-              densities lie within 1e-5 (counted); the fill tails' placements
-              equal except on nodes such near ties move (counted). Median
-              times over 30 launches (CUDA events), kernel and plain.
+              sampled grid (DEPTH_GRID <= 128), with max_per_node=1, with
+              a block of infeasible rows, under the spread algorithm (dense
+              and grid), and dense at K=512 with a small ask (capacities
+              past 512); the score/capacity pass at 16,384, its score entry
+              under the greedy tail and its greedy entry against the plain
+              fill at counts 1 and 5,000 and at max_per_node 1. Capacities
+              exactly equal, densities and scores to atol 1e-4, k_star
+              exactly equal except on rows whose top two plain densities lie
+              within 1e-5 (counted); placements exactly equal (0 moved
+              nodes). Device times per launch from the profiler over 30
+              launches, per-call times by CUDA events (medians of 200
+              calls for the kernels, 30 for the plain versions); the
+              kernels of one fill_greedy_binpack_fused call; an empty
+              kernel's device time (`floor_ms`).
   4. main     the port's placement path at the north-star size: an FSM with
               10,000 bench-fleet nodes under scheduler_algorithm=tpu-batch,
               three evals through new_scheduler("batch") -> process ->
@@ -54,6 +65,9 @@ SEED = 20261016
 ATOL = 1e-4
 NEAR_TIE = 1e-5
 REPS = 30
+# per-call times (CUDA events around one wrapper call) are host time for
+# the most part and spread widely from call to call: take a longer median
+CALL_REPS = 200
 BIG_COUNT, MID_COUNT = 50_000, 2_000
 # per-eval layer timers (seconds, metrics.timer_sum deltas)
 LAYERS = ("nomad.scheduler.reconcile", "nomad.solver.tensorize",
@@ -106,6 +120,38 @@ def device_phase(torch) -> str:
 
 
 # ------------------------------------------------------------ phase 3
+
+# float32 bit patterns, inclusive: every float32 in [-46, 1] (both signs
+# of zero), then every float32 below -46 down to -inf
+POW10_RANGES = (("[0, 1]", 0x00000000, 0x3F800000),
+                ("[-46, -0]", 0x80000000, 0xC2380000),
+                ("below -46", 0xC2380001, 0xFF800000))
+
+
+def pow10_phase(torch, dev) -> dict:
+    """pow10.cuh's 10**x, which both kernels call, against the float64 pow
+    rounded to float32 on every float32 input of POW10_RANGES, enumerated
+    by bit pattern on the card: 0 mismatches, and 0 everywhere below -46
+    in both."""
+    from nomad_tpu_torch.solver import cuda_kernels
+    cuda_kernels.pow10_check(0, 0, dev)                 # load, warm up
+    out = {"inputs": 0, "mismatches": 0, "undecided": 0}
+    t0 = time.perf_counter()
+    for name, first, last in POW10_RANGES:
+        mism, undecided, nonzero = cuda_kernels.pow10_check(first, last, dev)
+        count = last - first + 1
+        log(f"pow10 {name}: {count} float32 inputs, {mism} mismatches, "
+            f"{undecided} left to the float64 pow, {nonzero} nonzero")
+        check(mism == 0, f"pow10 {name}: {mism} mismatches")
+        if name == "below -46":
+            check(nonzero == 0, f"pow10 below -46: {nonzero} nonzero")
+        out["inputs"] += count
+        out["mismatches"] += mism
+        out["undecided"] += undecided
+    out["seconds"] = time.perf_counter() - t0
+    log(f"pow10: {out['inputs']} inputs checked in {out['seconds']:.3f} s")
+    return out
+
 
 def _inputs(np, torch, dev):
     """Seeded node matrices at the main path's bucket: bench-fleet
@@ -164,25 +210,26 @@ def _device_ms(torch, fn, kernel: str, reps=REPS) -> tuple:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-    except RuntimeError as e:           # no CUPTI: CUDA events instead
-        log(f"profiler unavailable ({e}); timing with CUDA events")
-        return None, None
-    mine = total = 0.0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = e.time_range.elapsed_us()
-        total += us
-        if kernel in e.name:
-            mine += us
-    if total <= 0:
-        return None, None
-    return mine / reps / 1e3, total / reps / 1e3
+    for _ in range(3):                  # a trace may miss the kernel
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        except RuntimeError as e:       # no CUPTI: CUDA events instead
+            log(f"profiler unavailable ({e}); timing with CUDA events")
+            return None, None
+        mine = total = 0.0
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = e.time_range.elapsed_us()
+            total += us
+            if kernel in e.name:
+                mine += us
+        if mine > 0 or (not kernel and total > 0):
+            return mine / reps / 1e3, total / reps / 1e3
+    return None, None
 
 
 def _placements_agree(torch, got, want, producer_differs: bool, what: str):
@@ -199,6 +246,83 @@ def _placements_agree(torch, got, want, producer_differs: bool, what: str):
     return moved
 
 
+def _kernel_times(torch, dev, inp, small_ask) -> tuple:
+    """The kernels' times, taken first, in a process not yet churned by
+    the plain versions' large temporaries: K1 on the 50k eval's inputs
+    and on the partly used fleet, K2's greedy and score entries, the
+    launch floor and the kernels of one fill_greedy_binpack_fused call;
+    then the plain versions' times and the bounds. -> (k1, k2, fill)."""
+    import gc
+    from nomad_tpu_torch.solver import cuda_kernels, kernels
+    gc.collect()
+    base = (inp["cap"], inp["used"], inp["ask"])
+    grid128 = tuple(g for g in kernels.DEPTH_GRID if g <= 128)
+    big = 2 ** 30
+    # the 50k eval's inputs: the same fleet empty (no usage, no
+    # collisions), dense K=128
+    empty = (inp["cap"], torch.zeros_like(inp["used"]), inp["ask"],
+             inp["feasible"], torch.zeros_like(inp["coll"]), BIG_COUNT,
+             inp["aff"])
+    part = base + (inp["feasible"], inp["coll"], BIG_COUNT, inp["aff"])
+    k512 = (inp["cap"], inp["used"], small_ask) + part[3:]
+    greedy = base + (inp["feasible"], False, True, big)
+
+    k1 = _times(torch, "depth_curve_kernel",
+                lambda: cuda_kernels.depth_curve(*empty, k_max=128))
+    k2 = _times(torch, "score_capacity_kernel",
+                lambda: cuda_kernels._launch_score_capacity(*greedy))
+    floor = _times(torch, "launch_floor_kernel",
+                   lambda: cuda_kernels.launch_floor(dev))
+    for key, args, kw in (
+            ("grid_ms", part, dict(k_max=128, depth_grid=grid128)),
+            ("spread_ms", part, dict(k_max=128, spread_algorithm=True)),
+            ("k512_ms", k512, dict(k_max=512))):
+        k1[key] = _times(torch, "depth_curve_kernel",
+                         lambda a=args, kw=kw: cuda_kernels.depth_curve(
+                             *a, **kw))["ms"]
+    k2["score_ms"] = _times(torch, "score_capacity_kernel",
+                            lambda: cuda_kernels.score_capacity_fused(
+                                *base, inp["feasible"]))["ms"]
+    fill = _kernel_list(
+        torch, lambda: cuda_kernels.fill_greedy_binpack_fused(
+            *base, 1, inp["feasible"]))
+    fill["call_ms"] = _median_ms(
+        torch, lambda: cuda_kernels.fill_greedy_binpack_fused(
+            *base, 1, inp["feasible"]), CALL_REPS)
+    for r in (k1, k2):
+        r["floor_ms"] = floor["ms"]
+
+    k1.update(_plain_times(
+        torch, lambda: kernels.depth_curve_ref(*empty, k_max=128)))
+    k2.update(_plain_times(torch, lambda: kernels._greedy_key(
+        *kernels.score_capacity_ref(*base, inp["feasible"]), big)))
+    _, _, c_p = kernels.depth_curve_ref(*empty, k_max=128)
+    depths = int(torch.clamp(c_p, max=128).sum())     # depths evaluated
+    k1_bytes = N_BUCKET * (2 * 5 * 4 + 1 + 4 + 4 + 3 * 4) + 5 * 4
+    k1_ops = depths * DEPTH_OPS_DENSE + N_BUCKET * DEPTH_OPS_NODE
+    k1.update(_bound(k1_bytes, k1_ops))
+    k1["depths_evaluated"] = depths
+    k2_bytes = N_BUCKET * (2 * 5 * 4 + 1 + 4 + 4) + 5 * 4
+    k2.update(_bound(k2_bytes, N_BUCKET * SCORE_OPS_NODE))
+
+    log(f"K1 50k-eval inputs: kernel {k1['ms']} ms device "
+        f"({k1['call_ms']} ms per wrapper call), plain {k1['plain_ms']} ms "
+        f"({k1['plain_device_ms']} ms device), bound {k1['bound_ms']} ms "
+        f"({k1['bound_by']}: {k1_bytes} B, {k1_ops} ops, {depths} depths)")
+    log(f"K1 on the partly used fleet: grid_k128 {k1['grid_ms']} ms, "
+        f"spread_dense_k128 {k1['spread_ms']} ms, dense_k512 "
+        f"{k1['k512_ms']} ms device")
+    log(f"K2 greedy entry: kernel {k2['ms']} ms device ({k2['call_ms']} ms "
+        f"per wrapper call), score entry {k2['score_ms']} ms, plain "
+        f"{k2['plain_ms']} ms ({k2['plain_device_ms']} ms device), bound "
+        f"{k2['bound_ms']} ms ({k2['bound_by']})")
+    log(f"launch floor: empty kernel {floor['ms']} ms device "
+        f"({floor['call_ms']} ms per call, timed by {floor['timing']})")
+    log("one fill_greedy_binpack_fused call (count 1, 16,384 nodes): "
+        + json.dumps(fill))
+    return k1, k2, fill
+
+
 def kernels_phase(np, torch, dev) -> dict:
     from nomad_tpu_torch.solver import cuda_kernels, kernels
     inp = _inputs(np, torch, dev)
@@ -206,23 +330,42 @@ def kernels_phase(np, torch, dev) -> dict:
     grid128 = tuple(g for g in kernels.DEPTH_GRID if g <= 128)
     infeasible_block = inp["feasible"].clone()
     infeasible_block[2_000:4_000] = False
+    # a small ask: capacities pass 128, so the curve crosses every
+    # 128-depth chunk of the kernel up to 512
+    small_ask = torch.tensor([50, 64, 300, 0, 0], dtype=torch.float32,
+                             device=dev)
+    feas, big = inp["feasible"], 2 ** 30
     cases = [
-        # name, feasible, max_per_node, grid, count, jitter_samples
-        ("dense_k128", inp["feasible"], 2 ** 30, None, BIG_COUNT, 0.0),
-        ("grid_k128", inp["feasible"], 2 ** 30, grid128, MID_COUNT, 0.4),
-        ("max_per_node_1", inp["feasible"], 1, None, 8_000, 0.0),
-        ("infeasible_block", infeasible_block, 2 ** 30, None, BIG_COUNT,
+        # name, ask, feasible, max_per_node, k_max, grid, spread, count,
+        # jitter_samples
+        ("dense_k128", inp["ask"], feas, big, 128, None, False, BIG_COUNT,
          0.0),
+        ("grid_k128", inp["ask"], feas, big, 128, grid128, False, MID_COUNT,
+         0.4),
+        ("max_per_node_1", inp["ask"], feas, 1, 128, None, False, 8_000, 0.0),
+        ("infeasible_block", inp["ask"], infeasible_block, big, 128, None,
+         False, BIG_COUNT, 0.0),
+        ("spread_dense_k128", inp["ask"], feas, big, 128, None, True,
+         BIG_COUNT, 0.0),
+        ("grid_spread", inp["ask"], feas, big, 128, grid128, True, MID_COUNT,
+         0.4),
+        ("dense_k512", small_ask, feas, big, 512, None, False, 500_000, 0.0),
     ]
-    k1 = {"max_abs_err": 0.0, "near_tie_rows": 0, "moved_nodes": 0,
-          "cases": []}
-    for name, feas, mpn, grid, count, js in cases:
-        args = base + (feas, inp["coll"], BIG_COUNT, inp["aff"])
-        kw = dict(max_per_node=mpn, k_max=128, depth_grid=grid)
+    k1, k2, fill = _kernel_times(torch, dev, inp, small_ask)
+    k1.update({"max_abs_err": 0.0, "near_tie_rows": 0, "moved_nodes": 0,
+               "cases": []})
+    for name, ask, feas, mpn, k_max, grid, spread, count, js in cases:
+        args = (inp["cap"], inp["used"], ask, feas, inp["coll"], BIG_COUNT,
+                inp["aff"])
+        kw = dict(max_per_node=mpn, k_max=k_max, spread_algorithm=spread,
+                  depth_grid=grid)
         d_k, k_k, c_k = cuda_kernels.depth_curve(*args, **kw)
         d_p, k_p, c_p = kernels.depth_curve_ref(*args, **kw)
         torch.cuda.synchronize()
         check(torch.equal(c_k, c_p), f"K1 {name}: k_cap differs")
+        if name == "dense_k512":
+            check(int(c_p.max()) > 512,
+                  f"K1 {name}: capacities stop at {int(c_p.max())}")
         fin = torch.isfinite(d_p)
         check(torch.equal(torch.isfinite(d_k), fin),
               f"K1 {name}: rows with no fitting depth differ")
@@ -240,50 +383,29 @@ def kernels_phase(np, torch, dev) -> dict:
             ties = len(bad)
         tail = (count, inp["jitter"], 1.5, js)
         p_k = kernels._depth_order_take(d_k, k_k, c_k, *tail)
-        p_p = kernels.fill_depth(*base, count, feas, inp["coll"], BIG_COUNT,
-                                 inp["aff"], max_per_node=mpn, k_max=128,
+        p_p = kernels.fill_depth(inp["cap"], inp["used"], ask, count, feas,
+                                 inp["coll"], BIG_COUNT, inp["aff"],
+                                 max_per_node=mpn, k_max=k_max,
+                                 spread_algorithm=spread,
                                  order_jitter=inp["jitter"],
                                  jitter_scale=1.5, jitter_samples=js,
                                  depth_grid=grid)
         differs = bool(ties) or not torch.equal(d_k[fin], d_p[fin])
         moved = _placements_agree(torch, p_k, p_p, differs, f"K1 {name}")
+        check(moved == 0, f"K1 {name}: near ties moved {moved} nodes")
         if mpn == 1:
             check(int(p_k.max()) <= 1, "K1 max_per_node_1: depth > 1")
         k1["max_abs_err"] = max(k1["max_abs_err"], err)
         k1["near_tie_rows"] += ties
         k1["moved_nodes"] += moved
         k1["cases"].append(name)
-        log(f"K1 {name}: k_cap equal, d_star max abs err {err:.3g}, "
-            f"k_star near-tie rows {ties}, placed {int(p_k.sum())}, "
-            f"nodes moved by near ties {moved}")
+        log(f"K1 {name}: k_cap equal (max {int(c_p.max())}), d_star max abs "
+            f"err {err:.3g}, k_star near-tie rows {ties}, placed "
+            f"{int(p_k.sum())}, nodes moved by near ties {moved}")
 
-    # K1 time and bound on the 50k eval's inputs: the same fleet empty
-    # (no usage, no collisions), dense K=128
-    empty = (inp["cap"], torch.zeros_like(inp["used"]), inp["ask"],
-             inp["feasible"], torch.zeros_like(inp["coll"]), BIG_COUNT,
-             inp["aff"])
-    k1.update(_times(torch, "depth_curve_kernel",
-                     lambda: cuda_kernels.launch_depth_curve(*empty,
-                                                             k_max=128),
-                     lambda: kernels.depth_curve_ref(*empty, k_max=128)))
-    _, _, c_p = kernels.depth_curve_ref(*empty, k_max=128)
-    depths = int(torch.clamp(c_p, max=128).sum())     # depths evaluated
-    k1_bytes = N_BUCKET * (2 * 5 * 4 + 1 + 4 + 4 + 3 * 4) + 5 * 4
-    k1_ops = depths * DEPTH_OPS_DENSE + N_BUCKET * DEPTH_OPS_NODE
-    k1.update(_bound(k1_bytes, k1_ops))
-    k1["depths_evaluated"] = depths
-    log(f"K1 50k-eval inputs: kernel {k1['ms']} ms device "
-        f"({k1['call_ms']} ms per wrapper call), plain {k1['plain_ms']} ms "
-        f"({k1['plain_device_ms']} ms device), bound {k1['bound_ms']} ms "
-        f"({k1['bound_by']}: {k1_bytes} B, {k1_ops} ops, {depths} depths)")
-    grid = _times(torch, "depth_curve_kernel",
-                  lambda: cuda_kernels.launch_depth_curve(
-                      *args, k_max=128, depth_grid=grid128), None)
-    k1["grid_ms"] = grid["ms"]
-    log(f"K1 grid_k128 (partly used fleet): kernel {grid['ms']} ms device")
-
-    # K2 at the bucket: capacity exact, score to atol, greedy tail
-    k2 = {"near_tie_rows": 0, "moved_nodes": 0}
+    # K2 at the bucket: capacity exact, score to atol, greedy tail; the
+    # greedy entry (the main path's) against the plain fill
+    k2.update({"near_tie_rows": 0, "moved_nodes": 0})
     c_k, s_k = cuda_kernels.score_capacity_fused(*base, inp["feasible"])
     c_p, s_p = kernels.score_capacity_ref(*base, inp["feasible"])
     torch.cuda.synchronize()
@@ -291,42 +413,89 @@ def kernels_phase(np, torch, dev) -> dict:
     err = float((s_k - s_p).abs().max())
     check(err <= ATOL, f"K2: score max abs err {err}")
     k2["max_abs_err"] = err
-    for count in (1, 5_000):
-        p_k = kernels._greedy_take(c_k, s_k, count, 2 ** 30)
-        p_p = kernels.fill_greedy_binpack(*base, count, inp["feasible"])
-        moved = _placements_agree(torch, p_k, p_p,
-                                  not torch.equal(s_k, s_p),
-                                  f"K2 count={count}")
-        k2["moved_nodes"] += moved
-        log(f"K2 count={count}: capacity equal, score max abs err "
-            f"{err:.3g}, placed {int(p_k.sum())}, nodes moved {moved}")
-    k2.update(_times(torch, "score_capacity_kernel",
-                     lambda: cuda_kernels.score_capacity_fused(
-                         *base, inp["feasible"]),
-                     lambda: kernels.score_capacity_ref(
-                         *base, inp["feasible"])))
-    k2_bytes = N_BUCKET * (2 * 5 * 4 + 1 + 4 + 4) + 5 * 4
-    k2.update(_bound(k2_bytes, N_BUCKET * SCORE_OPS_NODE))
-    log(f"K2: kernel {k2['ms']} ms device ({k2['call_ms']} ms per wrapper "
-        f"call), plain {k2['plain_ms']} ms ({k2['plain_device_ms']} ms "
-        f"device), bound {k2['bound_ms']} ms ({k2['bound_by']})")
-    return {"depth_curve": k1, "score_capacity": k2}
+    for count, mpn in ((1, big), (5_000, big), (5_000, 1)):
+        what = f"K2 count={count} max_per_node={mpn}"
+        p_k = kernels._greedy_take(c_k, s_k, count, mpn)
+        p_p = kernels.fill_greedy_binpack(*base, count, inp["feasible"],
+                                          max_per_node=mpn)
+        differs = not torch.equal(s_k, s_p)
+        moved = _placements_agree(torch, p_k, p_p, differs, what)
+        check(moved == 0, f"{what}: near ties moved {moved} nodes")
+        g_k = cuda_kernels.fill_greedy_binpack_fused(
+            *base, count, inp["feasible"], max_per_node=mpn)
+        moved_g = _placements_agree(torch, g_k, p_p, differs,
+                                    f"{what}, greedy entry")
+        check(moved_g == 0, f"{what}, greedy entry: moved {moved_g} nodes")
+        k2["moved_nodes"] += moved + moved_g
+        log(f"{what}: capacity equal, score max abs err {err:.3g}, placed "
+            f"{int(p_k.sum())}; score entry + tail and greedy entry place "
+            f"like the plain fill (nodes moved {moved}, {moved_g})")
+    return {"depth_curve": k1, "score_capacity": k2, "greedy_fill": fill}
 
 
-def _times(torch, kernel: str, run, plain) -> dict:
-    """The kernel's device time per launch (profiler; the CUDA events'
-    per-call time where the profiler sees no device activity), the
-    wrapper's per-call time, and the plain version's per-call time and
-    device time."""
+def _kernel_list(torch, fn) -> dict:
+    """The device kernels one call of `fn` runs (profiler, after a
+    warm-up): name -> [launches, device ms], and their total. None for
+    both when the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:           # no CUPTI
+        log(f"profiler unavailable ({e}); no kernel list")
+        return {"kernels": None, "device_ms": None}
+    kernels: dict = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        k = kernels.setdefault(e.name[:80], [0, 0.0])
+        k[0] += 1
+        k[1] += e.time_range.elapsed_us() / 1e3
+    if not kernels:
+        return {"kernels": None, "device_ms": None}
+    return {"kernels": kernels,
+            "device_ms": sum(v[1] for v in kernels.values())}
+
+
+def _queued_ms(torch, fn, reps=REPS) -> float:
+    """Device time per call of `fn` with the launches queued back to back
+    behind a spin kernel, so the host's pace does not enter (CUDA
+    events)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _times(torch, kernel: str, run) -> dict:
+    """The kernel's device time per launch (the profiler's; queued CUDA
+    events where the profiler does not see the kernel) and the wrapper's
+    per-call time."""
     ms, _ = _device_ms(torch, run, kernel)
-    out = {"call_ms": _median_ms(torch, run), "timing": "profiler"}
+    out = {"call_ms": _median_ms(torch, run, CALL_REPS),
+           "timing": "profiler"}
     if not ms:
-        ms, out["timing"] = out["call_ms"], "events"
+        ms, out["timing"] = _queued_ms(torch, run), "queued events"
     out["ms"] = ms
-    if plain is not None:
-        out["plain_ms"] = _median_ms(torch, plain)
-        out["plain_device_ms"] = _device_ms(torch, plain, "")[1]
     return out
+
+
+def _plain_times(torch, plain) -> dict:
+    """The plain version's per-call time and device time."""
+    return {"plain_ms": _median_ms(torch, plain),
+            "plain_device_ms": _device_ms(torch, plain, "")[1]}
 
 
 def _bound(nbytes: int, ops: int) -> dict:
@@ -556,6 +725,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    pow10 = pow10_phase(torch, dev)
     res = kernels_phase(np, torch, dev)
     main = main_path_phase(torch)
     prof = profile_phase(torch)
@@ -575,13 +745,16 @@ def main() -> int:
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": None,
+               "floor_ms": r["floor_ms"], "call_ms": r["call_ms"],
                "near_tie_rows": r["near_tie_rows"],
                "moved_nodes": r["moved_nodes"]}
-        for k in ("grid_ms", "depths_evaluated"):
+        for k in ("grid_ms", "spread_ms", "k512_ms", "depths_evaluated",
+                  "score_ms"):
             if k in r:
                 row[k] = r[k]
         rows.append(row)
     log(json.dumps({"e2e": main["evals"], "profiled_50k": prof,
+                    "greedy_fill": res["greedy_fill"], "pow10": pow10,
                     "card": card,
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": rows}))

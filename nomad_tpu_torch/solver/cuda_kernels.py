@@ -4,25 +4,36 @@ of nomad_tpu/solver/pallas_kernels.py.
   depth_curve     csrc/depth_curve.cu, replaces `_depth_curve_kernel`
                   (the depth solver's per-node curve producer)
   score_capacity  csrc/score_capacity.cu, replaces
-                  `_score_capacity_kernel` (the greedy inner pass)
+                  `_score_capacity_kernel` (the greedy inner pass; its
+                  greedy entry also folds in the greedy tail's key step)
+  launch_floor    csrc/launch_floor.cu, an empty kernel: the card's
+                  launch floor, for measurement only
+  pow10_check     csrc/pow10_check.cu, the exhaustive check of
+                  csrc/pow10.cuh, for chip_smoke.py
+
+Both placement kernels take 10**x from csrc/pow10.cuh: exactly the plain
+version's float64 pow rounded to float32, by a cheap estimate that falls
+back to the float64 pow where it cannot decide the rounding.
 
 Build: each source is compiled by `nvcc` for sm_90a into its own shared
 library with a plain C interface, loaded with ctypes. The libraries go
-under build/kernels/ at the repo root, named by a hash of their source,
-so an unchanged tree does not rebuild; all sources compile in parallel at
-first use. No fast math (the kernels take floor of quotients and pow) and
-no FMA contraction, so the kernels round like their plain versions.
+under build/kernels/ at the repo root, named by a hash of their source
+and of every csrc/*.cuh header, so an unchanged tree does not rebuild;
+all sources compile in parallel at first use. No fast math (the kernels
+take floor of quotients and pow) and no FMA contraction, so the kernels
+round like their plain versions.
 
 Wrappers: `fill_depth_fused` and `fill_greedy_binpack_fused` keep the
 reference signatures. A wrapper given CPU tensors runs the plain version
 (kernels.py); given CUDA tensors it checks device, dtype, shape and
-contiguity, allocates its outputs, launches on the current stream and
-raises if the launch reports an error. `LAUNCHES` counts the launches of
-each kernel; nothing else adds to it.
+contiguity, allocates one output buffer, launches on the current stream
+and raises if the launch reports an error. `LAUNCHES` counts the launches
+of each placement kernel; nothing else adds to it.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -34,7 +45,7 @@ from pathlib import Path
 import torch
 
 from . import kernels
-from .kernels import NUM_XR, _depth_order_take, _greedy_take
+from .kernels import NUM_XR, _depth_order_take, _greedy_fill
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -43,13 +54,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 SOURCES = {"depth_curve": "depth_curve.cu",
-           "score_capacity": "score_capacity.cu"}
+           "score_capacity": "score_capacity.cu",
+           "launch_floor": "launch_floor.cu",
+           "pow10_check": "pow10_check.cu"}
+KERNELS = ("depth_curve", "score_capacity")     # the placement kernels
 MAX_GRID = 32           # csrc/depth_curve.cu DepthGrid capacity
-_NEG_BIG = -1e9
 
-LAUNCHES = {name: 0 for name in SOURCES}
+LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_LOG: dict = {}    # name -> nvcc output (registers, spills)
-_libs: dict = {}
+_fns: dict = {}         # name -> the library's launch function
 _build_lock = threading.Lock()
 
 _P = ctypes.c_void_p
@@ -57,8 +70,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
     "depth_curve_launch": [_P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _P, _I,
-                           _I, _P, _P, _P, _P],
-    "score_capacity_launch": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
+                           _I, _P, _P],
+    "score_capacity_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "launch_floor_launch": [_P],
+    "pow10_check_launch": [ctypes.c_uint, ctypes.c_uint, _P, _P],
 }
 
 
@@ -76,9 +91,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{h[:16]}.so"
+    """The library's path, named by a hash of the flags, the source and
+    every header in csrc/ (a changed header must not reuse a stale
+    library)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> float:
@@ -111,25 +130,28 @@ def build(names=None) -> float:
     return time.perf_counter() - t0
 
 
-def _lib(name: str):
-    lib = _libs.get(name)
-    if lib is not None:
-        return lib
+def _fn(name: str):
+    """The launch function of kernel `name`, built and loaded at first
+    use."""
+    fn = _fns.get(name)
+    if fn is not None:
+        return fn
     with _build_lock:
-        lib = _libs.get(name)
-        if lib is None:
+        fn = _fns.get(name)
+        if fn is None:
             path = _lib_path(name)
             if not path.exists():
                 build([name])
-            lib = ctypes.CDLL(str(path))
-            fn = getattr(lib, f"{name}_launch")
+            fn = getattr(ctypes.CDLL(str(path)), f"{name}_launch")
             fn.argtypes = _ARGTYPES[f"{name}_launch"]
             fn.restype = ctypes.c_int
-            _libs[name] = lib
-    return lib
+            _fns[name] = fn
+    return fn
 
 
 def _check(t: torch.Tensor, what: str, dtype, shape, device) -> None:
+    """Raise, naming the fault, unless `t` is a contiguous tensor of
+    `dtype` and `shape` on `device`."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{what}: expected a tensor, got {type(t).__name__}")
     if t.device != device:
@@ -143,15 +165,29 @@ def _check(t: torch.Tensor, what: str, dtype, shape, device) -> None:
         raise ValueError(f"{what}: not contiguous")
 
 
-def _check_rows(cap, used, ask, feasible) -> int:
-    if cap.device.type != "cuda":
-        raise ValueError(f"cap: on {cap.device}, expected a CUDA device")
-    n = cap.shape[0]
+def _fits(t, dtype, shape, device) -> bool:
+    return (isinstance(t, torch.Tensor) and t.dtype is dtype
+            and t.shape == shape and t.device == device and t.is_contiguous())
+
+
+def _check_rows(cap, used, ask, feasible, *columns) -> int:
+    """Raise on what a kernel does not take: cap and used f32[N, 5], ask
+    f32[5], feasible bool[N] and each (tensor, name, dtype) of `columns`
+    of length N, all contiguous on one CUDA device. -> N."""
     dev = cap.device
-    _check(cap, "cap", torch.float32, (n, NUM_XR), dev)
-    _check(used, "used", torch.float32, (n, NUM_XR), dev)
-    _check(ask, "ask", torch.float32, (NUM_XR,), dev)
-    _check(feasible, "feasible", torch.bool, (n,), dev)
+    if dev.type != "cuda":
+        raise ValueError(f"cap: on {dev}, expected a CUDA device")
+    n = cap.shape[0]
+    rows, col = (n, NUM_XR), (n,)
+    for t, what, dtype, shape in ((cap, "cap", torch.float32, rows),
+                                  (used, "used", torch.float32, rows),
+                                  (ask, "ask", torch.float32, (NUM_XR,)),
+                                  (feasible, "feasible", torch.bool, col)):
+        if not _fits(t, dtype, shape, dev):
+            _check(t, what, dtype, shape, dev)
+    for t, what, dtype in columns:
+        if not _fits(t, dtype, col, dev):
+            _check(t, what, dtype, col, dev)
     return n
 
 
@@ -162,22 +198,38 @@ def _launched(name: str, err: int) -> None:
 
 
 def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The raw handle of `dev`'s current stream (what
+    torch.cuda.current_stream(dev).cuda_stream gives, without building a
+    Stream object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
-def launch_depth_curve(cap, used, ask, feasible, job_collisions,
-                       desired_count, affinity_boost,
-                       max_per_node=kernels.MAX_PER_NODE_CAP,
-                       k_max: int = 128, spread_algorithm: bool = False,
-                       depth_grid=None) -> tuple:
-    """One launch of the depth-curve kernel on CUDA tensors: the raw
-    (d_star f32[N] (-1e9 where no depth fits), k_star i32[N],
-    k_cap i32[N])."""
-    n = _check_rows(cap, used, ask, feasible)
+@functools.lru_cache(maxsize=64)
+def _grid_array(grid: tuple) -> tuple:
+    """(ctypes float[MAX_GRID], its address) for a depth grid, built once
+    per grid; the launch copies it into the kernel's by-value argument."""
+    arr = (ctypes.c_float * MAX_GRID)(*[float(g) for g in grid])
+    return arr, ctypes.addressof(arr)
+
+
+def depth_curve(cap, used, ask, feasible, job_collisions, desired_count,
+                affinity_boost, max_per_node=kernels.MAX_PER_NODE_CAP,
+                k_max: int = 128, spread_algorithm: bool = False,
+                depth_grid=None) -> tuple:
+    """(d_star f32[N], k_star i32[N], k_cap i32[N]) — one launch of the
+    depth-curve kernel on CUDA tensors (the three rows of one int32
+    [3, N] output buffer), kernels.depth_curve_ref on CPU tensors. d_star
+    is -inf where no depth fits."""
+    if cap.device.type == "cpu":
+        return kernels.depth_curve_ref(
+            cap, used, ask, feasible, job_collisions, desired_count,
+            affinity_boost, max_per_node=max_per_node, k_max=k_max,
+            spread_algorithm=spread_algorithm, depth_grid=depth_grid)
+    n = _check_rows(cap, used, ask, feasible,
+                    (job_collisions, "job_collisions", torch.int32),
+                    (affinity_boost, "affinity_boost", torch.float32))
     dev = cap.device
-    _check(job_collisions, "job_collisions", torch.int32, (n,), dev)
-    _check(affinity_boost, "affinity_boost", torch.float32, (n,), dev)
-    grid = tuple(depth_grid) if depth_grid is not None else ()
+    grid = () if depth_grid is None else tuple(depth_grid)
     if len(grid) > MAX_GRID:
         raise ValueError(f"depth_grid has {len(grid)} depths, the kernel "
                          f"takes at most {MAX_GRID}")
@@ -185,39 +237,16 @@ def launch_depth_curve(cap, used, ask, feasible, job_collisions,
         raise ValueError(f"k_max {k_max} out of range")
     desired = float(max(int(desired_count), 1))
     mpn = float(min(int(max_per_node), kernels.MAX_PER_NODE_CAP))
-    g_arr = (ctypes.c_float * MAX_GRID)(*[float(g) for g in grid])
-    d_star = torch.empty((n,), dtype=torch.float32, device=dev)
-    k_star = torch.empty((n,), dtype=torch.int32, device=dev)
-    k_cap = torch.empty((n,), dtype=torch.int32, device=dev)
-    fn = _lib("depth_curve").depth_curve_launch
-    err = fn(cap.data_ptr(), used.data_ptr(), ask.data_ptr(),
-             feasible.data_ptr(), job_collisions.data_ptr(),
-             affinity_boost.data_ptr(), n, desired, mpn, int(k_max),
-             ctypes.cast(g_arr, ctypes.c_void_p), len(grid),
-             int(bool(spread_algorithm)), d_star.data_ptr(),
-             k_star.data_ptr(), k_cap.data_ptr(), _stream(dev))
+    _, g_ptr = _grid_array(grid)
+    out = torch.empty((3, n), dtype=torch.int32, device=dev)
+    err = _fn("depth_curve")(
+        cap.data_ptr(), used.data_ptr(), ask.data_ptr(), feasible.data_ptr(),
+        job_collisions.data_ptr(), affinity_boost.data_ptr(), n, desired,
+        mpn, int(k_max), g_ptr, len(grid), int(bool(spread_algorithm)),
+        out.data_ptr(), _stream(dev))
     _launched("depth_curve", err)
-    return d_star, k_star, k_cap
-
-
-def depth_curve(cap, used, ask, feasible, job_collisions, desired_count,
-                affinity_boost, max_per_node=kernels.MAX_PER_NODE_CAP,
-                k_max: int = 128, spread_algorithm: bool = False,
-                depth_grid=None) -> tuple:
-    """(d_star f32[N], k_star i32[N], k_cap i32[N]) — the depth-curve
-    kernel on CUDA tensors, kernels.depth_curve_ref on CPU tensors.
-    d_star is -inf where no depth fits."""
-    if cap.device.type == "cpu":
-        return kernels.depth_curve_ref(
-            cap, used, ask, feasible, job_collisions, desired_count,
-            affinity_boost, max_per_node=max_per_node, k_max=k_max,
-            spread_algorithm=spread_algorithm, depth_grid=depth_grid)
-    d_star, k_star, k_cap = launch_depth_curve(
-        cap, used, ask, feasible, job_collisions, desired_count,
-        affinity_boost, max_per_node=max_per_node, k_max=k_max,
-        spread_algorithm=spread_algorithm, depth_grid=depth_grid)
-    d_star = torch.where(d_star <= _NEG_BIG / 2.0, -torch.inf, d_star)
-    return d_star, k_star, k_cap
+    d_star, k_star, k_cap = out.unbind(0)
+    return d_star.view(torch.float32), k_star, k_cap
 
 
 def fill_depth_fused(cap, used, ask, count, feasible, job_collisions,
@@ -236,27 +265,66 @@ def fill_depth_fused(cap, used, ask, count, feasible, job_collisions,
                              jitter_scale, jitter_samples)
 
 
+def _launch_score_capacity(cap, used, ask, feasible, spread: bool,
+                           greedy: bool, max_per_node) -> tuple:
+    """One launch of the score/capacity kernel on CUDA tensors, the two
+    rows of one int32 [2, N] output buffer: (capacity i32[N], score
+    f32[N]), or with `greedy` (capacity clamped to max_per_node, sort key
+    f32[N]) as kernels._greedy_key gives them."""
+    n = _check_rows(cap, used, ask, feasible)
+    dev = cap.device
+    mpn = min(int(max_per_node), kernels.MAX_PER_NODE_CAP)
+    out = torch.empty((2, n), dtype=torch.int32, device=dev)
+    err = _fn("score_capacity")(
+        cap.data_ptr(), used.data_ptr(), ask.data_ptr(), feasible.data_ptr(),
+        n, int(bool(spread)), int(bool(greedy)), mpn, out.data_ptr(),
+        _stream(dev))
+    _launched("score_capacity", err)
+    capacity, second = out.unbind(0)
+    return capacity, second.view(torch.float32)
+
+
 def score_capacity_fused(cap, used, ask, feasible, spread: bool = False):
     """(capacity i32[N], score f32[N]) — the score/capacity kernel on
     CUDA tensors, kernels.score_capacity_ref on CPU tensors."""
     if cap.device.type == "cpu":
         return kernels.score_capacity_ref(cap, used, ask, feasible,
                                           spread=spread)
-    n = _check_rows(cap, used, ask, feasible)
-    dev = cap.device
-    capacity = torch.empty((n,), dtype=torch.int32, device=dev)
-    score = torch.empty((n,), dtype=torch.float32, device=dev)
-    fn = _lib("score_capacity").score_capacity_launch
-    err = fn(cap.data_ptr(), used.data_ptr(), ask.data_ptr(),
-             feasible.data_ptr(), n, int(bool(spread)),
-             capacity.data_ptr(), score.data_ptr(), _stream(dev))
-    _launched("score_capacity", err)
-    return capacity, score
+    return _launch_score_capacity(cap, used, ask, feasible, spread, False,
+                                  kernels.MAX_PER_NODE_CAP)
 
 
 def fill_greedy_binpack_fused(cap, used, ask, count, feasible,
                               max_per_node=kernels.MAX_PER_NODE_CAP):
-    """kernels.fill_greedy_binpack with the score/capacity kernel as its
-    producer: same stable sort + cumsum fill tail."""
-    capacity, score = score_capacity_fused(cap, used, ask, feasible)
-    return _greedy_take(capacity, score, count, max_per_node)
+    """kernels.fill_greedy_binpack with the score/capacity kernel's
+    greedy entry as its producer: the kernel writes the clamped capacity
+    and the sort key, the shared stable sort + cumsum tail takes."""
+    if cap.device.type == "cpu":
+        return kernels.fill_greedy_binpack(cap, used, ask, count, feasible,
+                                           max_per_node=max_per_node)
+    capacity, key = _launch_score_capacity(cap, used, ask, feasible, False,
+                                           True, max_per_node)
+    return _greedy_fill(capacity, key, count)
+
+
+def launch_floor(dev) -> None:
+    """One launch of the empty kernel on `dev`'s current stream: the
+    launch floor chip_smoke.py measures. Not a placement kernel, and not
+    counted in LAUNCHES."""
+    err = _fn("launch_floor")(_stream(dev))
+    if err != 0:
+        raise RuntimeError(f"launch_floor kernel launch failed: "
+                           f"cudaError_t {err}")
+
+
+def pow10_check(first: int, last: int, dev) -> tuple:
+    """Runs csrc/pow10_check.cu over every float32 whose bit pattern lies
+    in [first, last] on `dev`: (mismatches, inputs left to the float64
+    pow, inputs with a nonzero result)."""
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    err = _fn("pow10_check")(int(first), int(last), counts.data_ptr(),
+                             _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"pow10_check kernel launch failed: "
+                           f"cudaError_t {err}")
+    return tuple(int(c) for c in counts.tolist())

@@ -120,19 +120,35 @@ def score_capacity_ref(cap: torch.Tensor, used: torch.Tensor,
     return capacity, score
 
 
-def _greedy_take(capacity: torch.Tensor, score: torch.Tensor, count,
-                 max_per_node) -> torch.Tensor:
-    """Greedy fill tail: best score first, each node to its capacity.
-    One stable sort + cumsum. i32[N] instances per node."""
+def _greedy_key(capacity: torch.Tensor, score: torch.Tensor,
+                max_per_node) -> tuple:
+    """Greedy tail, key step: (capacity clamped to max_per_node, sort key
+    f32[N]) — the key is -score where the clamped capacity is > 0, else
+    1.0. The score/capacity kernel's greedy entry computes the same."""
     capacity = torch.clamp(capacity, max=int(max_per_node))
     score = torch.where(capacity > 0, score, -1.0)
-    order = torch.argsort(-score, stable=True)              # best first
+    return capacity, -score
+
+
+def _greedy_fill(capacity: torch.Tensor, key: torch.Tensor,
+                 count) -> torch.Tensor:
+    """Greedy tail, take step: smallest key (best score) first, each node
+    to its capacity. One stable sort + cumsum. i32[N] instances per
+    node."""
+    order = torch.argsort(key, stable=True)                 # best first
     cap_sorted = capacity[order]
     prior = torch.cumsum(cap_sorted, 0, dtype=torch.int32) - cap_sorted
     take = torch.minimum((int(count) - prior).clamp(min=0), cap_sorted)
     placed = torch.zeros_like(capacity)
     placed[order] = take
     return placed
+
+
+def _greedy_take(capacity: torch.Tensor, score: torch.Tensor, count,
+                 max_per_node) -> torch.Tensor:
+    """Greedy fill tail: best score first, each node to its capacity.
+    i32[N] instances per node."""
+    return _greedy_fill(*_greedy_key(capacity, score, max_per_node), count)
 
 
 def fill_greedy_binpack(cap: torch.Tensor, used: torch.Tensor,

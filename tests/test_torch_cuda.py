@@ -50,13 +50,7 @@ def _inputs(dev, n=3_000, seed=3):
     return t(cap), t(used), t(ask), t(feas), t(coll), t(aff)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("grid", [None, GRID128], ids=["dense", "grid"])
-@pytest.mark.parametrize("mpn", [2 ** 30, 1], ids=["free", "distinct"])
-def test_depth_curve_kernel_matches_plain(dev, grid, mpn):
-    cap, used, ask, feas, coll, aff = _inputs(dev)
-    args = (cap, used, ask, feas, coll, 5_000, aff)
-    kw = dict(max_per_node=mpn, k_max=128, depth_grid=grid)
+def _check_depth_curve(args, kw):
     before = cuda_kernels.LAUNCHES["depth_curve"]
     d_k, k_k, c_k = cuda_kernels.depth_curve(*args, **kw)
     torch.cuda.synchronize()
@@ -67,6 +61,36 @@ def test_depth_curve_kernel_matches_plain(dev, grid, mpn):
     assert torch.equal(torch.isfinite(d_k), fin)
     assert float((d_k[fin] - d_p[fin]).abs().max()) <= ATOL
     assert torch.equal(k_k[fin], k_p[fin])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [None, GRID128], ids=["dense", "grid"])
+@pytest.mark.parametrize("mpn", [2 ** 30, 1], ids=["free", "distinct"])
+def test_depth_curve_kernel_matches_plain(dev, grid, mpn):
+    cap, used, ask, feas, coll, aff = _inputs(dev)
+    _check_depth_curve((cap, used, ask, feas, coll, 5_000, aff),
+                       dict(max_per_node=mpn, k_max=128, depth_grid=grid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [None, GRID128], ids=["dense", "grid"])
+def test_depth_curve_kernel_spread_matches_plain(dev, grid):
+    cap, used, ask, feas, coll, aff = _inputs(dev)
+    _check_depth_curve((cap, used, ask, feas, coll, 5_000, aff),
+                       dict(k_max=128, spread_algorithm=True,
+                            depth_grid=grid))
+
+
+@pytest.mark.cuda
+def test_depth_curve_kernel_k512_matches_plain(dev):
+    """A small ask, so capacities pass 128 and the walk crosses every
+    depth chunk up to 512."""
+    cap, used, _, feas, coll, aff = _inputs(dev, n=1_000)
+    ask = torch.tensor([50, 64, 0, 0, 0], dtype=torch.float32, device=dev)
+    args = (cap, used, ask, feas, coll, 5_000, aff)
+    _, _, c_p = kernels.depth_curve_ref(*args, k_max=512)
+    assert int(c_p.max()) > 512
+    _check_depth_curve(args, dict(k_max=512))
 
 
 @pytest.mark.cuda
@@ -84,6 +108,29 @@ def test_score_capacity_kernel_matches_plain(dev):
             cuda_kernels.fill_greedy_binpack_fused(cap, used, ask, count,
                                                    feas),
             kernels.fill_greedy_binpack(cap, used, ask, count, feas))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count,mpn", [(1, 2 ** 30), (4_000, 2 ** 30),
+                                       (4_000, 1)])
+def test_fused_greedy_entry_matches_plain(dev, count, mpn):
+    """One launch of the kernel's greedy entry: the clamped capacity and
+    sort key equal kernels._greedy_key's, the placements the plain
+    fill's."""
+    cap, used, ask, feas, _, _ = _inputs(dev, n=5_001)
+    before = cuda_kernels.LAUNCHES["score_capacity"]
+    got = cuda_kernels.fill_greedy_binpack_fused(cap, used, ask, count, feas,
+                                                 max_per_node=mpn)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["score_capacity"] == before + 1
+    assert torch.equal(got, kernels.fill_greedy_binpack(
+        cap, used, ask, count, feas, max_per_node=mpn))
+    c_k, key_k = cuda_kernels._launch_score_capacity(cap, used, ask, feas,
+                                                     False, True, mpn)
+    c_p, key_p = kernels._greedy_key(
+        *kernels.score_capacity_ref(cap, used, ask, feas), mpn)
+    assert torch.equal(c_k, c_p)
+    assert float((key_k - key_p).abs().max()) <= ATOL
 
 
 @pytest.mark.cuda

@@ -50,12 +50,13 @@ def _cluster(n, seed=0, used_cpu=1000, used_mem=2048):
 
 
 def _depth_args(n, count, seed=0, jitter_samples=0.0, max_per_node=2 ** 30,
-                aff_seed=None):
+                aff_seed=None, ask01=(500, 256)):
     """The reference's depth fixture (tests/test_solver_backend.py
-    _depth_args) as numpy, optionally with an affinity column."""
+    _depth_args) as numpy, optionally with an affinity column and another
+    cpu/mem ask."""
     cap, used = _cluster(n, seed)
     ask = np.zeros(NUM_XR, np.float32)
-    ask[0], ask[1] = 500, 256
+    ask[0], ask[1] = ask01
     feas = np.ones(n, bool)
     feas[::7] = False
     coll = np.zeros(n, np.int32)
@@ -77,7 +78,7 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _ref_curve(a, k_max, depth_grid):
+def _ref_curve(a, k_max, depth_grid, spread=False):
     """The Pallas depth-curve kernel's (d_star, k_star, k_cap), run in
     interpret mode: the reference wrapper, eagerly, with its shared tail
     swapped for one that hands back the producer's outputs."""
@@ -100,13 +101,13 @@ def _ref_curve(a, k_max, depth_grid):
             order_jitter=jnp.asarray(a["jitter"]),
             jitter_scale=jnp.float32(a["scale"]),
             jitter_samples=jnp.float32(a["js"]), k_max=k_max,
-            depth_grid=depth_grid, interpret=True)
+            spread_algorithm=spread, depth_grid=depth_grid, interpret=True)
     finally:
         ref_kernels._depth_order_take = saved
     return captured["out"]
 
 
-def _ref_fill_depth(a, k_max, depth_grid, pallas: bool):
+def _ref_fill_depth(a, k_max, depth_grid, pallas: bool, spread=False):
     args = (jnp.asarray(a["cap"]), jnp.asarray(a["used"]),
             jnp.asarray(a["ask"]), jnp.int32(a["count"]),
             jnp.asarray(a["feasible"]), jnp.asarray(a["coll"]),
@@ -115,34 +116,45 @@ def _ref_fill_depth(a, k_max, depth_grid, pallas: bool):
               order_jitter=jnp.asarray(a["jitter"]),
               jitter_scale=jnp.float32(a["scale"]),
               jitter_samples=jnp.float32(a["js"]), k_max=k_max,
-              depth_grid=depth_grid)
+              spread_algorithm=spread, depth_grid=depth_grid)
     if pallas:
         return np.asarray(ref_pallas.fill_depth_fused(*args, **kw,
                                                       interpret=True))
     return np.asarray(ref_kernels.fill_depth(*args, **kw))
 
 
-def _port_depth(fn, a, k_max, depth_grid):
+def _port_depth(fn, a, k_max, depth_grid, spread=False):
     return fn(_t(a["cap"]), _t(a["used"]), _t(a["ask"]), a["count"],
               _t(a["feasible"]), _t(a["coll"]), a["desired"], _t(a["aff"]),
               max_per_node=a["max_per_node"], order_jitter=_t(a["jitter"]),
               jitter_scale=a["scale"], jitter_samples=a["js"], k_max=k_max,
-              depth_grid=depth_grid)
+              spread_algorithm=spread, depth_grid=depth_grid)
 
 
 GRID16 = tuple(g for g in kernels.DEPTH_GRID if g <= 16)
 GRID128 = tuple(g for g in kernels.DEPTH_GRID if g <= 128)
+ASK = (500, 256)
 
-# (name, n, count, seed, jitter_samples, max_per_node, k_max, grid, aff)
+# (name, n, count, seed, jitter_samples, max_per_node, k_max, grid, aff,
+#  spread, cpu/mem ask)
 DEPTH_CASES = [
-    ("dense", 300, 200, 11, 0.0, 2 ** 30, 16, None, None),
-    ("jittered", 300, 25, 13, 0.8, 2 ** 30, 16, None, None),
-    ("max_per_node_1", 64, 30, 17, 0.0, 1, 16, None, None),
-    ("grid_jittered", 300, 40, 21, 0.8, 2 ** 30, 16, GRID16, None),
-    ("grid_det", 300, 150, 22, 0.0, 2 ** 30, 16, GRID16, None),
-    ("ragged_dense_k128", 1000, 3000, 5, 0.0, 2 ** 30, 128, None, None),
-    ("ragged_grid_k128", 333, 90, 6, 1.2, 2 ** 30, 128, GRID128, None),
-    ("affinity", 257, 120, 8, 0.0, 2 ** 30, 32, None, 9),
+    ("dense", 300, 200, 11, 0.0, 2 ** 30, 16, None, None, False, ASK),
+    ("jittered", 300, 25, 13, 0.8, 2 ** 30, 16, None, None, False, ASK),
+    ("max_per_node_1", 64, 30, 17, 0.0, 1, 16, None, None, False, ASK),
+    ("grid_jittered", 300, 40, 21, 0.8, 2 ** 30, 16, GRID16, None, False,
+     ASK),
+    ("grid_det", 300, 150, 22, 0.0, 2 ** 30, 16, GRID16, None, False, ASK),
+    ("ragged_dense_k128", 1000, 3000, 5, 0.0, 2 ** 30, 128, None, None,
+     False, ASK),
+    ("ragged_grid_k128", 333, 90, 6, 1.2, 2 ** 30, 128, GRID128, None, False,
+     ASK),
+    ("affinity", 257, 120, 8, 0.0, 2 ** 30, 32, None, 9, False, ASK),
+    ("spread_dense", 300, 200, 31, 0.0, 2 ** 30, 16, None, None, True, ASK),
+    ("spread_grid", 300, 150, 32, 0.0, 2 ** 30, 16, GRID16, None, True, ASK),
+    # a small ask: capacities pass 128, so depths run past every 128-depth
+    # chunk of the CUDA kernel up to 512
+    ("ragged_dense_k512", 203, 30_000, 33, 0.0, 2 ** 30, 512, None, None,
+     False, (10, 16)),
 ]
 
 
@@ -150,13 +162,14 @@ DEPTH_CASES = [
 def test_depth_curve_matches_pallas_kernel(case):
     """depth_curve_ref == the Pallas producer: k_star and k_cap exactly,
     d_star to atol 1e-4 with the same -inf (no depth fits) rows."""
-    _, n, count, seed, js, mpn, k_max, grid, aff = case
-    a = _depth_args(n, count, seed, js, mpn, aff)
-    want_d, want_k, want_c = _ref_curve(a, k_max, grid)
+    _, n, count, seed, js, mpn, k_max, grid, aff, spread, ask01 = case
+    a = _depth_args(n, count, seed, js, mpn, aff, ask01)
+    want_d, want_k, want_c = _ref_curve(a, k_max, grid, spread)
     d, k, c = kernels.depth_curve_ref(
         _t(a["cap"]), _t(a["used"]), _t(a["ask"]), _t(a["feasible"]),
         _t(a["coll"]), a["desired"], _t(a["aff"]),
-        max_per_node=a["max_per_node"], k_max=k_max, depth_grid=grid)
+        max_per_node=a["max_per_node"], k_max=k_max,
+        spread_algorithm=spread, depth_grid=grid)
     d, k, c = d.numpy(), k.numpy(), c.numpy()
     np.testing.assert_array_equal(c, want_c)
     np.testing.assert_array_equal(np.isfinite(d), np.isfinite(want_d))
@@ -170,16 +183,17 @@ def test_fill_depth_placements_match_reference(case):
     """Port fill_depth (and the kernel wrapper on CPU tensors, which runs
     the plain version) places exactly like the reference's XLA program
     and its Pallas kernel."""
-    _, n, count, seed, js, mpn, k_max, grid, aff = case
-    a = _depth_args(n, count, seed, js, mpn, aff)
-    want = _ref_fill_depth(a, k_max, grid, pallas=False)
+    _, n, count, seed, js, mpn, k_max, grid, aff, spread, ask01 = case
+    a = _depth_args(n, count, seed, js, mpn, aff, ask01)
+    want = _ref_fill_depth(a, k_max, grid, pallas=False, spread=spread)
     np.testing.assert_array_equal(
-        _ref_fill_depth(a, k_max, grid, pallas=True), want)
-    got = _port_depth(kernels.fill_depth, a, k_max, grid)
+        _ref_fill_depth(a, k_max, grid, pallas=True, spread=spread), want)
+    got = _port_depth(kernels.fill_depth, a, k_max, grid, spread)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     cuda_kernels.reset_launches()
-    wrapped = _port_depth(cuda_kernels.fill_depth_fused, a, k_max, grid)
+    wrapped = _port_depth(cuda_kernels.fill_depth_fused, a, k_max, grid,
+                          spread)
     np.testing.assert_array_equal(wrapped.numpy(), want)
     assert cuda_kernels.LAUNCHES["depth_curve"] == 0
     assert int(got.sum()) == min(count, int(want.sum()))
@@ -228,16 +242,21 @@ GREEDY_CASES = [
 ]
 
 
+def _greedy_inputs(n, seed, share):
+    cap, used = _cluster(n, seed, used_cpu=1500, used_mem=2000)
+    ask = np.zeros(NUM_XR, np.float32)
+    ask[0], ask[1] = 100, 128
+    feas = np.random.default_rng(seed).random(n) < share
+    return cap, used, ask, feas
+
+
 @pytest.mark.parametrize("case", GREEDY_CASES,
                          ids=[c[0] for c in GREEDY_CASES])
 def test_fill_greedy_placements_match_reference(case):
     """Port fill_greedy_binpack and the kernel wrapper on CPU tensors
     place exactly like the reference's XLA program and Pallas kernel."""
     _, n, seed, count, share, mpn = case
-    cap, used = _cluster(n, seed, used_cpu=1500, used_mem=2000)
-    ask = np.zeros(NUM_XR, np.float32)
-    ask[0], ask[1] = 100, 128
-    feas = np.random.default_rng(seed).random(n) < share
+    cap, used, ask, feas = _greedy_inputs(n, seed, share)
     jargs = (jnp.asarray(cap), jnp.asarray(used), jnp.asarray(ask),
              jnp.int32(count), jnp.asarray(feas))
     want = np.asarray(ref_kernels.fill_greedy_binpack(
@@ -254,6 +273,32 @@ def test_fill_greedy_placements_match_reference(case):
                                                      max_per_node=mpn)
     np.testing.assert_array_equal(wrapped.numpy(), want)
     assert cuda_kernels.LAUNCHES["score_capacity"] == 0
+
+
+@pytest.mark.parametrize("case", GREEDY_CASES,
+                         ids=[c[0] for c in GREEDY_CASES])
+def test_greedy_tail_split_matches_greedy_take(case):
+    """The greedy tail in two steps — the key step, which the CUDA
+    kernel's greedy entry computes, and the shared sort + cumsum take —
+    places bit for bit like _greedy_take and like the reference."""
+    _, n, seed, count, share, mpn = case
+    cap, used, ask, feas = _greedy_inputs(n, seed, share)
+    want = np.asarray(ref_kernels.fill_greedy_binpack(
+        jnp.asarray(cap), jnp.asarray(used), jnp.asarray(ask),
+        jnp.int32(count), jnp.asarray(feas), max_per_node=jnp.int32(mpn)))
+    capacity, score = kernels.score_capacity_ref(_t(cap), _t(used), _t(ask),
+                                                 _t(feas))
+    clamped, key = kernels._greedy_key(capacity, score, mpn)
+    assert clamped.dtype == torch.int32 and key.dtype == torch.float32
+    assert int(clamped.max()) <= mpn
+    fits = clamped > 0
+    assert torch.equal(key[fits], -score[fits])
+    assert bool((key[~fits] == 1.0).all())
+    split = kernels._greedy_fill(clamped, key, count)
+    np.testing.assert_array_equal(
+        split.numpy(),
+        kernels._greedy_take(capacity, score, count, mpn).numpy())
+    np.testing.assert_array_equal(split.numpy(), want)
 
 
 def test_plan_fit_verdict_matches_reference():
