@@ -33,20 +33,39 @@ prints no result):
               kernels of one fill_greedy_binpack_fused call; an empty
               kernel's device time (`floor_ms`).
   4. main     the port's placement path at the north-star size: an FSM with
-              10,000 bench-fleet nodes under scheduler_algorithm=tpu-batch,
-              three evals through new_scheduler("batch") -> process ->
-              Planner.apply_plan -> FSM commit: a 50,000-task batch job (the
-              dense depth curve), a 2,000-task job (the grid) and a count-1
-              job (the greedy pass). Every instance committed, no usage row
-              over capacity, each kernel launched, the plain tier untouched.
-              The launch counts are zeroed just before and read just after.
-  5. small    a 200-node cluster's three evals on the card and on the CPU
-              (the plain tier): identical alloc -> node maps.
+              10,000 bench-fleet nodes under scheduler_algorithm=tpu-batch
+              and the Planner's applier thread running, three evals
+              through new_scheduler("batch") -> process -> the applier's
+              queue -> FSM commit: a 50,000-task batch job (pipelined, as
+              the default knobs say: 4 chunks of the dense depth curve,
+              each chunk's plan committed while later chunks solve), a
+              2,000-task job (the grid, serial) and a count-1 job (the
+              greedy pass, serial). Every instance committed, no usage
+              row over capacity; the 50k eval counted 1 pipelined eval, 4
+              chunks and 4 depth-curve launches; the state cache's twins
+              on cuda:0, fed by every commit (equal to the committed
+              usage), served hits and rode every dispatch; the plain tier
+              untouched. The launch counts are zeroed just before and
+              read just after.
+  5. compare  the same 50k eval on fresh clusters, serial
+              (plan_pipeline_enabled=False) and pipelined in turns
+              (serial, pipelined, pipelined, serial, twice), each with
+              the applier thread running and after a full garbage
+              collection: both walls and their medians, both layer
+              breakdowns and the pipeline's host/overlap seconds; launch
+              counts zeroed before and read after each run.
+  6. profile  the pipelined 50k eval under torch.profiler: the card's busy
+              time against the eval's wall.
+  7. small    a 200-node cluster's evals on the card and on the CPU (the
+              plain tier), one of them pipelined (plan_pipeline_min_count
+              1, 3 chunks, 600 tasks in the dense regime): identical alloc
+              -> node maps.
 
 Then a `kernels` JSON line and, last, the device line.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -74,6 +93,20 @@ LAYERS = ("nomad.scheduler.reconcile", "nomad.solver.tensorize",
           "nomad.solver.device", "nomad.solver.solve",
           "nomad.solver.materialize", "nomad.plan.evaluate",
           "nomad.plan.apply")
+# the pipelined lifecycle's host seconds, and those of them spent while
+# chunk solves or the applier were still busy
+PIPE_TIMERS = ("nomad.plan.pipeline.host", "nomad.plan.pipeline.overlap")
+# per-eval counter deltas, by short name
+COUNTERS = {"evals": "nomad.plan.pipeline.evals",
+            "chunks": "nomad.plan.pipeline.chunks",
+            "twin_dispatches": "nomad.solver.state_cache.twin_dispatches",
+            "torch_depth": "nomad.solver.kernel.depth.torch",
+            "torch_greedy": "nomad.solver.kernel.greedy.torch"}
+# the card the port solves on (the solve device's default)
+DEVICE = "cuda:0"
+BIG_CHUNKS = 4          # SchedulerConfiguration.plan_pipeline_chunks default
+COMPARE_ORDER = ("serial", "pipelined", "pipelined", "serial") * 2
+SMALL_PIPELINE = {"plan_pipeline_min_count": 1, "plan_pipeline_chunks": 3}
 
 # H100 SXM published peaks (HBM3 bandwidth, dense f32 CUDA-core rate)
 HBM_BYTES_PER_S = 3.35e12
@@ -540,14 +573,33 @@ def _mk_batch_job(mock, job_id, count, cpu=250, mem=512, disk=300):
 
 class _Shim:
     """The planner interface a server worker provides, over the real
-    serial applier."""
+    serial applier (bench.py's _WorkerShim): while the Planner's applier
+    thread runs, plans go through its queue — a pipelined eval's chunk
+    plans without waiting (submit_plan_async) — else they apply inline."""
 
     def __init__(self, planner, state):
         self.planner = planner
         self.state = state
 
+    def _queue_alive(self) -> bool:
+        t = getattr(self.planner, "_thread", None)
+        return t is not None and t.is_alive()
+
     def submit_plan(self, plan):
+        if self._queue_alive():
+            return self.planner.submit_plan(plan, timeout=120.0)
         return self.planner.apply_plan(plan)
+
+    def submit_plan_async(self, plan):
+        if self._queue_alive():
+            return self.planner.submit_plan_async(plan)
+        from nomad_tpu_torch.server.plan_apply import _PendingPlan
+        pending = _PendingPlan(plan)
+        try:
+            pending.respond(self.planner.apply_plan(plan), None)
+        except Exception as e:          # noqa: BLE001 — report to caller
+            pending.respond(None, str(e))
+        return pending
 
     def update_eval(self, ev):
         self.state.upsert_evals(self.state.latest_index() + 1, [ev])
@@ -559,7 +611,7 @@ class _Shim:
         return self.state.snapshot()
 
 
-def _cluster(n_nodes, seed, pin=""):
+def _cluster(n_nodes, seed, pin="", **config):
     import numpy as np
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.server import NomadFSM, Planner
@@ -569,10 +621,20 @@ def _cluster(n_nodes, seed, pin=""):
     fsm = NomadFSM()
     s = fsm.state
     s.set_scheduler_config(
-        1, SchedulerConfiguration(scheduler_algorithm="tpu-batch"))
+        1, SchedulerConfiguration(scheduler_algorithm="tpu-batch", **config))
     for i in range(n_nodes):
         s.upsert_node(i + 2, _mk_node(mock, i, rng, pin))
     return fsm, Planner(RaftLog(fsm), s)
+
+
+@contextlib.contextmanager
+def _applier(planner):
+    """The Planner's applier thread, running for the block's length."""
+    planner.start()
+    try:
+        yield
+    finally:
+        planner.stop()
 
 
 def _run_eval(fsm, planner, job, eval_id):
@@ -588,69 +650,152 @@ def _run_eval(fsm, planner, job, eval_id):
     return s.eval_by_id(ev.id)
 
 
-def main_path_phase(torch) -> dict:
+def _drive(torch, fsm, planner, job_id, count) -> dict:
+    """One eval through the port's scheduler and applier, checked (every
+    instance committed, the eval complete, no usage row over capacity)
+    and measured: wall, layer seconds, the pipeline's host seconds, and
+    counter and kernel-launch deltas."""
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.metrics import metrics
     from nomad_tpu_torch.solver import cuda_kernels
+    s = fsm.state
+    launches0 = dict(cuda_kernels.LAUNCHES)
+    counters0 = {k: metrics.counter(v) for k, v in COUNTERS.items()}
+    timers0 = {k: metrics.timer_sum(k) for k in LAYERS + PIPE_TIMERS}
+    t0 = time.perf_counter()
+    ev = _run_eval(fsm, planner, _mk_batch_job(mock, job_id, count),
+                   f"chip-smoke-{job_id}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    placed = len(s.allocs_by_job("default", job_id))
+    check(placed == count, f"{job_id}: committed {placed}/{count}")
+    check(ev is not None and ev.status == "complete",
+          f"{job_id}: eval status {getattr(ev, 'status', None)}")
+    view = s.usage.view()
+    over = int((view.used > view.cap + 1e-3).any(axis=1).sum())
+    check(over == 0, f"{job_id}: {over} usage rows over capacity")
+    timers = {k.split(".", 1)[1]: metrics.timer_sum(k) - v
+              for k, v in timers0.items()}
+    return {"count": count, "committed": placed, "wall_s": wall,
+            "layers_s": {k.split(".", 1)[1]: timers[k.split(".", 1)[1]]
+                         for k in LAYERS},
+            "pipeline_s": {k.split(".", 1)[1]: timers[k.split(".", 1)[1]]
+                           for k in PIPE_TIMERS},
+            "counters": {k: metrics.counter(COUNTERS[k]) - v
+                         for k, v in counters0.items()},
+            "launches": {k: cuda_kernels.LAUNCHES[k] - v
+                         for k, v in launches0.items()}}
+
+
+def main_path_phase(torch) -> dict:
+    from nomad_tpu_torch.solver import cuda_kernels, state_cache
     t0 = time.perf_counter()
     fsm, planner = _cluster(N_LIVE, seed=42)
     log(f"main: seeded {N_LIVE} nodes in "
         f"{time.perf_counter() - t0:.3f} s")
     s = fsm.state
-    evals = [("big", BIG_COUNT, "depth", "depth_curve"),
-             ("mid", MID_COUNT, "depth", "depth_curve"),
-             ("one", 1, "greedy", "score_capacity")]
+    state_cache.reset()                       # hits counted from here
+    evals = [("big", BIG_COUNT, "depth_curve"),
+             ("mid", MID_COUNT, "depth_curve"),
+             ("one", 1, "score_capacity")]
     out = {"evals": {}}
-    torch_tier = {k: metrics.counter(f"nomad.solver.kernel.{k}.torch")
-                  for k in ("depth", "greedy")}
     cuda_kernels.reset_launches()                 # the main path's window
-    for job_id, count, kernel, kname in evals:
-        before = dict(cuda_kernels.LAUNCHES)
-        solves = metrics.counter(f"nomad.solver.kernel.{kernel}.cuda")
-        layers0 = {k: metrics.timer_sum(k) for k in LAYERS}
-        t0 = time.perf_counter()
-        ev = _run_eval(fsm, planner, _mk_batch_job(mock, job_id, count),
-                       f"chip-smoke-{job_id}")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        layers = {k.split(".", 1)[1]: metrics.timer_sum(k) - v
-                  for k, v in layers0.items()}
-        placed = len(s.allocs_by_job("default", job_id))
-        check(placed == count, f"{job_id}: committed {placed}/{count}")
-        check(ev is not None and ev.status == "complete",
-              f"{job_id}: eval status {getattr(ev, 'status', None)}")
-        view = s.usage.view()
-        over = int((view.used > view.cap + 1e-3).any(axis=1).sum())
-        check(over == 0, f"{job_id}: {over} usage rows over capacity")
-        rose = cuda_kernels.LAUNCHES[kname] - before[kname]
-        check(rose >= 1, f"{job_id}: {kname} kernel never launched")
-        check(metrics.counter(f"nomad.solver.kernel.{kernel}.cuda") >
-              solves, f"{job_id}: no cuda-tier {kernel} solve recorded")
-        out["evals"][job_id] = {"count": count, "committed": placed,
-                                "wall_s": wall, "kernel": kname,
-                                "launches": rose, "layers_s": layers}
-        log(f"main {job_id}: {placed}/{count} committed in {wall} s "
-            f"({kname} launches +{rose}, overcommitted rows 0); layers "
-            f"{json.dumps(layers)}")
+    with _applier(planner):
+        for job_id, count, kname in evals:
+            r = _drive(torch, fsm, planner, job_id, count)
+            c = r["counters"]
+            pipelined = job_id == "big"
+            check(c["evals"] == int(pipelined) and
+                  c["chunks"] == (BIG_CHUNKS if pipelined else 0),
+                  f"{job_id}: pipeline counters {c}")
+            rose = r["launches"][kname]
+            check(rose == (BIG_CHUNKS if pipelined else 1),
+                  f"{job_id}: {kname} launched {rose} times")
+            check(c["twin_dispatches"] == 1,
+                  f"{job_id}: {c['twin_dispatches']} dispatches rode the "
+                  f"state cache's twins, expected 1")
+            check(c["torch_depth"] == c["torch_greedy"] == 0,
+                  f"{job_id}: the plain torch tier served a solve on the "
+                  f"card")
+            stats = state_cache.cache().stats()
+            check(stats["twins_device"] == DEVICE,
+                  f"{job_id}: twins on {stats['twins_device']}")
+            r["cache"] = stats
+            out["evals"][job_id] = r
+            log(f"main {job_id}: {r['committed']}/{count} committed in "
+                f"{r['wall_s']} s ({kname} launches +{rose}, pipelined "
+                f"{pipelined}, overcommitted rows 0); layers "
+                f"{json.dumps(r['layers_s'])}; pipeline "
+                f"{json.dumps(r['pipeline_s'])}; cache {json.dumps(stats)}")
     out["launches"] = dict(cuda_kernels.LAUNCHES)  # read just after
-    for k, v in torch_tier.items():
-        check(metrics.counter(f"nomad.solver.kernel.{k}.torch") == v,
-              f"the plain torch tier served a {k} solve on the card")
     for name, n in out["launches"].items():
         check(n >= 1, f"kernel {name} was not launched on the main path")
+    cache = state_cache.cache()
+    stats = cache.stats()
+    check(stats["hits"] >= 1, f"no state cache hit in 3 evals: {stats}")
+    # every commit fed the cache on the applier thread: the twins hold
+    # exactly the committed usage
+    view = s.usage.view()
+    check(stats["version"] == view.version,
+          f"cache at version {stats['version']}, store at {view.version}")
+    cap_dev, used_dev = cache.twins()
+    n = view.cap.shape[0]
+    check(used_dev[:n].cpu().numpy().tobytes() == view.used.tobytes() and
+          cap_dev[:n].cpu().numpy().tobytes() == view.cap.tobytes(),
+          "the twins differ from the committed usage")
+    out["cache"] = stats
+    log(f"main: state cache {json.dumps(stats)}; twins equal the "
+        f"committed usage")
     return out
 
 
+def compare_phase(torch) -> dict:
+    """The 50k eval serial and pipelined, on fresh clusters in turns."""
+    import gc
+    from nomad_tpu_torch.solver import cuda_kernels
+    runs = []
+    for i, mode in enumerate(COMPARE_ORDER):
+        pipelined = mode == "pipelined"
+        fsm, planner = _cluster(N_LIVE, seed=42,
+                                plan_pipeline_enabled=pipelined)
+        gc.collect()                    # no earlier run's garbage in this one
+        cuda_kernels.reset_launches()             # this run's window
+        with _applier(planner):
+            r = _drive(torch, fsm, planner, f"cmp-{i}-{mode}", BIG_COUNT)
+        launches = dict(cuda_kernels.LAUNCHES)     # read just after
+        want = BIG_CHUNKS if pipelined else 1
+        check(launches["depth_curve"] == want,
+              f"compare {mode}: depth_curve launched "
+              f"{launches['depth_curve']} times, expected {want}")
+        check(r["counters"]["evals"] == int(pipelined),
+              f"compare {mode}: pipeline counters {r['counters']}")
+        r.update(mode=mode, launches=launches)
+        runs.append(r)
+        log(f"compare {mode}: 50k eval wall {r['wall_s']} s; layers "
+            f"{json.dumps(r['layers_s'])}; pipeline "
+            f"{json.dumps(r['pipeline_s'])}; launches "
+            f"{json.dumps(launches)}")
+    walls = {m: [r["wall_s"] for r in runs if r["mode"] == m]
+             for m in ("serial", "pipelined")}
+    medians = {m: statistics.median(w) for m, w in walls.items()}
+    log(f"compare: 50k eval walls serial {walls['serial']} s, pipelined "
+        f"{walls['pipelined']} s (order {list(COMPARE_ORDER)}); medians "
+        f"{json.dumps(medians)}")
+    return {"walls_s": walls, "median_wall_s": medians, "runs": runs}
+
+
 def profile_phase(torch) -> dict:
-    """The 50k eval once more on a fresh cluster under torch.profiler
-    (device activity only): the card's busy time against the eval's wall
-    time. Separate from the main path so its timing is unprofiled."""
+    """The pipelined 50k eval once more on a fresh cluster under
+    torch.profiler (device activity only), the applier thread running:
+    the card's busy time against the eval's wall time. Separate from the
+    main path so its timing is unprofiled."""
     from torch.profiler import ProfilerActivity, profile
     from nomad_tpu_torch import mock
     fsm, planner = _cluster(N_LIVE, seed=43)
     job = _mk_batch_job(mock, "big-profiled", BIG_COUNT)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with _applier(planner), \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _run_eval(fsm, planner, job, "chip-smoke-big-profiled")
         torch.cuda.synchronize()
@@ -666,36 +811,54 @@ def profile_phase(torch) -> dict:
     out = {"wall_s": wall, "device_busy_ms": busy,
            "idle_share": 1.0 - busy / (wall * 1e3),
            "top_device_ms": {k[:60]: v for k, v in top}}
-    log(f"profiled 50k eval: wall {wall} s, device busy {busy} ms, idle "
-        f"share {out['idle_share']}; top {json.dumps(out['top_device_ms'])}")
+    log(f"profiled pipelined 50k eval: wall {wall} s, device busy {busy} "
+        f"ms, idle share {out['idle_share']}; top "
+        f"{json.dumps(out['top_device_ms'])}")
     return out
 
 
 def small_phase(torch) -> None:
     """A 200-node cluster's evals on the card and on the CPU's plain
-    tier: the committed alloc -> node maps must be identical."""
+    tier, the pipeline engaging from one placement in 3 chunks (only the
+    dense-regime job takes it): the committed alloc -> node maps must be
+    identical."""
     from nomad_tpu_torch import mock
+    from nomad_tpu_torch.metrics import metrics
     from nomad_tpu_torch.solver import backend
     from nomad_tpu_torch.solver.device import use_device
+    jobs = (("s-dense", 200), ("s-grid", 60), ("s-one", 1), ("s-pipe", 600))
+    total = sum(c for _, c in jobs)
     maps = []
-    for dev in ("cuda:0", "cpu"):
-        use_device(dev)
-        backend.reset()
-        fsm, planner = _cluster(200, seed=7, pin="small-node-")
-        m = {}
-        for job_id, count in (("s-dense", 200), ("s-grid", 60),
-                              ("s-one", 1)):
-            _run_eval(fsm, planner, _mk_batch_job(mock, job_id, count),
-                      f"chip-smoke-{job_id}")
+    try:
+        for dev in (DEVICE, "cpu"):
+            use_device(dev)
+            backend.reset()
+            fsm, planner = _cluster(200, seed=7, pin="small-node-",
+                                    **SMALL_PIPELINE)
+            m = {}
+            for job_id, count in jobs:
+                evals0 = metrics.counter("nomad.plan.pipeline.evals")
+                chunks0 = metrics.counter("nomad.plan.pipeline.chunks")
+                _run_eval(fsm, planner, _mk_batch_job(mock, job_id, count),
+                          f"chip-smoke-{job_id}")
+                piped = (metrics.counter("nomad.plan.pipeline.evals") -
+                         evals0,
+                         metrics.counter("nomad.plan.pipeline.chunks") -
+                         chunks0)
+                want = (1, 3) if job_id == "s-pipe" else (0, 0)
+                check(piped == want, f"small {dev} {job_id}: pipelined "
+                      f"(evals, chunks) {piped}, expected {want}")
             m.update({a.name: a.node_id for a in fsm.state.iter_allocs()})
-        maps.append(m)
-    use_device("cuda:0")
-    backend.reset()
-    check(len(maps[0]) == 261, f"small: placed {len(maps[0])}/261")
+            maps.append(m)
+    finally:
+        use_device(DEVICE)
+        backend.reset()
+    check(len(maps[0]) == total, f"small: placed {len(maps[0])}/{total}")
     diff = sum(maps[0][k] != maps[1].get(k) for k in maps[0])
     check(diff == 0, f"small: {diff} allocs placed differently on the "
           f"card than on the CPU")
-    log("small: 261 allocs, card and CPU maps identical")
+    log(f"small: {total} allocs (s-pipe pipelined in 3 chunks), card and "
+        f"CPU maps identical")
 
 
 # ------------------------------------------------------------------ main
@@ -728,6 +891,7 @@ def main() -> int:
     pow10 = pow10_phase(torch, dev)
     res = kernels_phase(np, torch, dev)
     main = main_path_phase(torch)
+    compare = compare_phase(torch)
     prof = profile_phase(torch)
     small_phase(torch)
 
@@ -753,7 +917,8 @@ def main() -> int:
             if k in r:
                 row[k] = r[k]
         rows.append(row)
-    log(json.dumps({"e2e": main["evals"], "profiled_50k": prof,
+    log(json.dumps({"e2e": main["evals"], "cache": main["cache"],
+                    "compare_50k": compare, "profiled_50k": prof,
                     "greedy_fill": res["greedy_fill"], "pow10": pow10,
                     "card": card,
                     "seconds": time.perf_counter() - t_start}))

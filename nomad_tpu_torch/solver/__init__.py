@@ -3,15 +3,17 @@ the scheduler's scoring loop as dense tensor programs over node×resource
 matrices, registered as SchedulerAlgorithm="tpu-batch" next to
 binpack/spread. Counterpart of nomad_tpu/solver, main-path subset: the
 depth and greedy solves with their hand kernels (cuda_kernels.py), the
-backend selector, tensorize and the serial placer.
+backend selector, tensorize, the card-resident state cache
+(state_cache.py) and the placer's serial route and pipelined plan
+lifecycle.
 
-Not ported yet: the device state cache, eval micro-batching, explain, the
-chunked scan, preemption, the convex tier and sharding. The copied
-scheduler and plan applier reach three of those lazily inside `try`
-(server/plan_apply.py's `microbatch` and `state_cache` hooks); finding no
-such module here, they take their documented solver-less branch: the
-applier reports no in-flight evals and gathers its rows from the usage
-view.
+Not ported yet: eval micro-batching, explain, the fused and convex
+routes, the degradation ladder, the chunked scan, preemption and
+sharding. The copied plan applier reaches `microbatch` lazily inside
+`try` (server/plan_apply.py); finding no such module here, it takes its
+documented solver-less branch and reports no in-flight evals. Its
+`state_cache` hooks find this package's cache: the evaluate pass gathers
+from it and every commit feeds it.
 """
 from .device import solve_device, use_device  # noqa: F401
 from .kernels import (  # noqa: F401

@@ -18,6 +18,13 @@ returns the placement vector there:
               aff, max_per_node, order_jitter, jitter_scale,
               jitter_samples) -> placed
 
+Array arguments that already lie on the solve device pass through
+untouched (the state cache's twins, a pipelined chunk's fed-forward
+usage); `on_device` moves a whole argument tuple there once. Arrays
+reach a card through pinned memory without blocking, so no dispatch
+waits for the work queued before it: a dispatch never blocks, and
+`async_dispatch` only marks the pipeline's call sites.
+
 Not ported yet: the degradation ladder and its per-tier breaker, the
 host/batch small-count routing and the sharded tier. Until then no solve
 gives way from a kernel to its plain version: a failing launch raises.
@@ -26,14 +33,28 @@ gives way from a kernel to its plain version: a failing launch raises.
 from __future__ import annotations
 
 import functools
+import threading
+from contextlib import contextmanager
 
 import numpy as np
 import torch
 
+from .. import faults
 from ..metrics import metrics
 from . import device as _device, roundtrip
 
 _cache: dict = {}
+_dispatch_ctx = threading.local()
+_DEVICE_ERRORS: tuple = ()
+
+# dtype of each array position of the normalized signatures (below)
+_ARG_DTYPES = {
+    "greedy": {0: torch.float32, 1: torch.float32, 2: torch.float32,
+               4: torch.bool},
+    "depth": {0: torch.float32, 1: torch.float32, 2: torch.float32,
+              4: torch.bool, 5: torch.int32, 7: torch.float32,
+              9: torch.float32},
+}
 
 
 def reset() -> None:
@@ -46,14 +67,66 @@ def breaker_release_all() -> None:
     reference's."""
 
 
+def tier() -> str:
+    """The tier solves run on now: "cuda" on a card, "torch" on the CPU.
+    Raises like device.solve_device() when the card is missing."""
+    return "cuda" if _device.solve_device().type == "cuda" else "torch"
+
+
+def device_error_types() -> tuple:
+    """Exception types that mean "the card or a kernel launch failed", as
+    opposed to a bug in the solve itself: the pipeline's materialize site
+    catches them to re-raise with the chunk named. CUDA runtime errors
+    are torch.AcceleratorError where torch has it, RuntimeError before."""
+    global _DEVICE_ERRORS
+    if not _DEVICE_ERRORS:
+        from .cuda_kernels import KernelLaunchError
+        _DEVICE_ERRORS = (
+            faults.FaultError, KernelLaunchError, torch.cuda.CudaError,
+            torch.OutOfMemoryError,
+            getattr(torch, "AcceleratorError", RuntimeError))
+    return _DEVICE_ERRORS
+
+
+@contextmanager
+def async_dispatch():
+    """Marks the pipeline's chunk dispatches, where the reference's
+    chain must not block. A dispatch here never blocks anyway: launches
+    and pinned copies queue on the device's stream, and a failure
+    surfaces at the call or at the caller's materialize site."""
+    yield
+
+
+def last_dispatch_tier() -> str:
+    """The tier that served the calling thread's most recent dispatch
+    ("" before the first). With no ladder it is the selected tier."""
+    return getattr(_dispatch_ctx, "last_tier", "")
+
+
 def _tensor(x, dev, dtype):
-    """numpy array (or tensor) -> contiguous tensor on `dev`."""
-    if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(np.ascontiguousarray(x))
-    return x.to(device=dev, dtype=dtype).contiguous()
+    """numpy array (or tensor) -> contiguous tensor on `dev`. A numpy
+    array goes to a card through pinned memory without blocking."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=dtype).contiguous()
+    x = torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
+    if dev.type == "cuda":
+        return x.pin_memory().to(dev, non_blocking=True)
+    return x
+
+
+def on_device(kernel: str, args: tuple) -> tuple:
+    """`kernel`'s normalized positional args with every array on the
+    solve device, so repeated dispatches of the same inputs (pipelined
+    chunks) copy nothing."""
+    dev = _device.solve_device()
+    types = _ARG_DTYPES[kernel]
+    return tuple(_tensor(a, dev, types[i])
+                 if i in types and a is not None else a
+                 for i, a in enumerate(args))
 
 
 def _note_dispatch(dev) -> None:
+    _dispatch_ctx.last_tier = "cuda" if dev.type == "cuda" else "torch"
     if dev.type == "cuda":
         roundtrip.note("solve")
 
@@ -70,9 +143,8 @@ def _depth(fn, dev, k_max, spread_algorithm, depth_grid, cap, used, ask,
            count, feasible, coll, desired, aff, max_per_node, order_jitter,
            jitter_scale, jitter_samples):
     _note_dispatch(dev)
-    n = cap.shape[0]
     if aff is None:
-        aff = np.zeros(n, np.float32)
+        aff = torch.zeros(cap.shape[0], dtype=torch.float32, device=dev)
     jit = None if order_jitter is None else \
         _tensor(order_jitter, dev, torch.float32)
     return fn(_tensor(cap, dev, torch.float32),

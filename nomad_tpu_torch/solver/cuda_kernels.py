@@ -191,9 +191,14 @@ def _check_rows(cap, used, ask, feasible, *columns) -> int:
     return n
 
 
+class KernelLaunchError(RuntimeError):
+    """A placement kernel's launch reported a CUDA error."""
+
+
 def _launched(name: str, err: int) -> None:
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+        raise KernelLaunchError(
+            f"{name} kernel launch failed: cudaError_t {err}")
     LAUNCHES[name] += 1
 
 

@@ -1,7 +1,7 @@
 """SolverPlacer: the bridge between GenericScheduler and the batched
 solver on the card — the SchedulerAlgorithm="tpu-batch" implementation
-(north star, BASELINE.json). Counterpart of nomad_tpu/solver/placer.py,
-serial route only.
+(north star, BASELINE.json). Counterpart of nomad_tpu/solver/placer.py:
+the serial route and the pipelined plan lifecycle.
 
 Division of labor:
   * device: feasibility-masked capacity + scoring + placement counts over
@@ -10,30 +10,103 @@ Division of labor:
   * host: exact sequential resources for the chosen nodes only — ports via
     NetworkIndex, device instances, cpuset cores — with per-node retry.
 
-Each task group's solve runs once and reaches the host at one sync; its
-placements go into the eval's single plan, which the scheduler submits to
-the serial plan applier.
+Serial route: each task group's solve runs once, on the state cache's
+twins where they served the eval, and reaches the host at one sync; its
+placements go into the eval's single plan.
+
+Pipelined plan lifecycle (ref nomad/plan_apply.go:71-177, where the
+applier overlaps plan evaluation with the previous raft commit): large
+simple evals split their solve into chunks whose dispatches are all
+queued on the card up front — chunk N+1's solve consumes chunk N's
+placements through a device-side usage update, so the card never waits
+while the host materializes, evaluates and commits chunk N through the
+real serial applier. Each chunk is a real Plan carrying the eval's
+snapshot index; the applier's per-node re-check against latest state
+runs per chunk, so optimistic-concurrency rejections surface exactly as
+on the serial path (a partially-committed chunk flags the eval for the
+standard refresh-and-retry). `plan_pipeline_enabled=False` (or
+NOMAD_PLAN_PIPELINE=0) forces the serial path.
+
+Not ported: the pipeline's degrade path (a device error in a chunk raises
+out of the eval, naming the chunk; it never falls to the plain version),
+explain, the fused and convex routes, the chunked scan, preemption and
+eval micro-batching.
 """
 from __future__ import annotations
 
+import os
+import time
+
 import numpy as np
+import torch
 
 from ..metrics import metrics
 from ..structs import (
     AllocatedResources, AllocatedTaskResources, Allocation,
-    AllocDeploymentStatus, NetworkIndex, new_id, new_ids, skeleton_for,
+    AllocDeploymentStatus, NetworkIndex, Plan, new_id, new_ids,
+    skeleton_for,
 )
 from ..scheduler.stack import SelectOptions
-from . import backend, roundtrip
+from . import backend, device as _device, roundtrip
 from ..obs import trace
 from .buckets import node_bucket
 from .tensorize import build_group_tensors, _lower_affinities
 
 
+class PipelineChunkError(RuntimeError):
+    """A device error surfaced while dispatching or materializing one
+    chunk of a pipelined eval."""
+
+
+def _usage_update(used, coll, placed, ask):
+    """(used', coll') = (used + placed ⊗ ask, coll + placed) on the
+    solve's device — the mirror of what committing chunk N does to the
+    usage index (utilization AND same-job collision counts, the
+    anti-affinity input), so chunk N+1 scores post-chunk-N state without
+    a host round trip. The reference's operation order: a float32
+    product, then a float32 sum, each rounded."""
+    return (used + placed[:, None].float() * ask[None, :],
+            coll + placed.int())
+
+
+class _Chunk:
+    """One pipelined chunk's placement vector on its way to the host. On
+    a card it is copied without blocking into pinned memory right behind
+    the chunk's solve, with an event recorded after the copy: waiting on
+    that event waits for this chunk alone, not for the chunks queued
+    after it (a plain .cpu() would wait for the whole stream)."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, placed: torch.Tensor):
+        if placed.device.type == "cuda":
+            self.host = torch.empty(placed.shape, dtype=placed.dtype,
+                                    pin_memory=True)
+            self.host.copy_(placed, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(placed.device))
+        else:
+            self.host, self.event = placed, None
+
+    def numpy(self) -> np.ndarray:
+        """The placement vector, waiting for this chunk's copy only."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+def _in_flight(chunk: _Chunk) -> bool:
+    """True while a chunk's solve or copy is still running on the card;
+    always False on the CPU."""
+    return chunk.event is not None and not chunk.event.query()
+
+
 class _SolvePrep:
-    """Per-(eval, TG) solve setup: shuffled+padded tensors, kernel routing
-    and the depth-regime parameters."""
-    __slots__ = ("gt", "n", "use_scan", "use_depth", "k_max",
+    """Per-(eval, TG) solve setup shared by the serial and pipelined
+    paths: shuffled+padded tensors, kernel routing and the depth-regime
+    parameters (computed from the TOTAL count, so a chunked solve uses
+    the same regime as the one-shot solve)."""
+    __slots__ = ("gt", "n", "count", "use_scan", "use_depth", "k_max",
                  "aff", "max_per_node", "spread_alg", "depth_grid",
                  "jitter", "bias_g", "m")
 
@@ -98,41 +171,52 @@ class SolverPlacer:
         nodes = sched._ready_nodes
         for tg_name, missings in by_tg.items():
             tg = sched.job.lookup_task_group(tg_name)
-            # serial path only: the pipelined plan lifecycle, the fused
-            # and convex routes and eval micro-batching are not ported
-            with metrics.measure("nomad.solver.solve"), \
-                    trace.span("solver.solve", tg=tg_name,
-                               count=len(missings)):
-                placed_map = self._solve_group(tg, nodes, len(missings))
-            if placed_map is None:
-                # scan-shaped group (spreads, distinct_property, or deeper
-                # than the [N, K] curve): the chunked scan is not ported,
-                # so the host GenericStack places it in _fallback
-                leftovers.extend(missings)
-                continue
-            node_iter = [(node, k) for node, k in placed_map if k > 0]
-            # TGs with no sequential resources (ports/devices/cores)
-            # need no per-alloc exact pass: stamp out the allocations
-            # in one batch with shared (immutable-by-convention)
-            # resource/metric objects
-            with metrics.measure("nomad.solver.materialize"), \
-                    trace.span("solver.materialize", tg=tg_name):
-                if node_iter and self._is_simple(tg):
-                    mi = self._place_batch_simple(missings, tg, node_iter,
-                                                  deployment_id)
-                else:
-                    # expand per-node counts into concrete allocations
-                    mi = 0
-                    for node, k in node_iter:
-                        for _ in range(int(k)):
-                            if mi >= len(missings):
-                                break
-                            missing = missings[mi]
-                            if self._place_one(missing, tg, node,
-                                               deployment_id):
-                                mi += 1
-                            else:
-                                break  # node rejected exact assignment
+            mi = -1
+            prep = None
+            if self._pipeline_eligible(tg, missings, by_tg, leftovers):
+                pipelined, prep = self._pipelined_place(
+                    tg, nodes, missings, deployment_id)
+                if pipelined is not None:
+                    mi = pipelined
+            if mi < 0:           # serial path (ineligible or declined)
+                # a declined pipeline hands its prep over: tensorize,
+                # shuffle, and the per-eval RNG draws must not run twice
+                with metrics.measure("nomad.solver.solve"), \
+                        trace.span("solver.solve", tg=tg_name,
+                                   count=len(missings)):
+                    placed_map = self._solve_group(tg, nodes, len(missings),
+                                                   prep=prep)
+                if placed_map is None:
+                    # scan-shaped group (spreads, distinct_property, or
+                    # deeper than the [N, K] curve): the chunked scan is
+                    # not ported, so the host GenericStack places it in
+                    # _fallback
+                    leftovers.extend(missings)
+                    continue
+                node_iter = [(node, k) for node, k in placed_map if k > 0]
+                # TGs with no sequential resources (ports/devices/cores)
+                # need no per-alloc exact pass: stamp out the allocations
+                # in one batch with shared (immutable-by-convention)
+                # resource/metric objects
+                with metrics.measure("nomad.solver.materialize"), \
+                        trace.span("solver.materialize", tg=tg_name):
+                    if node_iter and self._is_simple(tg):
+                        mi = self._place_batch_simple(missings, tg,
+                                                      node_iter,
+                                                      deployment_id)
+                    else:
+                        # expand per-node counts into concrete allocations
+                        mi = 0
+                        for node, k in node_iter:
+                            for _ in range(int(k)):
+                                if mi >= len(missings):
+                                    break
+                                missing = missings[mi]
+                                if self._place_one(missing, tg, node,
+                                                   deployment_id):
+                                    mi += 1
+                                else:
+                                    break  # node rejected exact assignment
             rest = missings[mi:]
             metrics.incr("nomad.solver.placements_batched",
                          len(missings) - len(rest))
@@ -221,6 +305,7 @@ class SolverPlacer:
                 use_depth = False
 
         prep = _SolvePrep()
+        prep.count = count
         prep.use_scan = use_scan
         prep.use_depth = use_depth
         if use_scan:
@@ -297,11 +382,14 @@ class SolverPlacer:
                 np.int32(prep.max_per_node), prep.jitter,
                 np.float32(prep.bias_g), np.float32(prep.m))
 
-    def _solve_group(self, tg, nodes, count: int):
+    def _solve_group(self, tg, nodes, count: int, prep=None):
         """Run the batched kernel; returns [(node, count)] sorted
         best-first, or None for a scan-shaped group the host stack must
-        place (the chunked scan is not ported)."""
-        prep = self._prep_solve(tg, nodes, count)
+        place (the chunked scan is not ported). `prep` reuses a declined
+        pipeline's solve prep (same regime, same RNG stream position)
+        instead of rebuilding it."""
+        if prep is None:
+            prep = self._prep_solve(tg, nodes, count)
         if prep is None:
             return []
         if prep.use_scan:
@@ -315,24 +403,39 @@ class SolverPlacer:
             placed_h = self._dispatch(prep, tg, count)
         return self._placed_node_iter(gt.nodes, placed_h[:n])
 
+    @staticmethod
+    def _dev_mats(gt):
+        """The state cache's twins (values identical to gt.cap/gt.used,
+        already on the device) when they live on the solve device — else
+        None, and the solve takes the host copies."""
+        if gt.cap_dev is None or gt.used_dev is None or \
+                gt.cap_dev.device != _device.solve_device():
+            return None
+        return gt.cap_dev, gt.used_dev
+
     def _dispatch(self, prep, tg, count: int) -> np.ndarray:
-        """The solve on the device: select the tier, launch, and bring the
+        """The solve on the device: select the tier, launch (on the
+        cache's twins where they served the eval), and bring the
         placement vector back at the one host sync."""
         gt = prep.gt
         if prep.use_depth:
-            bname, depth_fn = backend.select(
+            bname, fn = backend.select(
                 "depth", gt.cap.shape[0], k_max=prep.k_max,
                 spread_algorithm=prep.spread_alg,
                 depth_grid=prep.depth_grid)
             backend.record("depth", bname)
-            placed = depth_fn(*self._depth_solve_args(prep, tg, count))
+            args = self._depth_solve_args(prep, tg, count)
         else:
-            bname, greedy = backend.select("greedy", gt.cap.shape[0])
+            bname, fn = backend.select("greedy", gt.cap.shape[0])
             backend.record("greedy", bname)
-            placed = greedy(gt.cap, gt.used, gt.ask, np.int32(count),
-                            gt.feasible, np.int32(prep.max_per_node))
+            args = (gt.cap, gt.used, gt.ask, np.int32(count), gt.feasible,
+                    np.int32(prep.max_per_node))
+        dev = self._dev_mats(gt)
+        if dev is not None:
+            args = dev + args[2:]
+            metrics.incr("nomad.solver.state_cache.twin_dispatches")
         # the single device-to-host sync of the solve
-        return placed.cpu().numpy()
+        return fn(*args).cpu().numpy()
 
     @staticmethod
     def _placed_node_iter(nodes, placed: np.ndarray) -> list:
@@ -345,6 +448,204 @@ class SolverPlacer:
         sel = sel[np.argsort(-placed[sel], kind="stable")]
         return [(nodes[i], k)
                 for i, k in zip(sel.tolist(), placed[sel].tolist())]
+
+    # ------------------------------------------------ pipelined lifecycle
+
+    def _pipeline_knobs(self) -> tuple[bool, int, int]:
+        """-> (enabled, chunks, min_count) from the hot-reloadable
+        scheduler config; NOMAD_PLAN_PIPELINE=0/1 force-overrides.
+        getattr defaults keep restored pre-knob config snapshots valid."""
+        cfg = self.ctx.scheduler_config
+        enabled = bool(getattr(cfg, "plan_pipeline_enabled", True))
+        env = os.environ.get("NOMAD_PLAN_PIPELINE", "")
+        if env == "0":
+            enabled = False
+        elif env == "1":
+            enabled = True
+        # chunks=1 is honored as "stay serial" (validated as >= 1): a
+        # one-chunk pipeline would commit nothing early
+        chunks = max(1, int(getattr(cfg, "plan_pipeline_chunks", 4)))
+        min_count = max(0, int(getattr(cfg, "plan_pipeline_min_count",
+                                       8192)))
+        return enabled and chunks >= 2, chunks, min_count
+
+    def _pipeline_eligible(self, tg, missings, by_tg, leftovers) -> bool:
+        """The pipelined lifecycle commits intermediate chunk plans while
+        the eval is still running, so it only engages where that is
+        provably equivalent to one big plan: a single simple task group
+        whose plan carries nothing but these placements (no stops,
+        updates, preemptions, deployments, annotations, all_at_once)."""
+        enabled, _, min_count = self._pipeline_knobs()
+        if not enabled or len(by_tg) != 1 or leftovers:
+            return False
+        if len(missings) < min_count or not self._is_simple(tg):
+            return False
+        plan = self.plan
+        if plan.all_at_once or plan.annotations is not None:
+            return False
+        if plan.node_update or plan.node_allocation or plan.node_preemptions:
+            return False
+        if plan.deployment is not None or plan.deployment_updates:
+            return False
+        if self.sched.deployment is not None:
+            return False
+        return True
+
+    def _pipelined_place(self, tg, nodes, missings, deployment_id: str):
+        """Chunked solve + per-chunk materialize/evaluate/commit with all
+        device dispatches queued up front. Returns (placed_count, prep);
+        placed_count is None on a decline (scan-shaped or jittered
+        solves, distinct_hosts, degenerate preps), and the serial path
+        reuses `prep` so tensorize/shuffle/RNG draws never run twice.
+
+        Timeline for C chunks (device work ▓, host work ░):
+
+            device  ▓1▓▓2▓▓3▓▓4▓            (queued, usage fed forward)
+            placer      ░mat 1░░mat 2░...    (materialize chunk N)
+            applier       ░eval+commit 1░... (serial applier thread)
+
+        Chunk N+1's solve consumes chunk N's placements via a device-side
+        usage update, which is what committing chunk N does to the dense
+        usage index — so per-chunk re-checks see no self-conflicts, and
+        any CONCURRENT writer landing between chunk commits is caught by
+        the applier's latest-state re-check exactly as on the serial path
+        (the eval then refreshes and retries, ref plan_apply.go:638).
+
+        A device error in chunk N raises PipelineChunkError out of the
+        eval once the chunks already submitted have resolved; the degrade
+        path that would re-solve the rest elsewhere is not ported."""
+        sched = self.sched
+        count = len(missings)
+        _, n_chunks, _ = self._pipeline_knobs()
+        with metrics.measure("nomad.solver.solve"), \
+                trace.span("solver.solve", tg=tg.name, count=count,
+                           pipelined=True):
+            prep = self._prep_solve(tg, nodes, count)
+            # deterministic full-curve depth solves only: the jittered
+            # sampled-grid regime caps each SOLVE's per-node take at
+            # ceil(m)+1, so C chunked solves could stack C times that cap
+            # onto the jitter-favored nodes. distinct_hosts is the same
+            # failure shape: max_per_node=1 binds per SOLVE, so C chunks
+            # could land C same-job instances on one node — stay serial.
+            if prep is None or not prep.use_depth or \
+                    prep.depth_grid is not None or prep.gt.distinct_hosts:
+                return None, prep
+            metrics.incr("nomad.solver.kernel.fill_depth")
+            bname, depth_fn = backend.select(
+                "depth", prep.gt.cap.shape[0], k_max=prep.k_max,
+                spread_algorithm=prep.spread_alg,
+                depth_grid=prep.depth_grid)
+            backend.record("depth", bname)
+            base = count // n_chunks
+            chunk_counts = [base + (1 if i < count % n_chunks else 0)
+                            for i in range(n_chunks)]
+            chunk_counts = [c for c in chunk_counts if c > 0]
+            # every input on the solve device once (the cache's twins where
+            # they served the eval): chunk dispatches then copy nothing
+            # and never wait for the chunks queued before them
+            args = self._depth_solve_args(prep, tg, count)
+            dev = self._dev_mats(prep.gt)
+            if dev is not None:
+                args = dev + args[2:]
+                metrics.incr("nomad.solver.state_cache.twin_dispatches")
+            args = backend.on_device("depth", args)
+            used_cur, coll_cur = args[1], args[5]
+            chunks: list[_Chunk] = []
+            with backend.async_dispatch():
+                for ci, ccount in enumerate(chunk_counts):
+                    a = (args[0], used_cur, args[2], np.int32(ccount),
+                         args[4], coll_cur) + args[6:]
+                    try:
+                        placed = depth_fn(*a)
+                    except backend.device_error_types() as e:
+                        raise PipelineChunkError(
+                            f"eval {sched.eval.id[:8]}: chunk {ci} of "
+                            f"{len(chunk_counts)} failed to dispatch on "
+                            f"{backend.last_dispatch_tier() or bname}: "
+                            f"{e}") from e
+                    chunks.append(_Chunk(placed))
+                    if ci < len(chunk_counts) - 1:
+                        used_cur, coll_cur = _usage_update(
+                            used_cur, coll_cur, placed, args[2])
+        # host side of the pipeline: ids/names/shared objects are built
+        # while chunk 1 is still in flight on the device
+        host_t0 = time.perf_counter()
+        shared, ids, names, prev_ids = self._prepare_stamp(
+            missings, tg, deployment_id)
+        plan = self.plan
+        submit_async = getattr(sched.planner, "submit_plan_async", None)
+        pendings = []            # (chunk_plan, pending) in submit order
+        results = []             # (chunk_plan, result) once resolved
+        last_chunk = chunks[-1]
+        last_pending = None
+        prep_s = time.perf_counter() - host_t0
+        metrics.add_sample("nomad.plan.pipeline.host", prep_s)
+        if _in_flight(last_chunk):
+            metrics.add_sample("nomad.plan.pipeline.overlap", prep_s)
+        mi = 0
+        for ci, chunk in enumerate(chunks):
+            with metrics.measure("nomad.solver.solve"):
+                try:
+                    # the pipeline's designed per-chunk sync point
+                    placed = np.array(chunk.numpy()[:prep.n])
+                except backend.device_error_types() as e:
+                    # the chunks already submitted resolve first, so the
+                    # applier holds nothing of this eval when it fails
+                    for _, pending in pendings:
+                        pending.wait(60.0)
+                    raise PipelineChunkError(
+                        f"eval {sched.eval.id[:8]}: chunk {ci} of "
+                        f"{len(chunks)} failed on the device: {e}") from e
+            host_t0 = time.perf_counter()
+            solves_behind = ci < len(chunks) - 1 and _in_flight(last_chunk)
+            is_last = ci == len(chunks) - 1
+            node_iter = self._placed_node_iter(prep.gt.nodes, placed)
+            target = plan.node_allocation if is_last else {}
+            with metrics.measure("nomad.solver.materialize"), \
+                    trace.span("solver.materialize", tg=tg.name,
+                               pipelined=True):
+                mi = self._stamp_slice(shared, ids, names, prev_ids,
+                                       node_iter, mi, len(missings), target)
+            if not is_last and target:
+                cplan = Plan(eval_id=plan.eval_id,
+                             eval_token=plan.eval_token,
+                             priority=plan.priority, job=plan.job,
+                             snapshot_index=plan.snapshot_index)
+                cplan.node_allocation = target
+                if submit_async is not None:
+                    last_pending = submit_async(cplan)
+                    pendings.append((cplan, last_pending))
+                else:
+                    results.append((cplan, sched.planner.submit_plan(cplan)))
+            applier_behind = (last_pending is not None
+                              and not last_pending.event.is_set())
+            host_s = time.perf_counter() - host_t0
+            metrics.add_sample("nomad.plan.pipeline.host", host_s)
+            if solves_behind or applier_behind:
+                metrics.add_sample("nomad.plan.pipeline.overlap", host_s)
+        metrics.incr("nomad.plan.pipeline.evals")
+        metrics.incr("nomad.plan.pipeline.chunks", len(chunks))
+        # collect every async chunk result BEFORE returning: the eval's
+        # final plan is submitted by the normal path, which in test shims
+        # may apply inline — commit order must stay chunk 1..C-1, final
+        for cplan, pending in pendings:
+            result, err = pending.wait(60.0)
+            results.append((cplan, None if err else result))
+        partial = False
+        for cplan, result in results:
+            if result is None:
+                partial = True
+                continue
+            full, _, _ = result.full_commit(cplan)
+            if not full:
+                partial = True
+        if partial:
+            # a chunk under-committed (concurrent writer won a node, or a
+            # submit failed): flag the eval so _process refreshes state
+            # and retries the remainder — the serial path's partial-
+            # commit semantics, applied per chunk
+            sched._pipeline_partial = True
+        return mi, prep
 
     def _distinct_property_sets(self, tg):
         """PropertySets for every distinct_property constraint in scope

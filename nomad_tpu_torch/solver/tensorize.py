@@ -16,7 +16,7 @@ from ..structs import (
     Allocation, Node, TaskGroup, DEFAULT_MAX_DYNAMIC_PORT,
     DEFAULT_MIN_DYNAMIC_PORT, OP_DISTINCT_HOSTS,
 )
-from .buckets import pow2 as _pow2
+from .buckets import node_bucket, pow2 as _pow2
 from .kernels import NUM_XR, XR_CPU, XR_DISK, XR_MBITS, XR_MEM, XR_PORTS
 
 DYN_PORT_SPAN = DEFAULT_MAX_DYNAMIC_PORT - DEFAULT_MIN_DYNAMIC_PORT + 1
@@ -334,18 +334,29 @@ def _build_dense(ctx, job, tg: TaskGroup, nodes: list[Node], feasible_fn,
                  view, count: int = None,
                  explain: bool = False) -> GroupTensors:
     from ..state.usage_index import alloc_usage_tuple
+    from . import backend, state_cache
     n = len(nodes)
     row = view.row
     rows = np.fromiter((row[node.id] for node in nodes), np.int64, count=n)
-    # the device state cache, the fused route and the mesh are not ported
-    # yet: every eval gathers its rows from the usage view on the host,
-    # and no device twins ride along (cap_dev/used_dev stay None)
-    cap = view.cap[rows]                   # fancy index => fresh arrays
-    used = view.used[rows]
-    cap_dev = used_dev = None
+    # the state cache serves versioned views: host copies of the SAME bits
+    # a fresh view gather yields (the bit-identity contract), plus bucket-
+    # padded twins on the solve device for the dispatch. Unversioned views
+    # (plain test fakes) and a disabled cache take the view path. The
+    # fused route is not ported, so no zero-launch resident handle is
+    # asked for and `resident` stays None.
+    cached = state_cache.gather(view, rows, bucket=node_bucket(n),
+                                tier=backend.tier())
     gen = None
     resident = None
     res_version, res_uid, res_epoch = -1, 0, -1
+    if cached is not None:
+        cap, used = cached.cap, cached.used
+        cap_dev, used_dev = cached.cap_dev, cached.used_dev
+        gen = cached.gen
+    else:
+        cap = view.cap[rows]                   # fancy index => fresh arrays
+        used = view.used[rows]
+        cap_dev = used_dev = None
     pos = {node.id: i for i, node in enumerate(nodes)}
 
     # sparse in-plan correction: state allocs − plan stops/preemptions +

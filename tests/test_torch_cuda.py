@@ -141,3 +141,130 @@ def test_wrapper_refuses_a_non_contiguous_cuda_tensor(dev):
                                           ask, feas)
     with pytest.raises(TypeError, match="dtype"):
         cuda_kernels.depth_curve(cap, used, ask, feas, coll.long(), 10, aff)
+
+
+# ------------------------------------------------ the placement path
+
+def _cluster(n_nodes=200, seed=7, **config):
+    """A port FSM with the bench fleet's node recipe (ids pinned) and its
+    real plan applier."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.server import NomadFSM, Planner
+    from nomad_tpu_torch.server.fsm import RaftLog
+    from nomad_tpu_torch.structs import SchedulerConfiguration
+    rng = np.random.default_rng(seed)
+    fsm = NomadFSM()
+    s = fsm.state
+    s.set_scheduler_config(1, SchedulerConfiguration(
+        scheduler_algorithm="tpu-batch", **config))
+    for i in range(n_nodes):
+        n = mock.node()
+        n.id = f"cuda-node-{i:06d}"
+        n.name = f"bench-{i}"
+        n.node_class = f"c{int(rng.integers(0, 4))}"
+        n.datacenter = "dc1" if i % 2 == 0 else "dc2"
+        n.node_resources.cpu.cpu_shares = int(
+            rng.choice([4_000, 8_000, 16_000, 32_000]))
+        n.node_resources.memory.memory_mb = int(
+            rng.choice([8_192, 16_384, 32_768, 65_536]))
+        n.node_resources.disk.disk_mb = 500_000
+        s.upsert_node(i + 2, n)
+    return fsm, Planner(RaftLog(fsm), s)
+
+
+class _Shim:
+    def __init__(self, planner, state):
+        self.planner = planner
+        self.state = state
+
+    def submit_plan(self, plan):
+        return self.planner.apply_plan(plan)
+
+    def submit_plan_async(self, plan):
+        from nomad_tpu_torch.server.plan_apply import _PendingPlan
+        pending = _PendingPlan(plan)
+        pending.respond(self.planner.apply_plan(plan), None)
+        return pending
+
+    def update_eval(self, ev):
+        self.state.upsert_evals(self.state.latest_index() + 1, [ev])
+
+    def create_eval(self, ev):
+        self.state.upsert_evals(self.state.latest_index() + 1, [ev])
+
+    def refresh_snapshot(self, old):
+        return self.state.snapshot()
+
+
+def _run_job(fsm, planner, job_id, count):
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.scheduler import new_scheduler
+    from nomad_tpu_torch.structs import Evaluation
+    s = fsm.state
+    job = mock.batch_job()
+    job.id = job.name = job_id
+    tg = job.task_groups[0]
+    tg.count = count
+    tg.ephemeral_disk.size_mb = 300
+    tg.tasks[0].resources.cpu = 250
+    tg.tasks[0].resources.memory_mb = 512
+    tg.tasks[0].resources.networks = []
+    tg.networks = []
+    s.upsert_job(s.latest_index() + 1, job)
+    ev = Evaluation(id=f"cuda-eval-{job_id}", namespace="default",
+                    job_id=job_id, type="batch", priority=50)
+    s.upsert_evals(s.latest_index() + 1, [ev])
+    new_scheduler("batch", s.snapshot(), _Shim(planner, s)).process(ev)
+    return {a.name: a.node_id for a in s.allocs_by_job("default", job_id)}
+
+
+@pytest.mark.cuda
+def test_pipelined_eval_places_alike_on_the_card_and_the_cpu(dev):
+    """A 600-task dense-regime job pipelined in 3 chunks on a 200-node
+    cluster: 3 depth-curve launches on the card, and the same alloc ->
+    node map as the plain tier's on the CPU."""
+    from nomad_tpu_torch.metrics import metrics
+    from nomad_tpu_torch.solver import backend, state_cache
+    from nomad_tpu_torch.solver.device import use_device
+    cfg = {"plan_pipeline_min_count": 1, "plan_pipeline_chunks": 3}
+    maps = {}
+    try:
+        for where in ("cuda:0", "cpu"):
+            use_device(where)
+            backend.reset()
+            state_cache.reset()
+            fsm, planner = _cluster(**cfg)
+            before = cuda_kernels.LAUNCHES["depth_curve"]
+            chunks = metrics.counter("nomad.plan.pipeline.chunks")
+            maps[where] = _run_job(fsm, planner, "pipe", 600)
+            assert metrics.counter("nomad.plan.pipeline.chunks") == \
+                chunks + 3
+            if where == "cuda:0":
+                assert cuda_kernels.LAUNCHES["depth_curve"] == before + 3
+    finally:
+        use_device("cuda:0")
+        backend.reset()
+        state_cache.reset()
+    assert len(maps["cuda:0"]) == 600
+    assert maps["cuda:0"] == maps["cpu"]
+
+
+@pytest.mark.cuda
+def test_state_cache_twins_live_on_the_card_after_a_commit(dev):
+    """After an eval's commit the cache's twins are on cuda:0, advanced
+    by the commit hook to exactly the committed usage."""
+    from nomad_tpu_torch.solver import state_cache
+    state_cache.reset()
+    fsm, planner = _cluster(n_nodes=50)
+    _run_job(fsm, planner, "twins", 40)
+    stats = state_cache.cache().stats()
+    assert stats["twins_device"] == "cuda:0"
+    view = fsm.state.usage.view()
+    assert stats["version"] == view.version
+    cap_dev, used_dev = state_cache.cache().twins()
+    assert used_dev.device == torch.device("cuda:0")
+    n = view.cap.shape[0]
+    assert used_dev[:n].cpu().numpy().tobytes() == view.used.tobytes()
+    assert cap_dev[:n].cpu().numpy().tobytes() == view.cap.tobytes()
+    assert not bool(used_dev[n:].any())
+    state_cache.reset()
