@@ -32,6 +32,14 @@ prints no result):
               calls for the kernels, 30 for the plain versions); the
               kernels of one fill_greedy_binpack_fused call; an empty
               kernel's device time (`floor_ms`).
+     chunked  the chunked-step kernel (csrc/chunked_step.cu) against its
+              plain step at the same bucket (10,000 live rows; two spread
+              stanzas, one targeted and one even, a distinct_property
+              stanza, affinity, collisions): can_place equal, scores bit
+              for bit; then place_chunked through the kernel against the
+              plain scan (placements, usage, spread counts, quotas
+              equal). Device time per launch (profiler, 30 launches),
+              launches per solve, one solve's device time and wall.
   4. main     the port's placement path at the north-star size: an FSM with
               10,000 bench-fleet nodes under scheduler_algorithm=tpu-batch
               and the Planner's applier thread running, three evals
@@ -47,6 +55,24 @@ prints no result):
               usage), served hits and rode every dispatch; the plain tier
               untouched. The launch counts are zeroed just before and
               read just after.
+     service  the slice at full width: a fresh FSM of 10,000 bench-fleet
+              nodes in datacenters dc1..dc3 (i % 3) and racks r0..r99
+              (i % 100), service preemption on, the applier thread
+              running: (a) `web`, 5,000 instances with the spread blocks
+              of Nomad's documentation examples (datacenters 50/30/20
+              under weight 70, racks even under weight 30), (b)
+              `rack-capped`, 150 instances under distinct_property
+              ${meta.rack} = 2, (c) a priority-20 batch job filling every
+              node at 2,000 MHz / 4,096 MB, then a priority-80 service
+              job of 1,000 such instances. Every instance committed, no
+              row over capacity, (a) near its targets and its racks even
+              (tolerances at WEB_DC_TOL), (b) at most 2 per rack, (c)
+              exactly 1,000 filler allocs preempted; no host fallback and
+              step-kernel launches on (a) and (b); the plain tier
+              untouched. Each scan solve replayed on its own inputs
+              (equal to the plain scan; device time) and the preemption
+              masks on the card and the CPU (equal; [C, V], wall, device
+              time). Launch counts zeroed before (a), read after (c).
   5. compare  the same 50k eval on fresh clusters, serial
               (plan_pipeline_enabled=False) and pipelined in turns
               (serial, pipelined, pipelined, serial, twice), each with
@@ -57,9 +83,11 @@ prints no result):
   6. profile  the pipelined 50k eval under torch.profiler: the card's busy
               time against the eval's wall.
   7. small    a 200-node cluster's evals on the card and on the CPU (the
-              plain tier), one of them pipelined (plan_pipeline_min_count
-              1, 3 chunks, 600 tasks in the dense regime): identical alloc
-              -> node maps.
+              plain tier): the depth and greedy jobs, two pipelined
+              (plan_pipeline_min_count 1, 3 chunks), the web, rack-capped
+              and a deep job on the scan, a filler and a job placed by
+              preemption, each from the same seeded id stream: identical
+              alloc -> node maps and preempted alloc ids.
 
 Then a `kernels` JSON line and, last, the device line.
 """
@@ -91,8 +119,8 @@ BIG_COUNT, MID_COUNT = 50_000, 2_000
 # per-eval layer timers (seconds, metrics.timer_sum deltas)
 LAYERS = ("nomad.scheduler.reconcile", "nomad.solver.tensorize",
           "nomad.solver.device", "nomad.solver.solve",
-          "nomad.solver.materialize", "nomad.plan.evaluate",
-          "nomad.plan.apply")
+          "nomad.solver.materialize", "nomad.solver.preempt",
+          "nomad.plan.evaluate", "nomad.plan.apply")
 # the pipelined lifecycle's host seconds, and those of them spent while
 # chunk solves or the applier were still busy
 PIPE_TIMERS = ("nomad.plan.pipeline.host", "nomad.plan.pipeline.overlap")
@@ -101,12 +129,38 @@ COUNTERS = {"evals": "nomad.plan.pipeline.evals",
             "chunks": "nomad.plan.pipeline.chunks",
             "twin_dispatches": "nomad.solver.state_cache.twin_dispatches",
             "torch_depth": "nomad.solver.kernel.depth.torch",
-            "torch_greedy": "nomad.solver.kernel.greedy.torch"}
+            "torch_greedy": "nomad.solver.kernel.greedy.torch",
+            "torch_chunked": "nomad.solver.kernel.chunked.torch",
+            "scan_solves": "nomad.solver.kernel.chunked.cuda",
+            "host_fallback": "nomad.solver.placements_host_fallback"}
+# the kernels the 50k main path runs; the service path runs chunked_step
+MAIN_KERNELS = ("depth_curve", "score_capacity")
 # the card the port solves on (the solve device's default)
 DEVICE = "cuda:0"
 BIG_CHUNKS = 4          # SchedulerConfiguration.plan_pipeline_chunks default
 COMPARE_ORDER = ("serial", "pipelined", "pipelined", "serial") * 2
 SMALL_PIPELINE = {"plan_pipeline_min_count": 1, "plan_pipeline_chunks": 3}
+
+# the service path: racks per cluster, the web job's datacenter targets
+# (percent), the distinct_property cap per rack, and the evals' sizes
+N_RACKS = 100
+WEB_TARGETS = {"dc1": 50, "dc2": 30, "dc3": 20}
+RACK_CAP = 2
+WEB_COUNT, RACK_CAPPED_COUNT, PREEMPT_COUNT = 5_000, 150, 1_000
+FILL_ASK = (2_000, 4_096)               # MHz, MB of the filler and preemptor
+# the service tier's priority: the preemptor's, and web's and
+# rack-capped's, so only the priority-20 filler is below it (a victim
+# must have a lower priority than the job that preempts it)
+SERVICE_PRIORITY = 80
+# The spread blocks are soft: the reference's own chunked scan (the JAX
+# package's place_chunked, which the port matches bit for bit) lands this
+# web job on an empty 2,500-node fleet about 2% of the job off its
+# datacenter targets, its racks 45..59
+# (tests/test_torch_chunked.py::test_web_spread_at_proxy_scale_matches_
+# reference). The card is held per datacenter to that test's own bound,
+# 2.5% of the job, and to a rack spread (max - min) of half the mean.
+WEB_DC_TOL = 0.025
+WEB_RACK_SPREAD = 0.5
 
 # H100 SXM published peaks (HBM3 bandwidth, dense f32 CUDA-core rate)
 HBM_BYTES_PER_S = 3.35e12
@@ -115,6 +169,10 @@ F32_OPS_PER_S = 67e12
 # source; a pow counts as ONE operation, so the bound is a lower bound
 DEPTH_OPS_DENSE, DEPTH_OPS_NODE = 31, 30
 SCORE_OPS_NODE = 35
+# chunked_step.cu: per node (capacity, fit score, anti, affinity, mean)
+# and per spread stanza (boost and sum)
+STEP_OPS_NODE, STEP_OPS_STANZA = 38, 8
+SOLVE_REPS = 5
 
 
 class CheckFailed(AssertionError):
@@ -538,16 +596,327 @@ def _bound(nbytes: int, ops: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def _scan_inputs(np, torch, dev):
+    """The chunked scan's inputs at the main path's bucket: the seeded
+    fleet of _inputs with affinity on a fifth of the nodes, two spread
+    stanzas (datacenters dc1..dc3 targeted 50/30/20 under weight 0.7,
+    racks r0..r99 even), one distinct_property stanza over the racks with
+    quotas of 30..69 (about WEB_COUNT in all), collisions.
+    -> (place_chunked's positional args for WEB_COUNT instances,
+    d_active)."""
+    inp = _inputs(np, torch, dev)
+    rng = np.random.default_rng(SEED + 1)
+    live = np.arange(N_BUCKET) < N_LIVE
+    aff = np.where(live & (rng.random(N_BUCKET) < 0.2),
+                   rng.uniform(-1, 1, N_BUCKET), 0.0).astype(np.float32)
+    sp_ids = np.where(live, np.stack([np.arange(N_BUCKET) % 3,
+                                      np.arange(N_BUCKET) % N_RACKS]), -1)
+    sp_counts = np.full((2, 128), -1, np.int32)
+    sp_counts[0, :3] = 0
+    sp_counts[1, :N_RACKS] = rng.integers(0, 3, N_RACKS)
+    sp_desired = np.full((2, 128), -1.0, np.float32)
+    sp_desired[0, :3] = [pc / 100 * WEB_COUNT for pc in WEB_TARGETS.values()]
+    dp_ids = np.where(live, np.arange(N_BUCKET) % N_RACKS, -1)[None]
+    dp_rem = np.zeros((1, 128), np.int32)
+    dp_rem[0, :N_RACKS] = rng.integers(30, 70, N_RACKS)
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+    args = (inp["cap"], inp["used"], inp["ask"], WEB_COUNT, inp["feasible"],
+            inp["coll"], WEB_COUNT, t(sp_ids, np.int32),
+            t(sp_counts, np.int32), t(sp_desired, np.float32),
+            t([1, 0], np.int32), t([0.7, 0.3], np.float32),
+            t(aff, np.float32), t(dp_ids, np.int32), t(dp_rem, np.int32))
+    return args, t(dp_rem[:, 0] >= 0, np.bool_)
+
+
+def _step_args(args, placed, d_active):
+    """chunked_step's positional args from place_chunked's and a
+    placement vector."""
+    return (args[:3] + (args[4], args[5], placed, 2 ** 30, args[6])
+            + args[7:15] + (d_active,))
+
+
+def _step_bound(args) -> dict:
+    """The least time for one step on this run's inputs: a feasible row
+    reads cap, used, feasible, collisions, placements, affinity, spread
+    and distinct ids and writes its score; an infeasible row (padding
+    included) can only score -inf, so it reads its feasible byte and
+    writes the score; the [S, P] and [D, P] tables are read once. Float32
+    operations on the feasible rows (two 10**x counted as one each)."""
+    n = args[0].shape[0]
+    n_feas = int(args[4].sum())
+    n_s, n_p = args[8].shape
+    n_d, n_dp = args[14].shape
+    nbytes = (n_feas * (2 * 5 * 4 + 1 + 4 + 4 + 4 + 4 * n_s + 4 * n_d + 4)
+              + (n - n_feas) * (1 + 4)
+              + n_s * n_p * 8 + n_d * n_dp * 4 + 5 * 4 + n_s * 8 + n_d)
+    ops = n_feas * (STEP_OPS_NODE + STEP_OPS_STANZA * n_s + 2 * n_d)
+    out = _bound(nbytes, ops)
+    out.update(bytes=nbytes, ops=ops)
+    return out
+
+
+def chunked_phase(np, torch, dev, floor_ms) -> dict:
+    """The chunked-step kernel against its plain step on the card at the
+    main path's bucket: can_place equal and scores bit for bit; then the
+    whole scan through the kernel against the plain scan: placements,
+    usage, spread counts and quotas equal. Times: the kernel's device
+    time per launch (profiler, 30 launches), per-call time, the plain
+    step's time, launches per solve, and one solve's device time and
+    wall."""
+    from nomad_tpu_torch.solver import cuda_kernels, kernels
+    args, d_active = _scan_inputs(np, torch, dev)
+    rng = np.random.default_rng(SEED + 2)
+    placed = torch.from_numpy(
+        rng.integers(0, 3, N_BUCKET).astype(np.int32)).to(dev)
+    out = {"max_abs_err": 0.0}
+    for spread in (False, True):
+        step = _step_args(args, placed, d_active)
+        s_k = cuda_kernels.chunked_step(*step, spread_algorithm=spread)
+        s_p = kernels.chunked_step_ref(*step, spread_algorithm=spread)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(s_p)
+        check(torch.equal(torch.isfinite(s_k), fin),
+              f"chunked_step spread={spread}: can_place differs on "
+              f"{int((torch.isfinite(s_k) != fin).sum())} nodes")
+        err = float((s_k[fin] - s_p[fin]).abs().max())
+        check(s_k.cpu().numpy().tobytes() == s_p.cpu().numpy().tobytes(),
+              f"chunked_step spread={spread}: scores not bit-equal "
+              f"(max abs err {err})")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        log(f"chunked_step spread_algorithm={spread}: can_place equal on "
+            f"{int(fin.sum())} of {N_BUCKET} nodes, scores bit-equal")
+    before = cuda_kernels.LAUNCHES["chunked_step"]
+    got = cuda_kernels.place_chunked(*args)
+    torch.cuda.synchronize()
+    out["launches_per_solve"] = cuda_kernels.LAUNCHES["chunked_step"] - before
+    want = kernels.place_chunked(*args)
+    for name, g, w in zip(("placed", "used", "spread_counts",
+                           "distinct_remaining"), got, want):
+        check(g.cpu().numpy().tobytes() == w.cpu().numpy().tobytes(),
+              f"place_chunked: {name} differs from the plain scan's")
+    out["placed"] = int(got[0].sum())
+    log(f"place_chunked ({WEB_COUNT} asked, placed {out['placed']}): "
+        f"kernel and plain scans equal (placements, usage, counts, "
+        f"quotas); {out['launches_per_solve']} step launches")
+    step = _step_args(args, placed, d_active)
+    out.update(_times(torch, "chunked_step_kernel",
+                      lambda: cuda_kernels.chunked_step(*step)))
+    out.update(_plain_times(torch, lambda: kernels.chunked_step_ref(*step)))
+    out["floor_ms"] = floor_ms
+    out.update(_step_bound(args))
+    solve = _kernel_list(torch, lambda: cuda_kernels.place_chunked(*args))
+    out["solve_device_ms"] = solve["device_ms"]
+    out["solve_kernels"] = solve["kernels"]
+    out["solve_ms"] = _median_ms(
+        torch, lambda: cuda_kernels.place_chunked(*args), SOLVE_REPS)
+    out["plain_solve_ms"] = _median_ms(
+        torch, lambda: kernels.place_chunked(*args), SOLVE_REPS)
+    log(f"chunked_step: kernel {out['ms']} ms device per launch "
+        f"({out['call_ms']} ms per wrapper call), plain step "
+        f"{out['plain_ms']} ms ({out['plain_device_ms']} ms device), bound "
+        f"{out['bound_ms']} ms ({out['bound_by']}: {out['bytes']} B, "
+        f"{out['ops']} ops), floor {floor_ms} ms; one solve "
+        f"{out['solve_ms']} ms wall, {out['solve_device_ms']} ms device, "
+        f"plain solve {out['plain_solve_ms']} ms")
+    log("one place_chunked solve's device kernels: "
+        + json.dumps(out["solve_kernels"]))
+    return out
+
+
+class _ServiceRecorder:
+    """For the service path's measurements: records the arguments of each
+    scan solve (cuda_kernels.place_chunked, as backend.select hands it
+    out) with the step launches it made, and the inputs and wall of each
+    preemption mask pass (SolverPlacer._preempt_masks). Restores both on
+    exit. Behaviour is unchanged."""
+
+    def __init__(self):
+        self.scans, self.preempts = [], []
+
+    def __enter__(self):
+        from nomad_tpu_torch.solver import backend, cuda_kernels, placer
+        self._scan = cuda_kernels.place_chunked
+        self._masks = placer.SolverPlacer.__dict__["_preempt_masks"]
+        scan, masks = self._scan, self._masks.__func__
+
+        def place_chunked(*a, **kw):
+            before = cuda_kernels.LAUNCHES["chunked_step"]
+            out = scan(*a, **kw)
+            self.scans.append((a, kw, cuda_kernels.LAUNCHES["chunked_step"]
+                               - before))
+            return out
+
+        def preempt_masks(*a):
+            t0 = time.perf_counter()
+            out = masks(*a)
+            self.preempts.append((a, time.perf_counter() - t0))
+            return out
+        cuda_kernels.place_chunked = place_chunked
+        placer.SolverPlacer._preempt_masks = staticmethod(preempt_masks)
+        backend.reset()             # selections made from here see them
+        return self
+
+    def __exit__(self, *exc):
+        from nomad_tpu_torch.solver import backend, cuda_kernels, placer
+        cuda_kernels.place_chunked = self._scan
+        placer.SolverPlacer._preempt_masks = self._masks
+        backend.reset()
+
+
+def service_phase(np, torch) -> dict:
+    """The slice at full width: 10,000 bench-fleet nodes in three
+    datacenters and 100 racks, service preemption on, the applier thread
+    running; through new_scheduler: (a) the web job's spread blocks and
+    (b) the rack-capped job (the chunked scan, on the step kernel), both
+    at the service tier's priority 80, then (c) a priority-20 batch job
+    filling every node and a priority-80 service job that fits only by
+    preemption, with the filler's allocations the only ones below it. The launch counts are
+    zeroed just before (a) and read just after (c)."""
+    from nomad_tpu_torch import mock, structs
+    from nomad_tpu_torch.solver import cuda_kernels, kernels
+    from nomad_tpu_torch.testing import fill_count
+    t0 = time.perf_counter()
+    fsm, planner = _cluster(
+        N_LIVE, seed=44, racks=N_RACKS,
+        preemption_config=structs.PreemptionConfig(
+            service_scheduler_enabled=True))
+    log(f"service: seeded {N_LIVE} nodes in {time.perf_counter() - t0:.3f} s")
+    s = fsm.state
+    dc = {n.id: n.datacenter for n in s.iter_nodes()}
+    rack = {n.id: n.meta["rack"] for n in s.iter_nodes()}
+    out = {"evals": {}}
+    with _applier(planner), _ServiceRecorder() as rec:
+        cuda_kernels.reset_launches()           # the service path's window
+        web = _drive(torch, fsm, planner, _mk_service_job(
+            mock, structs, "web", WEB_COUNT, 250, 512, "web",
+            priority=SERVICE_PRIORITY))
+        capped = _drive(torch, fsm, planner, _mk_service_job(
+            mock, structs, "rack-capped", RACK_CAPPED_COUNT, 250, 512,
+            "rack-capped", priority=SERVICE_PRIORITY))
+        fill = fill_count(s.usage.view(), *FILL_ASK)
+        filler = _drive(torch, fsm, planner, _mk_batch_job(
+            mock, "filler", fill, *FILL_ASK, priority=20))
+        evicted0 = {a.id for a in s.iter_allocs()
+                    if a.desired_status == "evict"}
+        pre = _drive(torch, fsm, planner, _mk_service_job(
+            mock, structs, "preemptor", PREEMPT_COUNT, *FILL_ASK,
+            priority=SERVICE_PRIORITY))
+        launches = dict(cuda_kernels.LAUNCHES)  # read just after
+    check(launches["chunked_step"] >= 1,
+          "chunked_step was not launched on the service path")
+    for name, r in (("web", web), ("rack-capped", capped),
+                    ("filler", filler), ("preemptor", pre)):
+        c = r["counters"]
+        check(c["torch_depth"] == c["torch_greedy"] ==
+              c["torch_chunked"] == 0,
+              f"service {name}: the plain torch tier served a solve")
+        out["evals"][name] = r
+    for name, r in (("web", web), ("rack-capped", capped)):
+        check(r["counters"]["host_fallback"] == 0,
+              f"service {name}: {r['counters']['host_fallback']} "
+              f"placements fell back to the host stack")
+        check(r["launches"]["chunked_step"] > 0 and
+              r["counters"]["scan_solves"] >= 1,
+              f"service {name}: the scan did not run on the step kernel")
+    # (a) the spread blocks
+    by_dc = {d: 0 for d in WEB_TARGETS}
+    by_rack: dict = {}
+    for a in s.allocs_by_job("default", "web"):
+        by_dc[dc[a.node_id]] += 1
+        by_rack[rack[a.node_id]] = by_rack.get(rack[a.node_id], 0) + 1
+    targets = {d: pc / 100 * WEB_COUNT for d, pc in WEB_TARGETS.items()}
+    miss = {d: by_dc[d] - targets[d] for d in by_dc}
+    check(all(abs(m) <= WEB_DC_TOL * WEB_COUNT for m in miss.values()),
+          f"web: datacenters {by_dc} against targets {targets}")
+    spread = max(by_rack.values()) - min(by_rack.values())
+    check(len(by_rack) == N_RACKS and
+          spread <= WEB_RACK_SPREAD * WEB_COUNT / N_RACKS,
+          f"web: {len(by_rack)} racks, {min(by_rack.values())}.."
+          f"{max(by_rack.values())} per rack")
+    out["web"] = {"by_dc": by_dc, "targets": targets, "miss": miss,
+                  "rack_min": min(by_rack.values()),
+                  "rack_max": max(by_rack.values())}
+    # (b) the rack cap
+    per_rack: dict = {}
+    for a in s.allocs_by_job("default", "rack-capped"):
+        per_rack[rack[a.node_id]] = per_rack.get(rack[a.node_id], 0) + 1
+    check(max(per_rack.values()) <= RACK_CAP,
+          f"rack-capped: {max(per_rack.values())} on one rack")
+    # (c) preemption
+    preempted = [a for a in s.iter_allocs()
+                 if a.desired_status == "evict" and a.id not in evicted0]
+    victims_of = {a.job_id for a in preempted}
+    check(len(preempted) == PREEMPT_COUNT and victims_of == {"filler"},
+          f"preemptor: preempted {len(preempted)} allocs of {victims_of}")
+    check(len(rec.preempts) == 1, f"{len(rec.preempts)} preemption passes")
+    out.update(launches=launches, fill_count=fill,
+               preempted=len(preempted))
+    log(f"service: web {by_dc} against targets {targets} (miss {miss}), "
+        f"racks {out['web']['rack_min']}..{out['web']['rack_max']}; "
+        f"rack-capped at most {max(per_rack.values())} per rack; filler "
+        f"{fill} allocs; preemptor displaced {len(preempted)} filler "
+        f"allocs; launches {json.dumps(launches)}")
+    for name, r in out["evals"].items():
+        log(f"service {name}: {r['committed']}/{r['count']} committed in "
+            f"{r['wall_s']} s; layers {json.dumps(r['layers_s'])}; "
+            f"counters {json.dumps(r['counters'])}; launches "
+            f"{json.dumps(r['launches'])}")
+    # the recorded scan solves replayed: device time, and the plain scan
+    # on the same inputs
+    out["scans"] = []
+    for (a, kw, n_launch), name in zip(rec.scans, ("web", "rack-capped")):
+        got = cuda_kernels.place_chunked(*a, **kw)
+        want = kernels.place_chunked(*a, **kw)
+        for g, w in zip(got, want):
+            check(torch.equal(g, w), f"service {name}: the kernel's scan "
+                  f"differs from the plain scan on its own inputs")
+        dev_ms = _kernel_list(
+            torch, lambda: cuda_kernels.place_chunked(*a, **kw))
+        r = {"eval": name, "launches": n_launch,
+             "device_ms": dev_ms["device_ms"],
+             "wall_ms": _median_ms(
+                 torch, lambda: cuda_kernels.place_chunked(*a, **kw), 3)}
+        out["scans"].append(r)
+        log(f"service {name} scan solve: {n_launch} step launches, "
+            f"{r['device_ms']} ms device, {r['wall_ms']} ms wall (replayed "
+            f"on its inputs; equal to the plain scan)")
+    (v_res, v_prio, ask, free, job_prio), wall = rec.preempts[0]
+    on_card = [torch.from_numpy(np.asarray(x)).to(DEVICE)
+               for x in (v_res, v_prio, ask, free)]
+    masks_card = kernels.preempt_top_k(*on_card, job_prio).cpu()
+    masks_cpu = kernels.preempt_top_k(
+        *[torch.from_numpy(np.asarray(x)) for x in (v_res, v_prio, ask,
+                                                     free)], job_prio)
+    check(torch.equal(masks_card, masks_cpu),
+          "preemption masks differ between the card and the CPU")
+    pk = _kernel_list(torch, lambda: kernels.preempt_top_k(*on_card,
+                                                           job_prio))
+    out["preempt"] = {"C": int(v_res.shape[0]), "V": int(v_res.shape[1]),
+                      "mask_wall_s": wall, "device_ms": pk["device_ms"],
+                      "pass_s": pre["layers_s"]["solver.preempt"]}
+    log(f"preemption pass: [C, V] = [{v_res.shape[0]}, {v_res.shape[1]}], "
+        f"whole pass {out['preempt']['pass_s']} s wall, mask solve "
+        f"{wall} s wall (to host), {pk['device_ms']} ms device; masks "
+        f"equal on the card and the CPU")
+    return out
+
+
 # ------------------------------------------------------------ phase 4
 
-def _mk_node(mock, i, rng, pin=""):
-    """bench.py's heterogeneous fleet node."""
+def _mk_node(mock, i, rng, pin="", racks=0):
+    """bench.py's heterogeneous fleet node. With `racks`, the service
+    layout: datacenter dc1..dc3 by i % 3 and meta.rack r0.. by i % racks."""
     n = mock.node()
     if pin:
         n.id = f"{pin}{i:06d}"
     n.name = f"bench-{i}"
     n.node_class = f"c{int(rng.integers(0, 4))}"
     n.datacenter = "dc1" if i % 2 == 0 else "dc2"
+    if racks:
+        n.datacenter = f"dc{i % 3 + 1}"
+        n.meta["rack"] = f"r{i % racks}"
     n.node_resources.cpu.cpu_shares = int(
         rng.choice([4_000, 8_000, 16_000, 32_000]))
     n.node_resources.memory.memory_mb = int(
@@ -556,10 +925,12 @@ def _mk_node(mock, i, rng, pin=""):
     return n
 
 
-def _mk_batch_job(mock, job_id, count, cpu=250, mem=512, disk=300):
+def _mk_batch_job(mock, job_id, count, cpu=250, mem=512, disk=300,
+                  priority=50):
     job = mock.batch_job()
     job.id = job.name = job_id
-    job.datacenters = ["dc1", "dc2"]
+    job.priority = priority
+    job.datacenters = ["dc1", "dc2", "dc3"]
     tg = job.task_groups[0]
     tg.count = count
     tg.ephemeral_disk.size_mb = disk
@@ -568,6 +939,38 @@ def _mk_batch_job(mock, job_id, count, cpu=250, mem=512, disk=300):
     task.resources.memory_mb = mem
     task.resources.networks = []
     tg.networks = []
+    return job
+
+
+def _mk_service_job(mock, structs, job_id, count, cpu, mem, shape="",
+                    priority=50):
+    """A service job of the service layout: `shape` "web" adds the spread
+    blocks of the Nomad documentation's examples (datacenters targeted
+    50/30/20 under weight 70, racks even under weight 30), "rack-capped"
+    a distinct_property ${meta.rack} constraint at 2 per rack."""
+    job = mock.job()
+    job.id = job.name = job_id
+    job.priority = priority
+    job.datacenters = ["dc1", "dc2", "dc3"]
+    tg = job.task_groups[0]
+    tg.count = count
+    tg.ephemeral_disk.size_mb = 300
+    tg.networks = []
+    task = tg.tasks[0]
+    task.resources.cpu = cpu
+    task.resources.memory_mb = mem
+    task.resources.networks = []
+    if shape == "web":
+        job.spreads = [
+            structs.Spread(attribute="${node.datacenter}", weight=70,
+                           spread_target=[
+                               structs.SpreadTarget(value=dc, percent=pc)
+                               for dc, pc in WEB_TARGETS.items()]),
+            structs.Spread(attribute="${meta.rack}", weight=30)]
+    elif shape == "rack-capped":
+        tg.constraints = [structs.Constraint(
+            ltarget="${meta.rack}", rtarget=str(RACK_CAP),
+            operand=structs.OP_DISTINCT_PROPERTY)]
     return job
 
 
@@ -611,7 +1014,7 @@ class _Shim:
         return self.state.snapshot()
 
 
-def _cluster(n_nodes, seed, pin="", **config):
+def _cluster(n_nodes, seed, pin="", racks=0, **config):
     import numpy as np
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.server import NomadFSM, Planner
@@ -623,7 +1026,7 @@ def _cluster(n_nodes, seed, pin="", **config):
     s.set_scheduler_config(
         1, SchedulerConfiguration(scheduler_algorithm="tpu-batch", **config))
     for i in range(n_nodes):
-        s.upsert_node(i + 2, _mk_node(mock, i, rng, pin))
+        s.upsert_node(i + 2, _mk_node(mock, i, rng, pin, racks))
     return fsm, Planner(RaftLog(fsm), s)
 
 
@@ -643,28 +1046,27 @@ def _run_eval(fsm, planner, job, eval_id):
     s = fsm.state
     s.upsert_job(s.latest_index() + 1, job)
     ev = Evaluation(id=eval_id, namespace="default", job_id=job.id,
-                    type="batch", priority=50)
+                    type=job.type, priority=job.priority)
     s.upsert_evals(s.latest_index() + 1, [ev])
-    sched = new_scheduler("batch", s.snapshot(), _Shim(planner, s))
+    sched = new_scheduler(job.type, s.snapshot(), _Shim(planner, s))
     sched.process(ev)
     return s.eval_by_id(ev.id)
 
 
-def _drive(torch, fsm, planner, job_id, count) -> dict:
-    """One eval through the port's scheduler and applier, checked (every
-    instance committed, the eval complete, no usage row over capacity)
-    and measured: wall, layer seconds, the pipeline's host seconds, and
-    counter and kernel-launch deltas."""
-    from nomad_tpu_torch import mock
+def _drive(torch, fsm, planner, job, eval_id=None) -> dict:
+    """One eval of `job` through the port's scheduler and applier, checked
+    (every instance committed, the eval complete, no usage row over
+    capacity) and measured: wall, layer seconds, the pipeline's host
+    seconds, and counter and kernel-launch deltas."""
     from nomad_tpu_torch.metrics import metrics
     from nomad_tpu_torch.solver import cuda_kernels
     s = fsm.state
+    job_id, count = job.id, job.task_groups[0].count
     launches0 = dict(cuda_kernels.LAUNCHES)
     counters0 = {k: metrics.counter(v) for k, v in COUNTERS.items()}
     timers0 = {k: metrics.timer_sum(k) for k in LAYERS + PIPE_TIMERS}
     t0 = time.perf_counter()
-    ev = _run_eval(fsm, planner, _mk_batch_job(mock, job_id, count),
-                   f"chip-smoke-{job_id}")
+    ev = _run_eval(fsm, planner, job, eval_id or f"chip-smoke-{job_id}")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     placed = len(s.allocs_by_job("default", job_id))
@@ -688,6 +1090,7 @@ def _drive(torch, fsm, planner, job_id, count) -> dict:
 
 
 def main_path_phase(torch) -> dict:
+    from nomad_tpu_torch import mock
     from nomad_tpu_torch.solver import cuda_kernels, state_cache
     t0 = time.perf_counter()
     fsm, planner = _cluster(N_LIVE, seed=42)
@@ -702,7 +1105,8 @@ def main_path_phase(torch) -> dict:
     cuda_kernels.reset_launches()                 # the main path's window
     with _applier(planner):
         for job_id, count, kname in evals:
-            r = _drive(torch, fsm, planner, job_id, count)
+            r = _drive(torch, fsm, planner,
+                       _mk_batch_job(mock, job_id, count))
             c = r["counters"]
             pipelined = job_id == "big"
             check(c["evals"] == int(pipelined) and
@@ -728,8 +1132,9 @@ def main_path_phase(torch) -> dict:
                 f"{json.dumps(r['layers_s'])}; pipeline "
                 f"{json.dumps(r['pipeline_s'])}; cache {json.dumps(stats)}")
     out["launches"] = dict(cuda_kernels.LAUNCHES)  # read just after
-    for name, n in out["launches"].items():
-        check(n >= 1, f"kernel {name} was not launched on the main path")
+    for name in MAIN_KERNELS:
+        check(out["launches"][name] >= 1,
+              f"kernel {name} was not launched on the main path")
     cache = state_cache.cache()
     stats = cache.stats()
     check(stats["hits"] >= 1, f"no state cache hit in 3 evals: {stats}")
@@ -752,6 +1157,7 @@ def main_path_phase(torch) -> dict:
 def compare_phase(torch) -> dict:
     """The 50k eval serial and pipelined, on fresh clusters in turns."""
     import gc
+    from nomad_tpu_torch import mock
     from nomad_tpu_torch.solver import cuda_kernels
     runs = []
     for i, mode in enumerate(COMPARE_ORDER):
@@ -761,7 +1167,8 @@ def compare_phase(torch) -> dict:
         gc.collect()                    # no earlier run's garbage in this one
         cuda_kernels.reset_launches()             # this run's window
         with _applier(planner):
-            r = _drive(torch, fsm, planner, f"cmp-{i}-{mode}", BIG_COUNT)
+            r = _drive(torch, fsm, planner,
+                       _mk_batch_job(mock, f"cmp-{i}-{mode}", BIG_COUNT))
         launches = dict(cuda_kernels.LAUNCHES)     # read just after
         want = BIG_CHUNKS if pipelined else 1
         check(launches["depth_curve"] == want,
@@ -817,48 +1224,96 @@ def profile_phase(torch) -> dict:
     return out
 
 
+# the small phase's evals: (job id, count, kind); the filler's count
+# (None) is what fills every node
+SMALL_JOBS = (("s-dense", 200, "batch"), ("s-grid", 60, "batch"),
+              ("s-one", 1, "batch"), ("s-pipe", 600, "batch"),
+              ("s-web", 300, "web"), ("s-capped", 90, "rack-capped"),
+              ("s-deep", 2_000, "deep"), ("s-fill", None, "filler"),
+              ("s-preempt", 30, "preemptor"))
+SMALL_PIPED = ("s-pipe", "s-fill")
+SMALL_RACKS = 50
+
+
+def _small_job(mock, structs, job_id, count, kind):
+    if kind == "batch":
+        return _mk_batch_job(mock, job_id, count)
+    if kind == "deep":                  # k_max > 512: the scan
+        return _mk_batch_job(mock, job_id, count, cpu=5, mem=8)
+    if kind == "filler":
+        return _mk_batch_job(mock, job_id, count, *FILL_ASK, priority=20)
+    if kind == "preemptor":
+        return _mk_service_job(mock, structs, job_id, count, *FILL_ASK,
+                               priority=80)
+    return _mk_service_job(mock, structs, job_id, count, 250, 512, kind)
+
+
 def small_phase(torch) -> None:
-    """A 200-node cluster's evals on the card and on the CPU's plain
-    tier, the pipeline engaging from one placement in 3 chunks (only the
-    dense-regime job takes it): the committed alloc -> node maps must be
-    identical."""
-    from nomad_tpu_torch import mock
+    """A 200-node cluster in three datacenters and 50 racks, its evals on
+    the card and on the CPU's plain tier: the batch jobs of the depth and
+    greedy solves, one pipelined from one placement in 3 chunks, the web
+    and rack-capped service jobs and a deep job (the scan), a priority-20
+    filler and a priority-80 job placed by preemption. Each eval runs
+    from the same seeded id stream on both: the committed alloc -> node
+    maps and the preempted alloc ids must be identical."""
+    from nomad_tpu_torch import mock, structs
     from nomad_tpu_torch.metrics import metrics
     from nomad_tpu_torch.solver import backend
     from nomad_tpu_torch.solver.device import use_device
-    jobs = (("s-dense", 200), ("s-grid", 60), ("s-one", 1), ("s-pipe", 600))
-    total = sum(c for _, c in jobs)
-    maps = []
+    from nomad_tpu_torch.testing import fill_count, seeded_urandom
+    runs = []
     try:
         for dev in (DEVICE, "cpu"):
             use_device(dev)
             backend.reset()
-            fsm, planner = _cluster(200, seed=7, pin="small-node-",
-                                    **SMALL_PIPELINE)
-            m = {}
-            for job_id, count in jobs:
+            fsm, planner = _cluster(
+                200, seed=7, pin="small-node-", racks=SMALL_RACKS,
+                preemption_config=structs.PreemptionConfig(
+                    batch_scheduler_enabled=True,
+                    service_scheduler_enabled=True), **SMALL_PIPELINE)
+            s = fsm.state
+            preempted: dict = {}
+            for seed, (job_id, count, kind) in enumerate(SMALL_JOBS):
+                if count is None:
+                    count = fill_count(s.usage.view(), *FILL_ASK)
                 evals0 = metrics.counter("nomad.plan.pipeline.evals")
                 chunks0 = metrics.counter("nomad.plan.pipeline.chunks")
-                _run_eval(fsm, planner, _mk_batch_job(mock, job_id, count),
-                          f"chip-smoke-{job_id}")
+                evicted = {a.id for a in s.iter_allocs()
+                           if a.desired_status == "evict"}
+                with seeded_urandom(seed):
+                    _run_eval(fsm, planner,
+                              _small_job(mock, structs, job_id, count, kind),
+                              f"chip-smoke-{job_id}")
                 piped = (metrics.counter("nomad.plan.pipeline.evals") -
                          evals0,
                          metrics.counter("nomad.plan.pipeline.chunks") -
                          chunks0)
-                want = (1, 3) if job_id == "s-pipe" else (0, 0)
+                want = (1, 3) if job_id in SMALL_PIPED else (0, 0)
                 check(piped == want, f"small {dev} {job_id}: pipelined "
                       f"(evals, chunks) {piped}, expected {want}")
-            m.update({a.name: a.node_id for a in fsm.state.iter_allocs()})
-            maps.append(m)
+                placed = len(s.allocs_by_job("default", job_id))
+                check(placed == count,
+                      f"small {dev} {job_id}: committed {placed}/{count}")
+                preempted[job_id] = sorted(
+                    a.id for a in s.iter_allocs()
+                    if a.desired_status == "evict" and a.id not in evicted)
+            runs.append(({a.name: a.node_id for a in s.iter_allocs()},
+                         preempted))
     finally:
         use_device(DEVICE)
         backend.reset()
-    check(len(maps[0]) == total, f"small: placed {len(maps[0])}/{total}")
-    diff = sum(maps[0][k] != maps[1].get(k) for k in maps[0])
-    check(diff == 0, f"small: {diff} allocs placed differently on the "
-          f"card than on the CPU")
-    log(f"small: {total} allocs (s-pipe pipelined in 3 chunks), card and "
-        f"CPU maps identical")
+    (card_map, card_pre), (cpu_map, cpu_pre) = runs
+    diff = sum(card_map[k] != cpu_map.get(k) for k in card_map)
+    check(len(card_map) == len(cpu_map) and diff == 0,
+          f"small: {diff} allocs placed differently on the card than on "
+          f"the CPU")
+    check(card_pre == cpu_pre and len(card_pre["s-preempt"]) == 30,
+          "small: the preempted allocs differ between the card and the CPU")
+    log(f"small: {len(card_map)} allocs over {len(SMALL_JOBS)} evals (s-pipe "
+        f"and s-fill pipelined in 3 chunks; s-web, s-capped and s-deep on "
+        f"the scan; s-preempt placed by preemption, displacing "
+        f"{len(card_pre['s-preempt'])}), card and CPU maps and preempted "
+        f"ids identical")
 
 
 # ------------------------------------------------------------------ main
@@ -890,7 +1345,10 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     pow10 = pow10_phase(torch, dev)
     res = kernels_phase(np, torch, dev)
+    res["chunked_step"] = chunked_phase(np, torch, dev,
+                                        res["depth_curve"]["floor_ms"])
     main = main_path_phase(torch)
+    service = service_phase(np, torch)
     compare = compare_phase(torch)
     prof = profile_phase(torch)
     small_phase(torch)
@@ -900,24 +1358,32 @@ def main() -> int:
                         "nomad_tpu/solver/pallas_kernels.py:174"),
         "score_capacity": ("nomad_tpu_torch/solver/csrc/score_capacity.cu",
                            "nomad_tpu/solver/pallas_kernels.py:31"),
+        # no Pallas kernel: the step of place_chunked's lax.scan
+        "chunked_step": ("nomad_tpu_torch/solver/csrc/chunked_step.cu",
+                         "nomad_tpu/solver/kernels.py:414"),
     }
+    # each kernel's launches on the path that runs it
+    launches = dict(main["launches"])
+    launches["chunked_step"] = service["launches"]["chunked_step"]
     rows = []
     for name, (src, rep) in meta.items():
         r = res[name]
         row = {"name": name, "route": "cuda", "source": src,
-               "replaces": rep, "launches": main["launches"][name],
+               "replaces": rep, "launches": launches[name],
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": None,
-               "floor_ms": r["floor_ms"], "call_ms": r["call_ms"],
-               "near_tie_rows": r["near_tie_rows"],
-               "moved_nodes": r["moved_nodes"]}
-        for k in ("grid_ms", "spread_ms", "k512_ms", "depths_evaluated",
-                  "score_ms"):
+               "floor_ms": r["floor_ms"], "call_ms": r["call_ms"]}
+        for k in ("near_tie_rows", "moved_nodes", "grid_ms", "spread_ms",
+                  "k512_ms", "depths_evaluated", "score_ms",
+                  "launches_per_solve", "solve_ms", "solve_device_ms",
+                  "plain_solve_ms"):
             if k in r:
                 row[k] = r[k]
         rows.append(row)
     log(json.dumps({"e2e": main["evals"], "cache": main["cache"],
+                    "service": {k: v for k, v in service.items()
+                                if k != "launches"},
                     "compare_50k": compare, "profiled_50k": prof,
                     "greedy_fill": res["greedy_fill"], "pow10": pow10,
                     "card": card,

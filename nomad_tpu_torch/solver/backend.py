@@ -17,6 +17,10 @@ returns the placement vector there:
   depth  : fn(cap, used, ask, count, feasible, job_collisions, desired,
               aff, max_per_node, order_jitter, jitter_scale,
               jitter_samples) -> placed
+  chunked: fn(cap, used, ask, count, feasible, job_collisions, desired,
+              sp_ids, sp_counts, sp_desired, sp_mode, sp_weights, aff,
+              dp_ids, dp_remaining, placed_init, max_per_node)
+              -> (placed, used, sp_counts, dp_remaining)
 
 Array arguments that already lie on the solve device pass through
 untouched (the state cache's twins, a pipelined chunk's fed-forward
@@ -54,6 +58,11 @@ _ARG_DTYPES = {
     "depth": {0: torch.float32, 1: torch.float32, 2: torch.float32,
               4: torch.bool, 5: torch.int32, 7: torch.float32,
               9: torch.float32},
+    "chunked": {0: torch.float32, 1: torch.float32, 2: torch.float32,
+                4: torch.bool, 5: torch.int32, 7: torch.int32,
+                8: torch.int32, 9: torch.float32, 10: torch.int32,
+                11: torch.float32, 12: torch.float32, 13: torch.int32,
+                14: torch.int32, 15: torch.int32},
 }
 
 
@@ -160,15 +169,32 @@ def _depth(fn, dev, k_max, spread_algorithm, depth_grid, cap, used, ask,
               depth_grid=depth_grid)
 
 
+def _chunked(fn, dev, max_steps, spread_algorithm, cap, used, ask, count,
+             feasible, coll, desired, sp_ids, sp_counts, sp_desired,
+             sp_mode, sp_weights, aff, dp_ids, dp_remaining, placed_init,
+             max_per_node):
+    _note_dispatch(dev)
+    args = on_device("chunked", (
+        cap, used, ask, count, feasible, coll, desired, sp_ids, sp_counts,
+        sp_desired, sp_mode, sp_weights, aff, dp_ids, dp_remaining,
+        placed_init))
+    return fn(*args[:3], int(count), args[4], args[5], int(desired),
+              *args[7:15], max_per_node=int(max_per_node),
+              max_steps=max_steps, spread_algorithm=spread_algorithm,
+              placed_init=args[15])
+
+
 def select(kernel: str, n_padded: int, *, k_max: int = 128,
-           spread_algorithm: bool = False, depth_grid=None):
-    """-> (tier, fn) for `kernel` in {greedy, depth}. The tier follows the
-    solve device (device.solve_device(), which raises when it is a card
-    and none is present). `n_padded` (the bucketed node axis) keeps the
-    reference's signature; no routing reads it yet."""
+           spread_algorithm: bool = False, depth_grid=None,
+           max_steps: int = 256):
+    """-> (tier, fn) for `kernel` in {greedy, depth, chunked}. The tier
+    follows the solve device (device.solve_device(), which raises when it
+    is a card and none is present). `n_padded` (the bucketed node axis)
+    keeps the reference's signature; no routing reads it yet."""
     dev = _device.solve_device()
     tier = "cuda" if dev.type == "cuda" else "torch"
-    key = (kernel, tier, str(dev), k_max, spread_algorithm, depth_grid)
+    key = (kernel, tier, str(dev), k_max, spread_algorithm, depth_grid,
+           max_steps)
     cached = _cache.get(key)
     if cached is not None:
         return cached
@@ -182,8 +208,14 @@ def select(kernel: str, n_padded: int, *, k_max: int = 128,
                 else kernels.fill_depth)
         fn = functools.partial(_depth, impl, dev, k_max, spread_algorithm,
                                depth_grid)
+    elif kernel == "chunked":
+        impl = (cuda_kernels.place_chunked if tier == "cuda"
+                else kernels.place_chunked)
+        fn = functools.partial(_chunked, impl, dev, max_steps,
+                               spread_algorithm)
     else:
-        raise ValueError(f"unknown kernel {kernel!r} (greedy, depth)")
+        raise ValueError(f"unknown kernel {kernel!r} (greedy, depth, "
+                         f"chunked)")
     out = _cache[key] = (tier, fn)
     return out
 

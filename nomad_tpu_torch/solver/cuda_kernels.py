@@ -6,12 +6,15 @@ of nomad_tpu/solver/pallas_kernels.py.
   score_capacity  csrc/score_capacity.cu, replaces
                   `_score_capacity_kernel` (the greedy inner pass; its
                   greedy entry also folds in the greedy tail's key step)
+  chunked_step    csrc/chunked_step.cu, the chunked scan's per-step score
+                  pass (no Pallas counterpart: the reference runs the
+                  scan as one XLA program); `place_chunked` drives it
   launch_floor    csrc/launch_floor.cu, an empty kernel: the card's
                   launch floor, for measurement only
   pow10_check     csrc/pow10_check.cu, the exhaustive check of
                   csrc/pow10.cuh, for chip_smoke.py
 
-Both placement kernels take 10**x from csrc/pow10.cuh: exactly the plain
+The placement kernels take 10**x from csrc/pow10.cuh: exactly the plain
 version's float64 pow rounded to float32, by a cheap estimate that falls
 back to the float64 pow where it cannot decide the rounding.
 
@@ -23,9 +26,10 @@ all sources compile in parallel at first use. No fast math (the kernels
 take floor of quotients and pow) and no FMA contraction, so the kernels
 round like their plain versions.
 
-Wrappers: `fill_depth_fused` and `fill_greedy_binpack_fused` keep the
-reference signatures. A wrapper given CPU tensors runs the plain version
-(kernels.py); given CUDA tensors it checks device, dtype, shape and
+Wrappers: `fill_depth_fused`, `fill_greedy_binpack_fused` and
+`place_chunked` keep the reference signatures. A wrapper given CPU tensors runs the plain version
+(kernels.py), as every wrapper here does, though the placer itself routes
+CPU solves to the torch tier (backend.select); given CUDA tensors it checks device, dtype, shape and
 contiguity, allocates one output buffer, launches on the current stream
 and raises if the launch reports an error. `LAUNCHES` counts the launches
 of each placement kernel; nothing else adds to it.
@@ -55,9 +59,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC")
 SOURCES = {"depth_curve": "depth_curve.cu",
            "score_capacity": "score_capacity.cu",
+           "chunked_step": "chunked_step.cu",
            "launch_floor": "launch_floor.cu",
            "pow10_check": "pow10_check.cu"}
-KERNELS = ("depth_curve", "score_capacity")     # the placement kernels
+# the placement kernels
+KERNELS = ("depth_curve", "score_capacity", "chunked_step")
 MAX_GRID = 32           # csrc/depth_curve.cu DepthGrid capacity
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -72,6 +78,9 @@ _ARGTYPES = {
     "depth_curve_launch": [_P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _P, _I,
                            _I, _P, _P],
     "score_capacity_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "chunked_step_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P,
+                            _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P,
+                            _P],
     "launch_floor_launch": [_P],
     "pow10_check_launch": [ctypes.c_uint, ctypes.c_uint, _P, _P],
 }
@@ -310,6 +319,86 @@ def fill_greedy_binpack_fused(cap, used, ask, count, feasible,
     capacity, key = _launch_score_capacity(cap, used, ask, feasible, False,
                                            True, max_per_node)
     return _greedy_fill(capacity, key, count)
+
+
+MAX_STANZAS = 16        # csrc/chunked_step.cu shared-memory capacity
+
+
+def chunked_step(cap, used, ask, feasible, job_collisions, placed,
+                 max_per_node, desired_count, spread_ids, spread_counts,
+                 spread_desired, spread_mode, spread_weights, affinity_boost,
+                 distinct_ids, distinct_remaining, d_active,
+                 spread_algorithm: bool = False) -> torch.Tensor:
+    """One scan step's score f32[N] (-inf where the node cannot take an
+    instance now) — one launch of the chunked-step kernel on CUDA
+    tensors, kernels.chunked_step_ref on CPU tensors."""
+    if cap.device.type == "cpu":
+        return kernels.chunked_step_ref(
+            cap, used, ask, feasible, job_collisions, placed, max_per_node,
+            desired_count, spread_ids, spread_counts, spread_desired,
+            spread_mode, spread_weights, affinity_boost, distinct_ids,
+            distinct_remaining, d_active, spread_algorithm=spread_algorithm)
+    n = _check_rows(cap, used, ask, feasible,
+                    (job_collisions, "job_collisions", torch.int32),
+                    (placed, "placed", torch.int32),
+                    (affinity_boost, "affinity_boost", torch.float32))
+    dev = cap.device
+    n_s, n_p = spread_counts.shape
+    n_d, n_dp = distinct_remaining.shape
+    if not 0 < n_s <= MAX_STANZAS or not n_d > 0:
+        raise ValueError(f"{n_s} spread and {n_d} distinct stanzas: the "
+                         f"kernel takes 1..{MAX_STANZAS} and at least 1")
+    for t, what, dtype, shape in (
+            (spread_ids, "spread_ids", torch.int32, (n_s, n)),
+            (spread_counts, "spread_counts", torch.int32, (n_s, n_p)),
+            (spread_desired, "spread_desired", torch.float32, (n_s, n_p)),
+            (spread_mode, "spread_mode", torch.int32, (n_s,)),
+            (spread_weights, "spread_weights", torch.float32, (n_s,)),
+            (distinct_ids, "distinct_ids", torch.int32, (n_d, n)),
+            (distinct_remaining, "distinct_remaining", torch.int32,
+             (n_d, n_dp)),
+            (d_active, "d_active", torch.bool, (n_d,))):
+        if not _fits(t, dtype, shape, dev):
+            _check(t, what, dtype, shape, dev)
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    err = _fn("chunked_step")(
+        cap.data_ptr(), used.data_ptr(), ask.data_ptr(), feasible.data_ptr(),
+        job_collisions.data_ptr(), placed.data_ptr(), n,
+        min(int(max_per_node), kernels.MAX_PER_NODE_CAP),
+        float(max(int(desired_count), 1)), int(bool(spread_algorithm)),
+        spread_ids.data_ptr(), spread_counts.data_ptr(),
+        spread_desired.data_ptr(), spread_mode.data_ptr(),
+        spread_weights.data_ptr(), n_s, n_p, affinity_boost.data_ptr(),
+        distinct_ids.data_ptr(), distinct_remaining.data_ptr(),
+        d_active.data_ptr(), n_d, n_dp, out.data_ptr(), _stream(dev))
+    _launched("chunked_step", err)
+    return out
+
+
+def place_chunked(cap, used, ask, count, feasible, job_collisions,
+                  desired_count, spread_ids, spread_counts, spread_desired,
+                  spread_mode, spread_weights, affinity_boost, distinct_ids,
+                  distinct_remaining, max_per_node=kernels.MAX_PER_NODE_CAP,
+                  max_steps: int = 256, spread_algorithm: bool = False,
+                  placed_init=None) -> tuple:
+    """kernels.place_chunked with the chunked-step kernel scoring every
+    step: same signature and returns, the selection and state update
+    shared (kernels._place_chunked_loop). CPU tensors run the plain
+    version."""
+    if cap.device.type == "cpu":
+        return kernels.place_chunked(
+            cap, used, ask, count, feasible, job_collisions, desired_count,
+            spread_ids, spread_counts, spread_desired, spread_mode,
+            spread_weights, affinity_boost, distinct_ids,
+            distinct_remaining, max_per_node=max_per_node,
+            max_steps=max_steps, spread_algorithm=spread_algorithm,
+            placed_init=placed_init)
+    return kernels._place_chunked_loop(
+        chunked_step, cap, used, ask, count, feasible, job_collisions,
+        desired_count, spread_ids, spread_counts, spread_desired,
+        spread_mode, spread_weights, affinity_boost, distinct_ids,
+        distinct_remaining, max_per_node, max_steps, spread_algorithm,
+        placed_init)
 
 
 def launch_floor(dev) -> None:

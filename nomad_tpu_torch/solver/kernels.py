@@ -3,20 +3,28 @@ BinPackIterator hot loop (ref scheduler/rank.go:193-527) and
 ScoreFitBinPack/Spread (ref nomad/structs/funcs.go:236,263) as dense
 batched tensor programs over the node axis.
 
-Counterpart of nomad_tpu/solver/kernels.py (main-path subset). Two
-placement paths:
+Counterpart of nomad_tpu/solver/kernels.py (all but the fused and
+explain entries). Three placement paths and the preemption pass:
   * fill-greedy (binpack): exact equivalence to sequential greedy
     placement via one sort + cumsum — the binpack score increases with
     utilization, so greedy fills the currently-best node to capacity
     before moving on.
   * depth: the density-greedy solve over the per-node [N, K] score curve
     (fill_depth below).
+  * the chunked scan (place_chunked): the full interacting score model
+    (spreads, distinct_property quotas, affinity, anti-affinity) with
+    the running state carried step by step.
+  * preempt_top_k: victim selection over every candidate node at once.
+    It stays plain torch on the card too — one pass of a few dozen
+    tensor operations per preemption eval, with no Pallas counterpart
+    and no loop over the candidates.
 
 Each hand kernel in cuda_kernels.py computes what one producer here
-computes: `depth_curve_ref` for the depth-curve kernel and
-`score_capacity_ref` for the score/capacity kernel. The tails
-(`_depth_order_take`, `_greedy_take`) run as torch ops on whichever
-device the inputs lie on.
+computes: `depth_curve_ref` for the depth-curve kernel,
+`score_capacity_ref` for the score/capacity kernel and
+`chunked_step_ref` for the chunked-step kernel. The tails
+(`_depth_order_take`, `_greedy_take`, `_chunked_take` and the scan's
+state update) run as torch ops on whichever device the inputs lie on.
 
 Numerics follow the reference on purpose:
   * every sort is stable (`jnp.argsort` is; `torch.argsort` is only when
@@ -24,7 +32,11 @@ Numerics follow the reference on purpose:
   * 10**x is evaluated in float64 and rounded to float32, which agrees
     with XLA's float32 power far more often than torch's float32 pow;
   * prefix sums over the depth axis run left to right in float32, the
-    order the hand kernel uses too;
+    order the hand kernel uses too; over the victim axis in XLA's blocks
+    of 16 (_xla_prefix_sum);
+  * where XLA's CPU backend fuses a multiply and an add into one FMA in
+    the reference's compiled program, the plain version rounds once too
+    (_fma_f32);
   * integer prefix sums stay int32, as in the reference.
 """
 from __future__ import annotations
@@ -335,3 +347,320 @@ def plan_fit_verdict(cap: torch.Tensor, used: torch.Tensor,
     pass runs (plan_apply._vector_pass)."""
     post = used + placed[:, None].to(torch.float32) * ask[None, :]
     return torch.all(post <= cap + FIT_EPS, dim=1)
+
+
+# ------------------------------------------------------ the chunked scan
+
+# 1/18 rounded to float32: XLA folds the reference's `score / 18` into a
+# multiply by this constant
+_INV_MAX_SCORE = float(np.float32(1.0) / np.float32(BINPACK_MAX_SCORE))
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+             ) -> torch.Tensor:
+    """float32 a*b + c rounded ONCE, as a fused multiply-add computes it.
+    XLA's CPU backend contracts some of the reference's multiply-adds into
+    FMAs; the plain versions reproduce them exactly on any device. The
+    product of two float32s is exact in float64; the float64 sum is made
+    round-to-odd (TwoSum gives its exact error), so rounding it to float32
+    rounds the exact a*b + c once."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c64 = c.to(torch.float64)
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, math.inf, -math.inf).to(torch.float64)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def _even_spread_boost_vec(node_pc: torch.Tensor, pcounts: torch.Tensor,
+                           valid_p: torch.Tensor) -> torch.Tensor:
+    """Vectorized evenSpreadScoreBoost (ref spread.go:178) over the node
+    axis, for one stanza. node_pc: i32[N] running count of each node's
+    value; pcounts: i32[P] running counts; valid_p: bool[P] live
+    columns. Integer quotients are taken in float32, as jnp's true
+    division of int32 does."""
+    min_c = torch.where(valid_p, pcounts, 2 ** 30).min()
+    min_c = torch.where(valid_p.any(), min_c, 0)
+    max_c = torch.where(valid_p, pcounts, 0).max()
+    any_placed = max_c > 0
+    at_min = node_pc == min_c
+    div = torch.clamp(min_c, min=1).to(torch.float32)
+    boost_nonmin = torch.where(min_c == 0, -1.0,
+                               (min_c - node_pc).to(torch.float32) / div)
+    boost_min = torch.where(min_c == max_c, -1.0,
+                            torch.where(min_c == 0, 1.0,
+                                        (max_c - min_c).to(torch.float32)
+                                        / div))
+    boost = torch.where(at_min, boost_min, boost_nonmin)
+    return torch.where(any_placed, boost, 0.0)
+
+
+def chunked_step_ref(cap, used, ask, feasible, job_collisions, placed,
+                     max_per_node, desired_count, spread_ids, spread_counts,
+                     spread_desired, spread_mode, spread_weights,
+                     affinity_boost, distinct_ids, distinct_remaining,
+                     d_active, spread_algorithm: bool = False
+                     ) -> torch.Tensor:
+    """Plain version of the chunked-step kernel: the score of one scan
+    step of place_chunked over the node axis, f32[N], -inf where the node
+    cannot take an instance now (capacity, max_per_node, a
+    distinct_property quota spent or its value missing).
+
+    Score components (mean of present, ref rank.go:737), in this order:
+      base      ScoreFitBinPack/Spread with the candidate placed, times
+                float32(1/18)
+      anti      -(collisions+1)/desired when collisions > 0 (rank.go:536)
+      affinity  the static per-node boost, where nonzero (rank.go:650)
+      spread    the sum over active stanzas of the even-spread boost
+                (spread.go:178) or the targeted one ((desired-(count+1))
+                /desired * weight); -1 per stanza for a missing value
+    The reference's compiled program adds `base` and `anti` in one fused
+    multiply-add; so do this and the kernel.
+
+    `d_active` bool[D] marks the distinct_property stanzas that were live
+    when the scan started (the initial distinct_remaining[:, 0] >= 0)."""
+    dev = cap.device
+    n = cap.shape[0]
+    capacity = instance_capacity(cap, used, ask, feasible)
+    can_place = (capacity > 0) & (placed < int(max_per_node))
+    n_d, n_dvals = distinct_remaining.shape
+    did_safe = distinct_ids.clamp(0, n_dvals - 1).long()
+    for d in range(n_d):
+        ok_d = (distinct_ids[d] >= 0) & \
+            (distinct_remaining[d][did_safe[d]] > 0)
+        can_place &= torch.where(d_active[d], ok_d, True)
+
+    raw = score_fit(cap, used + ask[None, :], spread=spread_algorithm)
+    collisions = job_collisions + placed
+    anti_present = collisions > 0
+    desired = torch.full((), float(max(int(desired_count), 1)),
+                         dtype=torch.float32, device=dev)
+    anti = -(collisions.to(torch.float32) + 1.0) / desired
+    inv = torch.full((), _INV_MAX_SCORE, dtype=torch.float32, device=dev)
+    base_anti = _fma_f32(raw, inv, torch.where(anti_present, anti, 0.0))
+
+    n_s, n_props = spread_counts.shape
+    sid_safe = spread_ids.clamp(0, n_props - 1).long()
+    s_active = spread_mode >= 0
+    spread_total = torch.zeros((n,), dtype=torch.float32, device=dev)
+    for s in range(n_s):
+        ids_s = spread_ids[s]
+        pc_s = spread_counts[s]
+        node_pc = torch.where(ids_s >= 0, pc_s[sid_safe[s]], 0)
+        even = _even_spread_boost_vec(node_pc, pc_s, pc_s >= 0)
+        d_s = torch.where(ids_s >= 0, spread_desired[s][sid_safe[s]], -1.0)
+        targeted = torch.where(
+            d_s > 0,
+            ((d_s - (node_pc.to(torch.float32) + 1.0)) / d_s)
+            * spread_weights[s], -1.0)
+        per_node = torch.where(spread_mode[s] == 1, targeted, even)
+        per_node = torch.where(ids_s >= 0, per_node, -1.0)
+        spread_total = spread_total + torch.where(s_active[s], per_node,
+                                                  0.0)
+    spread_present = s_active.any() & (spread_total != 0.0)
+    affinity_present = affinity_boost != 0.0
+
+    # the reference's _mean_scores over [base, anti, affinity, spread],
+    # with base and anti in one fused multiply-add
+    total = base_anti + torch.where(affinity_present, affinity_boost, 0.0)
+    total = total + torch.where(spread_present, spread_total, 0.0)
+    n_present = (1.0 + anti_present.to(torch.float32)
+                 + affinity_present.to(torch.float32)
+                 + spread_present.to(torch.float32))
+    return torch.where(can_place, total / torch.clamp(n_present, min=1.0),
+                       -math.inf)
+
+
+def _chunked_take(score: torch.Tensor, k: int, take_now: torch.Tensor
+                  ) -> torch.Tensor:
+    """One step's selection: the first `take_now` nodes by (score
+    descending, node index ascending) among the top k with a finite
+    score, one instance each -> add i32[N]. lax.top_k breaks ties by the
+    lower index; a stable descending sort does the same."""
+    top_s, top_i = torch.sort(score, descending=True, stable=True)
+    top_s, top_i = top_s[:k], top_i[:k]
+    rank = torch.arange(k, device=score.device)
+    select = (rank < take_now) & torch.isfinite(top_s)
+    add = torch.zeros(score.shape, dtype=torch.int32, device=score.device)
+    add[top_i] = select.to(torch.int32)
+    return add
+
+
+def _place_chunked_loop(step, cap, used, ask, count, feasible,
+                        job_collisions, desired_count, spread_ids,
+                        spread_counts, spread_desired, spread_mode,
+                        spread_weights, affinity_boost, distinct_ids,
+                        distinct_remaining, max_per_node, max_steps,
+                        spread_algorithm, placed_init) -> tuple:
+    """place_chunked's scan with `step` as the score producer (the plain
+    step here, the chunked-step kernel in cuda_kernels): a Python loop
+    over max_steps steps, the running state on the inputs' device. A step
+    with nothing left to place changes no state, so the loop reads
+    `remaining` once, after the ceil(count/chunk) steps that can place
+    all of it, and stops there if it is 0 — the only host sync."""
+    dev = cap.device
+    n = cap.shape[0]
+    count = int(count)
+    k = min(n, 256)
+    chunk = min(max((count + max_steps - 1) // max_steps, 1), k)
+    mpn = min(int(max_per_node), MAX_PER_NODE_CAP)
+    desired = int(desired_count)
+    n_s, n_props = spread_counts.shape
+    n_d, n_dvals = distinct_remaining.shape
+    d_active = distinct_remaining[:, 0] >= 0
+    flat_sid = (spread_ids.clamp(0, n_props - 1).long()
+                + torch.arange(n_s, device=dev)[:, None] * n_props).view(-1)
+    flat_did = (distinct_ids.clamp(0, n_dvals - 1).long()
+                + torch.arange(n_d, device=dev)[:, None] * n_dvals).view(-1)
+    s_valid, d_valid = spread_ids >= 0, distinct_ids >= 0
+    placed = torch.zeros((n,), dtype=torch.int32, device=dev) \
+        if placed_init is None else placed_init
+    pcounts, drem = spread_counts, distinct_remaining
+    remaining = torch.full((), count, dtype=torch.int32, device=dev)
+    check_at = -(-count // chunk)
+    for t in range(max_steps):
+        if t == check_at and int(remaining) == 0:
+            break
+        score = step(cap, used, ask, feasible, job_collisions, placed, mpn,
+                     desired, spread_ids, pcounts, spread_desired,
+                     spread_mode, spread_weights, affinity_boost,
+                     distinct_ids, drem, d_active, spread_algorithm)
+        add = _chunked_take(score, k, torch.clamp(remaining, max=chunk))
+        used = used + add[:, None].to(torch.float32) * ask[None, :]
+        placed = placed + add
+        remaining = remaining - add.sum(dtype=torch.int32)
+        pcounts = pcounts.reshape(-1).index_add(
+            0, flat_sid, torch.where(s_valid, add[None, :], 0).view(-1)
+        ).view(n_s, n_props)
+        drem = drem.reshape(-1).index_add(
+            0, flat_did, torch.where(d_valid, -add[None, :], 0).view(-1)
+        ).view(n_d, n_dvals)
+    return placed, used, pcounts, drem
+
+
+def place_chunked(cap, used, ask, count, feasible, job_collisions,
+                  desired_count, spread_ids, spread_counts, spread_desired,
+                  spread_mode, spread_weights, affinity_boost, distinct_ids,
+                  distinct_remaining, max_per_node=MAX_PER_NODE_CAP,
+                  max_steps: int = 256, spread_algorithm: bool = False,
+                  placed_init: Optional[torch.Tensor] = None) -> tuple:
+    """Chunked greedy placement with the full interacting GenericStack
+    score model (ref kernels.place_chunked): each of max_steps steps
+    scores every node with the running state (chunked_step_ref) and
+    places ceil(count/max_steps) instances, one per node, on the best
+    nodes; chunk 1 is exact sequential greedy.
+
+    Inputs (as the reference): cap/used f32[N, R']; ask f32[R']; count;
+    feasible bool[N]; job_collisions i32[N]; desired_count; spread_ids
+    i32[S, N] (-1 missing); spread_counts i32[S, P] (-1 dead column);
+    spread_desired f32[S, P] (-1 no target); spread_mode i32[S] (0 even,
+    1 targeted, -1 pad); spread_weights f32[S]; affinity_boost f32[N];
+    distinct_ids i32[D, N] (-1 missing); distinct_remaining i32[D, P]
+    (remaining[d, 0] < 0 marks a pad stanza).
+
+    One solve covers at most max_steps * min(N, 256) instances; the
+    placer splits larger asks across solves, feeding the returned state
+    back (`placed_init` carries earlier placements). Returns (placed_total
+    i32[N] including placed_init, final_used f32[N, R'], spread_counts
+    i32[S, P], distinct_remaining i32[D, P]); the inputs are not
+    modified."""
+    return _place_chunked_loop(
+        chunked_step_ref, cap, used, ask, count, feasible, job_collisions,
+        desired_count, spread_ids, spread_counts, spread_desired,
+        spread_mode, spread_weights, affinity_boost, distinct_ids,
+        distinct_remaining, max_per_node, max_steps, spread_algorithm,
+        placed_init)
+
+
+# ------------------------------------------------------------ preemption
+
+def _xla_prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive float32 prefix sum along axis 1 of [C, V, R'] in the
+    order XLA's CPU backend sums the reference's jnp.cumsum: left to
+    right within blocks of 16, then each block offset by the prefix sum
+    (the same way, recursively) of the block totals before it. For V <= 16
+    that is plain left to right."""
+    c, v = x.shape[0], x.shape[1]
+    blk = 16
+    if v <= blk:
+        out = torch.empty_like(x)
+        acc = x[:, 0]
+        out[:, 0] = acc
+        for j in range(1, v):
+            acc = acc + x[:, j]
+            out[:, j] = acc
+        return out
+    nb = -(-v // blk)
+    pad = torch.zeros((c, nb * blk - v) + tuple(x.shape[2:]),
+                      dtype=x.dtype, device=x.device)
+    xb = torch.cat([x, pad], dim=1).view((c * nb, blk) + tuple(x.shape[2:]))
+    inner = _xla_prefix_sum(xb).view((c, nb, blk) + tuple(x.shape[2:]))
+    totals = _xla_prefix_sum(inner[:, :, -1])               # [C, nb, R']
+    offset = torch.cat([torch.zeros_like(totals[:, :1]), totals[:, :-1]],
+                       dim=1)
+    out = inner + offset[:, :, None]
+    return out.view((c, nb * blk) + tuple(x.shape[2:]))[:, :v]
+
+
+def preemption_distance(victim_res: torch.Tensor, ask: torch.Tensor
+                        ) -> torch.Tensor:
+    """Batched basicResourceDistance (ref preemption.go:608): normalized
+    euclidean distance of each victim's resources to the ask.
+    victim_res f32[C, V, R'], ask f32[R'] -> f32[C, V]. The sum of
+    squares runs over R' in order as a chain of fused multiply-adds, as
+    the reference's compiled program computes it."""
+    ask_pos = ask > 0
+    delta = torch.where(ask_pos, (victim_res - ask) /
+                        torch.where(ask_pos, ask, 1.0), 0.0)
+    acc = torch.zeros(victim_res.shape[:-1], dtype=torch.float32,
+                      device=victim_res.device)
+    for r in range(victim_res.shape[-1]):
+        acc = _fma_f32(delta[..., r], delta[..., r], acc)
+    dims = torch.clamp(ask_pos.sum(), min=1).to(torch.float32)
+    return torch.sqrt(acc / dims)
+
+
+def preempt_top_k(victim_res: torch.Tensor, victim_priority: torch.Tensor,
+                  ask: torch.Tensor, free: torch.Tensor, job_priority
+                  ) -> torch.Tensor:
+    """Masked victim selection over C candidate nodes at once (ref
+    kernels.preempt_top_k under jax.vmap, the candidate axis written out
+    as the leading dimension): per node, order the eligible victims
+    (priority below the job's) by priority, then distance to the ask, and
+    take the shortest prefix whose reclaimed resources close the deficit
+    ask - free. victim_res f32[C, V, R'], victim_priority i32[C, V], ask
+    f32[R'], free f32[C, R'] -> bool[C, V] victim mask.
+
+    The key keeps the reference's float32 `priority * 1e6 + distance`
+    (one fused multiply-add there; the product is exact): from priority
+    17 on it no longer tells small distances apart, as in the reference.
+    The sort is stable, the prefix sums run in XLA's order, and a row
+    with no deficit or no eligible cover takes nothing.
+
+    Plain torch on whichever device the inputs lie on: one pass of a few
+    dozen tensor operations per preemption eval, with no Pallas
+    counterpart and no loop over candidates."""
+    dev = victim_res.device
+    c, v = victim_priority.shape
+    eligible = victim_priority < int(job_priority)
+    dist = preemption_distance(victim_res, ask)
+    key = _fma_f32(victim_priority.to(torch.float32),
+                   torch.full((), 1e6, dtype=torch.float32, device=dev),
+                   dist)
+    key = torch.where(eligible, key, math.inf)
+    order = torch.argsort(key, dim=1, stable=True)
+    res_sorted = torch.gather(
+        victim_res, 1, order[:, :, None].expand(-1, -1, victim_res.shape[2]))
+    cum = _xla_prefix_sum(res_sorted)
+    deficit = torch.clamp(ask[None, :] - free, min=0.0)           # [C, R']
+    enough = (cum >= deficit[:, None, :]).all(dim=2)              # [C, V]
+    first = torch.argmax(enough.to(torch.int32), dim=1)
+    needed = torch.where(enough.any(dim=1) & (deficit > 0).any(dim=1),
+                         first + 1, 0)
+    take_sorted = (torch.arange(v, device=dev)[None, :] < needed[:, None]) \
+        & torch.isfinite(torch.gather(key, 1, order))
+    return torch.zeros((c, v), dtype=torch.bool, device=dev).scatter(
+        1, order, take_sorted)

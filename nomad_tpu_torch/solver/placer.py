@@ -1,7 +1,8 @@
 """SolverPlacer: the bridge between GenericScheduler and the batched
 solver on the card — the SchedulerAlgorithm="tpu-batch" implementation
 (north star, BASELINE.json). Counterpart of nomad_tpu/solver/placer.py:
-the serial route and the pipelined plan lifecycle.
+the serial route (depth, greedy and the chunked scan), the pipelined
+plan lifecycle and batched preemption.
 
 Division of labor:
   * device: feasibility-masked capacity + scoring + placement counts over
@@ -12,7 +13,13 @@ Division of labor:
 
 Serial route: each task group's solve runs once, on the state cache's
 twins where they served the eval, and reaches the host at one sync; its
-placements go into the eval's single plan.
+placements go into the eval's single plan. Groups with spread stanzas or
+distinct_property constraints, or too deep for the [N, K] depth curve,
+take the chunked scan (kernels.place_chunked, the chunked-step kernel on
+a card). Instances left over once capacity runs out go through the
+batched preemption pass (kernels.preempt_top_k over every candidate node
+at once, each winner verified exactly on the host) before the host
+stack.
 
 Pipelined plan lifecycle (ref nomad/plan_apply.go:71-177, where the
 applier overlaps plan evaluation with the previous raft commit): large
@@ -29,8 +36,8 @@ NOMAD_PLAN_PIPELINE=0) forces the serial path.
 
 Not ported: the pipeline's degrade path (a device error in a chunk raises
 out of the eval, naming the chunk; it never falls to the plain version),
-explain, the fused and convex routes, the chunked scan, preemption and
-eval micro-batching.
+explain, the fused and convex routes, eval micro-batching and the
+preemption scan sharded over a device mesh.
 """
 from __future__ import annotations
 
@@ -49,8 +56,10 @@ from ..structs import (
 from ..scheduler.stack import SelectOptions
 from . import backend, device as _device, roundtrip
 from ..obs import trace
-from .buckets import node_bucket
-from .tensorize import build_group_tensors, _lower_affinities
+from .buckets import node_bucket, pow2
+from .tensorize import (
+    build_group_tensors, _lower_affinities, _lower_distinct, _lower_spreads,
+)
 
 
 class PipelineChunkError(RuntimeError):
@@ -107,8 +116,8 @@ class _SolvePrep:
     parameters (computed from the TOTAL count, so a chunked solve uses
     the same regime as the one-shot solve)."""
     __slots__ = ("gt", "n", "count", "use_scan", "use_depth", "k_max",
-                 "aff", "max_per_node", "spread_alg", "depth_grid",
-                 "jitter", "bias_g", "m")
+                 "sp", "dp", "aff", "max_per_node", "spread_alg",
+                 "depth_grid", "jitter", "bias_g", "m", "distincts")
 
 
 class SolverPlacer:
@@ -186,13 +195,6 @@ class SolverPlacer:
                                    count=len(missings)):
                     placed_map = self._solve_group(tg, nodes, len(missings),
                                                    prep=prep)
-                if placed_map is None:
-                    # scan-shaped group (spreads, distinct_property, or
-                    # deeper than the [N, K] curve): the chunked scan is
-                    # not ported, so the host GenericStack places it in
-                    # _fallback
-                    leftovers.extend(missings)
-                    continue
                 node_iter = [(node, k) for node, k in placed_map if k > 0]
                 # TGs with no sequential resources (ports/devices/cores)
                 # need no per-alloc exact pass: stamp out the allocations
@@ -218,16 +220,20 @@ class SolverPlacer:
                                 else:
                                     break  # node rejected exact assignment
             rest = missings[mi:]
+            if rest:
+                # capacity exhausted: batched preemption pass (masked
+                # victim selection over every candidate node at once on
+                # the device, exact host verify)
+                with metrics.measure("nomad.solver.preempt"), \
+                        trace.span("solver.preempt", tg=tg_name):
+                    rest = self._preempt_batch(tg, rest, deployment_id)
             metrics.incr("nomad.solver.placements_batched",
                          len(missings) - len(rest))
-            # capacity exhausted: the batched preemption pass is not
-            # ported, so the host stack (with its scalar Preemptor) gets
-            # what is left
             leftovers.extend(rest)
 
         # host fallback for anything the batched pass couldn't place
         # (port-exhausted nodes, sticky disks, canaries with preferred
-        # nodes, scan-shaped groups, preemption); rate logged per eval
+        # nodes, non-simple preemption); rate logged per eval
         total = len(list(destructive)) + len(list(place))
         sched.solver_stats = {"total": total, "host_fallback": len(leftovers)}
         metrics.incr("nomad.solver.placements_total", total)
@@ -243,7 +249,7 @@ class SolverPlacer:
     # ------------------------------------------------------------- solving
 
     def _prep_solve(self, tg, nodes, count: int):
-        """Everything a depth/greedy solve needs BEFORE the kernel call:
+        """Everything a depth/greedy/scan solve needs BEFORE the kernel call:
         shuffled node order, lowered+padded tensors, kernel routing and
         the depth-regime parameters. RNG draws follow the reference in
         kind and order, so the same eval shuffles and jitters the same."""
@@ -304,14 +310,15 @@ class SolverPlacer:
                 use_scan = True        # too deep for the [N, K] curve
                 use_depth = False
 
-        prep = _SolvePrep()
-        prep.count = count
-        prep.use_scan = use_scan
-        prep.use_depth = use_depth
-        if use_scan:
-            return prep                # _solve_group hands it to the host
+        # the reference lowers spreads and distinct_property for depth
+        # solves too; with neither in scope they are pad stanzas no depth
+        # solve reads, so only the scan lowers them here
+        sp = _lower_spreads(self.ctx, job, tg, spreads, nodes) \
+            if use_scan else None
+        dp = _lower_distinct(self.ctx, distincts, nodes) \
+            if use_scan else None
         aff = _lower_affinities(self.ctx, affinities, nodes) \
-            if use_depth else None
+            if use_scan or use_depth else None
 
         # pad the node axis to the shared pow2 bucket (buckets.node_bucket)
         # so the kernels see one shape per bucket, not one per cluster
@@ -324,12 +331,23 @@ class SolverPlacer:
             gt.used = np.pad(gt.used, ((0, pad), (0, 0)))
             gt.feasible = np.pad(gt.feasible, (0, pad))
             gt.job_collisions = np.pad(gt.job_collisions, (0, pad))
+            if sp is not None:
+                sp.ids = np.pad(sp.ids, ((0, 0), (0, pad)),
+                                constant_values=-1)
+            if dp is not None:
+                dp.ids = np.pad(dp.ids, ((0, 0), (0, pad)),
+                                constant_values=-1)
             if aff is not None:
                 aff = np.pad(aff, (0, pad))
+        prep = _SolvePrep()
         prep.gt = gt
         prep.n = n
+        prep.count = count
+        prep.distincts = distincts
+        prep.use_scan = use_scan
+        prep.use_depth = use_depth
         prep.k_max = k_max
-        prep.aff = aff
+        prep.sp, prep.dp, prep.aff = sp, dp, aff
         prep.max_per_node = 1 if gt.distinct_hosts else 2 ** 30
         prep.spread_alg = spread_alg
         prep.depth_grid = None
@@ -384,24 +402,33 @@ class SolverPlacer:
 
     def _solve_group(self, tg, nodes, count: int, prep=None):
         """Run the batched kernel; returns [(node, count)] sorted
-        best-first, or None for a scan-shaped group the host stack must
-        place (the chunked scan is not ported). `prep` reuses a declined
-        pipeline's solve prep (same regime, same RNG stream position)
-        instead of rebuilding it."""
+        best-first. `prep` reuses a declined pipeline's solve prep (same
+        regime, same RNG stream position) instead of rebuilding it.
+
+        The GenericStack feature matrix is tensorized: affinities,
+        multiple/targeted spreads, distinct_property and distinct_hosts
+        all lower to kernel inputs. Reschedules, migrations and canaries
+        keep the host path (compute_placements routes them to
+        `leftovers`)."""
         if prep is None:
             prep = self._prep_solve(tg, nodes, count)
         if prep is None:
             return []
-        if prep.use_scan:
-            return None
         gt = prep.gt
         n = prep.n
         metrics.incr(
-            "nomad.solver.kernel.fill_depth" if prep.use_depth
+            "nomad.solver.kernel.place_chunked" if prep.use_scan
+            else "nomad.solver.kernel.fill_depth" if prep.use_depth
             else "nomad.solver.kernel.fill_greedy_binpack")
         with metrics.measure("nomad.solver.device"):
-            placed_h = self._dispatch(prep, tg, count)
-        return self._placed_node_iter(gt.nodes, placed_h[:n])
+            if prep.use_scan:
+                placed_h = self._scan_dispatch(prep, tg, count)
+            else:
+                placed_h = self._dispatch(prep, tg, count)
+        placed = placed_h[:n]
+        if prep.use_scan and prep.distincts:
+            placed = self._trim_distinct(prep, placed)
+        return self._placed_node_iter(gt.nodes, placed)
 
     @staticmethod
     def _dev_mats(gt):
@@ -436,6 +463,74 @@ class SolverPlacer:
             metrics.incr("nomad.solver.state_cache.twin_dispatches")
         # the single device-to-host sync of the solve
         return fn(*args).cpu().numpy()
+
+    def _scan_dispatch(self, prep, tg, count: int) -> np.ndarray:
+        """The chunked scan on the device. One solve covers max_steps *
+        min(N, 256) instances; larger asks split across solves that carry
+        the running state (usage, placements, spread counts, distinct
+        quotas) on the device, with one host sync per extra solve. The
+        placement vector reaches the host at the final sync."""
+        gt, sp, dp = prep.gt, prep.sp, prep.dp
+        max_steps = 256
+        cover = max_steps * min(gt.cap.shape[0], 256)
+        bname, chunked_fn = backend.select(
+            "chunked", gt.cap.shape[0], max_steps=max_steps,
+            spread_algorithm=prep.spread_alg)
+        backend.record("chunked", bname)
+        args = (gt.cap, gt.used, gt.ask, 0, gt.feasible, gt.job_collisions,
+                np.int32(tg.count), sp.ids, sp.counts, sp.desired, sp.mode,
+                sp.weights, prep.aff, dp.ids, dp.remaining,
+                np.zeros((gt.cap.shape[0],), np.int32))
+        dev = self._dev_mats(gt)
+        if dev is not None:
+            args = dev + args[2:]
+            metrics.incr("nomad.solver.state_cache.twin_dispatches")
+        # every input on the device once; the carried state stays there
+        args = backend.on_device("chunked", args)
+        used, sp_counts, d_rem, placed = args[1], args[8], args[14], args[15]
+        left = int(count)
+        last_total = 0
+        while True:
+            placed, used, sp_counts, d_rem = chunked_fn(
+                args[0], used, args[2], np.int32(min(left, cover)),
+                *args[4:8], sp_counts, *args[9:14], d_rem, placed,
+                np.int32(prep.max_per_node))
+            if left <= cover:
+                break           # one solve covered the whole ask
+            total = int(placed.sum())       # host sync: rare path
+            left = int(count) - total
+            if left <= 0 or total == last_total:
+                break           # done, or capacity exhausted
+            last_total = total
+        return placed.cpu().numpy()
+
+    @staticmethod
+    def _trim_distinct(prep, placed: np.ndarray) -> np.ndarray:
+        """A scan step places up to ceil(count/256) instances at once,
+        which can overshoot a distinct_property value quota within that
+        step: re-walk the counts best-first and trim the surplus (trimmed
+        instances retry through the host fallback, which is exact)."""
+        dp = prep.dp
+        placed = np.array(placed)           # writable for the trim
+        remaining = [row.copy() for row in dp.remaining]
+        for i in np.argsort(-placed):
+            k = int(placed[i])
+            if k <= 0:
+                continue
+            allowed = k
+            for d in range(len(prep.distincts)):
+                vid = int(dp.ids[d, i])
+                if vid < 0:
+                    allowed = 0
+                    break
+                allowed = min(allowed, int(remaining[d][vid]))
+            allowed = max(0, allowed)
+            for d in range(len(prep.distincts)):
+                vid = int(dp.ids[d, i])
+                if vid >= 0:
+                    remaining[d][vid] -= allowed
+            placed[i] = allowed
+        return placed
 
     @staticmethod
     def _placed_node_iter(nodes, placed: np.ndarray) -> list:
@@ -714,6 +809,130 @@ class SolverPlacer:
             return True
 
         return feasible
+
+    # ------------------------------------------------- batched preemption
+
+    def _preempt_batch(self, tg, missings, deployment_id: str) -> list:
+        """Batched preemption: victim selection runs as one masked pass
+        over every candidate node (kernels.preempt_top_k); each winning
+        node is then verified exactly host-side with allocs_fit before its
+        victims enter the plan. Returns the missings still unplaced
+        (non-simple TGs skip straight to the host fallback, which retries
+        with the scalar Preemptor)."""
+        from ..state.usage_index import (
+            alloc_usage_tuple, node_capacity_tuple,
+        )
+        from ..structs import OP_DISTINCT_HOSTS, allocs_fit
+        from .kernels import NUM_XR
+        from .tensorize import group_ask_row
+
+        sched = self.sched
+        cfg = self.ctx.scheduler_config.preemption_config
+        enabled = (cfg.batch_scheduler_enabled if sched.batch
+                   else cfg.service_scheduler_enabled)
+        if not enabled or not missings or not self._is_simple(tg):
+            return missings
+        job_prio = sched.job.priority
+
+        distinct_hosts = any(
+            c.operand == OP_DISTINCT_HOSTS
+            for c in list(sched.job.constraints) + list(tg.constraints))
+        distinct_sets = self._distinct_property_sets(tg)
+
+        feasible_fn = self._feasibility_fn(tg)
+        candidates = []          # (node, proposed, victims)
+        max_v = 0
+        for node in sched._ready_nodes:
+            if not feasible_fn(node):
+                continue
+            proposed = self.ctx.proposed_allocs(node.id)
+            # distinct_hosts: a node already running this job+TG is out
+            if distinct_hosts and any(
+                    a.job_id == sched.job.id and a.task_group == tg.name
+                    for a in proposed):
+                continue
+            # distinct_property value quotas (plan-aware via PropertySet)
+            if any(not ps.satisfies_distinct_properties(node)[0]
+                   for ps in distinct_sets):
+                continue
+            victims = [a for a in proposed
+                       if (a.job.priority if a.job else 50) < job_prio]
+            if victims:
+                candidates.append((node, proposed, victims))
+                max_v = max(max_v, len(victims))
+        if not candidates:
+            return missings
+
+        c = len(candidates)
+        v_pad = pow2(max_v)             # victim axis shares the bucketing
+        victim_res = np.zeros((c, v_pad, NUM_XR), np.float32)
+        victim_prio = np.full((c, v_pad), 2 ** 20, np.int32)  # pad: ineligible
+        free = np.zeros((c, NUM_XR), np.float32)
+        for i, (node, proposed, victims) in enumerate(candidates):
+            for j, a in enumerate(victims):
+                victim_res[i, j] = alloc_usage_tuple(a)
+                victim_prio[i, j] = a.job.priority if a.job else 50
+            free[i] = np.asarray(node_capacity_tuple(node), np.float32)
+            for a in proposed:
+                free[i] -= alloc_usage_tuple(a)
+        ask = group_ask_row(tg)
+
+        masks = self._preempt_masks(victim_res, victim_prio, ask, free,
+                                    job_prio)
+
+        # fewest-victims nodes first (minimal disruption, the
+        # PreemptionScoringIterator's preference, ref rank.go:775)
+        order = sorted(range(c), key=lambda i: (masks[i].sum() == 0,
+                                                int(masks[i].sum())))
+        remaining = list(missings)
+        # ONE trial alloc probes every candidate node: the ask is the
+        # group's pooled resource skeleton, identical per instance
+        ask_alloc = Allocation(
+            allocated_resources=skeleton_for(self._skel, tg,
+                                             False).shared_total)
+        for i in order:
+            if not remaining:
+                break
+            if not masks[i].any():
+                continue
+            node, proposed, victims = candidates[i]
+            # re-check distinct quotas: placements earlier in this loop
+            # shifted the plan-aware counts (used_counts reads the plan)
+            if any(not ps.satisfies_distinct_properties(node)[0]
+                   for ps in distinct_sets):
+                continue
+            chosen = [victims[j] for j in range(len(victims)) if masks[i][j]]
+            chosen_ids = {a.id for a in chosen}
+            trial = [a for a in proposed if a.id not in chosen_ids] + \
+                [ask_alloc]
+            fit, _, _ = allocs_fit(node, trial)
+            if not fit:
+                continue                # device said yes, exact said no
+            missing = remaining.pop(0)
+            if self._place_one(missing, tg, node, deployment_id):
+                for victim in chosen:
+                    self.plan.append_preempted_alloc(victim, sched.eval.id)
+            else:
+                remaining.insert(0, missing)
+        return remaining
+
+    @staticmethod
+    def _preempt_masks(victim_res, victim_prio, ask, free,
+                       job_prio) -> np.ndarray:
+        """Victim-mask solve over all candidate nodes -> bool[C, V]: one
+        kernels.preempt_top_k pass on the solve device, brought to the
+        host at preemption's own sync (the masks gate an exact host
+        verify; nothing overlaps them). One card: the reference shards
+        the candidate axis over a device mesh at pod scale, which the
+        port does not have."""
+        from .kernels import preempt_top_k
+        dev = _device.solve_device()
+        if dev.type == "cuda":
+            roundtrip.note("preempt")
+        t = [backend._tensor(a, dev, dtype) for a, dtype in (
+            (victim_res, torch.float32), (victim_prio, torch.int32),
+            (ask, torch.float32), (free, torch.float32))]
+        return preempt_top_k(*t, int(job_prio)).cpu().numpy()
 
     # ------------------------------------------- batched alloc materialization
 

@@ -143,6 +143,85 @@ def test_wrapper_refuses_a_non_contiguous_cuda_tensor(dev):
         cuda_kernels.depth_curve(cap, used, ask, feas, coll.long(), 10, aff)
 
 
+def _scan_inputs(dev, n=3_000, seed=5):
+    """The chunked scan's inputs on a ragged node axis: two spread
+    stanzas (targeted over 3 values with fractional weights, even over 40
+    with some values missing), one distinct_property stanza, affinity and
+    collisions. -> (args in place_chunked's positional order, d_active)."""
+    cap, used, ask, feas, coll, aff = _inputs(dev, n=n, seed=seed)
+    rng = np.random.default_rng(seed)
+    sp_ids = np.stack([rng.integers(0, 3, n),
+                       np.where(rng.random(n) < 0.1, -1,
+                                rng.integers(0, 40, n))]).astype(np.int32)
+    sp_counts = np.full((2, 64), -1, np.int32)
+    sp_counts[0, :3] = 0
+    sp_counts[1, :40] = rng.integers(0, 3, 40)
+    sp_desired = np.full((2, 64), -1.0, np.float32)
+    sp_desired[0, :3] = [2_000.0, 1_200.0, 800.0]
+    sp_mode = np.array([1, 0], np.int32)
+    sp_weights = np.array([0.7, 0.3], np.float32)
+    dp_ids = rng.integers(-1, 100, (1, n)).astype(np.int32)
+    dp_rem = rng.integers(0, 4, (1, 128)).astype(np.int32)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+    args = (cap, used, ask, 4_000, feas, coll, 4_000, t(sp_ids),
+            t(sp_counts), t(sp_desired), t(sp_mode), t(sp_weights), aff,
+            t(dp_ids), t(dp_rem))
+    return args, t(dp_rem[:, 0] >= 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spread", [False, True], ids=["binpack", "spread"])
+def test_chunked_step_kernel_matches_plain(dev, spread):
+    """One step's score, bit for bit, -inf on the same nodes."""
+    args, d_active = _scan_inputs(dev)
+    placed = (torch.arange(args[0].shape[0], device=dev) % 3 == 0).to(
+        torch.int32)
+    step = args[:3] + (args[4], args[5], placed, 2, args[6]) + args[7:] + \
+        (d_active,)
+    before = cuda_kernels.LAUNCHES["chunked_step"]
+    got = cuda_kernels.chunked_step(*step, spread_algorithm=spread)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["chunked_step"] == before + 1
+    want = kernels.chunked_step_ref(*step, spread_algorithm=spread)
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    assert got.cpu().numpy().tobytes() == want.cpu().numpy().tobytes()
+    assert bool(torch.isfinite(want).any())
+
+
+@pytest.mark.cuda
+def test_place_chunked_kernel_matches_plain(dev):
+    """The whole scan through the kernel against the plain scan on the
+    card: placements, usage, spread counts and quotas equal."""
+    args, _ = _scan_inputs(dev)
+    before = cuda_kernels.LAUNCHES["chunked_step"]
+    got = cuda_kernels.place_chunked(*args)
+    torch.cuda.synchronize()
+    launched = cuda_kernels.LAUNCHES["chunked_step"] - before
+    want = kernels.place_chunked(*args)
+    for g, w in zip(got, want):
+        assert g.cpu().numpy().tobytes() == w.cpu().numpy().tobytes()
+    assert 0 < launched <= 256
+    assert int(got[0].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_preempt_top_k_on_the_card_matches_the_cpu(dev):
+    rng = np.random.default_rng(4)
+    c, v = 500, 16
+    res = np.floor(rng.random((c, v, 5)) * [4_000, 8_192, 2_000, 20, 200]
+                   ).astype(np.float32)
+    prio = rng.choice([10, 20, 50, 90], (c, v)).astype(np.int32)
+    ask = np.array([2_000, 4_096, 300, 2, 50], np.float32)
+    free = np.floor(rng.random((c, 5)) * ask).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (res, prio, ask, free)]
+    want = kernels.preempt_top_k(*args, 60)
+    got = kernels.preempt_top_k(*[a.to(dev) for a in args], 60)
+    assert torch.equal(got.cpu(), want)
+    assert bool(want.any())
+
+
 # ------------------------------------------------ the placement path
 
 def _cluster(n_nodes=200, seed=7, **config):

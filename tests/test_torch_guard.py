@@ -1,6 +1,7 @@
 """Guards on the port package nomad_tpu_torch:
 
-  * it runs an eval with neither jax nor any nomad_tpu module loaded;
+  * it runs evals (the depth solve and the chunked scan) with neither
+    jax nor any nomad_tpu module loaded;
   * no module of it, and not chip_smoke.py, imports jax or nomad_tpu;
   * each module it copies verbatim from nomad_tpu is byte-equal to its
     original (the reference is frozen, so drift is a port fault);
@@ -54,6 +55,17 @@ _EVAL = textwrap.dedent("""
     h.process(lambda s, p: new_scheduler(job.type, s, p), ev)
     assert len(h.state.allocs_by_job("default", job.id)) == 6
     assert metrics.counter("nomad.solver.kernel.depth.torch") == 1
+    # a spread job: the chunked scan
+    from nomad_tpu_torch.structs import Spread
+    job = mock.job()
+    job.task_groups[0].count = 4
+    job.task_groups[0].tasks[0].resources.networks = []
+    job.spreads = [Spread(attribute="${{node.datacenter}}", weight=50)]
+    h.state.upsert_job(h.get_next_index(), job)
+    ev = Evaluation(job_id=job.id, type=job.type)
+    h.process(lambda s, p: new_scheduler(job.type, s, p), ev)
+    assert len(h.state.allocs_by_job("default", job.id)) == 4
+    assert metrics.counter("nomad.solver.kernel.chunked.torch") == 1
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "jaxlib",
                                                    "nomad_tpu.")))

@@ -8,12 +8,23 @@ eval ids — scheduler → placer → solve → serial plan applier → FSM comm
 
   * a 200-task batch job (m = 2·200/200 > 3: the dense depth curve),
   * a small job (m < 3: the sampled depth grid, jittered),
-  * a count-1 job (the greedy score/capacity solve).
+  * a count-1 job (the greedy score/capacity solve),
+  * a job with a `spread` stanza over the datacenters (the chunked scan),
+  * a job under `distinct_property ${meta.rack}` at 6 per rack, deep
+    enough that a scan step places two instances at once (the scan, its
+    host-side quota trim and the host fallback for what the trim drops),
+  * a 2,000-task job at 5 MHz / 8 MB, too deep for the [N, K] depth
+    curve (k_max > 512: the scan),
+  * a priority-20 job that fills every node, then a priority-80 job that
+    fits nowhere (the batched preemption pass): the same preempted
+    allocation ids on both sides.
 
-A fourth job carries a `spread` stanza. The reference solves it with the
-chunked XLA scan; the port hands it to the host GenericStack, so the
-two maps may differ. It is held to its properties instead: every
-instance placed, no node overcommitted, the datacenters even.
+Allocation ids are random (os.urandom); each job runs on both sides from
+the same seeded byte stream, so the two sides mint the same ids, and a
+victim chosen among identical allocations is the same one.
+
+The spread job is also held to its properties: every instance placed, no
+node overcommitted, the datacenters even.
 """
 import numpy as np
 import jax  # noqa: F401  (the reference runs on the CPU backend)
@@ -22,6 +33,7 @@ import torch
 
 import nomad_tpu.mock as ref_mock
 from nomad_tpu.api_codec import to_api
+from nomad_tpu.metrics import metrics as ref_metrics
 from nomad_tpu.server.fsm import NomadFSM as RefFSM, RaftLog as RefRaftLog
 from nomad_tpu.server.plan_apply import Planner as RefPlanner
 from nomad_tpu.scheduler import new_scheduler as ref_new_scheduler
@@ -36,14 +48,21 @@ from nomad_tpu_torch.server import NomadFSM as PortFSM, Planner as PortPlanner
 from nomad_tpu_torch.server.fsm import RaftLog as PortRaftLog
 from nomad_tpu_torch.solver import backend as port_backend
 from nomad_tpu_torch.solver.device import use_device
+from nomad_tpu_torch.testing import fill_count, seeded_urandom
 
 N_NODES = 200
-# (job id, count, cpu MHz, mem MB, spread stanza, kernel the port runs)
+N_RACKS = 50
+# (job id, count, cpu MHz, mem MB, shape, kernel the port runs); the
+# filler's count (None) is what fills every node, read off the usage view
 JOBS = (
-    ("dense", 200, 250, 512, False, "depth"),
-    ("grid", 60, 250, 512, False, "depth"),
-    ("greedy", 1, 500, 1024, False, "greedy"),
-    ("spread", 20, 300, 256, True, None),
+    ("dense", 200, 250, 512, "", "depth"),
+    ("grid", 60, 250, 512, "", "depth"),
+    ("greedy", 1, 500, 1024, "", "greedy"),
+    ("spread", 20, 300, 256, "spread", "chunked"),
+    ("distinct", 280, 100, 128, "distinct", "chunked"),
+    ("deep", 2000, 5, 8, "", "chunked"),
+    ("filler", None, 2000, 4096, "low", "depth"),
+    ("preempt", 30, 2000, 4096, "high", "depth"),
 )
 
 
@@ -54,6 +73,7 @@ def _mk_node(mock, i, rng):
     n.name = f"bench-{i}"
     n.node_class = f"c{int(rng.integers(0, 4))}"
     n.datacenter = "dc1" if i % 2 == 0 else "dc2"
+    n.meta["rack"] = f"r{i % N_RACKS}"
     n.node_resources.cpu.cpu_shares = int(
         rng.choice([4_000, 8_000, 16_000, 32_000]))
     n.node_resources.memory.memory_mb = int(
@@ -62,9 +82,10 @@ def _mk_node(mock, i, rng):
     return n
 
 
-def _mk_job(mock, structs, job_id, count, cpu, mem, spread):
+def _mk_job(mock, structs, job_id, count, cpu, mem, shape):
     job = mock.batch_job()
     job.id = job.name = job_id
+    job.priority = {"low": 20, "high": 80}.get(shape, 50)
     job.datacenters = ["dc1", "dc2"]
     tg = job.task_groups[0]
     tg.count = count
@@ -74,9 +95,13 @@ def _mk_job(mock, structs, job_id, count, cpu, mem, spread):
     task.resources.memory_mb = mem
     task.resources.networks = []
     tg.networks = []
-    if spread:
+    if shape == "spread":
         job.spreads = [structs.Spread(attribute="${node.datacenter}",
                                       weight=100)]
+    if shape == "distinct":
+        tg.constraints = [structs.Constraint(
+            ltarget="${meta.rack}", rtarget="6",
+            operand=structs.OP_DISTINCT_PROPERTY)]
     return job
 
 
@@ -101,21 +126,29 @@ class _Shim:
         return self.state.snapshot()
 
 
-def _run(fsm, planner, new_scheduler, structs, job):
+def _run(fsm, planner, new_scheduler, structs, metrics, job):
+    """One eval -> (alloc name -> node id of the job's allocations, ids
+    of the allocations it preempted, its host-fallback placements)."""
     s = fsm.state
     s.upsert_job(s.latest_index() + 1, job)
     ev = structs.Evaluation(id=f"slice-eval-{job.id}", namespace="default",
                             job_id=job.id, type="batch", priority=50)
     s.upsert_evals(s.latest_index() + 1, [ev])
+    evicted = {a.id for a in s.iter_allocs() if a.desired_status == "evict"}
+    fallback = metrics.counter("nomad.solver.placements_host_fallback")
     sched = new_scheduler("batch", s.snapshot(), _Shim(planner, s))
     sched.process(ev)
-    return {a.name: a.node_id for a in s.iter_allocs()
-            if a.job_id == job.id}
+    placed = {a.name: a.node_id for a in s.iter_allocs()
+              if a.job_id == job.id}
+    preempted = {a.id for a in s.iter_allocs()
+                 if a.desired_status == "evict" and a.id not in evicted}
+    return placed, preempted, \
+        metrics.counter("nomad.solver.placements_host_fallback") - fallback
 
 
 def _kernel_counters():
     return {f"{k}.{t}": port_metrics.counter(f"nomad.solver.kernel.{k}.{t}")
-            for k in ("depth", "greedy") for t in ("torch", "cuda")}
+            for k in ("depth", "greedy", "chunked") for t in ("torch", "cuda")}
 
 
 @pytest.fixture(scope="module")
@@ -129,7 +162,9 @@ def slice_run():
                       plan_pipeline_enabled=False,
                       placement_explain_enabled=False)
         ref = RefFSM()
-        ref_cfg = ref_structs.SchedulerConfiguration(**cfg_kw)
+        ref_cfg = ref_structs.SchedulerConfiguration(
+            preemption_config=ref_structs.PreemptionConfig(
+                batch_scheduler_enabled=True), **cfg_kw)
         ref.state.set_scheduler_config(1, ref_cfg)
         rng = np.random.default_rng(42)
         for i in range(N_NODES):
@@ -143,18 +178,23 @@ def slice_run():
         ref_planner = RefPlanner(RefRaftLog(ref), ref.state)
         port_planner = PortPlanner(PortRaftLog(port), port.state)
         out = {}
-        for job_id, count, cpu, mem, spread, _ in JOBS:
+        for seed, (job_id, count, cpu, mem, shape, _) in enumerate(JOBS):
+            if count is None:
+                count = fill_count(ref.state.usage.view(), cpu, mem)
             before = _kernel_counters()
-            want = _run(ref, ref_planner, ref_new_scheduler, ref_structs,
-                        _mk_job(ref_mock, ref_structs, job_id, count, cpu,
-                                mem, spread))
-            got = _run(port, port_planner, port_new_scheduler,
-                       port_structs,
-                       _mk_job(port_mock, port_structs, job_id, count,
-                               cpu, mem, spread))
+            with seeded_urandom(seed):
+                want = _run(ref, ref_planner, ref_new_scheduler,
+                            ref_structs, ref_metrics,
+                            _mk_job(ref_mock, ref_structs, job_id, count,
+                                    cpu, mem, shape))
+            with seeded_urandom(seed):
+                got = _run(port, port_planner, port_new_scheduler,
+                           port_structs, port_metrics,
+                           _mk_job(port_mock, port_structs, job_id, count,
+                                   cpu, mem, shape))
             after = _kernel_counters()
             out[job_id] = (want, got, {k: after[k] - before[k]
-                                       for k in after})
+                                       for k in after}, count)
         yield views, port, out, ref
     finally:
         torch.set_num_threads(threads)
@@ -170,27 +210,28 @@ def test_carried_cluster_has_identical_usage_views(slice_run):
     assert port_view.cap.shape[0] >= N_NODES
 
 
-@pytest.mark.parametrize("job", [j for j in JOBS if not j[4]],
-                         ids=[j[0] for j in JOBS if not j[4]])
+@pytest.mark.parametrize("job", JOBS, ids=[j[0] for j in JOBS])
 def test_port_places_exactly_like_reference(slice_run, job):
-    job_id, count, _, _, _, kernel = job
+    job_id, _, _, _, _, kernel = job
     _, _, out, _ = slice_run
-    want, got, moved = out[job_id]
+    (want, want_pre, want_fb), (got, got_pre, got_fb), moved, count = \
+        out[job_id]
     assert len(want) == count
     assert got == want
+    assert got_pre == want_pre
+    assert got_fb == want_fb
     # the port solved it with its plain (CPU) tier, never the card's
     assert moved[f"{kernel}.torch"] == 1
-    assert moved["depth.cuda"] == moved["greedy.cuda"] == 0
+    assert not any(v for k, v in moved.items() if k.endswith(".cuda"))
 
 
 def test_spread_job_meets_its_placement_properties(slice_run):
-    """The host-stack fallback's spread placement: all placed, nothing
-    overcommitted, datacenters even — and no solver kernel ran."""
+    """The scan's spread placement: all placed, nothing overcommitted,
+    datacenters even — solved by the chunked scan, not the host stack."""
     _, port, out, _ = slice_run
-    _, got, moved = out["spread"]
-    count = [j for j in JOBS if j[0] == "spread"][0][1]
+    _, (got, _, fallback), moved, count = out["spread"]
     assert len(got) == count
-    assert not any(moved.values())
+    assert moved["chunked.torch"] == 1 and fallback == 0
     dc = {n.id: n.datacenter for n in port.state.iter_nodes()}
     by_dc = {"dc1": 0, "dc2": 0}
     for node_id in got.values():
@@ -200,24 +241,55 @@ def test_spread_job_meets_its_placement_properties(slice_run):
     assert not bool((view.used > view.cap + 1e-3).any())
 
 
-def test_port_state_after_all_jobs_matches_usage_invariants(slice_run):
-    """Every committed alloc is in the port's usage view: the committed
-    used matrix is the sum of the placed asks, row by row."""
+def test_distinct_property_job_keeps_its_rack_quota(slice_run):
+    """At most 6 instances per rack, every instance placed, and the scan
+    placed them (what its quota trim drops goes to the host stack)."""
     _, port, out, _ = slice_run
+    _, (got, _, fallback), moved, count = out["distinct"]
+    assert len(got) == count
+    assert moved["chunked.torch"] == 1
+    assert fallback < count
+    rack = {n.id: n.meta["rack"] for n in port.state.iter_nodes()}
+    per_rack: dict = {}
+    for node_id in got.values():
+        per_rack[rack[node_id]] = per_rack.get(rack[node_id], 0) + 1
+    assert max(per_rack.values()) <= 6
+
+
+def test_preemption_evicts_the_low_priority_filler(slice_run):
+    """The priority-80 job fits only by preemption: every instance
+    placed by the batched pass (no host fallback), each displacing
+    allocations of the priority-20 filler only, and no node left over
+    capacity."""
+    _, port, out, _ = slice_run
+    _, (got, preempted, fallback), _, count = out["preempt"]
+    assert len(got) == count and fallback == 0
+    assert len(preempted) == count
+    jobs = {a.id: a.job_id for a in port.state.iter_allocs()}
+    assert {jobs[i] for i in preempted} == {"filler"}
+    view = port.state.usage.view()
+    assert not bool((view.used > view.cap + 1e-3).any())
+
+
+def test_port_state_after_all_jobs_matches_usage_invariants(slice_run):
+    """Every live committed alloc is in the port's usage view: the
+    committed used matrix is the sum of the placed asks, row by row, and
+    preempted allocations no longer count."""
+    _, port, _, _ = slice_run
     view = port.state.usage.view()
     asks = {job_id: (cpu, mem) for job_id, _, cpu, mem, _, _ in JOBS}
     want = np.zeros((view.cap.shape[0], 2), np.float64)
-    for job_id, (_, got, _) in out.items():
-        for node_id in got.values():
-            want[view.row[node_id]] += asks[job_id]
+    for a in port.state.iter_allocs():
+        if a.desired_status != "evict":
+            want[view.row[a.node_id]] += asks[a.job_id]
     np.testing.assert_allclose(view.used[:, :2], want)
 
 
 def test_carry_loads_jobs_and_allocs_bit_equal(slice_run):
-    """The reference's state after all four evals — nodes, jobs and
+    """The reference's state after all the evals — nodes, jobs and
     allocations — carried into a fresh port store gives the same usage
     view, row for row, and the same allocations."""
-    _, _, _, ref = slice_run
+    _, _, out, ref = slice_run
     docs = {"nodes": [to_api(n) for n in ref.state.iter_nodes()],
             "jobs": [to_api(j) for j in ref.state.iter_jobs()],
             "allocs": [to_api(a) for a in ref.state.iter_allocs()]}
@@ -229,4 +301,4 @@ def test_carry_loads_jobs_and_allocs_bit_equal(slice_run):
     np.testing.assert_array_equal(got.used, want.used)
     assert {a.id: a.node_id for a in fresh.state.iter_allocs()} == \
         {a.id: a.node_id for a in ref.state.iter_allocs()}
-    assert len(docs["allocs"]) == sum(j[1] for j in JOBS)
+    assert len(docs["allocs"]) == sum(r[3] for r in out.values())
