@@ -36,10 +36,20 @@ prints no result):
               plain step at the same bucket (10,000 live rows; two spread
               stanzas, one targeted and one even, a distinct_property
               stanza, affinity, collisions): can_place equal, scores bit
-              for bit; then place_chunked through the kernel against the
-              plain scan (placements, usage, spread counts, quotas
-              equal). Device time per launch (profiler, 30 launches),
-              launches per solve, one solve's device time and wall.
+              for bit (the score csrc/chunked_score.cuh gives both scan
+              kernels). Then the whole-scan kernel (csrc/chunked_scan.cu)
+              against the plain scan, placements, usage, spread counts
+              and quotas bit-equal, one launch a solve and no step
+              launch: on those inputs under binpack and the spread
+              algorithm, and on every fixture of nomad_tpu_torch/
+              testing.py (SCAN_CASES: chunk 1, nothing feasible, done
+              mid-scan, max_per_node 1, a split ask, buckets 8, 1,024 and
+              65,536). Step kernel: device time per launch (profiler, 30
+              launches). Scan kernel: device time per solve (profiler, 10
+              solves), wall per call, the plain scan's, the steps it ran,
+              one cluster barrier (an empty loop of 10,000, queued
+              events) and the dependency floor (steps x barrier), the
+              bound (`chunked_scan` lines).
   4. main     the port's placement path at the north-star size: an FSM with
               10,000 bench-fleet nodes under scheduler_algorithm=tpu-batch
               and the Planner's applier thread running, three evals
@@ -67,10 +77,11 @@ prints no result):
               job of 1,000 such instances. Every instance committed, no
               row over capacity, (a) near its targets and its racks even
               (tolerances at WEB_DC_TOL), (b) at most 2 per rack, (c)
-              exactly 1,000 filler allocs preempted; no host fallback and
-              step-kernel launches on (a) and (b); the plain tier
-              untouched. Each scan solve replayed on its own inputs
-              (equal to the plain scan; device time) and the preemption
+              exactly 1,000 filler allocs preempted; no host fallback on
+              (a) and (b), one scan-kernel launch per scan solve and no
+              step-kernel launch; the plain tier untouched. Each scan
+              solve replayed on its own inputs (bit-equal to the plain
+              scan; steps, device time, wall) and the preemption
               masks on the card and the CPU (equal; [C, V], wall, device
               time). Launch counts zeroed before (a), read after (c).
   5. compare  the same 50k eval on fresh clusters, serial
@@ -133,7 +144,7 @@ COUNTERS = {"evals": "nomad.plan.pipeline.evals",
             "torch_chunked": "nomad.solver.kernel.chunked.torch",
             "scan_solves": "nomad.solver.kernel.chunked.cuda",
             "host_fallback": "nomad.solver.placements_host_fallback"}
-# the kernels the 50k main path runs; the service path runs chunked_step
+# the kernels the 50k main path runs; the service path runs chunked_scan
 MAIN_KERNELS = ("depth_curve", "score_capacity")
 # the card the port solves on (the solve device's default)
 DEVICE = "cuda:0"
@@ -172,7 +183,12 @@ SCORE_OPS_NODE = 35
 # chunked_step.cu: per node (capacity, fit score, anti, affinity, mean)
 # and per spread stanza (boost and sum)
 STEP_OPS_NODE, STEP_OPS_STANZA = 38, 8
+# chunked_scan.cu: per live node per step beside the spread and distinct
+# terms (the pre-score load, the mean: adds, compare, divide, the key)
+SCAN_OPS_STEP = 6
 SOLVE_REPS = 5
+# cluster barriers per launch when timing one barrier
+BARRIER_STEPS = 10_000
 
 
 class CheckFailed(AssertionError):
@@ -657,20 +673,63 @@ def _step_bound(args) -> dict:
     return out
 
 
+def _scan_bound(args, steps: int, selected: int, placed_init=False) -> dict:
+    """The least time for one whole-scan solve on this run's inputs.
+    Bytes: every row reads its usage and feasible byte (and placed_init
+    where given) and writes its usage and placements; a feasible row also
+    reads cap, collisions, affinity, spread and distinct ids; the [S, P]
+    and [D, P] tables are read and written once, the targets read once.
+    Operations: each feasible row's full score once, then each step the
+    part that reads the running tables (spread terms, distinct check, the
+    mean) for every feasible row, and the full score again for each
+    selected row; `steps` is what the kernel ran."""
+    n = args[0].shape[0]
+    n_feas = int(args[4].sum())
+    n_s, n_p = args[8].shape
+    n_d, n_dp = args[14].shape
+    nbytes = (n * (5 * 4 * 2 + 1 + 4 + (4 if placed_init else 0))
+              + n_feas * (5 * 4 + 4 + 4 + 4 * n_s + 4 * n_d)
+              + 2 * (n_s * n_p * 4 + n_d * n_dp * 4) + n_s * n_p * 4
+              + 5 * 4 + n_s * 8)
+    full = STEP_OPS_NODE + STEP_OPS_STANZA * n_s + 2 * n_d
+    ops = (n_feas + selected) * full + steps * n_feas * (
+        SCAN_OPS_STEP + STEP_OPS_STANZA * n_s + 2 * n_d)
+    out = _bound(nbytes, ops)
+    out.update(bytes=nbytes, ops=ops)
+    return out
+
+
+def _on_card(np, torch, dev, args) -> tuple:
+    return tuple(torch.from_numpy(np.asarray(a)).to(dev)
+                 if isinstance(a, np.ndarray) else int(a) for a in args)
+
+
+def _bit_equal(got, want) -> bool:
+    return all(g.dtype == w.dtype and g.shape == w.shape and
+               g.cpu().numpy().tobytes() == w.cpu().numpy().tobytes()
+               for g, w in zip(got, want))
+
+
 def chunked_phase(np, torch, dev, floor_ms) -> dict:
-    """The chunked-step kernel against its plain step on the card at the
-    main path's bucket: can_place equal and scores bit for bit; then the
-    whole scan through the kernel against the plain scan: placements,
-    usage, spread counts and quotas equal. Times: the kernel's device
-    time per launch (profiler, 30 launches), per-call time, the plain
-    step's time, launches per solve, and one solve's device time and
-    wall."""
+    """The chunked scan's two kernels on the card. The step kernel
+    against its plain step at the main path's bucket: can_place equal,
+    scores bit for bit (the score the scan kernel shares). The scan
+    kernel against the plain scan, all four returns bit-equal, one launch
+    per solve and no step launch: on the web inputs under binpack and the
+    spread algorithm, and on every fixture of nomad_tpu_torch/testing.py
+    (chunk 1, nothing feasible, done mid-scan, max_per_node 1, a split
+    ask, buckets 8, 1,024 and 65,536, the CPU tests' cases). Times: the
+    step kernel's device time per launch, per-call and plain times; the
+    scan kernel's device time and wall per solve, the plain scan's wall,
+    the steps it ran, one cluster barrier and the dependency floor
+    (steps x barrier), the bound."""
     from nomad_tpu_torch.solver import cuda_kernels, kernels
+    from nomad_tpu_torch.testing import SCAN_CASES, chunked_case, split_solves
     args, d_active = _scan_inputs(np, torch, dev)
     rng = np.random.default_rng(SEED + 2)
     placed = torch.from_numpy(
         rng.integers(0, 3, N_BUCKET).astype(np.int32)).to(dev)
-    out = {"max_abs_err": 0.0}
+    step_out = {"max_abs_err": 0.0}
     for spread in (False, True):
         step = _step_args(args, placed, d_active)
         s_k = cuda_kernels.chunked_step(*step, spread_algorithm=spread)
@@ -684,51 +743,109 @@ def chunked_phase(np, torch, dev, floor_ms) -> dict:
         check(s_k.cpu().numpy().tobytes() == s_p.cpu().numpy().tobytes(),
               f"chunked_step spread={spread}: scores not bit-equal "
               f"(max abs err {err})")
-        out["max_abs_err"] = max(out["max_abs_err"], err)
+        step_out["max_abs_err"] = max(step_out["max_abs_err"], err)
         log(f"chunked_step spread_algorithm={spread}: can_place equal on "
             f"{int(fin.sum())} of {N_BUCKET} nodes, scores bit-equal")
-    before = cuda_kernels.LAUNCHES["chunked_step"]
-    got = cuda_kernels.place_chunked(*args)
-    torch.cuda.synchronize()
-    out["launches_per_solve"] = cuda_kernels.LAUNCHES["chunked_step"] - before
-    want = kernels.place_chunked(*args)
-    for name, g, w in zip(("placed", "used", "spread_counts",
-                           "distinct_remaining"), got, want):
-        check(g.cpu().numpy().tobytes() == w.cpu().numpy().tobytes(),
-              f"place_chunked: {name} differs from the plain scan's")
-    out["placed"] = int(got[0].sum())
-    log(f"place_chunked ({WEB_COUNT} asked, placed {out['placed']}): "
-        f"kernel and plain scans equal (placements, usage, counts, "
-        f"quotas); {out['launches_per_solve']} step launches")
     step = _step_args(args, placed, d_active)
-    out.update(_times(torch, "chunked_step_kernel",
-                      lambda: cuda_kernels.chunked_step(*step)))
-    out.update(_plain_times(torch, lambda: kernels.chunked_step_ref(*step)))
-    out["floor_ms"] = floor_ms
-    out.update(_step_bound(args))
-    solve = _kernel_list(torch, lambda: cuda_kernels.place_chunked(*args))
-    out["solve_device_ms"] = solve["device_ms"]
+    step_out.update(_times(torch, "chunked_step_kernel",
+                           lambda: cuda_kernels.chunked_step(*step)))
+    step_out.update(_plain_times(
+        torch, lambda: kernels.chunked_step_ref(*step)))
+    step_out["floor_ms"] = floor_ms
+    step_out.update(_step_bound(args))
+    log(f"chunked_step: kernel {step_out['ms']} ms device per launch "
+        f"({step_out['call_ms']} ms per wrapper call), plain step "
+        f"{step_out['plain_ms']} ms ({step_out['plain_device_ms']} ms "
+        f"device), bound {step_out['bound_ms']} ms "
+        f"({step_out['bound_by']}: {step_out['bytes']} B, "
+        f"{step_out['ops']} ops), floor {floor_ms} ms")
+
+    out = {"max_abs_err": 0.0, "cases": {}}
+    for spread in (False, True):
+        before = dict(cuda_kernels.LAUNCHES)
+        got = cuda_kernels.chunked_scan(*args, spread_algorithm=spread)
+        torch.cuda.synchronize()
+        n_scan = cuda_kernels.LAUNCHES["chunked_scan"] - before["chunked_scan"]
+        n_step = cuda_kernels.LAUNCHES["chunked_step"] - before["chunked_step"]
+        check(n_scan == 1 and n_step == 0,
+              f"chunked_scan spread={spread}: {n_scan} scan and {n_step} "
+              f"step launches for one solve")
+        want = kernels.place_chunked(*args, spread_algorithm=spread)
+        err = float((got[1] - want[1]).abs().max())
+        for name, g, w in zip(("placed", "used", "spread_counts",
+                               "distinct_remaining"), got, want):
+            check(_bit_equal([g], [w]), f"chunked_scan spread={spread}: "
+                  f"{name} differs from the plain scan's (usage max abs "
+                  f"err {err})")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        key = "web_spread" if spread else "web"
+        out["cases"][key] = {"placed": int(got[0].sum()),
+                             "steps": int(got[4])}
+        log(f"chunked_scan web spread_algorithm={spread} ({WEB_COUNT} "
+            f"asked, placed {int(got[0].sum())}, {int(got[4])} steps): "
+            f"one launch, bit-equal to the plain scan (placements, usage, "
+            f"counts, quotas)")
+    for name in SCAN_CASES:
+        a, kw = chunked_case(name)
+        a = _on_card(np, torch, dev, a)
+        solves = []
+
+        def scan(*x, **k):
+            solves.append(1)
+            return cuda_kernels.place_chunked(*x, **k)
+        before = dict(cuda_kernels.LAUNCHES)
+        got = split_solves(scan, a, kw)
+        torch.cuda.synchronize()
+        n_scan = cuda_kernels.LAUNCHES["chunked_scan"] - before["chunked_scan"]
+        n_step = cuda_kernels.LAUNCHES["chunked_step"] - before["chunked_step"]
+        want = split_solves(kernels.place_chunked, a, kw)
+        check(_bit_equal(got, want),
+              f"chunked_scan case {name}: differs from the plain scan")
+        check(n_scan == len(solves) and n_step == 0,
+              f"chunked_scan case {name}: {n_scan} scan launches for "
+              f"{len(solves)} solves, {n_step} step launches")
+        out["cases"][name] = {"n": int(a[0].shape[0]), "solves": len(solves),
+                              "placed": int(got[0].sum()),
+                              "count": int(a[3])}
+    check(out["cases"]["split"]["solves"] > 1, "the split case ran 1 solve")
+    log(f"chunked_scan: {len(SCAN_CASES)} fixtures bit-equal to the plain "
+        f"scan, one launch per solve: " + json.dumps(out["cases"]))
+
+    run = (lambda: cuda_kernels.place_chunked(*args))
+    got = cuda_kernels.chunked_scan(*args)
+    steps, selected = int(got[4]), int(got[0].sum())
+    ms, all_ms = _device_ms(torch, run, "chunked_scan_kernel", reps=10)
+    out.update(ms=ms, solve_device_ms=all_ms, steps=steps,
+               call_ms=_median_ms(torch, run, CALL_REPS),
+               plain_ms=_median_ms(torch, lambda: kernels.place_chunked(
+                   *args), SOLVE_REPS),
+               floor_ms=floor_ms)
+    if not ms:
+        out["ms"] = _queued_ms(torch, run, 10)
+        out["timing"] = "queued events"
+    solve = _kernel_list(torch, run)
     out["solve_kernels"] = solve["kernels"]
-    out["solve_ms"] = _median_ms(
-        torch, lambda: cuda_kernels.place_chunked(*args), SOLVE_REPS)
-    out["plain_solve_ms"] = _median_ms(
-        torch, lambda: kernels.place_chunked(*args), SOLVE_REPS)
-    log(f"chunked_step: kernel {out['ms']} ms device per launch "
-        f"({out['call_ms']} ms per wrapper call), plain step "
-        f"{out['plain_ms']} ms ({out['plain_device_ms']} ms device), bound "
-        f"{out['bound_ms']} ms ({out['bound_by']}: {out['bytes']} B, "
-        f"{out['ops']} ops), floor {floor_ms} ms; one solve "
-        f"{out['solve_ms']} ms wall, {out['solve_device_ms']} ms device, "
-        f"plain solve {out['plain_solve_ms']} ms")
+    out["barrier_ms"] = _queued_ms(
+        torch, lambda: cuda_kernels.cluster_barrier(BARRIER_STEPS, dev),
+        5) / BARRIER_STEPS
+    out["dependency_floor_ms"] = steps * out["barrier_ms"]
+    out.update(_scan_bound(args, steps, selected))
+    log(f"chunked_scan: {out['ms']} ms device per solve ({steps} steps, "
+        f"{out['ms'] * 1e3 / steps} us a step), {out['call_ms']} ms per "
+        f"call, plain scan {out['plain_ms']} ms per call; one cluster "
+        f"barrier {out['barrier_ms'] * 1e3} us, dependency floor "
+        f"{out['dependency_floor_ms']} ms; bound {out['bound_ms']} ms "
+        f"({out['bound_by']}: {out['bytes']} B, {out['ops']} ops); launch "
+        f"floor {floor_ms} ms")
     log("one place_chunked solve's device kernels: "
         + json.dumps(out["solve_kernels"]))
-    return out
+    return {"chunked_step": step_out, "chunked_scan": out}
 
 
 class _ServiceRecorder:
     """For the service path's measurements: records the arguments of each
     scan solve (cuda_kernels.place_chunked, as backend.select hands it
-    out) with the step launches it made, and the inputs and wall of each
+    out) with the scan-kernel launches it made, and the inputs and wall of each
     preemption mask pass (SolverPlacer._preempt_masks). Restores both on
     exit. Behaviour is unchanged."""
 
@@ -742,9 +859,9 @@ class _ServiceRecorder:
         scan, masks = self._scan, self._masks.__func__
 
         def place_chunked(*a, **kw):
-            before = cuda_kernels.LAUNCHES["chunked_step"]
+            before = cuda_kernels.LAUNCHES["chunked_scan"]
             out = scan(*a, **kw)
-            self.scans.append((a, kw, cuda_kernels.LAUNCHES["chunked_step"]
+            self.scans.append((a, kw, cuda_kernels.LAUNCHES["chunked_scan"]
                                - before))
             return out
 
@@ -769,7 +886,8 @@ def service_phase(np, torch) -> dict:
     """The slice at full width: 10,000 bench-fleet nodes in three
     datacenters and 100 racks, service preemption on, the applier thread
     running; through new_scheduler: (a) the web job's spread blocks and
-    (b) the rack-capped job (the chunked scan, on the step kernel), both
+    (b) the rack-capped job (the chunked scan, one launch of the scan
+    kernel a solve), both
     at the service tier's priority 80, then (c) a priority-20 batch job
     filling every node and a priority-80 service job that fits only by
     preemption, with the filler's allocations the only ones below it. The launch counts are
@@ -804,8 +922,11 @@ def service_phase(np, torch) -> dict:
             mock, structs, "preemptor", PREEMPT_COUNT, *FILL_ASK,
             priority=SERVICE_PRIORITY))
         launches = dict(cuda_kernels.LAUNCHES)  # read just after
-    check(launches["chunked_step"] >= 1,
-          "chunked_step was not launched on the service path")
+    check(launches["chunked_scan"] == len(rec.scans) >= 2,
+          f"service path: {launches['chunked_scan']} scan-kernel launches "
+          f"for {len(rec.scans)} scan solves")
+    check(launches["chunked_step"] == 0,
+          f"service path: {launches['chunked_step']} step-kernel launches")
     for name, r in (("web", web), ("rack-capped", capped),
                     ("filler", filler), ("preemptor", pre)):
         c = r["counters"]
@@ -817,9 +938,9 @@ def service_phase(np, torch) -> dict:
         check(r["counters"]["host_fallback"] == 0,
               f"service {name}: {r['counters']['host_fallback']} "
               f"placements fell back to the host stack")
-        check(r["launches"]["chunked_step"] > 0 and
+        check(r["launches"]["chunked_scan"] > 0 and
               r["counters"]["scan_solves"] >= 1,
-              f"service {name}: the scan did not run on the step kernel")
+              f"service {name}: the scan did not run on the scan kernel")
     # (a) the spread blocks
     by_dc = {d: 0 for d in WEB_TARGETS}
     by_rack: dict = {}
@@ -867,21 +988,24 @@ def service_phase(np, torch) -> dict:
     # on the same inputs
     out["scans"] = []
     for (a, kw, n_launch), name in zip(rec.scans, ("web", "rack-capped")):
-        got = cuda_kernels.place_chunked(*a, **kw)
+        got = cuda_kernels.chunked_scan(*a, **kw)
         want = kernels.place_chunked(*a, **kw)
-        for g, w in zip(got, want):
-            check(torch.equal(g, w), f"service {name}: the kernel's scan "
-                  f"differs from the plain scan on its own inputs")
-        dev_ms = _kernel_list(
-            torch, lambda: cuda_kernels.place_chunked(*a, **kw))
-        r = {"eval": name, "launches": n_launch,
-             "device_ms": dev_ms["device_ms"],
-             "wall_ms": _median_ms(
-                 torch, lambda: cuda_kernels.place_chunked(*a, **kw), 3)}
+        check(_bit_equal(got[:4], want), f"service {name}: the kernel's "
+              f"scan differs from the plain scan on its own inputs")
+        def solve():
+            return cuda_kernels.place_chunked(*a, **kw)
+        r = {"eval": name, "launches": n_launch, "steps": int(got[4]),
+             "device_ms": _device_ms(torch, solve, "", reps=5)[1],
+             "wall_ms": _median_ms(torch, solve, 3),
+             "plain_wall_ms": _median_ms(
+                 torch, lambda: kernels.place_chunked(*a, **kw), 3)}
+        if not r["device_ms"]:
+            r["device_ms"] = _queued_ms(torch, solve, 5)
         out["scans"].append(r)
-        log(f"service {name} scan solve: {n_launch} step launches, "
-            f"{r['device_ms']} ms device, {r['wall_ms']} ms wall (replayed "
-            f"on its inputs; equal to the plain scan)")
+        log(f"service {name} scan solve: {n_launch} scan launch(es), "
+            f"{r['steps']} steps, {r['device_ms']} ms device, "
+            f"{r['wall_ms']} ms wall, plain scan {r['plain_wall_ms']} ms "
+            f"(replayed on its inputs; bit-equal to the plain scan)")
     (v_res, v_prio, ask, free, job_prio), wall = rec.preempts[0]
     on_card = [torch.from_numpy(np.asarray(x)).to(DEVICE)
                for x in (v_res, v_prio, ask, free)]
@@ -1345,8 +1469,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     pow10 = pow10_phase(torch, dev)
     res = kernels_phase(np, torch, dev)
-    res["chunked_step"] = chunked_phase(np, torch, dev,
-                                        res["depth_curve"]["floor_ms"])
+    res.update(chunked_phase(np, torch, dev, res["depth_curve"]["floor_ms"]))
     main = main_path_phase(torch)
     service = service_phase(np, torch)
     compare = compare_phase(torch)
@@ -1361,10 +1484,15 @@ def main() -> int:
         # no Pallas kernel: the step of place_chunked's lax.scan
         "chunked_step": ("nomad_tpu_torch/solver/csrc/chunked_step.cu",
                          "nomad_tpu/solver/kernels.py:414"),
+        # no Pallas kernel: place_chunked's lax.scan, one XLA program
+        "chunked_scan": ("nomad_tpu_torch/solver/csrc/chunked_scan.cu",
+                         "nomad_tpu/solver/kernels.py:345"),
     }
-    # each kernel's launches on the path that runs it
+    # each kernel's launches on the path that runs it: the scan's two on
+    # the service path (the step kernel no longer runs there)
     launches = dict(main["launches"])
-    launches["chunked_step"] = service["launches"]["chunked_step"]
+    for name in ("chunked_step", "chunked_scan"):
+        launches[name] = service["launches"][name]
     rows = []
     for name, (src, rep) in meta.items():
         r = res[name]
@@ -1375,9 +1503,8 @@ def main() -> int:
                "bound_by": r["bound_by"], "library_ms": None,
                "floor_ms": r["floor_ms"], "call_ms": r["call_ms"]}
         for k in ("near_tie_rows", "moved_nodes", "grid_ms", "spread_ms",
-                  "k512_ms", "depths_evaluated", "score_ms",
-                  "launches_per_solve", "solve_ms", "solve_device_ms",
-                  "plain_solve_ms"):
+                  "k512_ms", "depths_evaluated", "score_ms", "steps",
+                  "solve_device_ms", "barrier_ms", "dependency_floor_ms"):
             if k in r:
                 row[k] = r[k]
         rows.append(row)

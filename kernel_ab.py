@@ -17,6 +17,16 @@ kernels into its own build/kernels/. For each, one JSON line with:
   greedy_fill            one `fill_greedy_binpack_fused` call (count 1): its
                          device kernels (name -> [launches, device ms]),
                          their device time and the call's time
+  step_ms, step_call_ms  the chunked-step kernel's device time per launch
+                         and `chunked_step`'s per-call time, on the scan's
+                         inputs at the 16,384 bucket (chip_smoke.py
+                         `_scan_inputs`)
+  scan_device_ms,        one `place_chunked` solve of the web job on those
+  scan_call_ms           inputs: the device time of every kernel it runs
+                         (profiler, 10 solves) and its wall (CUDA events,
+                         median of 10); a checkout with the whole-scan
+                         kernel runs one launch, an older one a step
+                         launch and a torch tail a step
 
 then the card's name and power limit. Exits non-zero without a card.
 """
@@ -76,6 +86,20 @@ def one(root: str) -> dict:
            "greedy_fill": cs._kernel_list(torch, greedy_fill)}
     out["greedy_fill"]["call_ms"] = cs._median_ms(torch, greedy_fill,
                                                   cs.CALL_REPS)
+    scan_args, d_active = cs._scan_inputs(np, torch, dev)
+    placed = torch.zeros(cs.N_BUCKET, dtype=torch.int32, device=dev)
+    step_args = cs._step_args(scan_args, placed, d_active)
+
+    def step():
+        return cuda_kernels.chunked_step(*step_args)
+
+    def scan():
+        return cuda_kernels.place_chunked(*scan_args)
+
+    out.update(step_ms=cs._device_ms(torch, step, "chunked_step_kernel")[0],
+               step_call_ms=cs._median_ms(torch, step, cs.CALL_REPS),
+               scan_device_ms=cs._device_ms(torch, scan, "", reps=10)[1],
+               scan_call_ms=cs._median_ms(torch, scan, 10))
     return out
 
 

@@ -20,7 +20,7 @@
 //              ((desired - (count + 1)) / desired) * weight, -1 for a
 //              missing value) where nonzero, divided by max(n_present, 1).
 // It writes -inf where can_place is false and the score elsewhere, and
-// nothing else: selection and the state update run in torch on the card.
+// nothing else.
 //
 // What bounds it on this card: the launch. One step at the 16,384 bucket
 // with two stanzas reads ~65 bytes for a feasible node (cap, used,
@@ -34,20 +34,23 @@
 // reduces the [S, P] spread counts to each stanza's (min, max, any live
 // column) in shared memory (P is the value universe, small), so every
 // block derives the even-spread boost's inputs itself and no second pass
-// or global reduction is needed. Build without fast math and without FMA
-// contraction: the one fused multiply-add the reference computes is
-// written as __fmaf_rn, every other operation rounds on its own, as in the
-// plain version.
+// or global reduction is needed. The score's arithmetic lives in
+// chunked_score.cuh, which the whole-scan kernel (chunked_scan.cu) shares.
+// Build without fast math and without FMA contraction: the one fused
+// multiply-add the reference computes is written as __fmaf_rn, every other
+// operation rounds on its own, as in the plain version.
+//
+// The placer no longer runs the scan step by step: chunked_scan.cu runs a
+// whole solve in one launch. This single-step entry stays to hold the
+// shared score bit for bit against the plain step.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
-#include "pow10.cuh"
+#include "chunked_score.cuh"
 
-#define NUM_XR 5
 #define THREADS 128
-#define MAX_STANZAS 16
 
 __global__ void __launch_bounds__(THREADS) chunked_step_kernel(
     const float* __restrict__ cap, const float* __restrict__ used,
@@ -61,29 +64,7 @@ __global__ void __launch_bounds__(THREADS) chunked_step_kernel(
     const int32_t* __restrict__ dp_rem, const uint8_t* __restrict__ d_active,
     int n_d, int n_dp, float* __restrict__ out) {
   __shared__ int s_min[MAX_STANZAS], s_max[MAX_STANZAS], s_any[MAX_STANZAS];
-  if (threadIdx.x < n_s) {
-    s_min[threadIdx.x] = 1 << 30;
-    s_max[threadIdx.x] = 0;
-    s_any[threadIdx.x] = 0;
-  }
-  __syncthreads();
-  for (int s = 0; s < n_s; ++s) {
-    int lmin = 1 << 30, lmax = 0, lany = 0;
-    for (int p = threadIdx.x; p < n_p; p += blockDim.x) {
-      int v = sp_counts[s * n_p + p];
-      if (v >= 0) {
-        lmin = min(lmin, v);
-        lmax = max(lmax, v);
-        lany = 1;
-      }
-    }
-    if (lany) {
-      atomicMin(&s_min[s], lmin);
-      atomicMax(&s_max[s], lmax);
-      s_any[s] = 1;
-    }
-  }
-  __syncthreads();
+  chunked_spread_stats(sp_counts, n_s, n_p, s_min, s_max, s_any);
 
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -98,82 +79,20 @@ __global__ void __launch_bounds__(THREADS) chunked_step_kernel(
     c[r] = cap[(size_t)i * NUM_XR + r];
     u[r] = used[(size_t)i * NUM_XR + r];
   }
-  float capacity = 1e9f;
-#pragma unroll
-  for (int r = 0; r < NUM_XR; ++r) {
-    float a = ask[r];
-    if (a > 0.0f) capacity = fminf(capacity, floorf((c[r] - u[r]) / a));
-  }
-  capacity = fmaxf(capacity, 0.0f);
   int32_t pl = placed[i];
-  bool can = (int32_t)capacity > 0 && pl < mpn;
-  for (int d = 0; d < n_d; ++d) {
-    if (!d_active[d]) continue;
-    int id = dp_ids[(size_t)d * n + i];
-    int safe = min(max(id, 0), n_dp - 1);
-    can = can && id >= 0 && dp_rem[d * n_dp + safe] > 0;
-  }
-  if (!can) {
+  if (!chunked_fits(c, u, ask, pl, mpn) ||
+      !chunked_distinct_ok(i, n, dp_ids, dp_rem, d_active, n_d, n_dp)) {
     out[i] = -CUDART_INF_F;
     return;
   }
-
-  float safe0 = c[0] > 0.0f ? c[0] : 1.0f;
-  float safe1 = c[1] > 0.0f ? c[1] : 1.0f;
-  float fp0 = 1.0f - (u[0] + ask[0]) / safe0;
-  float fp1 = 1.0f - (u[1] + ask[1]) / safe1;
-  float total = pow10_f32(fp0) + pow10_f32(fp1);
-  float raw = spread ? total - 2.0f : 20.0f - total;
-  raw = fminf(fmaxf(raw, 0.0f), 18.0f);
-
-  int32_t coll = job_coll[i] + pl;
-  bool anti_on = coll > 0;
-  float anti = anti_on ? -((float)coll + 1.0f) / desired : 0.0f;
-  const float kInvMaxScore = __int_as_float(0x3D638E39);   // float32(1/18)
-  float score = __fmaf_rn(raw, kInvMaxScore, anti);
-
-  float a = aff[i];
-  bool aff_on = a != 0.0f;
-  score = score + (aff_on ? a : 0.0f);
-
-  float st = 0.0f;
-  bool any_spread = false;
-  for (int s = 0; s < n_s; ++s) {
-    int mode = sp_mode[s];
-    if (mode < 0) continue;
-    any_spread = true;
-    int id = sp_ids[(size_t)s * n + i];
-    float per;
-    if (id < 0) {
-      per = -1.0f;
-    } else {
-      int safe = min(id, n_p - 1);
-      int pc = sp_counts[s * n_p + safe];
-      if (mode == 1) {
-        float dd = sp_desired[s * n_p + safe];
-        per = dd > 0.0f ? ((dd - ((float)pc + 1.0f)) / dd) * sp_weights[s]
-                        : -1.0f;
-      } else {
-        int min_c = s_any[s] ? s_min[s] : 0;
-        int max_c = s_max[s];
-        float div = (float)max(min_c, 1);
-        float boost;
-        if (pc == min_c)
-          boost = min_c == max_c ? -1.0f
-                  : min_c == 0   ? 1.0f
-                                 : (float)(max_c - min_c) / div;
-        else
-          boost = min_c == 0 ? -1.0f : (float)(min_c - pc) / div;
-        per = max_c > 0 ? boost : 0.0f;
-      }
-    }
-    st = st + per;
-  }
-  bool spread_on = any_spread && st != 0.0f;
-  score = score + (spread_on ? st : 0.0f);
-  float n_present = 1.0f + (anti_on ? 1.0f : 0.0f) + (aff_on ? 1.0f : 0.0f) +
-                    (spread_on ? 1.0f : 0.0f);
-  out[i] = score / fmaxf(n_present, 1.0f);
+  float n_pre;
+  float pre = chunked_pre(chunked_raw(c, u, ask, spread), job_coll[i] + pl,
+                          desired, aff[i], &n_pre);
+  bool any_spread;
+  float st = chunked_spread(i, n, sp_ids, sp_counts, sp_desired, sp_mode,
+                            sp_weights, n_s, n_p, s_min, s_max, s_any,
+                            &any_spread);
+  out[i] = chunked_final(pre, n_pre, st, any_spread);
 }
 
 // Launch on `stream`; returns the launch's cudaError_t (0 = success).

@@ -6,9 +6,15 @@ of nomad_tpu/solver/pallas_kernels.py.
   score_capacity  csrc/score_capacity.cu, replaces
                   `_score_capacity_kernel` (the greedy inner pass; its
                   greedy entry also folds in the greedy tail's key step)
-  chunked_step    csrc/chunked_step.cu, the chunked scan's per-step score
-                  pass (no Pallas counterpart: the reference runs the
-                  scan as one XLA program); `place_chunked` drives it
+  chunked_scan    csrc/chunked_scan.cu, the whole chunked scan in one
+                  launch: a persistent cluster of 8 CTAs that keeps the
+                  running state on chip (no Pallas counterpart: the
+                  reference runs the scan as one XLA program);
+                  `place_chunked` launches it once per solve
+  chunked_step    csrc/chunked_step.cu, one scan step's score pass: the
+                  score the scan kernel shares (csrc/chunked_score.cuh),
+                  held bit for bit against the plain step; no placer path
+                  launches it
   launch_floor    csrc/launch_floor.cu, an empty kernel: the card's
                   launch floor, for measurement only
   pow10_check     csrc/pow10_check.cu, the exhaustive check of
@@ -27,12 +33,13 @@ take floor of quotients and pow) and no FMA contraction, so the kernels
 round like their plain versions.
 
 Wrappers: `fill_depth_fused`, `fill_greedy_binpack_fused` and
-`place_chunked` keep the reference signatures. A wrapper given CPU tensors runs the plain version
-(kernels.py), as every wrapper here does, though the placer itself routes
-CPU solves to the torch tier (backend.select); given CUDA tensors it checks device, dtype, shape and
-contiguity, allocates one output buffer, launches on the current stream
-and raises if the launch reports an error. `LAUNCHES` counts the launches
-of each placement kernel; nothing else adds to it.
+`place_chunked` keep the reference signatures. A wrapper given CPU
+tensors runs the plain version (kernels.py), as every wrapper here does,
+though the placer itself routes CPU solves to the torch tier
+(backend.select); given CUDA tensors it checks device, dtype, shape and
+contiguity, allocates its outputs (and the scan's scratch), launches on
+the current stream and raises if the launch reports an error. `LAUNCHES`
+counts the launches of each placement kernel; nothing else adds to it.
 """
 from __future__ import annotations
 
@@ -60,15 +67,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = {"depth_curve": "depth_curve.cu",
            "score_capacity": "score_capacity.cu",
            "chunked_step": "chunked_step.cu",
+           "chunked_scan": "chunked_scan.cu",
            "launch_floor": "launch_floor.cu",
            "pow10_check": "pow10_check.cu"}
 # the placement kernels
-KERNELS = ("depth_curve", "score_capacity", "chunked_step")
+KERNELS = ("depth_curve", "score_capacity", "chunked_step", "chunked_scan")
 MAX_GRID = 32           # csrc/depth_curve.cu DepthGrid capacity
 
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_LOG: dict = {}    # name -> nvcc output (registers, spills)
-_fns: dict = {}         # name -> the library's launch function
+_fns: dict = {}         # (name, symbol) -> the library's function
 _build_lock = threading.Lock()
 
 _P = ctypes.c_void_p
@@ -81,6 +89,11 @@ _ARGTYPES = {
     "chunked_step_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P,
                             _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P,
                             _P],
+    "chunked_scan_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P,
+                            _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _P, _P, _P, _P],
+    "chunked_scan_scratch_bytes": [_I, _I, _I, _I, _I],
+    "chunked_scan_barrier_launch": [_I, _P],
     "launch_floor_launch": [_P],
     "pow10_check_launch": [ctypes.c_uint, ctypes.c_uint, _P, _P],
 }
@@ -139,22 +152,23 @@ def build(names=None) -> float:
     return time.perf_counter() - t0
 
 
-def _fn(name: str):
-    """The launch function of kernel `name`, built and loaded at first
-    use."""
-    fn = _fns.get(name)
+def _fn(name: str, symbol: str = "launch"):
+    """The function `<name>_<symbol>` of kernel `name`'s library (its
+    launch function by default), built and loaded at first use."""
+    fn = _fns.get((name, symbol))
     if fn is not None:
         return fn
     with _build_lock:
-        fn = _fns.get(name)
+        fn = _fns.get((name, symbol))
         if fn is None:
             path = _lib_path(name)
             if not path.exists():
                 build([name])
-            fn = getattr(ctypes.CDLL(str(path)), f"{name}_launch")
-            fn.argtypes = _ARGTYPES[f"{name}_launch"]
-            fn.restype = ctypes.c_int
-            _fns[name] = fn
+            fn = getattr(ctypes.CDLL(str(path)), f"{name}_{symbol}")
+            fn.argtypes = _ARGTYPES[f"{name}_{symbol}"]
+            fn.restype = (ctypes.c_longlong if symbol == "scratch_bytes"
+                          else ctypes.c_int)
+            _fns[(name, symbol)] = fn
     return fn
 
 
@@ -321,7 +335,7 @@ def fill_greedy_binpack_fused(cap, used, ask, count, feasible,
     return _greedy_fill(capacity, key, count)
 
 
-MAX_STANZAS = 16        # csrc/chunked_step.cu shared-memory capacity
+MAX_STANZAS = 16        # csrc/chunked_score.cuh shared-memory capacity
 
 
 def chunked_step(cap, used, ask, feasible, job_collisions, placed,
@@ -375,16 +389,82 @@ def chunked_step(cap, used, ask, feasible, job_collisions, placed,
     return out
 
 
+MAX_CHUNK = 256         # csrc/chunked_scan.cu: k = min(N, 256) a step
+
+
+def chunked_scan(cap, used, ask, count, feasible, job_collisions,
+                 desired_count, spread_ids, spread_counts, spread_desired,
+                 spread_mode, spread_weights, affinity_boost, distinct_ids,
+                 distinct_remaining, max_per_node=kernels.MAX_PER_NODE_CAP,
+                 max_steps: int = 256, spread_algorithm: bool = False,
+                 placed_init=None) -> tuple:
+    """One launch of the scan kernel on CUDA tensors: place_chunked's four
+    returns (placed_total, final_used, spread_counts, distinct_remaining,
+    in new buffers; the inputs are not modified) and the steps the kernel
+    ran, i32[1] on the card (read it only to measure: it syncs)."""
+    n = _check_rows(cap, used, ask, feasible,
+                    (job_collisions, "job_collisions", torch.int32),
+                    (affinity_boost, "affinity_boost", torch.float32))
+    dev = cap.device
+    n_s, n_p = spread_counts.shape
+    n_d, n_dp = distinct_remaining.shape
+    if not 0 < n_s <= MAX_STANZAS or not 0 < n_d <= MAX_STANZAS:
+        raise ValueError(f"{n_s} spread and {n_d} distinct stanzas: the "
+                         f"kernel takes 1..{MAX_STANZAS} of each")
+    for t, what, dtype, shape in (
+            (spread_ids, "spread_ids", torch.int32, (n_s, n)),
+            (spread_counts, "spread_counts", torch.int32, (n_s, n_p)),
+            (spread_desired, "spread_desired", torch.float32, (n_s, n_p)),
+            (spread_mode, "spread_mode", torch.int32, (n_s,)),
+            (spread_weights, "spread_weights", torch.float32, (n_s,)),
+            (distinct_ids, "distinct_ids", torch.int32, (n_d, n)),
+            (distinct_remaining, "distinct_remaining", torch.int32,
+             (n_d, n_dp))):
+        if not _fits(t, dtype, shape, dev):
+            _check(t, what, dtype, shape, dev)
+    count, max_steps = int(count), int(max_steps)
+    if max_steps < 1:
+        raise ValueError(f"max_steps {max_steps}: the scan takes >= 1")
+    # place_chunked's chunk: ceil(count / max_steps), within [1, k]
+    chunk = min(max((count + max_steps - 1) // max_steps, 1), min(n, 256))
+    if placed_init is None:
+        placed = torch.zeros((n,), dtype=torch.int32, device=dev)
+    else:
+        if not _fits(placed_init, torch.int32, (n,), dev):
+            _check(placed_init, "placed_init", torch.int32, (n,), dev)
+        placed = placed_init.clone()
+    used_out = used.clone()
+    sp_out = torch.empty_like(spread_counts)
+    dr_out = torch.empty_like(distinct_remaining)
+    nbytes = int(_fn("chunked_scan", "scratch_bytes")(n, n_s, n_p, n_d,
+                                                        n_dp))
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    err = _fn("chunked_scan")(
+        cap.data_ptr(), used_out.data_ptr(), ask.data_ptr(),
+        feasible.data_ptr(), job_collisions.data_ptr(), placed.data_ptr(),
+        n, min(int(max_per_node), kernels.MAX_PER_NODE_CAP),
+        float(max(int(desired_count), 1)), int(bool(spread_algorithm)),
+        spread_ids.data_ptr(), spread_counts.data_ptr(),
+        spread_desired.data_ptr(), spread_mode.data_ptr(),
+        spread_weights.data_ptr(), n_s, n_p, affinity_boost.data_ptr(),
+        distinct_ids.data_ptr(), distinct_remaining.data_ptr(), n_d, n_dp,
+        count, chunk, max_steps, sp_out.data_ptr(), dr_out.data_ptr(),
+        scratch.data_ptr(), _stream(dev))
+    _launched("chunked_scan", err)
+    # the step count: the first word of the scratch's last 16 bytes
+    steps = scratch[nbytes - 16:nbytes - 12].view(torch.int32)
+    return placed, used_out, sp_out, dr_out, steps
+
+
 def place_chunked(cap, used, ask, count, feasible, job_collisions,
                   desired_count, spread_ids, spread_counts, spread_desired,
                   spread_mode, spread_weights, affinity_boost, distinct_ids,
                   distinct_remaining, max_per_node=kernels.MAX_PER_NODE_CAP,
                   max_steps: int = 256, spread_algorithm: bool = False,
                   placed_init=None) -> tuple:
-    """kernels.place_chunked with the chunked-step kernel scoring every
-    step: same signature and returns, the selection and state update
-    shared (kernels._place_chunked_loop). CPU tensors run the plain
-    version."""
+    """kernels.place_chunked as one launch of the scan kernel on CUDA
+    tensors (chunked_scan): same signature and returns. CPU tensors run
+    the plain version."""
     if cap.device.type == "cpu":
         return kernels.place_chunked(
             cap, used, ask, count, feasible, job_collisions, desired_count,
@@ -393,12 +473,22 @@ def place_chunked(cap, used, ask, count, feasible, job_collisions,
             distinct_remaining, max_per_node=max_per_node,
             max_steps=max_steps, spread_algorithm=spread_algorithm,
             placed_init=placed_init)
-    return kernels._place_chunked_loop(
-        chunked_step, cap, used, ask, count, feasible, job_collisions,
-        desired_count, spread_ids, spread_counts, spread_desired,
-        spread_mode, spread_weights, affinity_boost, distinct_ids,
-        distinct_remaining, max_per_node, max_steps, spread_algorithm,
-        placed_init)
+    return chunked_scan(
+        cap, used, ask, count, feasible, job_collisions, desired_count,
+        spread_ids, spread_counts, spread_desired, spread_mode,
+        spread_weights, affinity_boost, distinct_ids, distinct_remaining,
+        max_per_node=max_per_node, max_steps=max_steps,
+        spread_algorithm=spread_algorithm, placed_init=placed_init)[:4]
+
+
+def cluster_barrier(steps: int, dev) -> None:
+    """One launch of `steps` cluster barriers on the scan kernel's shape
+    (8 CTAs of 512 threads) on `dev`'s current stream: a solve's
+    dependency floor, for measurement only; not counted in LAUNCHES."""
+    err = _fn("chunked_scan", "barrier_launch")(int(steps), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"cluster_barrier kernel launch failed: "
+                           f"cudaError_t {err}")
 
 
 def launch_floor(dev) -> None:

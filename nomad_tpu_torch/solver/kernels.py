@@ -474,16 +474,32 @@ def chunked_step_ref(cap, used, ask, feasible, job_collisions, placed,
                        -math.inf)
 
 
+def chunked_key(score: torch.Tensor) -> torch.Tensor:
+    """The scan's selection key, int64[N], unique per node: the
+    order-preserving bits of the float32 score in the high word (-0.0
+    read as +0.0, which the sort takes as equal), ~index in the low word.
+    Keys descending are scores descending, then node index ascending:
+    the order of a stable descending sort, and lax.top_k's. csrc/
+    chunked_scan.cu selects by the same key (as uint64, its high word
+    offset by 2**31). A score is never NaN (chunked_step_ref divides only
+    by values >= 1 or > 0)."""
+    s = torch.where(score == 0.0, 0.0, score)
+    bits = s.view(torch.int32).to(torch.int64)
+    hi = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    idx = torch.arange(score.shape[0], dtype=torch.int64,
+                       device=score.device)
+    return hi * 2 ** 32 + (2 ** 32 - 1 - idx)
+
+
 def _chunked_take(score: torch.Tensor, k: int, take_now: torch.Tensor
                   ) -> torch.Tensor:
     """One step's selection: the first `take_now` nodes by (score
     descending, node index ascending) among the top k with a finite
-    score, one instance each -> add i32[N]. lax.top_k breaks ties by the
-    lower index; a stable descending sort does the same."""
-    top_s, top_i = torch.sort(score, descending=True, stable=True)
-    top_s, top_i = top_s[:k], top_i[:k]
+    score, one instance each -> add i32[N]. The order is chunked_key's,
+    the rule the scan kernel applies."""
+    top_i = torch.topk(chunked_key(score), k).indices
     rank = torch.arange(k, device=score.device)
-    select = (rank < take_now) & torch.isfinite(top_s)
+    select = (rank < take_now) & torch.isfinite(score[top_i])
     add = torch.zeros(score.shape, dtype=torch.int32, device=score.device)
     add[top_i] = select.to(torch.int32)
     return add
@@ -495,12 +511,13 @@ def _place_chunked_loop(step, cap, used, ask, count, feasible,
                         spread_weights, affinity_boost, distinct_ids,
                         distinct_remaining, max_per_node, max_steps,
                         spread_algorithm, placed_init) -> tuple:
-    """place_chunked's scan with `step` as the score producer (the plain
-    step here, the chunked-step kernel in cuda_kernels): a Python loop
-    over max_steps steps, the running state on the inputs' device. A step
-    with nothing left to place changes no state, so the loop reads
-    `remaining` once, after the ceil(count/chunk) steps that can place
-    all of it, and stops there if it is 0 — the only host sync."""
+    """place_chunked's scan with `step` as the score producer
+    (chunked_step_ref): a Python loop over max_steps steps, the running
+    state on the inputs' device. A step with nothing left to place
+    changes no state, so the loop reads `remaining` once, after the
+    ceil(count/chunk) steps that can place all of it, and stops there if
+    it is 0 — the only host sync. (The scan kernel also stops at the
+    first step that selects nothing; this loop runs on.)"""
     dev = cap.device
     n = cap.shape[0]
     count = int(count)

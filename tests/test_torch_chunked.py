@@ -7,8 +7,13 @@ with no tolerance. The cases cover what can move a placement: score ties
 (bench-like integer resources), multi-instance steps (count above
 max_steps), targeted spreads with fractional weights, missing spread
 values, distinct_property quotas, affinity and collisions under the
-spread algorithm, a carried-over `placed_init`, and a pair of nodes
-whose order only the reference's fused multiply-add decides.
+spread algorithm, a carried-over `placed_init`, a pair of nodes
+whose order only the reference's fused multiply-add decides, ties whose
+capacity runs out mid-scan, and the scan kernel's edges (chunk 1,
+nothing feasible, max_per_node 1, a split ask, small buckets). The
+selection key and the kernel's exit rule have tests of their own. The
+fixtures live in nomad_tpu_torch/testing.py, which the card's tests and
+chip_smoke.py share.
 """
 import numpy as np
 import jax  # noqa: F401  (the reference runs on the CPU backend)
@@ -17,158 +22,13 @@ import torch
 
 from nomad_tpu.solver import kernels as ref_kernels
 from nomad_tpu_torch.solver import kernels
+from nomad_tpu_torch.testing import (BENCH_CPU, BENCH_MEM, CHUNKED_CASES,
+                                     EDGE_CASES, chunked_case, split_solves)
 
-BENCH_CPU = (4_000, 8_000, 16_000, 32_000)
-BENCH_MEM = (8_192, 16_384, 32_768, 65_536)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
-
-
-def _fleet(rng, n, integer=True, fill=0.5):
-    cap = np.zeros((n, 5), np.float32)
-    cap[:, 0] = rng.choice(BENCH_CPU, n)
-    cap[:, 1] = rng.choice(BENCH_MEM, n)
-    cap[:, 2] = 500_000
-    cap[:, 3] = 100
-    cap[:, 4] = 1_000
-    used = np.zeros_like(cap)
-    frac = rng.random((n, 2)).astype(np.float32) * fill
-    used[:, :2] = cap[:, :2] * frac
-    if integer:
-        used = np.floor(used)
-    return cap, used
-
-
-def _no_spread(n):
-    return (np.full((1, n), -1, np.int32), np.full((1, 2), -1, np.int32),
-            np.full((1, 2), -1.0, np.float32), np.full(1, -1, np.int32),
-            np.zeros(1, np.float32))
-
-
-def _no_distinct(n):
-    return np.full((1, n), -1, np.int32), np.full((1, 2), -1, np.int32)
-
-
-def _targeted(rng, n, values, percents, count, weight, sum_weights):
-    """One targeted stanza over `values` (id per node by rng), lowered as
-    tensorize._lower_spreads lowers it."""
-    ids = rng.integers(0, len(values), n).astype(np.int32)
-    p = max(2, 1 << (len(values) - 1).bit_length())
-    counts = np.full(p, -1, np.int32)
-    counts[:len(values)] = 0
-    desired = np.full(p, -1.0, np.float32)
-    desired[:len(values)] = [pc / 100.0 * count for pc in percents]
-    return ids, counts, desired, 1, weight / sum_weights
-
-
-def _case(name):
-    """-> (args tuple in the reference's positional order, kwargs)."""
-    rng = np.random.default_rng(CASES.index(name) + 11)
-    n = 128
-    ask = np.array([250, 512, 300, 0, 0], np.float32)
-    feas = rng.random(n) > 0.1
-    coll = np.zeros(n, np.int32)
-    aff = np.zeros(n, np.float32)
-    sp = _no_spread(n)
-    dp = _no_distinct(n)
-    kw = dict(max_steps=64)
-    desired_count = 10
-    if name == "even_spread":
-        cap, used = _fleet(rng, n)
-        count = 300                                  # 5 per step
-        ids = rng.integers(0, 3, n).astype(np.int32)
-        sp = (ids[None], np.array([[4, 0, 2, -1]], np.int32),
-              np.full((1, 4), -1.0, np.float32), np.array([0], np.int32),
-              np.ones(1, np.float32))
-    elif name == "targeted_fractional":
-        cap, used = _fleet(rng, n)
-        count = 200
-        ids, counts, desired, mode, w = _targeted(
-            rng, n, ("dc1", "dc2", "dc3"), (50, 30, 20), count, 70, 100)
-        sp = (ids[None], counts[None], desired[None],
-              np.array([mode], np.int32), np.array([w], np.float32))
-    elif name == "two_stanzas_missing":
-        cap, used = _fleet(rng, n, integer=False)
-        ask = np.array([251.5, 517.25, 300, 0, 0], np.float32)
-        count = 150
-        ids0, counts0, desired0, _, w0 = _targeted(
-            rng, n, ("a", "b", "c"), (50, 30, 20), count, 70, 100)
-        ids0[rng.random(n) < 0.15] = -1              # value missing
-        ids1 = rng.integers(0, 7, n).astype(np.int32)
-        ids1[rng.random(n) < 0.1] = -1
-        counts1 = np.full(8, -1, np.int32)
-        counts1[:7] = rng.integers(0, 3, 7)
-        pad = np.full(8, -1, np.int32)
-        pad[:4] = counts0
-        dpad = np.full(8, -1.0, np.float32)
-        dpad[:4] = desired0
-        sp = (np.stack([ids0, ids1]), np.stack([pad, counts1]),
-              np.stack([dpad, np.full(8, -1.0, np.float32)]),
-              np.array([1, 0], np.int32), np.array([w0, 0.3], np.float32))
-    elif name == "distinct_mpn1":
-        cap, used = _fleet(rng, n)
-        count = 90
-        ids = rng.integers(0, 12, n).astype(np.int32)
-        ids[rng.random(n) < 0.1] = -1
-        rem = np.full((2, 16), -1, np.int32)
-        rem[0, :] = 0
-        rem[0, :12] = rng.integers(0, 6, 12)
-        dp = (np.stack([ids, np.full(n, -1, np.int32)]), rem)
-        kw.update(max_per_node=1, max_steps=32)      # 3 per step
-    elif name == "affinity_collisions_spread_alg":
-        cap, used = _fleet(rng, n, integer=False)
-        count = 120
-        coll = (rng.integers(0, 4, n) * (rng.random(n) < 0.4)).astype(
-            np.int32)
-        aff = np.where(rng.random(n) < 0.3, rng.uniform(-1, 1, n),
-                       0.0).astype(np.float32)
-        desired_count = 7
-        kw.update(spread_algorithm=True)
-    elif name == "bench_ties":
-        # the bench fleet empty: 16 node shapes, exact score ties everywhere
-        cap, _ = _fleet(rng, n)
-        used = np.zeros_like(cap)
-        count = 700
-        ids = (np.arange(n) % 3).astype(np.int32)
-        rack = (np.arange(n) % 10).astype(np.int32)
-        sp = (np.stack([ids, rack]),
-              np.stack([np.array([0, 0, 0, -1] + [-1] * 12, np.int32),
-                        np.array([0] * 10 + [-1] * 6, np.int32)]),
-              np.stack([np.array([350, 210, 140, -1] + [-1] * 12,
-                                 np.float32), np.full(16, -1.0, np.float32)]),
-              np.array([1, 0], np.int32),
-              np.array([0.7, 0.3], np.float32))
-    elif name == "fma_tie":
-        # two nodes only the fused multiply-add of base and anti orders:
-        # rounded separately, node 0 would score higher
-        n = 8
-        cap = np.zeros((n, 5), np.float32)
-        cap[:2] = [8_000, 16_384, 500_000, 100, 1_000]
-        used = np.zeros_like(cap)
-        used[0, :2] = [3897.56005859375, 3293.0244140625]
-        used[1, :2] = [1715.9468994140625, 3386.6640625]
-        feas = np.arange(n) < 2
-        coll = np.array([2, 1] + [0] * 6, np.int32)
-        aff = np.zeros(n, np.float32)
-        sp, dp = _no_spread(n), _no_distinct(n)
-        count, desired_count = 1, 7
-        kw = dict(max_steps=1)
-    else:
-        raise AssertionError(name)
-    args = (cap, used, ask, np.int32(count), feas, coll,
-            np.int32(desired_count)) + tuple(sp) + (aff,) + tuple(dp)
-    return args, kw
-
-
-CASES = ("even_spread", "targeted_fractional", "two_stanzas_missing",
-         "distinct_mpn1", "affinity_collisions_spread_alg", "bench_ties",
-         "fma_tie")
+# the cases live in the port's testing module, so the card's
+# tests and chip_smoke.py (which have no JAX) run the same fixtures
+_case = chunked_case
+CASES = CHUNKED_CASES
 
 
 def _torch(args):
@@ -246,6 +106,68 @@ def test_scan_stops_after_the_steps_that_place_everything():
     _assert_equal(got, want)
     chunk = -(-int(args[3]) // kw["max_steps"])
     assert len(calls) == -(-int(args[3]) // chunk) < kw["max_steps"]
+
+
+@pytest.mark.parametrize("name", [c for c in EDGE_CASES
+                                  if c != "bucket65536"])
+def test_scan_edge_cases_match_reference(name):
+    """The scan kernel's edge fixtures through the plain scan: chunk 1
+    (rack_capped), nothing feasible, remaining reaching 0 mid-scan,
+    max_per_node 1, an ask split across solves, the 8 and 1,024 buckets
+    (65,536 runs on the card: tests/test_torch_cuda.py). Each runs as the
+    placer runs it (split_solves), on both sides."""
+    args, kw = _case(name)
+    want = split_solves(ref_kernels.place_chunked, args, kw)
+    got = split_solves(kernels.place_chunked, _torch(args), kw)
+    _assert_equal(got, want)
+
+
+def test_chunked_key_orders_as_the_stable_descending_sort():
+    """The selection key (kernels.chunked_key, the scan kernel's rule) on
+    tie-heavy scores holding +0.0, -0.0, -inf, subnormals and the float32
+    extremes: unique, and ordering the nodes exactly as
+    torch.sort(descending=True, stable=True) does (-0.0 equal to +0.0)."""
+    rng = np.random.default_rng(9)
+    pool = np.array([0.0, -0.0, -np.inf, 1.5, -1.5, 1e-40, -1e-40, 3.4e38,
+                     -3.4e38, 0.25, np.nextafter(np.float32(0.25),
+                                                 np.float32(1)), -0.25],
+                    np.float32)
+    s = torch.from_numpy(np.concatenate([
+        rng.choice(pool, 3_000),
+        rng.standard_normal(1_000).astype(np.float32)]))
+    key = kernels.chunked_key(s)
+    assert key.dtype == torch.int64
+    assert int(torch.unique(key).numel()) == s.numel()
+    want = torch.sort(s, descending=True, stable=True).indices
+    assert torch.equal(torch.argsort(key, descending=True), want)
+    zeros = (s == 0).nonzero().view(-1)
+    assert bool((s[zeros].view(torch.int32) < 0).any())   # -0.0 present
+
+
+@pytest.mark.parametrize("name", ["ties_run_out", "nothing_feasible",
+                                  "mpn1", "distinct_mpn1"])
+def test_plain_scan_ends_where_its_first_empty_step_leaves_it(name):
+    """The scan kernel stops at the first step that selects nothing; the
+    plain loop runs on to max_steps. Each step it runs after that one
+    changes nothing: its returns equal the state that first empty step
+    left (the state the kernel returns), bit for bit."""
+    args, kw = _case(name)
+    before = []                  # (placed, used, counts, quotas) per step
+
+    def step(*a, **k):
+        before.append((a[5], a[1], a[9], a[15]))
+        return kernels.chunked_step_ref(*a, **k)
+    got = kernels._place_chunked_loop(
+        step, *_torch(args), kw.get("max_per_node", 2 ** 30),
+        kw["max_steps"], kw.get("spread_algorithm", False), None)
+    assert len(before) == kw["max_steps"]          # the loop ran on
+    empty = next(t for t in range(1, len(before))
+                 if int(before[t][0].sum()) == int(before[t - 1][0].sum()))
+    assert empty < kw["max_steps"] - 1             # the exit is mid-scan
+    for g, w in zip(got, before[empty]):
+        assert g.dtype == w.dtype
+        assert g.numpy().tobytes() == w.numpy().tobytes()
+    assert int(got[0].sum()) < int(args[3])
 
 
 def test_fma_f32_rounds_once():

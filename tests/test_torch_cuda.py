@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from nomad_tpu_torch.solver import cuda_kernels, kernels
+from nomad_tpu_torch.testing import SCAN_CASES, chunked_case, split_solves
 
 NUM_XR = 5
 ATOL = 1e-4
@@ -190,20 +191,74 @@ def test_chunked_step_kernel_matches_plain(dev, spread):
     assert bool(torch.isfinite(want).any())
 
 
-@pytest.mark.cuda
-def test_place_chunked_kernel_matches_plain(dev):
-    """The whole scan through the kernel against the plain scan on the
-    card: placements, usage, spread counts and quotas equal."""
-    args, _ = _scan_inputs(dev)
-    before = cuda_kernels.LAUNCHES["chunked_step"]
-    got = cuda_kernels.place_chunked(*args)
-    torch.cuda.synchronize()
-    launched = cuda_kernels.LAUNCHES["chunked_step"] - before
-    want = kernels.place_chunked(*args)
+def _launches():
+    return dict(cuda_kernels.LAUNCHES)
+
+
+def _assert_scans_equal(got, want):
     for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
         assert g.cpu().numpy().tobytes() == w.cpu().numpy().tobytes()
-    assert 0 < launched <= 256
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spread", [False, True], ids=["binpack", "spread"])
+def test_place_chunked_kernel_matches_plain(dev, spread):
+    """The whole scan in one launch of the scan kernel against the plain
+    scan on the card: placements, usage, spread counts and quotas
+    bit-equal; no step-kernel launch."""
+    args, _ = _scan_inputs(dev)
+    before = _launches()
+    got = cuda_kernels.place_chunked(*args, spread_algorithm=spread)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["chunked_scan"] == \
+        before["chunked_scan"] + 1
+    assert cuda_kernels.LAUNCHES["chunked_step"] == before["chunked_step"]
+    want = kernels.place_chunked(*args, spread_algorithm=spread)
+    _assert_scans_equal(got, want)
     assert int(got[0].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SCAN_CASES)
+def test_scan_kernel_matches_plain_scan_on_every_case(dev, name):
+    """Every chunked-scan fixture (nomad_tpu_torch/testing.py: the CPU
+    tests' cases against the reference, and the kernel's edges: chunk 1,
+    nothing feasible, done mid-scan, max_per_node 1, a split ask, buckets
+    8, 1,024 and 65,536), run as the placer runs it (split_solves): the
+    kernel, one launch per solve, bit-equal to the plain scan on the
+    card."""
+    args, kw = chunked_case(name)
+    args = tuple(torch.from_numpy(np.asarray(a)).to(dev)
+                 if isinstance(a, np.ndarray) else int(a) for a in args)
+    solves = []
+
+    def scan(*a, **k):
+        solves.append(1)
+        return cuda_kernels.place_chunked(*a, **k)
+    before = _launches()
+    got = split_solves(scan, args, kw)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["chunked_scan"] - before["chunked_scan"] \
+        == len(solves)
+    assert cuda_kernels.LAUNCHES["chunked_step"] == before["chunked_step"]
+    want = split_solves(kernels.place_chunked, args, kw)
+    _assert_scans_equal(got, want)
+    if name == "split":
+        assert len(solves) > 1
+
+
+@pytest.mark.cuda
+def test_scan_kernel_reports_its_steps(dev):
+    """The kernel stops at the first step that selects nothing, and at
+    remaining 0: ties_run_out runs out of capacity mid-scan."""
+    args, kw = chunked_case("ties_run_out")
+    args = tuple(torch.from_numpy(np.asarray(a)).to(dev)
+                 if isinstance(a, np.ndarray) else int(a) for a in args)
+    out = cuda_kernels.chunked_scan(*args, **kw)
+    steps = int(out[4])
+    assert 0 < steps < kw["max_steps"]
+    _assert_scans_equal(out[:4], kernels.place_chunked(*args, **kw))
 
 
 @pytest.mark.cuda
