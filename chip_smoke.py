@@ -85,20 +85,52 @@ prints no result):
               masks on the card and the CPU (equal; [C, V], wall, device
               time). Launch counts zeroed before (a), read after (c).
   5. compare  the same 50k eval on fresh clusters, serial
-              (plan_pipeline_enabled=False) and pipelined in turns
-              (serial, pipelined, pipelined, serial, twice), each with
-              the applier thread running and after a full garbage
-              collection: both walls and their medians, both layer
-              breakdowns and the pipeline's host/overlap seconds; launch
-              counts zeroed before and read after each run.
+              (plan_pipeline_enabled=False) and pipelined, each with
+              explain on and off (placement_explain_enabled), in turns
+              (COMPARE_ORDER, three runs a cell), each with the applier
+              thread running and after a full garbage collection: the
+              walls and their medians per cell, the layer breakdowns and
+              the pipeline's host/overlap seconds; launch counts zeroed
+              before and read after each run.
   6. profile  the pipelined 50k eval under torch.profiler: the card's busy
               time against the eval's wall.
   7. small    a 200-node cluster's evals on the card and on the CPU (the
               plain tier): the depth and greedy jobs, two pipelined
               (plan_pipeline_min_count 1, 3 chunks), the web, rack-capped
               and a deep job on the scan, a filler and a job placed by
-              preemption, each from the same seeded id stream: identical
-              alloc -> node maps and preempted alloc ids.
+              preemption, then a job asked beyond the full cluster's
+              capacity and a distinct_hosts job past one per node, each
+              from the same seeded id stream: identical alloc -> node
+              maps, preempted alloc ids, explain records (tier aside),
+              placed allocs' metrics (score metadata, scores) and failed
+              placements' metrics, field for field.
+  8. ladder   the dispatch chain on the card, faulted on purpose: card
+              work never moves to the CPU, so a device error raises out
+              of the eval. The 2,000-task eval with `solver.dispatch.cuda`
+              faulted once raises and commits nothing; the pipelined 50k
+              eval with a CUDA out-of-memory error raised at chunk 2's
+              host copy raises PipelineChunkError after committing chunks
+              0 and 1; each counts one dispatch error and runs no solve
+              on the CPU. Then the breaker with a threshold of 2: two
+              faulted solves (each raised, none skipped) open it, a
+              healthy solve launches the kernel and closes it, an
+              injected device loss opens it at once; and a kernel build
+              error and a bug, each raised BREAKER_THRESHOLD + 1 times
+              over, never counted and never open it (`ladder` lines).
+
+Explain runs at its default (on) everywhere: the `explain` lines give
+each main-path eval's record (the 50k eval's placed_total 50,000 and
+n_feasible 10,000) and `nomad.solver.explain.seconds`; the placer
+reduces every solve on the host (`reduce_numpy`), so no eval runs a
+reduce on the card. The explain phase (after `chunked`) holds the torch
+reduce on the card (kernels.explain_reduce) to the numpy reduce bit for
+bit at the 16,384 bucket and on a float32 rounding boundary, gives its
+device ms per reduce, and times the two ways to finish a serial solve:
+that reduce enqueued on the card riding the placement vector's copy,
+against the copy alone followed by the numpy reduce (the placer's). The compare phase runs the 50k eval
+serial and pipelined, each with explain on and off, in turns. Every
+healthy phase fails on any dispatch error, breaker opening or explain
+error (nomad.solver.explain.errors).
 
 Then a `kernels` JSON line and, last, the device line.
 """
@@ -131,7 +163,8 @@ BIG_COUNT, MID_COUNT = 50_000, 2_000
 LAYERS = ("nomad.scheduler.reconcile", "nomad.solver.tensorize",
           "nomad.solver.device", "nomad.solver.solve",
           "nomad.solver.materialize", "nomad.solver.preempt",
-          "nomad.plan.evaluate", "nomad.plan.apply")
+          "nomad.solver.explain.seconds", "nomad.plan.evaluate",
+          "nomad.plan.apply")
 # the pipelined lifecycle's host seconds, and those of them spent while
 # chunk solves or the applier were still busy
 PIPE_TIMERS = ("nomad.plan.pipeline.host", "nomad.plan.pipeline.overlap")
@@ -143,13 +176,31 @@ COUNTERS = {"evals": "nomad.plan.pipeline.evals",
             "torch_greedy": "nomad.solver.kernel.greedy.torch",
             "torch_chunked": "nomad.solver.kernel.chunked.torch",
             "scan_solves": "nomad.solver.kernel.chunked.cuda",
-            "host_fallback": "nomad.solver.placements_host_fallback"}
+            "host_fallback": "nomad.solver.placements_host_fallback",
+            # the dispatch chain: classified device errors, breaker
+            # openings, solves served by the CPU's plain tier
+            "dispatch_errors": "nomad.solver.dispatch_errors",
+            "breaker_opened": "nomad.solver.tier_breaker_opened",
+            "torch_serves": "nomad.solver.dispatch.torch",
+            # explain: records, reduces run on the card, swallowed errors
+            "explain_records": "nomad.solver.explain.records",
+            "explain_errors": "nomad.solver.explain.errors"}
+# counters every healthy phase must leave at 0
+HEALTHY_ZERO = ("dispatch_errors", "breaker_opened", "explain_errors")
+# and every eval on the card: no solve served by the CPU's plain tier
+CARD_ZERO = HEALTHY_ZERO + ("torch_serves",)
 # the kernels the 50k main path runs; the service path runs chunked_scan
 MAIN_KERNELS = ("depth_curve", "score_capacity")
 # the card the port solves on (the solve device's default)
 DEVICE = "cuda:0"
 BIG_CHUNKS = 4          # SchedulerConfiguration.plan_pipeline_chunks default
-COMPARE_ORDER = ("serial", "pipelined", "pipelined", "serial") * 2
+# the compare phase: (mode, explain) in turns, three runs a cell
+COMPARE_ORDER = ((("serial", True), ("pipelined", True),
+                  ("pipelined", False), ("serial", False)) +
+                 (("serial", False), ("pipelined", False),
+                  ("pipelined", True), ("serial", True)) +
+                 (("serial", True), ("pipelined", True),
+                  ("pipelined", False), ("serial", False)))
 SMALL_PIPELINE = {"plan_pipeline_min_count": 1, "plan_pipeline_chunks": 3}
 
 # the service path: racks per cluster, the web job's datacenter targets
@@ -189,6 +240,8 @@ SCAN_OPS_STEP = 6
 SOLVE_REPS = 5
 # cluster barriers per launch when timing one barrier
 BARRIER_STEPS = 10_000
+# the ladder phase's breaker cycle: rows a solve
+BREAKER_ROWS = 1_024
 
 
 class CheckFailed(AssertionError):
@@ -1177,11 +1230,13 @@ def _run_eval(fsm, planner, job, eval_id):
     return s.eval_by_id(ev.id)
 
 
-def _drive(torch, fsm, planner, job, eval_id=None) -> dict:
+def _drive(torch, fsm, planner, job, eval_id=None, healthy=True) -> dict:
     """One eval of `job` through the port's scheduler and applier, checked
     (every instance committed, the eval complete, no usage row over
-    capacity) and measured: wall, layer seconds, the pipeline's host
-    seconds, and counter and kernel-launch deltas."""
+    capacity; when `healthy`, no dispatch error, breaker opening or
+    explain error) and measured: wall, layer
+    seconds, the pipeline's host seconds, and counter and kernel-launch
+    deltas."""
     from nomad_tpu_torch.metrics import metrics
     from nomad_tpu_torch.solver import cuda_kernels
     s = fsm.state
@@ -1202,15 +1257,27 @@ def _drive(torch, fsm, planner, job, eval_id=None) -> dict:
     check(over == 0, f"{job_id}: {over} usage rows over capacity")
     timers = {k.split(".", 1)[1]: metrics.timer_sum(k) - v
               for k, v in timers0.items()}
+    counters = {k: metrics.counter(COUNTERS[k]) - v
+                for k, v in counters0.items()}
+    if healthy:
+        bad = {k: counters[k] for k in CARD_ZERO if counters[k]}
+        check(not bad, f"{job_id}: a healthy eval counted {bad}")
     return {"count": count, "committed": placed, "wall_s": wall,
             "layers_s": {k.split(".", 1)[1]: timers[k.split(".", 1)[1]]
                          for k in LAYERS},
             "pipeline_s": {k.split(".", 1)[1]: timers[k.split(".", 1)[1]]
                            for k in PIPE_TIMERS},
-            "counters": {k: metrics.counter(COUNTERS[k]) - v
-                         for k, v in counters0.items()},
+            "counters": counters,
             "launches": {k: cuda_kernels.LAUNCHES[k] - v
                          for k, v in launches0.items()}}
+
+
+def _explain_record(eval_id: str) -> dict:
+    """The newest explain record of `eval_id` (the ring's as_dict)."""
+    from nomad_tpu_torch.solver import explain
+    recs = [r for r in explain.recent(256) if r["eval_id"] == eval_id]
+    check(len(recs) >= 1, f"no explain record for eval {eval_id}")
+    return recs[0]
 
 
 def main_path_phase(torch) -> dict:
@@ -1249,7 +1316,22 @@ def main_path_phase(torch) -> dict:
             check(stats["twins_device"] == DEVICE,
                   f"{job_id}: twins on {stats['twins_device']}")
             r["cache"] = stats
+            # explain at its default (on): one record, every instance
+            # placed and every live node feasible
+            rec = _explain_record(f"chip-smoke-{job_id}")
+            check(c["explain_records"] == 1 and
+                  rec["placed_total"] == count and
+                  rec["n_feasible"] == N_LIVE and not rec["rejected"],
+                  f"{job_id}: explain record {json.dumps(rec)[:400]}")
+            r["explain"] = {k: rec[k] for k in (
+                "tier", "kernel", "n_feasible", "nodes_exhausted",
+                "nodes_fit", "placed_nodes", "placed_total")}
+            r["explain"]["score_meta_rows"] = len(rec["score_meta"])
             out["evals"][job_id] = r
+            log(f"explain {job_id}: record {json.dumps(r['explain'])}; "
+                f"nomad.solver.explain.seconds "
+                f"{r['layers_s']['solver.explain.seconds']} s, "
+                f"nomad.solver.explain.errors {c['explain_errors']}")
             log(f"main {job_id}: {r['committed']}/{count} committed in "
                 f"{r['wall_s']} s ({kname} launches +{rose}, pipelined "
                 f"{pipelined}, overcommitted rows 0); layers "
@@ -1279,15 +1361,17 @@ def main_path_phase(torch) -> dict:
 
 
 def compare_phase(torch) -> dict:
-    """The 50k eval serial and pipelined, on fresh clusters in turns."""
+    """The 50k eval serial and pipelined, explain on and off, on fresh
+    clusters in turns (COMPARE_ORDER)."""
     import gc
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.solver import cuda_kernels
     runs = []
-    for i, mode in enumerate(COMPARE_ORDER):
+    for i, (mode, ex) in enumerate(COMPARE_ORDER):
         pipelined = mode == "pipelined"
         fsm, planner = _cluster(N_LIVE, seed=42,
-                                plan_pipeline_enabled=pipelined)
+                                plan_pipeline_enabled=pipelined,
+                                placement_explain_enabled=ex)
         gc.collect()                    # no earlier run's garbage in this one
         cuda_kernels.reset_launches()             # this run's window
         with _applier(planner):
@@ -1298,21 +1382,34 @@ def compare_phase(torch) -> dict:
         check(launches["depth_curve"] == want,
               f"compare {mode}: depth_curve launched "
               f"{launches['depth_curve']} times, expected {want}")
-        check(r["counters"]["evals"] == int(pipelined),
-              f"compare {mode}: pipeline counters {r['counters']}")
-        r.update(mode=mode, launches=launches)
+        c = r["counters"]
+        check(c["evals"] == int(pipelined),
+              f"compare {mode}: pipeline counters {c}")
+        check(c["explain_records"] == int(ex),
+              f"compare {mode} explain {ex}: {c['explain_records']} "
+              f"records")
+        r.update(mode=mode, explain=ex, launches=launches)
         runs.append(r)
-        log(f"compare {mode}: 50k eval wall {r['wall_s']} s; layers "
-            f"{json.dumps(r['layers_s'])}; pipeline "
-            f"{json.dumps(r['pipeline_s'])}; launches "
+        log(f"compare {mode} explain {'on' if ex else 'off'}: 50k eval "
+            f"wall {r['wall_s']} s; layers {json.dumps(r['layers_s'])}; "
+            f"pipeline {json.dumps(r['pipeline_s'])}; launches "
             f"{json.dumps(launches)}")
+    cells = {f"{m} explain {'on' if e else 'off'}": [
+        r["wall_s"] for r in runs if r["mode"] == m and r["explain"] == e]
+        for m in ("serial", "pipelined") for e in (True, False)}
+    medians = {k: statistics.median(w) for k, w in cells.items()}
+    explain_s = {k: statistics.median(
+        [r["layers_s"]["solver.explain.seconds"] for r in runs
+         if f"{r['mode']} explain {'on' if r['explain'] else 'off'}" == k])
+        for k in cells}
     walls = {m: [r["wall_s"] for r in runs if r["mode"] == m]
              for m in ("serial", "pipelined")}
-    medians = {m: statistics.median(w) for m, w in walls.items()}
-    log(f"compare: 50k eval walls serial {walls['serial']} s, pipelined "
-        f"{walls['pipelined']} s (order {list(COMPARE_ORDER)}); medians "
-        f"{json.dumps(medians)}")
-    return {"walls_s": walls, "median_wall_s": medians, "runs": runs}
+    log(f"compare: 50k eval walls {json.dumps(cells)} s (order "
+        f"{[f'{m}/{int(e)}' for m, e in COMPARE_ORDER]}); medians "
+        f"{json.dumps(medians)}; explain seconds (median) "
+        f"{json.dumps(explain_s)}")
+    return {"walls_s": walls, "cells_s": cells, "median_wall_s": medians,
+            "explain_s": explain_s, "runs": runs}
 
 
 def profile_phase(torch) -> dict:
@@ -1348,14 +1445,338 @@ def profile_phase(torch) -> dict:
     return out
 
 
+def explain_phase(np, torch, dev) -> dict:
+    """The explain reduce (kernels.explain_reduce, torch ops on the card)
+    at the main path's bucket: the 16,384-row node matrices of the
+    kernels phase, the placements of a 2,000-instance depth solve on
+    them, four node classes, distinct_hosts on. Bit-equal to the numpy
+    reduce on those inputs and on rows placed on a float32 rounding
+    boundary; device ms per reduce (profiler), its device kernels, wall
+    per call, and its bound (each input read once, against HBM)."""
+    from nomad_tpu_torch.solver import cuda_kernels, explain, kernels
+    from nomad_tpu_torch.testing import explain_boundary_case
+    inp = _inputs(np, torch, dev)
+    placed = cuda_kernels.fill_depth_fused(
+        inp["cap"], inp["used"], inp["ask"], MID_COUNT, inp["feasible"],
+        inp["coll"], MID_COUNT, inp["aff"], k_max=128)
+    rng = np.random.default_rng(SEED + 6)
+    cls = np.full(N_BUCKET, -1, np.int32)
+    cls[:N_LIVE] = rng.integers(0, 4, N_LIVE)
+    cls_t = torch.from_numpy(cls).to(dev)
+    args = (inp["cap"], inp["used"], inp["ask"], inp["feasible"],
+            inp["coll"], placed, cls_t)
+
+    def run():
+        return kernels.explain_reduce(*args, True, n_classes=4)
+    got = explain.unpack(run().cpu().numpy(), 5, 4)
+    host = [a.cpu().numpy() for a in args]
+    want = explain.reduce_numpy(*host, np.bool_(True), n_classes=4)
+    check(all(np.asarray(a).tobytes() == np.asarray(b).tobytes()
+              for a, b in zip(got, want)),
+          f"explain reduce on the card {got} differs from numpy {want}")
+    b_args = explain_boundary_case()
+    b_t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+           for a in b_args[:7]]
+    b_got = explain.unpack(kernels.explain_reduce(
+        *b_t, False, n_classes=2).cpu().numpy(), 5, 2)
+    b_want = explain.reduce_numpy(*b_args, n_classes=2)
+    check(all(np.asarray(a).tobytes() == np.asarray(b).tobytes()
+              for a, b in zip(b_got, b_want)),
+          "explain reduce on the card differs from numpy on the rounding "
+          "boundary")
+    _, device_ms = _device_ms(torch, run, "")
+    klist = _kernel_list(torch, run)
+    wall_ms = _median_ms(torch, run, CALL_REPS)
+    finish = _finish_times(np, torch, inp, placed, cls)
+    n = N_BUCKET
+    nbytes = (2 * n * 5 * 4 + 5 * 4 + n + 3 * n * 4 +
+              (6 + 5 + 2 * 4) * 4)
+    # per row: the post-solve usage (5 multiplies, 5 adds), the
+    # next-instance compare (5 adds, 5 compares)
+    out = {"device_ms": device_ms, "wall_ms": wall_ms,
+           "device_kernels": (sum(v[0] for v in klist["kernels"].values())
+                              if klist["kernels"] else None),
+           "bytes": nbytes, "ops": n * 20, **_bound(nbytes, n * 20),
+           "counts": got[0].tolist(), "finish": finish}
+    log(f"explain finish of a serial solve at {N_BUCKET} rows (host wall, "
+        f"the placement vector already computed): reduce on the card "
+        f"riding the copy {finish['card_ms']} ms, copy then numpy reduce "
+        f"{finish['numpy_ms']} ms, the copy alone {finish['copy_ms']} ms")
+    log(f"explain reduce at {N_BUCKET} rows: {out['device_ms']} ms device "
+        f"per reduce ({out['device_kernels']} device kernels), "
+        f"{wall_ms} ms wall per call, bound {out['bound_ms']} ms "
+        f"({out['bound_by']}: {nbytes} B); counts {out['counts']}; "
+        f"bit-equal to the numpy reduce, also on the rounding boundary")
+    return out
+
+
+def _finish_times(np, torch, inp, placed, cls) -> dict:
+    """Two ways to end a serial solve with explain on, on the same inputs,
+    by median host wall (perf_counter, the card idle before each call),
+    in turns: `card` uploads the solve's ask, feasible, collision and
+    class columns, enqueues kernels.explain_reduce behind the solve on
+    the state cache's twins and brings its buffer back with the
+    placement vector in one copy; `numpy` (the placer's route) copies
+    the placement vector alone, then runs explain.dispatch_reduce
+    (reduce_numpy over the host arrays' live rows). `copy` is the copy
+    alone. Both reduces must give the same counts."""
+    import types
+    from nomad_tpu_torch.solver import backend, explain, kernels
+    gt = types.SimpleNamespace(
+        cap=inp["cap"].cpu().numpy(), used=inp["used"].cpu().numpy(),
+        ask=inp["ask"].cpu().numpy(), feasible=inp["feasible"].cpu().numpy(),
+        job_collisions=inp["coll"].cpu().numpy(), distinct_hosts=True,
+        cap_dev=inp["cap"], used_dev=inp["used"], nodes=range(N_LIVE))
+    n = placed.shape[0]
+
+    def card():
+        dev = placed.device
+        t = [backend._tensor(a, dev, dtype) for a, dtype in (
+            (gt.ask, torch.float32), (gt.feasible, torch.bool),
+            (gt.job_collisions, torch.int32), (cls, torch.int32))]
+        ex = kernels.explain_reduce(gt.cap_dev, gt.used_dev, *t[:3], placed,
+                                    t[3], True, n_classes=4)
+        both = torch.cat((placed.to(torch.int32), ex)).cpu().numpy()
+        return explain.unpack(both[n:], 5, 4)
+
+    def host():
+        return explain.dispatch_reduce(gt, placed.cpu().numpy(), cls, 4)
+
+    def copy():
+        return placed.cpu().numpy()
+
+    a, b = card(), host()
+    check(all(np.asarray(x).tobytes() == np.asarray(y).tobytes()
+              for x, y in zip(a, b)),
+          f"explain finish: the card's reduce {a} differs from the numpy "
+          f"reduce {b}")
+    out = {}
+    for name, fn in (("card", card), ("numpy", host), ("copy", copy),
+                     ("numpy", host), ("card", card)):
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(CALL_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out.setdefault(f"{name}_ms_runs", []).append(
+            statistics.median(times))
+    for name in ("card", "numpy", "copy"):
+        out[f"{name}_ms"] = min(out[f"{name}_ms_runs"])
+    return out
+
+
+def ladder_phase(np, torch) -> dict:
+    """The dispatch chain on the card, faulted on purpose. Card work never
+    moves to the CPU: (a) the 2,000-task eval (serial) with
+    `solver.dispatch.cuda` faulted once raises out of the scheduler and
+    commits nothing; (b) the pipelined 50k eval with a CUDA out-of-memory
+    error raised when chunk 2's result reaches the host raises
+    PipelineChunkError once chunks 0 and 1 are committed. Each counts one
+    dispatch error, and no solve is served by the CPU's plain tier.
+    (c) the breaker with a threshold of 2: two faulted solves, each
+    raised (none skipped), open it; a healthy solve launches the kernel
+    and closes it; a device loss (`device.lost.d0`) opens it at once and
+    the next healthy solve closes it. (d) a kernel build error and a bug,
+    each raised BREAKER_THRESHOLD + 1 times over, are never counted and
+    never open the breaker."""
+    import random
+    from nomad_tpu_torch import faults, mock
+    from nomad_tpu_torch.metrics import metrics
+    from nomad_tpu_torch.solver import backend, cuda_kernels, placer
+    from nomad_tpu_torch.testing import seeded_urandom
+    out = {}
+
+    def run_faulted(job_id, count, pipelined, seed, exc_type):
+        """One seeded eval on a fresh cluster, expected to raise
+        `exc_type` -> (allocs committed, counter and launch deltas)."""
+        fsm, planner = _cluster(N_LIVE, seed=45, pin="ladder-node-",
+                                plan_pipeline_enabled=pipelined)
+        backend.reset()
+        launches0 = dict(cuda_kernels.LAUNCHES)
+        counters0 = {k: metrics.counter(v) for k, v in COUNTERS.items()}
+        raised = None
+        with _applier(planner), seeded_urandom(seed):
+            random.seed(seed)
+            try:
+                _run_eval(fsm, planner, _mk_batch_job(mock, job_id, count),
+                          f"ladder-{job_id}")
+            except exc_type as e:
+                raised = e
+        torch.cuda.synchronize()
+        check(raised is not None,
+              f"ladder: the faulted {job_id} eval did not raise "
+              f"{exc_type.__name__}")
+        return (len(fsm.state.allocs_by_job("default", job_id)),
+                {k: metrics.counter(v) - counters0[k]
+                 for k, v in COUNTERS.items()},
+                {k: cuda_kernels.LAUNCHES[k] - v
+                 for k, v in launches0.items()}, raised)
+
+    # (a) the serial 2k eval, one fault at the cuda rung
+    faults.install({"solver.dispatch.cuda": {"mode": "raise", "times": 1}})
+    try:
+        committed, c, launched, _ = run_faulted(
+            "l-mid", MID_COUNT, False, 11, faults.FaultError)
+        fired = faults.fired("solver.dispatch.cuda")
+    finally:
+        faults.clear()
+    check(fired == 1 and committed == 0 and c["dispatch_errors"] == 1 and
+          c["torch_serves"] == 0 and launched["depth_curve"] == 0,
+          f"ladder: 2k eval faulted {fired}x committed {committed}, "
+          f"counters {c}, launches {launched}")
+    out["serial"] = {"faults": fired, "committed": committed,
+                     "dispatch_errors": c["dispatch_errors"],
+                     "torch_serves": c["torch_serves"]}
+    log(f"ladder serial 2k eval: {fired} fault at solver.dispatch.cuda "
+        f"raised out of the eval; {committed} allocs committed, "
+        f"{c['dispatch_errors']} dispatch error, {c['torch_serves']} "
+        f"solves on the CPU, {launched['depth_curve']} depth launches")
+
+    # (b) the pipelined 50k eval, chunk 2's result lost at the host copy
+    real = placer._Chunk.numpy
+    seen = []
+
+    def numpy(self):
+        seen.append(1)
+        if len(seen) == 3:
+            raise torch.OutOfMemoryError("CUDA out of memory (injected "
+                                         "at chunk 2's materialize)")
+        return real(self)
+    placer._Chunk.numpy = numpy
+    try:
+        committed, c, launched, e = run_faulted(
+            "l-big", BIG_COUNT, True, 12, placer.PipelineChunkError)
+    finally:
+        placer._Chunk.numpy = real
+    per_chunk = BIG_COUNT // BIG_CHUNKS
+    check("chunk 2 of 4" in str(e) and committed == 2 * per_chunk and
+          c["dispatch_errors"] == 1 and c["torch_serves"] == 0 and
+          launched["depth_curve"] == BIG_CHUNKS,
+          f"ladder: the faulted 50k eval ({e}) committed {committed}, "
+          f"counters {c}, launches {launched}")
+    out["pipelined"] = {"committed": committed,
+                        "dispatch_errors": c["dispatch_errors"],
+                        "torch_serves": c["torch_serves"]}
+    log(f"ladder pipelined 50k eval: chunk 2 of {BIG_CHUNKS} lost at its "
+        f"host copy (torch.OutOfMemoryError) raised PipelineChunkError; "
+        f"{committed}/{BIG_COUNT} committed (chunks 0 and 1), "
+        f"{c['dispatch_errors']} dispatch error, {c['torch_serves']} "
+        f"solves on the CPU")
+
+    # (c) the breaker on the card, threshold 2
+    inp = _inputs(np, torch, torch.device(DEVICE))
+    host = {k: v[:BREAKER_ROWS].cpu().numpy() for k, v in inp.items()
+            if k != "ask"}
+    args = (host["cap"], host["used"], inp["ask"].cpu().numpy(),
+            np.int32(200), host["feasible"], host["coll"], np.int32(200),
+            host["aff"], np.int32(2 ** 30), None, np.float32(0.5),
+            np.float32(0.0))
+    knob = backend.BREAKER_THRESHOLD
+    backend.BREAKER_THRESHOLD = 2
+    names = ("dispatch_errors.cuda", "tier_breaker_opened.cuda",
+             "tier_breaker_closed.cuda", "device_loss.cuda",
+             "dispatch.cuda", "dispatch.torch")
+    c0 = {k: metrics.counter(f"nomad.solver.{k}") for k in names}
+    states, raised = [], 0
+    try:
+        backend.reset()
+        _, fn = backend.select("depth", BREAKER_ROWS, k_max=16)
+        want = fn(*args)
+        launches = cuda_kernels.LAUNCHES["depth_curve"]
+        faults.install({"solver.dispatch.cuda": {"mode": "raise"}})
+        for _ in range(2):
+            try:
+                fn(*args)
+            except faults.FaultError:
+                raised += 1
+            states.append(backend.breaker().state("cuda"))
+        fired = faults.fired("solver.dispatch.cuda")
+        faults.clear()
+        check(torch.equal(fn(*args), want), "ladder: the healing solve")
+        states.append(backend.breaker().state("cuda"))
+        healed = cuda_kernels.LAUNCHES["depth_curve"] - launches
+        faults.install({"device.lost.d0": {"mode": "raise", "times": 1}})
+        try:
+            fn(*args)
+        except faults.DeviceLostError:
+            raised += 1
+        states.append(backend.breaker().state("cuda"))
+        faults.clear()
+        check(torch.equal(fn(*args), want),
+              "ladder: the solve after a device loss")
+        states.append(backend.breaker().state("cuda"))
+    finally:
+        faults.clear()
+        backend.BREAKER_THRESHOLD = knob
+        backend.reset()
+    d = {k: metrics.counter(f"nomad.solver.{k}") - v for k, v in c0.items()}
+    check(fired == 2 and raised == 3 and healed == 1 and
+          states == ["closed", "open", "closed", "open", "closed"] and
+          d["dispatch_errors.cuda"] == 3 and
+          d["tier_breaker_opened.cuda"] == 2 and
+          d["tier_breaker_closed.cuda"] == 2 and
+          d["device_loss.cuda"] == 1 and d["dispatch.torch"] == 0,
+          f"ladder breaker: fired {fired}, raised {raised}, states "
+          f"{states}, counters {d}, healing launches {healed}")
+    out["breaker"] = {"states": states, "counters": d}
+    log(f"ladder breaker: 2 faulted solves raised and opened it, the "
+        f"healthy solve launched the kernel ({healed} launch) and closed "
+        f"it, a device loss raised and opened it at once, the next solve "
+        f"closed it; states {states}; counters {json.dumps(d)}")
+
+    # (d) errors that are not device errors: never counted, never open it
+    real_depth = cuda_kernels.fill_depth_fused
+    kinds = {}
+    for exc in (cuda_kernels.KernelBuildError("CUDA kernel build failed "
+                                              "(injected)"),
+                ValueError("a bug in the solve (injected)")):
+        def broken(*a, _exc=exc, **kw):
+            raise _exc
+        cuda_kernels.fill_depth_fused = broken
+        e0 = metrics.counter("nomad.solver.dispatch_errors")
+        t0 = metrics.counter("nomad.solver.dispatch.torch")
+        n, shut = 0, []
+        try:
+            backend.reset()
+            _, fn = backend.select("depth", BREAKER_ROWS, k_max=16)
+            for _ in range(backend.BREAKER_THRESHOLD + 1):
+                try:
+                    fn(*args)
+                except type(exc):
+                    n += 1
+                shut.append(backend.breaker().state("cuda"))
+        finally:
+            cuda_kernels.fill_depth_fused = real_depth
+            backend.reset()
+        counted = metrics.counter("nomad.solver.dispatch_errors") - e0
+        on_cpu = metrics.counter("nomad.solver.dispatch.torch") - t0
+        check(n == backend.BREAKER_THRESHOLD + 1 and counted == 0 and
+              on_cpu == 0 and set(shut) == {"closed"},
+              f"ladder: {type(exc).__name__} raised {n}x, counted "
+              f"{counted}, CPU serves {on_cpu}, breaker {shut}")
+        kinds[type(exc).__name__] = n
+    out["never_counted"] = kinds
+    log(f"ladder: {json.dumps(kinds)} raised out of every solve, none "
+        f"counted as a dispatch error, breaker closed throughout, no "
+        f"solve on the CPU")
+    return out
+
+
 # the small phase's evals: (job id, count, kind); the filler's count
 # (None) is what fills every node
 SMALL_JOBS = (("s-dense", 200, "batch"), ("s-grid", 60, "batch"),
               ("s-one", 1, "batch"), ("s-pipe", 600, "batch"),
               ("s-web", 300, "web"), ("s-capped", 90, "rack-capped"),
               ("s-deep", 2_000, "deep"), ("s-fill", None, "filler"),
-              ("s-preempt", 30, "preemptor"))
+              ("s-preempt", 30, "preemptor"), ("s-over", 60, "over"),
+              ("s-dh", 250, "distinct-hosts"))
 SMALL_PIPED = ("s-pipe", "s-fill")
+# the small phase's evals that leave instances unplaced: asked beyond
+# the full cluster's capacity, and distinct_hosts past one per node
+SMALL_FAILING = ("s-over", "s-dh")
 SMALL_RACKS = 50
 
 
@@ -1369,7 +1790,23 @@ def _small_job(mock, structs, job_id, count, kind):
     if kind == "preemptor":
         return _mk_service_job(mock, structs, job_id, count, *FILL_ASK,
                                priority=80)
+    if kind == "over":          # the filler's priority: nothing to preempt
+        return _mk_batch_job(mock, job_id, count, *FILL_ASK, priority=20)
+    if kind == "distinct-hosts":
+        job = _mk_batch_job(mock, job_id, count, cpu=5, mem=8,
+                            priority=20)
+        job.task_groups[0].constraints = [
+            structs.Constraint(operand=structs.OP_DISTINCT_HOSTS)]
+        return job
     return _mk_service_job(mock, structs, job_id, count, 250, 512, kind)
+
+
+def _small_metric(m) -> dict:
+    """An AllocMetric's fields, less the wall-clock allocation time."""
+    import dataclasses
+    d = dataclasses.asdict(m)
+    d.pop("allocation_time_ns")
+    return d
 
 
 def small_phase(torch) -> None:
@@ -1377,12 +1814,16 @@ def small_phase(torch) -> None:
     the card and on the CPU's plain tier: the batch jobs of the depth and
     greedy solves, one pipelined from one placement in 3 chunks, the web
     and rack-capped service jobs and a deep job (the scan), a priority-20
-    filler and a priority-80 job placed by preemption. Each eval runs
-    from the same seeded id stream on both: the committed alloc -> node
-    maps and the preempted alloc ids must be identical."""
+    filler and a priority-80 job placed by preemption, then a job asked
+    beyond the full cluster's capacity and a distinct_hosts job past one
+    per node. Each eval runs from the same seeded id stream on both: the
+    committed alloc -> node maps, the preempted alloc ids, the explain
+    records (tier aside), the placed allocs' metrics (score metadata and
+    scores) and the failed placements' metrics must be identical, and
+    the card run must count no dispatch error."""
     from nomad_tpu_torch import mock, structs
     from nomad_tpu_torch.metrics import metrics
-    from nomad_tpu_torch.solver import backend
+    from nomad_tpu_torch.solver import backend, explain
     from nomad_tpu_torch.solver.device import use_device
     from nomad_tpu_torch.testing import fill_count, seeded_urandom
     runs = []
@@ -1390,6 +1831,7 @@ def small_phase(torch) -> None:
         for dev in (DEVICE, "cpu"):
             use_device(dev)
             backend.reset()
+            explain.reset()
             fsm, planner = _cluster(
                 200, seed=7, pin="small-node-", racks=SMALL_RACKS,
                 preemption_config=structs.PreemptionConfig(
@@ -1397,6 +1839,10 @@ def small_phase(torch) -> None:
                     service_scheduler_enabled=True), **SMALL_PIPELINE)
             s = fsm.state
             preempted: dict = {}
+            records: dict = {}
+            failed: dict = {}
+            metrics_of: dict = {}
+            zero0 = {k: metrics.counter(COUNTERS[k]) for k in HEALTHY_ZERO}
             for seed, (job_id, count, kind) in enumerate(SMALL_JOBS):
                 if count is None:
                     count = fill_count(s.usage.view(), *FILL_ASK)
@@ -1404,10 +1850,12 @@ def small_phase(torch) -> None:
                 chunks0 = metrics.counter("nomad.plan.pipeline.chunks")
                 evicted = {a.id for a in s.iter_allocs()
                            if a.desired_status == "evict"}
+                ev_id = f"chip-smoke-{job_id}"
                 with seeded_urandom(seed):
-                    _run_eval(fsm, planner,
-                              _small_job(mock, structs, job_id, count, kind),
-                              f"chip-smoke-{job_id}")
+                    ev = _run_eval(
+                        fsm, planner,
+                        _small_job(mock, structs, job_id, count, kind),
+                        ev_id)
                 piped = (metrics.counter("nomad.plan.pipeline.evals") -
                          evals0,
                          metrics.counter("nomad.plan.pipeline.chunks") -
@@ -1415,29 +1863,61 @@ def small_phase(torch) -> None:
                 want = (1, 3) if job_id in SMALL_PIPED else (0, 0)
                 check(piped == want, f"small {dev} {job_id}: pipelined "
                       f"(evals, chunks) {piped}, expected {want}")
-                placed = len(s.allocs_by_job("default", job_id))
-                check(placed == count,
+                allocs = s.allocs_by_job("default", job_id)
+                placed = len(allocs)
+                check(placed == count if job_id not in SMALL_FAILING
+                      else placed < count and ev.failed_tg_allocs,
                       f"small {dev} {job_id}: committed {placed}/{count}")
                 preempted[job_id] = sorted(
                     a.id for a in s.iter_allocs()
                     if a.desired_status == "evict" and a.id not in evicted)
+                records[job_id] = [
+                    {k: v for k, v in r.items() if k != "tier"}
+                    for r in explain.recent(256) if r["eval_id"] == ev_id]
+                check(len(records[job_id]) == 1,
+                      f"small {dev} {job_id}: {len(records[job_id])} "
+                      f"explain records")
+                failed[job_id] = {tg: _small_metric(m) for tg, m in
+                                  (ev.failed_tg_allocs or {}).items()}
+                metrics_of[job_id] = {a.name: _small_metric(a.metrics)
+                                      for a in allocs}
+            zero = {k: metrics.counter(COUNTERS[k]) - v
+                    for k, v in zero0.items()}
+            check(not any(zero.values()),
+                  f"small {dev}: a healthy run counted {zero}")
             runs.append(({a.name: a.node_id for a in s.iter_allocs()},
-                         preempted))
+                         preempted, records, failed, metrics_of))
     finally:
         use_device(DEVICE)
         backend.reset()
-    (card_map, card_pre), (cpu_map, cpu_pre) = runs
+    (card_map, card_pre, card_rec, card_failed, card_metrics), \
+        (cpu_map, cpu_pre, cpu_rec, cpu_failed, cpu_metrics) = runs
     diff = sum(card_map[k] != cpu_map.get(k) for k in card_map)
     check(len(card_map) == len(cpu_map) and diff == 0,
           f"small: {diff} allocs placed differently on the card than on "
           f"the CPU")
     check(card_pre == cpu_pre and len(card_pre["s-preempt"]) == 30,
           "small: the preempted allocs differ between the card and the CPU")
+    for job_id in card_rec:
+        check(card_rec[job_id] == cpu_rec[job_id],
+              f"small {job_id}: explain records differ: card "
+              f"{json.dumps(card_rec[job_id])[:600]} cpu "
+              f"{json.dumps(cpu_rec[job_id])[:600]}")
+        check(card_failed[job_id] == cpu_failed[job_id],
+              f"small {job_id}: failed placement metrics differ: card "
+              f"{card_failed[job_id]} cpu {cpu_failed[job_id]}")
+        check(card_metrics[job_id] == cpu_metrics[job_id],
+              f"small {job_id}: placed allocs' metrics differ")
+    for job_id in SMALL_FAILING:
+        m = next(iter(card_failed[job_id].values()))
+        log(f"small {job_id}: failed placement metric (card = CPU) "
+            f"{json.dumps({k: m[k] for k in ('nodes_evaluated', 'nodes_filtered', 'constraint_filtered', 'nodes_exhausted', 'dimension_exhausted', 'class_exhausted')})}")
     log(f"small: {len(card_map)} allocs over {len(SMALL_JOBS)} evals (s-pipe "
-        f"and s-fill pipelined in 3 chunks; s-web, s-capped and s-deep on "
-        f"the scan; s-preempt placed by preemption, displacing "
-        f"{len(card_pre['s-preempt'])}), card and CPU maps and preempted "
-        f"ids identical")
+        f"and s-fill pipelined in 3 chunks; s-web, s-capped and "
+        f"s-deep on the scan; s-preempt placed by preemption, displacing "
+        f"{len(card_pre['s-preempt'])}; s-over and s-dh partly placed), "
+        f"card and CPU maps, preempted ids, explain records, placed and "
+        f"failed metrics identical; no dispatch error")
 
 
 # ------------------------------------------------------------------ main
@@ -1470,11 +1950,13 @@ def main() -> int:
     pow10 = pow10_phase(torch, dev)
     res = kernels_phase(np, torch, dev)
     res.update(chunked_phase(np, torch, dev, res["depth_curve"]["floor_ms"]))
+    ex = explain_phase(np, torch, dev)
     main = main_path_phase(torch)
     service = service_phase(np, torch)
     compare = compare_phase(torch)
     prof = profile_phase(torch)
     small_phase(torch)
+    ladder = ladder_phase(np, torch)
 
     meta = {
         "depth_curve": ("nomad_tpu_torch/solver/csrc/depth_curve.cu",
@@ -1512,6 +1994,7 @@ def main() -> int:
                     "service": {k: v for k, v in service.items()
                                 if k != "launches"},
                     "compare_50k": compare, "profiled_50k": prof,
+                    "explain_reduce": ex, "ladder": ladder,
                     "greedy_fill": res["greedy_fill"], "pow10": pow10,
                     "card": card,
                     "seconds": time.perf_counter() - t_start}))

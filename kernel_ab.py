@@ -29,6 +29,13 @@ kernels into its own build/kernels/. For each, one JSON line with:
                          launch and a torch tail a step
 
 then the card's name and power limit. Exits non-zero without a card.
+
+    python3 kernel_ab.py --evals ROOT [ROOT ...]
+
+runs, for each root in a process of its own and in the order given, that
+root's own `chip_smoke.py` compare phase (the 50k-task / 10k-node eval on
+fresh clusters in turns, as that checkout configures it) and prints one
+JSON line per root with its walls and their medians per cell.
 """
 from __future__ import annotations
 
@@ -103,6 +110,28 @@ def one(root: str) -> dict:
     return out
 
 
+def one_evals(root: str) -> dict:
+    """`root`'s own chip_smoke.py compare phase, in this process."""
+    import importlib.util
+
+    import torch
+    root_path = Path(root).resolve()
+    sys.path.insert(0, str(root_path))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", root_path / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import nomad_tpu_torch
+    from nomad_tpu_torch.solver import cuda_kernels
+    pkg = Path(nomad_tpu_torch.__file__).resolve()
+    cs.check(root_path in pkg.parents,
+             f"imported {pkg}, not the package under {root}")
+    cuda_kernels.build()
+    out = cs.compare_phase(torch)
+    return {"root": root, "median_wall_s": out["median_wall_s"],
+            "walls_s": out.get("cells_s", out["walls_s"])}
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -111,12 +140,18 @@ def main(argv) -> int:
     if argv[:1] == ["--one"]:
         print(json.dumps(one(argv[1])))
         return 0
+    if argv[:1] == ["--one-evals"]:
+        print(json.dumps(one_evals(argv[1])))
+        return 0
+    mode = "--one"
+    if argv[:1] == ["--evals"]:
+        mode, argv = "--one-evals", argv[1:]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
     for root in argv:
-        run = subprocess.run([sys.executable, __file__, "--one", root],
-                             capture_output=True, text=True, timeout=600)
+        run = subprocess.run([sys.executable, __file__, mode, root],
+                             capture_output=True, text=True, timeout=900)
         if run.returncode != 0:
             print(run.stdout + run.stderr, file=sys.stderr)
             return run.returncode

@@ -1,25 +1,27 @@
 """Batched placement solver on the card — the north star (BASELINE.json):
 the scheduler's scoring loop as dense tensor programs over node×resource
 matrices, registered as SchedulerAlgorithm="tpu-batch" next to
-binpack/spread. Counterpart of nomad_tpu/solver, main-path subset: the
-depth and greedy solves with their hand kernels (cuda_kernels.py), the
-backend selector, tensorize, the card-resident state cache
-(state_cache.py) and the placer's serial route and pipelined plan
-lifecycle.
+binpack/spread. Counterpart of nomad_tpu/solver, one card: the depth and
+greedy solves and the chunked scan with their hand kernels
+(cuda_kernels.py), batched preemption, the backend selector with its
+dispatch chain and health breaker, explain, tensorize, the card-resident
+state cache (state_cache.py) and the placer's serial route and pipelined
+plan lifecycle.
 
-Not ported yet: eval micro-batching, explain, the fused and convex
-routes, the degradation ladder, the chunked scan, preemption and
-sharding. The copied plan applier reaches `microbatch` lazily inside
-`try` (server/plan_apply.py); finding no such module here, it takes its
-documented solver-less branch and reports no in-flight evals. Its
-`state_cache` hooks find this package's cache: the evaluate pass gathers
-from it and every commit feeds it.
+Not ported yet: eval micro-batching, the fused and convex routes, the
+reference's host floor and pipeline degrade path (card work never moves
+to the CPU) and sharding (`make_mesh`, `sharded_fill_greedy`). The
+copied plan applier reaches `microbatch` lazily inside `try`
+(server/plan_apply.py); finding no such module here, it takes its
+documented solver-less branch and reports no in-flight evals. Its `state_cache` hooks find this package's
+cache: the evaluate pass gathers from it and every commit feeds it.
 """
 from .device import solve_device, use_device  # noqa: F401
 from .kernels import (  # noqa: F401
     DEPTH_GRID, FIT_EPS, NUM_XR, XR_CPU, XR_DISK, XR_MBITS, XR_MEM,
     XR_PORTS, depth_curve_ref, fill_depth, fill_greedy_binpack,
-    instance_capacity, plan_fit_verdict, score_capacity_ref, score_fit,
+    instance_capacity, place_chunked, plan_fit_verdict, preempt_top_k,
+    preemption_distance, score_capacity_ref, score_fit,
 )
 from .tensorize import (  # noqa: F401
     GroupTensors, alloc_usage_row, build_group_tensors, group_ask_row,

@@ -5,13 +5,13 @@ Every solve the placer issues routes through `select(kernel, n_padded,
 
   cuda   the hand-written CUDA kernels (cuda_kernels.py) with their torch
          tails on the card — whenever the solve device is a card.
-  torch  the plain PyTorch versions (kernels.py) — only when the caller
-         asked for the CPU (device.use_device("cpu")).
+  torch  the plain PyTorch versions (kernels.py) on the CPU — only when
+         the caller asked for the CPU (device.use_device("cpu")).
 
 The returned callable has ONE normalized positional signature per kernel,
 so the placer's call sites are backend-oblivious. It takes the placer's
-numpy arrays and host scalars, moves the arrays to the solve device and
-returns the placement vector there:
+numpy arrays (or tensors already on the solve device: the state cache's
+twins, a pipelined chunk's fed-forward usage) and host scalars:
 
   greedy : fn(cap, used, ask, count, feasible, max_per_node) -> placed
   depth  : fn(cap, used, ask, count, feasible, job_collisions, desired,
@@ -21,23 +21,39 @@ returns the placement vector there:
               sp_ids, sp_counts, sp_desired, sp_mode, sp_weights, aff,
               dp_ids, dp_remaining, placed_init, max_per_node)
               -> (placed, used, sp_counts, dp_remaining)
+  preempt: fn(victim_res, victim_prio, ask, free, job_prio) -> bool[C, V]
 
-Array arguments that already lie on the solve device pass through
-untouched (the state cache's twins, a pipelined chunk's fed-forward
-usage); `on_device` moves a whole argument tuple there once. Arrays
-reach a card through pinned memory without blocking, so no dispatch
-waits for the work queued before it: a dispatch never blocks, and
-`async_dispatch` only marks the pipeline's call sites.
+Dispatch chain (the reference's `LADDER`, one card, no lower rung):
+every selection is a per-call chain of ONE rung, `cuda` on a card and
+`torch` when the caller asked for the CPU. Card work never moves to the
+CPU: the reference's host floor is not ported, and the plain versions
+never run on a card. A classified device error (`device_error_types`: an
+injected fault, a kernel launch error, a CUDA runtime error, out of
+memory) is counted (`nomad.solver.dispatch_errors.<tier>`), logged on
+the solve span (`trace.annotate_list("dispatch_errors", tier)`) and fed
+to the tier's health breaker, then raised out of the solve. The breaker
+(BREAKER_* knobs) only observes: it opens after repeated device errors
+inside a window, or at once on device loss (`classify_device_error`, which
+also drops the state cache's twins), and closes on the next success; it
+never skips the card. Anything else — a bug, a kernel that does not build
+(KernelBuildError), no card at all — raises and feeds nothing. Fault
+sites `solver.dispatch.<tier>` (and `device.lost.d<N>` on the cuda rung)
+ride the same catch, so the error path is provable without a sick card.
 
-Not ported yet: the degradation ladder and its per-tier breaker, the
-host/batch small-count routing and the sharded tier. Until then no solve
-gives way from a kernel to its plain version: a failing launch raises.
-`breaker_release_all` is the no-op the placer's eval exit calls.
+Outside `async_dispatch()` a chain call ends at the solve's one host
+sync: the result is copied to the host there (or by the caller's
+`finish`), so an asynchronous device error surfaces inside the chain and
+is classified too, and breaker success is recorded only for a result
+that reached the host. Inside `async_dispatch()` (the pipelined placer)
+the chain returns device tensors without waiting; the caller's
+materialize site records success or the failure.
 """
 from __future__ import annotations
 
 import functools
+import os
 import threading
+import time
 from contextlib import contextmanager
 
 import numpy as np
@@ -46,6 +62,12 @@ import torch
 from .. import faults
 from ..metrics import metrics
 from . import device as _device, roundtrip
+
+# Health-breaker knobs: N device errors inside the window open the tier
+# (it closes on the next success). Read at call time, so tests and
+# operators can monkeypatch them.
+BREAKER_THRESHOLD = int(os.environ.get("NOMAD_BREAKER_THRESHOLD", "3"))
+BREAKER_WINDOW_S = float(os.environ.get("NOMAD_BREAKER_WINDOW_S", "30"))
 
 _cache: dict = {}
 _dispatch_ctx = threading.local()
@@ -63,53 +85,234 @@ _ARG_DTYPES = {
                 8: torch.int32, 9: torch.float32, 10: torch.int32,
                 11: torch.float32, 12: torch.float32, 13: torch.int32,
                 14: torch.int32, 15: torch.int32},
+    "preempt": {0: torch.float32, 1: torch.int32, 2: torch.float32,
+                3: torch.float32},
 }
 
 
 def reset() -> None:
-    """Drop cached selections (tests switch the solve device)."""
+    """Drop cached selections and the breakers' state (tests switch the
+    solve device)."""
     _cache.clear()
-
-
-def breaker_release_all() -> None:
-    """No breaker exists yet; kept so the placer's eval exit is the
-    reference's."""
+    _breaker.reset()
 
 
 def tier() -> str:
-    """The tier solves run on now: "cuda" on a card, "torch" on the CPU.
-    Raises like device.solve_device() when the card is missing."""
+    """The kind of device solves run on now: "cuda" on a card, "torch" on
+    the CPU. Raises like device.solve_device() when the card is missing."""
     return "cuda" if _device.solve_device().type == "cuda" else "torch"
 
 
+# ------------------------------------------------------ device errors
+
 def device_error_types() -> tuple:
-    """Exception types that mean "the card or a kernel launch failed", as
-    opposed to a bug in the solve itself: the pipeline's materialize site
-    catches them to re-raise with the chunk named. CUDA runtime errors
-    are torch.AcceleratorError where torch has it, RuntimeError before."""
+    """Exception types that mean "the card or a kernel launch failed"
+    (classified and fed to the breaker), as opposed to a bug in the solve itself or a kernel that
+    does not build (cuda_kernels.KernelBuildError). CUDA runtime errors
+    are torch.AcceleratorError where torch has it."""
     global _DEVICE_ERRORS
     if not _DEVICE_ERRORS:
         from .cuda_kernels import KernelLaunchError
-        _DEVICE_ERRORS = (
-            faults.FaultError, KernelLaunchError, torch.cuda.CudaError,
-            torch.OutOfMemoryError,
-            getattr(torch, "AcceleratorError", RuntimeError))
+        errs = [faults.FaultError, KernelLaunchError, torch.cuda.CudaError,
+                torch.OutOfMemoryError]
+        if hasattr(torch, "AcceleratorError"):
+            errs.append(torch.AcceleratorError)
+        _DEVICE_ERRORS = tuple(errs)
     return _DEVICE_ERRORS
+
+
+# CUDA's sticky errors: after one of these the context is unusable and
+# every later call on it fails too. By message (torch's CUDA errors) and
+# by cudaError_t code (a kernel launch's returned code).
+_DEVICE_LOSS_MARKERS = (
+    "illegal memory access", "illegal address", "illegal instruction",
+    "misaligned address", "unspecified launch failure",
+    "device-side assert", "uncorrectable ecc", "busy or unavailable",
+    "devices unavailable", "launch timed out", "device lost",
+    "device_lost", "handle is invalid",
+)
+_DEVICE_LOSS_CODES = frozenset((46, 214, 700, 702, 710, 714, 715, 716,
+                                717, 718, 719))
+
+
+def classify_device_error(exc: BaseException) -> str:
+    """-> 'device_loss' | 'transient' for an exception already known to
+    be one of device_error_types(). Device loss means the card's context
+    is gone (a sticky CUDA error, an injected loss): retrying can only
+    fail again, so the breaker opens at once. Everything else (out of
+    memory, an injected FaultError, a non-sticky launch error) is
+    transient and rides the breaker's window."""
+    if isinstance(exc, faults.device_lost_error_type()):
+        return "device_loss"
+    if getattr(exc, "code", None) in _DEVICE_LOSS_CODES:
+        return "device_loss"
+    msg = str(exc).lower()
+    if any(m in msg for m in _DEVICE_LOSS_MARKERS):
+        return "device_loss"
+    return "transient"
+
+
+def note_dispatch_failure(tier: str, exc: BaseException) -> None:
+    """One dispatch seam's device error, before the seam raises it: count
+    it, note it on the solve span, classify it and feed the breaker.
+    Device loss opens the tier at once and drops the state cache's twins,
+    so no later gather indexes buffers of a dead context. One card: there
+    is no mesh to rebuild and nothing to replay the inputs on, as the
+    reference does (that waits for the multi-device port)."""
+    from ..obs import trace
+    metrics.incr("nomad.solver.dispatch_errors")
+    metrics.incr(f"nomad.solver.dispatch_errors.{tier}")
+    trace.annotate_list("dispatch_errors", tier)
+    kind = classify_device_error(exc)
+    if kind != "device_loss":
+        _breaker.record_failure(tier)
+        return
+    metrics.incr("nomad.solver.device_loss")
+    metrics.incr(f"nomad.solver.device_loss.{tier}")
+    _breaker.record_failure(tier, device_loss=True)
+    from . import state_cache
+    state_cache.cache().drop_twins()
+
+
+class TierBreaker:
+    """Per-tier health breaker: closed -> open (>= BREAKER_THRESHOLD
+    device errors within BREAKER_WINDOW_S, or one device loss) -> closed
+    on the next success. With no lower rung to serve a solve it only
+    observes: an open tier is still dispatched to, and its state is read
+    by operators (`state`) and the `tier_breaker_*` metrics.
+
+    Knobs are read from module globals at call time so tests and
+    operators can monkeypatch them without rebuilding chains. Uses
+    time.monotonic — latency bookkeeping, not a scheduling decision."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        # tier -> {"failures": [t, ...], "open": bool}
+        self._tiers: dict[str, dict] = {}
+
+    def _rec(self, tier: str) -> dict:
+        rec = self._tiers.get(tier)
+        if rec is None:
+            rec = self._tiers[tier] = {"failures": [], "open": False}
+        return rec
+
+    def reset(self) -> None:
+        with self._lock:
+            self._tiers.clear()
+
+    def state(self, tier: str) -> str:
+        with self._lock:
+            rec = self._tiers.get(tier)
+            return "open" if rec is not None and rec["open"] else "closed"
+
+    def record_success(self, tier: str) -> None:
+        with self._lock:
+            rec = self._rec(tier)
+            was_open = rec["open"]
+            rec["failures"] = []
+            rec["open"] = False
+            if was_open:
+                metrics.incr("nomad.solver.tier_breaker_closed")
+                metrics.incr(f"nomad.solver.tier_breaker_closed.{tier}")
+            metrics.set_gauge(f"nomad.solver.tier_breaker_state.{tier}", 0)
+
+    def record_failure(self, tier: str, device_loss: bool = False) -> None:
+        now = time.monotonic()
+        with self._lock:
+            rec = self._rec(tier)
+            if rec["open"]:
+                return
+            fails = [t for t in rec["failures"] if now - t < BREAKER_WINDOW_S]
+            fails.append(now)
+            rec["failures"] = fails
+            # a lost card is not a transient: the tier opens at once
+            if device_loss or len(fails) >= BREAKER_THRESHOLD:
+                rec["open"] = True
+                rec["failures"] = []
+                metrics.incr("nomad.solver.tier_breaker_opened")
+                metrics.incr(f"nomad.solver.tier_breaker_opened.{tier}")
+                if device_loss:
+                    metrics.incr(
+                        "nomad.solver.tier_breaker_opened.device_loss")
+                metrics.set_gauge(
+                    f"nomad.solver.tier_breaker_state.{tier}", 1)
+
+
+_breaker = TierBreaker()
+
+
+def breaker() -> TierBreaker:
+    return _breaker
+
+
+def breaker_record(tier: str, ok: bool) -> None:
+    """External dispatch sites (the pipelined placer's materialize) feed
+    the same breaker the chain uses."""
+    if ok:
+        _breaker.record_success(tier)
+    else:
+        _breaker.record_failure(tier)
 
 
 @contextmanager
 def async_dispatch():
-    """Marks the pipeline's chunk dispatches, where the reference's
-    chain must not block. A dispatch here never blocks anyway: launches
-    and pinned copies queue on the device's stream, and a failure
-    surfaces at the call or at the caller's materialize site."""
-    yield
+    """Inside this context the chain returns device tensors WITHOUT
+    copying them to the host (the pipelined placer overlaps chunk solves
+    with host work); asynchronous device failures then surface at the
+    caller's materialize site, which owns the breaker feedback: the
+    chain defers record_success, since a result that has not reached the
+    host proves nothing about the card."""
+    prev = getattr(_dispatch_ctx, "on", False)
+    _dispatch_ctx.on = True
+    try:
+        yield
+    finally:
+        _dispatch_ctx.on = prev
 
 
-def last_dispatch_tier() -> str:
-    """The tier that served the calling thread's most recent dispatch
-    ("" before the first). With no ladder it is the selected tier."""
-    return getattr(_dispatch_ctx, "last_tier", "")
+def to_host(out):
+    """A chain result (a tensor or a tuple of them) on the host: the
+    solve's sync. Numpy arrays pass through."""
+    if isinstance(out, torch.Tensor):
+        return out.cpu()
+    if isinstance(out, tuple):
+        return tuple(to_host(o) for o in out)
+    return out
+
+
+def _chain(kernel: str, tier: str, fn, loss_site: str):
+    """The per-call dispatch of `fn` on `tier`. A classified device error
+    (at the launch, or at the host copy that ends a non-async call) is
+    noted (note_dispatch_failure) and raised; any other error raises
+    untouched and feeds nothing. `loss_site` is the card's
+    `device.lost.d<N>` fault site, fired on the cuda rung."""
+
+    def run(*args, finish=None):
+        """`finish(out)`: the caller's end of a non-async call, the host
+        copy of what it needs (a scan refill reads one scalar); the plain
+        host copy of every output by default."""
+        async_mode = getattr(_dispatch_ctx, "on", False)
+        from ..obs import trace
+        try:
+            with trace.span(f"solver.dispatch.{tier}"):
+                faults.fire(f"solver.dispatch.{tier}")
+                if tier == "cuda":
+                    faults.fire(loss_site)
+                out = fn(*args)
+                if not async_mode:
+                    out = finish(out) if finish is not None \
+                        else to_host(out)
+        except device_error_types() as e:
+            note_dispatch_failure(tier, e)
+            raise
+        if not async_mode:
+            # async callers report from their materialize site
+            _breaker.record_success(tier)
+        if tier == "cuda":
+            roundtrip.note("preempt" if kernel == "preempt" else "solve")
+        metrics.incr(f"nomad.solver.dispatch.{tier}")
+        return out
+    return run
 
 
 def _tensor(x, dev, dtype):
@@ -123,25 +326,18 @@ def _tensor(x, dev, dtype):
     return x
 
 
-def on_device(kernel: str, args: tuple) -> tuple:
-    """`kernel`'s normalized positional args with every array on the
-    solve device, so repeated dispatches of the same inputs (pipelined
-    chunks) copy nothing."""
-    dev = _device.solve_device()
+def on_device(kernel: str, args: tuple, dev=None) -> tuple:
+    """`kernel`'s normalized positional args with every array on `dev`
+    (the solve device by default), so repeated dispatches of the same
+    inputs (pipelined chunks) copy nothing."""
+    dev = _device.solve_device() if dev is None else dev
     types = _ARG_DTYPES[kernel]
     return tuple(_tensor(a, dev, types[i])
                  if i in types and a is not None else a
                  for i, a in enumerate(args))
 
 
-def _note_dispatch(dev) -> None:
-    _dispatch_ctx.last_tier = "cuda" if dev.type == "cuda" else "torch"
-    if dev.type == "cuda":
-        roundtrip.note("solve")
-
-
 def _greedy(fn, dev, cap, used, ask, count, feasible, max_per_node):
-    _note_dispatch(dev)
     return fn(_tensor(cap, dev, torch.float32),
               _tensor(used, dev, torch.float32),
               _tensor(ask, dev, torch.float32), int(count),
@@ -151,7 +347,6 @@ def _greedy(fn, dev, cap, used, ask, count, feasible, max_per_node):
 def _depth(fn, dev, k_max, spread_algorithm, depth_grid, cap, used, ask,
            count, feasible, coll, desired, aff, max_per_node, order_jitter,
            jitter_scale, jitter_samples):
-    _note_dispatch(dev)
     if aff is None:
         aff = torch.zeros(cap.shape[0], dtype=torch.float32, device=dev)
     jit = None if order_jitter is None else \
@@ -173,50 +368,66 @@ def _chunked(fn, dev, max_steps, spread_algorithm, cap, used, ask, count,
              feasible, coll, desired, sp_ids, sp_counts, sp_desired,
              sp_mode, sp_weights, aff, dp_ids, dp_remaining, placed_init,
              max_per_node):
-    _note_dispatch(dev)
     args = on_device("chunked", (
         cap, used, ask, count, feasible, coll, desired, sp_ids, sp_counts,
         sp_desired, sp_mode, sp_weights, aff, dp_ids, dp_remaining,
-        placed_init))
+        placed_init), dev)
     return fn(*args[:3], int(count), args[4], args[5], int(desired),
               *args[7:15], max_per_node=int(max_per_node),
               max_steps=max_steps, spread_algorithm=spread_algorithm,
               placed_init=args[15])
 
 
-def select(kernel: str, n_padded: int, *, k_max: int = 128,
+def _preempt(fn, dev, victim_res, victim_prio, ask, free, job_prio):
+    t = on_device("preempt", (victim_res, victim_prio, ask, free), dev)
+    return fn(*t, int(job_prio))
+
+
+def _build(kernel: str, tier: str, dev, k_max: int, max_steps: int,
+           spread_algorithm: bool, depth_grid=None):
+    """One tier's callable: "cuda" binds the hand kernels on the card,
+    "torch" the plain versions on the CPU."""
+    from . import cuda_kernels, kernels
+    card = tier == "cuda"
+    if kernel == "greedy":
+        impl = (cuda_kernels.fill_greedy_binpack_fused if card
+                else kernels.fill_greedy_binpack)
+        return functools.partial(_greedy, impl, dev)
+    if kernel == "depth":
+        impl = cuda_kernels.fill_depth_fused if card else kernels.fill_depth
+        return functools.partial(_depth, impl, dev, k_max, spread_algorithm,
+                                 depth_grid)
+    if kernel == "chunked":
+        impl = cuda_kernels.place_chunked if card else kernels.place_chunked
+        return functools.partial(_chunked, impl, dev, max_steps,
+                                 spread_algorithm)
+    if kernel == "preempt":
+        # one torch program on either device (no hand kernel)
+        return functools.partial(_preempt, kernels.preempt_top_k, dev)
+    raise ValueError(f"unknown kernel {kernel!r} (greedy, depth, chunked, "
+                     f"preempt)")
+
+
+def select(kernel: str, n_padded: int = 0, *, k_max: int = 128,
            spread_algorithm: bool = False, depth_grid=None,
            max_steps: int = 256):
-    """-> (tier, fn) for `kernel` in {greedy, depth, chunked}. The tier
-    follows the solve device (device.solve_device(), which raises when it
-    is a card and none is present). `n_padded` (the bucketed node axis)
-    keeps the reference's signature; no routing reads it yet."""
+    """-> (tier, chain) for `kernel` in {greedy, depth, chunked, preempt}.
+    The tier follows the solve device (device.solve_device(), which
+    raises when it is a card and none is present): "cuda" on a card,
+    "torch" on the CPU. Every card solve runs on the card: no small-count
+    host pick (the reference's thresholds were set on a TPU) and no host
+    floor. `n_padded` keeps the reference's signature."""
     dev = _device.solve_device()
-    tier = "cuda" if dev.type == "cuda" else "torch"
-    key = (kernel, tier, str(dev), k_max, spread_algorithm, depth_grid,
+    tier_name = tier()
+    key = (kernel, tier_name, str(dev), k_max, spread_algorithm, depth_grid,
            max_steps)
     cached = _cache.get(key)
     if cached is not None:
         return cached
-    from . import cuda_kernels, kernels
-    if kernel == "greedy":
-        impl = (cuda_kernels.fill_greedy_binpack_fused if tier == "cuda"
-                else kernels.fill_greedy_binpack)
-        fn = functools.partial(_greedy, impl, dev)
-    elif kernel == "depth":
-        impl = (cuda_kernels.fill_depth_fused if tier == "cuda"
-                else kernels.fill_depth)
-        fn = functools.partial(_depth, impl, dev, k_max, spread_algorithm,
-                               depth_grid)
-    elif kernel == "chunked":
-        impl = (cuda_kernels.place_chunked if tier == "cuda"
-                else kernels.place_chunked)
-        fn = functools.partial(_chunked, impl, dev, max_steps,
-                               spread_algorithm)
-    else:
-        raise ValueError(f"unknown kernel {kernel!r} (greedy, depth, "
-                         f"chunked)")
-    out = _cache[key] = (tier, fn)
+    fn = _build(kernel, tier_name, dev, k_max, max_steps, spread_algorithm,
+                depth_grid)
+    out = _cache[key] = (tier_name, _chain(
+        kernel, tier_name, fn, f"device.lost.d{dev.index or 0}"))
     return out
 
 

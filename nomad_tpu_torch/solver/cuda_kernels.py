@@ -30,7 +30,10 @@ under build/kernels/ at the repo root, named by a hash of their source
 and of every csrc/*.cuh header, so an unchanged tree does not rebuild;
 all sources compile in parallel at first use. No fast math (the kernels
 take floor of quotients and pow) and no FMA contraction, so the kernels
-round like their plain versions.
+round like their plain versions. A source that does not build (or no
+nvcc) raises KernelBuildError, which the backend passes through
+untouched; a launch that reports a CUDA error raises KernelLaunchError,
+a device error that feeds the backend's breaker before it raises.
 
 Wrappers: `fill_depth_fused`, `fill_greedy_binpack_fused` and
 `place_chunked` keep the reference signatures. A wrapper given CPU
@@ -104,11 +107,17 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel's library could not be built (nvcc missing or failing).
+    Not a device error: the solve raises it and the breaker never sees
+    it (backend.device_error_types leaves it out)."""
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels are built "
-                           "with the CUDA toolkit's nvcc")
+        raise KernelBuildError("nvcc not found: the CUDA kernels are built "
+                               "with the CUDA toolkit's nvcc")
     return path
 
 
@@ -148,7 +157,8 @@ def build(names=None) -> float:
             continue
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise KernelBuildError("CUDA kernel build failed:\n" +
+                               "\n".join(failed))
     return time.perf_counter() - t0
 
 
@@ -215,13 +225,18 @@ def _check_rows(cap, used, ask, feasible, *columns) -> int:
 
 
 class KernelLaunchError(RuntimeError):
-    """A placement kernel's launch reported a CUDA error."""
+    """A placement kernel's launch reported a CUDA error; `code` is its
+    cudaError_t (backend.classify_device_error reads it)."""
+
+    def __init__(self, msg: str, code: int = 0):
+        super().__init__(msg)
+        self.code = code
 
 
 def _launched(name: str, err: int) -> None:
     if err != 0:
         raise KernelLaunchError(
-            f"{name} kernel launch failed: cudaError_t {err}")
+            f"{name} kernel launch failed: cudaError_t {err}", err)
     LAUNCHES[name] += 1
 
 

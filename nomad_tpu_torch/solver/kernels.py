@@ -681,3 +681,59 @@ def preempt_top_k(victim_res: torch.Tensor, victim_priority: torch.Tensor,
         & torch.isfinite(torch.gather(key, 1, order))
     return torch.zeros((c, v), dtype=torch.bool, device=dev).scatter(
         1, order, take_sorted)
+
+
+# ------------------------------------------------------------- explain
+
+def explain_reduce(cap: torch.Tensor, used: torch.Tensor, ask: torch.Tensor,
+                   feasible: torch.Tensor, collisions: torch.Tensor,
+                   placed: torch.Tensor, class_ids: torch.Tensor,
+                   distinct_hosts: bool, n_classes: int = 2
+                   ) -> torch.Tensor:
+    """Elimination attribution of one solve (ref kernels._explain_reduce_
+    impl), at POST-solve usage used + placed ⊗ ask — the state a host
+    iterator-stack re-walk over the same cluster would see:
+
+      * distinct-hosts: a feasible row whose post-solve same-job
+        collision count is positive (what DistinctHostsIterator filters);
+      * exhaustion: a candidate row where one more instance overflows a
+        dimension, attributed to the FIRST failing dimension in extended-
+        resource order (ComparableResources.superset's cpu -> memory ->
+        disk order);
+      * per-node-class histograms over a pre-lowered id column (-1 = no
+        class or padding).
+
+    Torch ops on whichever device the inputs lie on, all compares and one
+    sum over an [N, 11 + 2C] int32 column block — no scatter. The sums
+    round as explain.reduce_numpy does (the product, the sum and the
+    second sum each to float32), so the two agree bit for bit. Returns
+    ONE int32 buffer [6 + R' + 2 * n_classes]: counts [feasible,
+    dh_filtered, exhausted, fit, placed_nodes, placed_total], then the
+    per-dimension, per-class exhausted and per-class dh counts
+    (explain.unpack splits it). Pure reduction: never touches the
+    placement math. The placer does not run it: every solve reduces on
+    the host (explain.dispatch_reduce), which chip_smoke.py's explain
+    phase times against this reduce enqueued behind a card solve."""
+    dev = cap.device
+    placed_i = placed.to(torch.int32)
+    post = used + placed_i[:, None].to(torch.float32) * ask[None, :]
+    feas = feasible.to(torch.bool)
+    if distinct_hosts:
+        dh = feas & ((collisions + placed_i) > 0)
+    else:
+        dh = torch.zeros_like(feas)
+    cand = feas & ~dh
+    over = (post + ask[None, :]) > cap                       # bool[N, R']
+    exh = cand & over.any(dim=1)
+    # first failing dim as a one-hot: the first True column is where the
+    # running count of Trues reaches exactly 1
+    first = over & (torch.cumsum(over, dim=1) == 1)
+    onehot = class_ids[:, None] == torch.arange(n_classes, device=dev)
+    cols = torch.cat((
+        torch.stack((feas, dh, exh, cand & ~exh, placed_i > 0), dim=1),
+        first & exh[:, None], onehot & exh[:, None], onehot & dh[:, None]),
+        dim=1).to(torch.int32)
+    sums = torch.cat((cols.sum(dim=0, dtype=torch.int32),
+                      placed_i.sum(dtype=torch.int32).reshape(1)))
+    # order the buffer: the six counts, then dims and classes
+    return torch.cat((sums[:5], sums[-1:], sums[5:-1]))

@@ -15,11 +15,18 @@ Serial route: each task group's solve runs once, on the state cache's
 twins where they served the eval, and reaches the host at one sync; its
 placements go into the eval's single plan. Groups with spread stanzas or
 distinct_property constraints, or too deep for the [N, K] depth curve,
-take the chunked scan (kernels.place_chunked, the chunked-step kernel on
-a card). Instances left over once capacity runs out go through the
-batched preemption pass (kernels.preempt_top_k over every candidate node
-at once, each winner verified exactly on the host) before the host
-stack.
+take the chunked scan (kernels.place_chunked; on a card the whole scan is
+one launch of the scan kernel, cuda_kernels.place_chunked). Instances
+left over once capacity runs out go through the batched preemption pass
+(kernels.preempt_top_k over every candidate node at once, each winner
+verified exactly on the host) before the host stack.
+
+Every dispatch — serial, scan, preemption — goes through the backend's
+dispatch chain (backend.select): a classified device error feeds the
+tier's breaker and raises out of the eval; the solve never moves to the
+CPU. Explain (explain.py) rides every solve at its default: its reduce
+runs on the host over the placement vector the solve's one sync brought
+back.
 
 Pipelined plan lifecycle (ref nomad/plan_apply.go:71-177, where the
 applier overlaps plan evaluation with the previous raft commit): large
@@ -34,9 +41,13 @@ on the serial path (a partially-committed chunk flags the eval for the
 standard refresh-and-retry). `plan_pipeline_enabled=False` (or
 NOMAD_PLAN_PIPELINE=0) forces the serial path.
 
-Not ported: the pipeline's degrade path (a device error in a chunk raises
-out of the eval, naming the chunk; it never falls to the plain version),
-explain, the fused and convex routes, eval micro-batching and the
+A device error in a pipelined chunk — at its dispatch or when its result
+reaches the host — feeds the breaker and raises PipelineChunkError out of
+the eval, naming the chunk. The reference's degrade path, which re-solves
+the remaining chunks on the host, is not ported: card work never moves to
+the CPU.
+
+Not ported: the fused and convex routes, eval micro-batching and the
 preemption scan sharded over a device mesh.
 """
 from __future__ import annotations
@@ -49,12 +60,12 @@ import torch
 
 from ..metrics import metrics
 from ..structs import (
-    AllocatedResources, AllocatedTaskResources, Allocation,
+    AllocatedResources, AllocatedTaskResources, Allocation, AllocMetric,
     AllocDeploymentStatus, NetworkIndex, Plan, new_id, new_ids,
     skeleton_for,
 )
 from ..scheduler.stack import SelectOptions
-from . import backend, device as _device, roundtrip
+from . import backend, device as _device, explain as explain_mod, roundtrip
 from ..obs import trace
 from .buckets import node_bucket, pow2
 from .tensorize import (
@@ -117,7 +128,8 @@ class _SolvePrep:
     the same regime as the one-shot solve)."""
     __slots__ = ("gt", "n", "count", "use_scan", "use_depth", "k_max",
                  "sp", "dp", "aff", "max_per_node", "spread_alg",
-                 "depth_grid", "jitter", "bias_g", "m", "distincts")
+                 "depth_grid", "jitter", "bias_g", "m", "distincts",
+                 "ex", "ex_ids", "ex_ncls")
 
 
 class SolverPlacer:
@@ -132,6 +144,11 @@ class SolverPlacer:
         self._skel: dict = {}
 
     def compute_placements(self, destructive, place) -> bool:
+        # hot-reload the explain ring capacity from the replicated
+        # scheduler config (enabled-ness is resolved per solve in
+        # _prep_solve)
+        explain_mod.configure(capacity=getattr(
+            self.ctx.scheduler_config, "placement_explain_recent", 256))
         # per-eval host↔device transition accounting: every dispatch
         # seam notes itself; the total lands in the
         # nomad.solver.device_round_trips histogram at eval exit
@@ -140,7 +157,6 @@ class SolverPlacer:
             return self._compute_placements(destructive, place)
         finally:
             roundtrip.end()
-            backend.breaker_release_all()
 
     def _compute_placements(self, destructive, place) -> bool:
         sched = self.sched
@@ -269,10 +285,37 @@ class SolverPlacer:
         nodes = [nodes[i] for i in perm]
 
         feasible_fn = self._feasibility_fn(tg)
-        # explain is not ported: the lowering records no attribution
+        # explain attribution: the irregular host walk runs against a
+        # SCRATCH AllocMetric so the checker objects' filter reasons
+        # (plus the class-cached repeats _feasibility_fn records) become
+        # stage 1 of the attribution instead of vanishing into the
+        # eval-wide metric. The swap changes no placement input.
+        ex_rec = None
         with metrics.measure("nomad.solver.tensorize"):
-            gt = build_group_tensors(self.ctx, job, tg, nodes, feasible_fn,
-                                     count=count)
+            if explain_mod.enabled(self.ctx.scheduler_config):
+                ex_rec = explain_mod.ExplainRecord(
+                    self.sched.eval.id, self.sched.eval.job_id, tg.name)
+                ex_rec.nodes_total = len(nodes)
+                scratch = AllocMetric()
+                # marks the tensorize walk for _feasibility_fn: cached-
+                # class rejections record their reason ONLY here
+                scratch.explain_walk = True
+                saved = self.ctx.metrics
+                self.ctx.metrics = scratch
+                try:
+                    gt = build_group_tensors(self.ctx, job, tg, nodes,
+                                             feasible_fn, count=count,
+                                             explain=True)
+                finally:
+                    self.ctx.metrics = saved
+                ex_rec.irregular = scratch
+                st = gt.ex_stages or {}
+                ex_rec.elig_filtered = st.get("elig_filtered", 0)
+                ex_rec.dh_pre = st.get("dh_pre", 0)
+                ex_rec.dh_pre_classes = st.get("dh_pre_classes", {})
+            else:
+                gt = build_group_tensors(self.ctx, job, tg, nodes,
+                                         feasible_fn, count=count)
         spreads = list(tg.spreads) + list(job.spreads)
         affinities = list(job.affinities) + list(tg.affinities)
         for t in tg.tasks:
@@ -344,6 +387,25 @@ class SolverPlacer:
         prep.n = n
         prep.count = count
         prep.distincts = distincts
+        prep.ex = ex_rec
+        prep.ex_ids = None
+        prep.ex_ncls = 0
+        if ex_rec is not None:
+            # node-class id column for the histogram, padded to the solve
+            # bucket (padding = -1). The dense path gathered it from the
+            # usage index's class column; the object-walk fallback lowers
+            # it per node here (small test clusters only).
+            bucket = gt.cap.shape[0]
+            st = gt.ex_stages or {}
+            ids = st.get("class_ids")
+            if ids is not None:
+                ex_rec.classes = st.get("class_names", [])
+                prep.ex_ids = np.full(bucket, -1, np.int32)
+                prep.ex_ids[:len(ids)] = ids
+            else:
+                prep.ex_ids, ex_rec.classes = explain_mod.class_ids_for(
+                    gt.nodes, bucket)
+            prep.ex_ncls = explain_mod.class_pad(len(ex_rec.classes))
         prep.use_scan = use_scan
         prep.use_depth = use_depth
         prep.k_max = k_max
@@ -416,6 +478,8 @@ class SolverPlacer:
             return []
         gt = prep.gt
         n = prep.n
+        kernel = ("chunked" if prep.use_scan
+                  else "depth" if prep.use_depth else "greedy")
         metrics.incr(
             "nomad.solver.kernel.place_chunked" if prep.use_scan
             else "nomad.solver.kernel.fill_depth" if prep.use_depth
@@ -428,7 +492,39 @@ class SolverPlacer:
         placed = placed_h[:n]
         if prep.use_scan and prep.distincts:
             placed = self._trim_distinct(prep, placed)
+        if prep.ex is not None:
+            # attribution describes the committed (trimmed) placements
+            self._explain_tail(tg, prep, kernel, backend.tier(), placed)
         return self._placed_node_iter(gt.nodes, placed)
+
+    def _explain_tail(self, tg, prep, kernel: str, tier: str,
+                      placed) -> None:
+        """Fold a solve's reduce over its host-resident placements (the
+        serial solve's, trimmed where the scan overshot a quota, or the
+        pipelined chunks' sum) into its explain record and register it.
+        `tier` is the tier that served the solve."""
+        gt = prep.gt
+        prep.ex.tier = tier
+        prep.ex.kernel = kernel
+        try:
+            with metrics.measure("nomad.solver.explain.seconds"):
+                out = explain_mod.dispatch_reduce(gt, placed, prep.ex_ids,
+                                                  prep.ex_ncls)
+                prep.ex.absorb_reduce(out, gt, placed)
+        except Exception:       # noqa: BLE001 — never fail the solve
+            metrics.incr("nomad.solver.explain.errors")
+        self._register_explain(tg, prep.ex)
+
+    def _register_explain(self, tg, rec) -> None:
+        """Retain the solve's explain record where its consumers find it:
+        keyed per task group on the owning scheduler (a failure the
+        host stack could not place either attaches rec.failed_metric
+        instead of the stack's walk) and in the process-wide ring."""
+        ex_map = getattr(self.sched, "solver_explains", None)
+        if ex_map is None:
+            ex_map = self.sched.solver_explains = {}
+        ex_map[tg.name] = rec
+        explain_mod.note(rec)
 
     @staticmethod
     def _dev_mats(gt):
@@ -441,9 +537,9 @@ class SolverPlacer:
         return gt.cap_dev, gt.used_dev
 
     def _dispatch(self, prep, tg, count: int) -> np.ndarray:
-        """The solve on the device: select the tier, launch (on the
-        cache's twins where they served the eval), and bring the
-        placement vector back at the one host sync."""
+        """The solve through the backend's dispatch chain: select the
+        tier, launch (on the cache's twins where they served the eval),
+        and bring the placement vector back at the one host sync."""
         gt = prep.gt
         if prep.use_depth:
             bname, fn = backend.select(
@@ -459,17 +555,18 @@ class SolverPlacer:
                     np.int32(prep.max_per_node))
         dev = self._dev_mats(gt)
         if dev is not None:
-            args = dev + args[2:]
             metrics.incr("nomad.solver.state_cache.twin_dispatches")
-        # the single device-to-host sync of the solve
-        return fn(*args).cpu().numpy()
+            args = dev + args[2:]
+        # the single device-to-host sync of the solve, inside the chain
+        return fn(*args).numpy()
 
     def _scan_dispatch(self, prep, tg, count: int) -> np.ndarray:
-        """The chunked scan on the device. One solve covers max_steps *
-        min(N, 256) instances; larger asks split across solves that carry
-        the running state (usage, placements, spread counts, distinct
-        quotas) on the device, with one host sync per extra solve. The
-        placement vector reaches the host at the final sync."""
+        """The chunked scan through the backend's dispatch chain. One
+        solve covers max_steps * min(N, 256) instances; larger asks split
+        across solves that carry the running state (usage, placements,
+        spread counts, distinct quotas) on the device, with one host sync
+        of the placement total per extra solve. The placement vector
+        reaches the host at the last solve's sync."""
         gt, sp, dp = prep.gt, prep.sp, prep.dp
         max_steps = 256
         cover = max_steps * min(gt.cap.shape[0], 256)
@@ -491,18 +588,20 @@ class SolverPlacer:
         left = int(count)
         last_total = 0
         while True:
-            placed, used, sp_counts, d_rem = chunked_fn(
-                args[0], used, args[2], np.int32(min(left, cover)),
-                *args[4:8], sp_counts, *args[9:14], d_rem, placed,
-                np.int32(prep.max_per_node))
-            if left <= cover:
-                break           # one solve covered the whole ask
-            total = int(placed.sum())       # host sync: rare path
+            a = (args[0], used, args[2], np.int32(min(left, cover)),
+                 *args[4:8], sp_counts, *args[9:14], d_rem, placed,
+                 np.int32(prep.max_per_node))
+            if left <= cover:   # one solve covers the rest of the ask
+                return chunked_fn(
+                    *a, finish=lambda out: out[0].cpu()).numpy()
+            # a refill: only the placement total reaches the host
+            (placed, used, sp_counts, d_rem), total = chunked_fn(
+                *a, finish=lambda out: (out, int(out[0].sum())))
             left = int(count) - total
             if left <= 0 or total == last_total:
-                break           # done, or capacity exhausted
+                # done, or capacity exhausted
+                return placed.cpu().numpy()
             last_total = total
-        return placed.cpu().numpy()
 
     @staticmethod
     def _trim_distinct(prep, placed: np.ndarray) -> np.ndarray:
@@ -606,9 +705,11 @@ class SolverPlacer:
         the applier's latest-state re-check exactly as on the serial path
         (the eval then refreshes and retries, ref plan_apply.go:638).
 
-        A device error in chunk N raises PipelineChunkError out of the
-        eval once the chunks already submitted have resolved; the degrade
-        path that would re-solve the rest elsewhere is not ported."""
+        A device error in chunk N — at its dispatch or when its result
+        reaches the host — feeds the breaker and raises PipelineChunkError
+        out of the eval once the chunks already submitted have resolved.
+        The reference's degrade path, which re-solves the rest on the
+        host, is not ported: card work never moves to the CPU."""
         sched = self.sched
         count = len(missings)
         _, n_chunks, _ = self._pipeline_knobs()
@@ -653,11 +754,11 @@ class SolverPlacer:
                     try:
                         placed = depth_fn(*a)
                     except backend.device_error_types() as e:
+                        # the chain has fed the breaker
                         raise PipelineChunkError(
                             f"eval {sched.eval.id[:8]}: chunk {ci} of "
                             f"{len(chunk_counts)} failed to dispatch on "
-                            f"{backend.last_dispatch_tier() or bname}: "
-                            f"{e}") from e
+                            f"{bname}: {e}") from e
                     chunks.append(_Chunk(placed))
                     if ci < len(chunk_counts) - 1:
                         used_cur, coll_cur = _usage_update(
@@ -678,12 +779,14 @@ class SolverPlacer:
         if _in_flight(last_chunk):
             metrics.add_sample("nomad.plan.pipeline.overlap", prep_s)
         mi = 0
+        chunk_done: list = []    # materialized padded chunk results
         for ci, chunk in enumerate(chunks):
             with metrics.measure("nomad.solver.solve"):
                 try:
                     # the pipeline's designed per-chunk sync point
-                    placed = np.array(chunk.numpy()[:prep.n])
+                    placed_pad = chunk.numpy()
                 except backend.device_error_types() as e:
+                    backend.note_dispatch_failure(bname, e)
                     # the chunks already submitted resolve first, so the
                     # applier holds nothing of this eval when it fails
                     for _, pending in pendings:
@@ -691,6 +794,11 @@ class SolverPlacer:
                     raise PipelineChunkError(
                         f"eval {sched.eval.id[:8]}: chunk {ci} of "
                         f"{len(chunks)} failed on the device: {e}") from e
+                # async dispatch defers breaker feedback to HERE: only a
+                # result on the host proves the card healthy
+                backend.breaker_record(bname, ok=True)
+                chunk_done.append(placed_pad)
+                placed = np.array(placed_pad[:prep.n])
             host_t0 = time.perf_counter()
             solves_behind = ci < len(chunks) - 1 and _in_flight(last_chunk)
             is_last = ci == len(chunks) - 1
@@ -740,6 +848,12 @@ class SolverPlacer:
             # and retries the remainder — the serial path's partial-
             # commit semantics, applied per chunk
             sched._pipeline_partial = True
+        if prep.ex is not None:
+            # pipelined attribution: the reduce runs over the SUMMED
+            # chunk placements (all on the host by now), so the record
+            # describes the whole eval's post-solve state
+            total = np.sum(chunk_done, axis=0, dtype=np.int32)
+            self._explain_tail(tg, prep, "depth", bname, total[:prep.n])
         return mi, prep
 
     def _distinct_property_sets(self, tg):
@@ -786,10 +900,22 @@ class SolverPlacer:
             EVAL_COMPUTED_CLASS_ELIGIBLE, EVAL_COMPUTED_CLASS_INELIGIBLE,
             EVAL_COMPUTED_CLASS_UNKNOWN)
 
+        ctx = self.ctx
+
         def feasible(node) -> bool:
             klass = node.computed_class
+            # cached-ineligible fast paths count "computed class
+            # ineligible" exactly like the host FeasibilityWrapper — but
+            # ONLY into the explain scratch metric the tensorize walk
+            # runs against: later re-walks over the same closure (the
+            # preemption pass's candidate filter) must not double-count
+            # into the live eval-wide metric
+            record = getattr(ctx.metrics, "explain_walk", False)
             st = elig.job_status(klass)
             if st == EVAL_COMPUTED_CLASS_INELIGIBLE:
+                if record:
+                    ctx.metrics.filter_node(node,
+                                            "computed class ineligible")
                 return False
             if st != EVAL_COMPUTED_CLASS_ELIGIBLE:
                 ok = all(c.feasible(node) for c in job_checks)
@@ -799,6 +925,9 @@ class SolverPlacer:
                     return False
             st = elig.task_group_status(tg.name, klass)
             if st == EVAL_COMPUTED_CLASS_INELIGIBLE:
+                if record:
+                    ctx.metrics.filter_node(node,
+                                            "computed class ineligible")
                 return False
             if st != EVAL_COMPUTED_CLASS_ELIGIBLE:
                 ok = all(c.feasible(node) for c in tg_checks)
@@ -914,25 +1043,29 @@ class SolverPlacer:
                     self.plan.append_preempted_alloc(victim, sched.eval.id)
             else:
                 remaining.insert(0, missing)
+        rec = getattr(sched, "solver_explains", {}).get(tg.name)
+        if rec is not None:
+            # preemption candidacy (explain stage 5): how many candidate
+            # nodes the victim scan considered, how many produced a
+            # viable victim set, and how many placements it rescued
+            rec.preempt_candidates = c
+            rec.preempt_with_victims = int(masks.any(axis=1).sum())
+            rec.preempt_placed = len(missings) - len(remaining)
         return remaining
 
     @staticmethod
     def _preempt_masks(victim_res, victim_prio, ask, free,
                        job_prio) -> np.ndarray:
         """Victim-mask solve over all candidate nodes -> bool[C, V]: one
-        kernels.preempt_top_k pass on the solve device, brought to the
-        host at preemption's own sync (the masks gate an exact host
-        verify; nothing overlaps them). One card: the reference shards
-        the candidate axis over a device mesh at pod scale, which the
-        port does not have."""
-        from .kernels import preempt_top_k
-        dev = _device.solve_device()
-        if dev.type == "cuda":
-            roundtrip.note("preempt")
-        t = [backend._tensor(a, dev, dtype) for a, dtype in (
-            (victim_res, torch.float32), (victim_prio, torch.int32),
-            (ask, torch.float32), (free, torch.float32))]
-        return preempt_top_k(*t, int(job_prio)).cpu().numpy()
+        kernels.preempt_top_k pass through the backend's ladder (on the
+        card, the host floor from the same numpy inputs on a device
+        error), brought to the host at preemption's own sync (the masks
+        gate an exact host verify; nothing overlaps them). One card: the
+        reference shards the candidate axis over a device mesh at pod
+        scale, which the port does not have."""
+        _, fn = backend.select("preempt")
+        return fn(victim_res, victim_prio, ask, free,
+                  np.int32(job_prio)).numpy()
 
     # ------------------------------------------- batched alloc materialization
 
@@ -959,6 +1092,12 @@ class SolverPlacer:
         # the TG point at
         total = skeleton_for(self._skel, tg, oversub).shared_total
         metrics_obj = self.ctx.metrics.copy()
+        rec = getattr(sched, "solver_explains", {}).get(tg.name)
+        if rec is not None:
+            # `alloc status` explainability: the walk's filter counts plus
+            # the winning rows' score metadata ride the shared metrics
+            # object every stamped alloc points at
+            rec.enrich_placed_metric(metrics_obj)
         shared = {"namespace": sched.eval.namespace,
                   "eval_id": sched.eval.id,
                   "job_id": sched.eval.job_id, "job": self.plan.job,
@@ -1125,6 +1264,20 @@ class SolverPlacer:
         self.plan.append_alloc(alloc, None)
         return True
 
+    def _failed_metric(self, tg) -> AllocMetric:
+        """The AllocMetric a failed placement reports. When the solve
+        explained this task group, materialize ITS attribution instead of
+        whatever the fallback stack's last reset-and-re-walk left in
+        ctx.metrics. Task groups that never reached the solve
+        (reschedules, canaries) keep the stack's own metric."""
+        rec = getattr(self.sched, "solver_explains", {}).get(tg.name)
+        if rec is not None:
+            if not rec.rejected:
+                rec.rejected = True
+                metrics.incr("nomad.solver.explain.rejections")
+            return rec.failed_metric(dict(self.sched._nodes_by_dc))
+        return self.sched.ctx.metrics.copy()
+
     def _fallback(self, leftovers, deployment_id: str) -> bool:
         """Per-alloc stack selection for what batching couldn't handle."""
         from ..scheduler.reconcile import AllocPlaceResult
@@ -1154,8 +1307,7 @@ class SolverPlacer:
                     self.plan.pop_update(prev)
                     sched.queued_allocs[tg.name] = \
                         sched.queued_allocs.get(tg.name, 0) - 1
-                sched.failed_tg_allocs[tg.name] = \
-                    self.sched.ctx.metrics.copy()
+                sched.failed_tg_allocs[tg.name] = self._failed_metric(tg)
                 continue
             sched._handle_preemptions(option)
             # the stack's ranked task_resources genuinely vary per option

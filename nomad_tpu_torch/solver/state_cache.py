@@ -50,6 +50,13 @@ the solve itself raises (backend.select).
 commit, so the replay usually runs on the leader-serial applier thread —
 off the eval critical path — and the next eval's gather is a pure hit.
 
+A device error while seeding or gathering the twins feeds the backend's
+breaker (backend.note_dispatch_failure; a device loss drops the twins)
+and raises out of the eval: the eval's solve never leaves the card for
+the host copies. One while advancing the twins at a commit drops them
+instead (the host mirrors have already advanced, and the commit must
+not fail); the next gather seeds them again on the card.
+
 Not ported: the device mesh (sharded twins, evacuation on device loss,
 generation bumps). One card has one generation, `GENERATION`.
 
@@ -75,6 +82,20 @@ from .buckets import node_bucket
 RING = 16
 # the mesh generation every twin rides: one card, no mesh rebuilds
 GENERATION = 0
+
+
+def _device_errors() -> tuple:
+    from . import backend
+    return backend.device_error_types()
+
+
+def _note_device_failure(exc: BaseException, dev: torch.device) -> None:
+    """A twin seed, advance or gather failed on `dev`: feed the backend's
+    breaker for the tier that solves there (a device loss also drops the
+    twins)."""
+    from . import backend
+    backend.note_dispatch_failure(
+        "cuda" if dev.type == "cuda" else "torch", exc)
 
 
 def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -234,10 +255,22 @@ class TensorCache:
         n = self.cap.shape[0]
         self._bucket = node_bucket(n)
         pad = ((0, self._bucket - n), (0, 0))
-        self._cap_dev = _upload(np.pad(self.cap, pad), dev)
-        self._used_dev = _upload(np.pad(self.used, pad), dev)
+        try:
+            cap_dev = _upload(np.pad(self.cap, pad), dev)
+            used_dev = _upload(np.pad(self.used, pad), dev)
+        except _device_errors() as e:
+            _note_device_failure(e, dev)
+            raise
+        self._cap_dev, self._used_dev = cap_dev, used_dev
         self._dev = dev
         metrics.incr("nomad.solver.state_cache.twin_seeds")
+
+    def drop_twins(self) -> None:
+        """Forget the twins (after a device loss): the next gather seeds
+        them again."""
+        with self._lock:
+            self._cap_dev = self._used_dev = None
+            self._dev = None
 
     def _advance_locked(self, target_version: int, log) -> bool:
         """Replay journal entries with version <= target_version from the
@@ -305,9 +338,16 @@ class TensorCache:
         if self._used_dev is None:
             return
         uniq = np.unique(rows)
-        idx = _upload(uniq, self._dev)
-        vals = _upload(used[uniq], self._dev)
-        self._used_dev = self._used_dev.index_copy(0, idx, vals)
+        try:
+            idx = _upload(uniq, self._dev)
+            vals = _upload(used[uniq], self._dev)
+            self._used_dev = self._used_dev.index_copy(0, idx, vals)
+        except _device_errors() as e:
+            # the host mirror advances alone; the twins are stale now
+            dev = self._dev
+            self._cap_dev = self._used_dev = None
+            self._dev = None
+            _note_device_failure(e, dev)
 
     # -------------------------------------------------------------- reading
 
@@ -395,17 +435,24 @@ class TensorCache:
     def _gather_device(dev: tuple, rows: np.ndarray, bucket: int):
         """The eval's rows of each twin, in eval order, into a zeroed
         `bucket`-row tensor: one indexing op per twin."""
+        from .. import faults
         from . import roundtrip
         cap_dev, used_dev = dev
-        roundtrip.note("gather")
-        n = len(rows)
-        idx = _upload(np.asarray(rows, np.int64), cap_dev.device)
-        out = []
-        for twin in (cap_dev, used_dev):
-            buf = twin.new_zeros((bucket, twin.shape[1]))
-            torch.index_select(twin, 0, idx, out=buf[:n])
-            out.append(buf)
-        return tuple(out)
+        try:
+            if cap_dev.device.type == "cuda":
+                faults.fire(f"device.lost.d{cap_dev.device.index or 0}")
+            roundtrip.note("gather")
+            n = len(rows)
+            idx = _upload(np.asarray(rows, np.int64), cap_dev.device)
+            out = []
+            for twin in (cap_dev, used_dev):
+                buf = twin.new_zeros((bucket, twin.shape[1]))
+                torch.index_select(twin, 0, idx, out=buf[:n])
+                out.append(buf)
+            return tuple(out)
+        except _device_errors() as e:
+            _note_device_failure(e, cap_dev.device)
+            raise
 
     # ------------------------------------------------------------- feeding
 

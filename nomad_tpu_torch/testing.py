@@ -288,3 +288,51 @@ def split_solves(place, args, kw):
         if left <= 0 or total == last:
             return out
         last = total
+
+
+# ------------------------------------------------------ explain fixtures
+#
+# Seeded numpy inputs of kernels.explain_reduce in its positional order
+# (cap, used, ask, feasible, collisions, placed, class_ids,
+# distinct_hosts), shared by the CPU tests, the card tests and
+# chip_smoke.py.
+
+def explain_case(seed=0, n=16, n_classes=4):
+    """tests/test_explain.py's reduce inputs: random float usage on a
+    two-size fleet, a fifth infeasible, collisions, up to 2 placed per
+    row, class ids in [-1, n_classes)."""
+    rng = np.random.default_rng(seed)
+    cap = np.zeros((n, 5), np.float32)
+    cap[:, 0] = rng.choice([2000.0, 4000.0], n)
+    cap[:, 1] = rng.choice([4096.0, 8192.0], n)
+    cap[:, 2] = 50_000.0
+    used = (cap * rng.uniform(0.0, 0.9, (n, 5))).astype(np.float32)
+    ask = np.zeros(5, np.float32)
+    ask[0], ask[1] = 1500.0, 2048.0
+    feas = rng.random(n) > 0.2
+    coll = rng.integers(0, 2, n).astype(np.int32)
+    placed = rng.integers(0, 3, n).astype(np.int32)
+    cls = rng.integers(-1, n_classes, n).astype(np.int32)
+    return (cap, used, ask, feas, coll, placed, cls, np.bool_(True))
+
+
+# a float32 rounding boundary of used + placed * ask (found by a seeded
+# search): rounded twice (the product, then the sum) the row lands
+# exactly one ask below cap; rounded once it overflows cap
+BOUNDARY = (np.float32(948.94366), np.float32(4.6004515), np.int32(49))
+
+
+def explain_boundary_case(n=8):
+    """Every row on BOUNDARY: the two-rounding reduce calls each row fit,
+    a once-rounded (fused multiply-add) one calls it exhausted on cpu."""
+    u, a, p = BOUNDARY
+    cap = np.full((n, 5), 1e6, np.float32)
+    used = np.zeros((n, 5), np.float32)
+    ask = np.zeros(5, np.float32)
+    ask[0] = a
+    cap[:, 0] = np.float32(np.float32(np.float32(p) * a) + u) + a
+    used[:, 0] = u
+    placed = np.full(n, p, np.int32)
+    cls = np.arange(n, dtype=np.int32) % 2
+    return (cap, used, ask, np.ones(n, bool), np.zeros(n, np.int32),
+            placed, cls, np.bool_(False))

@@ -402,3 +402,95 @@ def test_state_cache_twins_live_on_the_card_after_a_commit(dev):
     assert cap_dev[:n].cpu().numpy().tobytes() == view.cap.tobytes()
     assert not bool(used_dev[n:].any())
     state_cache.reset()
+
+
+def _reduce_on(dev, args, n_classes):
+    from nomad_tpu_torch.solver import explain
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+         for a in args[:7]]
+    buf = kernels.explain_reduce(*t, bool(args[7]), n_classes=n_classes)
+    assert buf.device == dev and buf.dtype == torch.int32
+    return explain.unpack(buf.cpu().numpy(), NUM_XR, n_classes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["seed0", "seed1", "bucket", "boundary"])
+def test_explain_reduce_on_the_card_matches_numpy(dev, case):
+    """The explain reduce's torch ops on the card give reduce_numpy's
+    bits: seeded inputs, the 16,384 bucket, and rows on a float32
+    rounding boundary of used + placed * ask (two roundings on both)."""
+    from nomad_tpu_torch.solver import explain
+    from nomad_tpu_torch.testing import explain_boundary_case, explain_case
+    if case == "boundary":
+        args, ncls = explain_boundary_case(), 2
+    elif case == "bucket":
+        args, ncls = explain_case(7, n=16_384, n_classes=8), 8
+    else:
+        args, ncls = explain_case(int(case[-1])), 4
+    got = _reduce_on(dev, args, ncls)
+    want = explain.reduce_numpy(*args, n_classes=ncls)
+    for a, b in zip(got, want):
+        assert np.asarray(a).tobytes() == np.asarray(b).tobytes()
+
+
+@pytest.mark.cuda
+def test_injected_fault_on_the_card_raises_and_is_counted(dev):
+    """A fault at `solver.dispatch.cuda` raises out of the card's solve:
+    one dispatch error, no kernel launch and nothing served on the CPU;
+    the next solve launches the kernel and places as before."""
+    from nomad_tpu_torch import faults
+    from nomad_tpu_torch.metrics import metrics
+    from nomad_tpu_torch.solver import backend
+    backend.reset()
+    cap, used, ask, feas, coll, aff = (t.cpu().numpy()
+                                       for t in _inputs(dev))
+    args = (cap, used, ask, np.int32(5_000), feas, coll, np.int32(5_000),
+            aff, np.int32(2 ** 30), None, np.float32(0.5), np.float32(0.0))
+    name, fn = backend.select("depth", cap.shape[0], k_max=128)
+    assert name == "cuda"
+    want = fn(*args)
+    faults.install({"solver.dispatch.cuda": {"mode": "raise", "times": 1}})
+    try:
+        e0 = metrics.counter("nomad.solver.dispatch_errors.cuda")
+        t0 = metrics.counter("nomad.solver.dispatch.torch")
+        launches = cuda_kernels.LAUNCHES["depth_curve"]
+        with pytest.raises(faults.FaultError):
+            fn(*args)
+        assert cuda_kernels.LAUNCHES["depth_curve"] == launches
+        got = fn(*args)
+    finally:
+        faults.clear()
+        backend.reset()
+    assert cuda_kernels.LAUNCHES["depth_curve"] == launches + 1
+    assert metrics.counter("nomad.solver.dispatch_errors.cuda") == e0 + 1
+    assert metrics.counter("nomad.solver.dispatch.torch") == t0
+    assert int(got.sum()) == 5_000 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_kernel_build_error_on_the_card_never_feeds_the_breaker(
+        dev, monkeypatch):
+    """A kernel that does not build raises out of every card solve,
+    BREAKER_THRESHOLD + 1 times over, uncounted, with the breaker
+    closed."""
+    from nomad_tpu_torch.metrics import metrics
+    from nomad_tpu_torch.solver import backend
+
+    def broken(*a, **kw):
+        raise cuda_kernels.KernelBuildError("CUDA kernel build failed")
+    monkeypatch.setattr(cuda_kernels, "fill_depth_fused", broken)
+    backend.reset()
+    cap, used, ask, feas, coll, aff = (t.cpu().numpy()
+                                       for t in _inputs(dev))
+    args = (cap, used, ask, np.int32(5_000), feas, coll, np.int32(5_000),
+            aff, np.int32(2 ** 30), None, np.float32(0.5), np.float32(0.0))
+    try:
+        _, fn = backend.select("depth", cap.shape[0], k_max=128)
+        e0 = metrics.counter("nomad.solver.dispatch_errors")
+        for _ in range(backend.BREAKER_THRESHOLD + 1):
+            with pytest.raises(cuda_kernels.KernelBuildError):
+                fn(*args)
+            assert backend.breaker().state("cuda") == "closed"
+        assert metrics.counter("nomad.solver.dispatch_errors") == e0
+    finally:
+        backend.reset()

@@ -168,3 +168,26 @@ def test_first_solve_raises_without_a_card_or_a_cpu_request(monkeypatch):
     finally:
         use_device(prev)
         backend.reset()
+
+
+# the reference's solver exports that wait for the multi-device port
+MESH_EXPORTS = {"make_mesh", "sharded_fill_greedy"}
+
+
+def _exports(path: Path) -> set:
+    """Names a package __init__ imports for export."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.ImportFrom):
+            names.update(a.asname or a.name for a in node.names)
+    return names
+
+
+def test_port_solver_exports_the_references_names_less_the_mesh():
+    want = _exports(REF / "solver" / "__init__.py") - MESH_EXPORTS
+    got = _exports(PORT / "solver" / "__init__.py")
+    assert want <= got, sorted(want - got)
+    import nomad_tpu_torch.solver as solver
+    for name in sorted(want):
+        assert callable(getattr(solver, name)) or \
+            isinstance(getattr(solver, name), int), name
