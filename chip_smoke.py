@@ -87,7 +87,7 @@ prints no result):
   5. compare  the same 50k eval on fresh clusters, serial
               (plan_pipeline_enabled=False) and pipelined, each with
               explain on and off (placement_explain_enabled), in turns
-              (COMPARE_ORDER, three runs a cell), each with the applier
+              (COMPARE_ORDER, two runs a cell), each with the applier
               thread running and after a full garbage collection: the
               walls and their medians per cell, the layer breakdowns and
               the pipeline's host/overlap seconds; launch counts zeroed
@@ -118,6 +118,46 @@ prints no result):
               error and a bug, each raised BREAKER_THRESHOLD + 1 times
               over, never counted and never open it (`ladder` lines).
 
+  9. lanes    (after `kernels`) the depth-curve kernel over the lanes of a
+              full micro-batch window: 8 lanes at the 16,384 bucket (own
+              usage, ask, count and max_per_node each) bit-equal to 8
+              one-lane launches and, placements, to each lane's solo
+              fill_depth_fused; plain version within K1's tolerances;
+              device ms per window against 8 solo launches, the bound.
+ 10. server   the port's Server(num_workers=4) on the card: 10,000 nodes
+              through node_register, the 50k job through job_register, a
+              worker and the pipelined applier (every instance committed,
+              no row over capacity, register -> last commit wall, layer
+              timers); a fresh Server over snapshot_restore, whose
+              establishment reseeds the state cache (10,000 rows) and
+              warms every kernel, after which a 2k eval builds and loads
+              nothing; the debug bundle (the card in DeviceRuntime, one
+              shard, breakers closed, the state cache's rows).
+ 11. stream   16 jobs of 1,000 tasks registered back to back on a fresh
+              10,000-node server with 4 workers, micro-batching on and off
+              in turns (on, off, off, on), then at 500, 2,000 and 4,000:
+              evals/s, submit_plan p50/p99, the batcher's counters and
+              window sizes, the window launches; every instance
+              placed, no row over capacity. Per count, the runs in pairs
+              and a one-sided sign test on them: a count qualifies for
+              backend.BATCH_MAX_COUNT only where the coalesced run beat
+              solo in enough pairs (p <= 0.05); two pairs a count, as
+              here, can never qualify one (stream_sweep.py runs more).
+ 12. rejections  8 jobs of 2,000 tasks (cpu 400, mem 700) at once on a
+              2,000-node server with 8 workers, under tpu-batch and under
+              binpack: node and alloc rejection rates from each plan's
+              PlanResult (the planner instance wrapped); each job placed
+              whole or failed on plan conflicts with a blocked eval
+              holding the rest; no row over capacity.
+ 13. server fault  solver.dispatch.cuda faulted once under a 2k eval: the
+              worker nacks, the broker redelivers, the second delivery
+              commits everything; 1 dispatch error, 1 eval failure, 0 CPU
+              solves. Faults cleared and the breaker reset after.
+
+Servers run with their heartbeat TTL set past the run (no clients here)
+and stop in a `finally`. The native stamping extension (native/) is
+built with runtime.ensure_native() before the first eval.
+
 Explain runs at its default (on) everywhere: the `explain` lines give
 each main-path eval's record (the 50k eval's placed_total 50,000 and
 n_feasible 10,000) and `nomad.solver.explain.seconds`; the placer
@@ -139,6 +179,7 @@ from __future__ import annotations
 import contextlib
 import importlib.util
 import json
+import math
 import os
 import shutil
 import statistics
@@ -194,13 +235,11 @@ MAIN_KERNELS = ("depth_curve", "score_capacity")
 # the card the port solves on (the solve device's default)
 DEVICE = "cuda:0"
 BIG_CHUNKS = 4          # SchedulerConfiguration.plan_pipeline_chunks default
-# the compare phase: (mode, explain) in turns, three runs a cell
+# the compare phase: (mode, explain) in turns, two runs a cell
 COMPARE_ORDER = ((("serial", True), ("pipelined", True),
                   ("pipelined", False), ("serial", False)) +
                  (("serial", False), ("pipelined", False),
-                  ("pipelined", True), ("serial", True)) +
-                 (("serial", True), ("pipelined", True),
-                  ("pipelined", False), ("serial", False)))
+                  ("pipelined", True), ("serial", True)))
 SMALL_PIPELINE = {"plan_pipeline_min_count": 1, "plan_pipeline_chunks": 3}
 
 # the service path: racks per cluster, the web job's datacenter targets
@@ -242,6 +281,23 @@ SOLVE_REPS = 5
 BARRIER_STEPS = 10_000
 # the ladder phase's breaker cycle: rows a solve
 BREAKER_ROWS = 1_024
+# the server slice: every wait on a server's evals ends by this deadline
+SERVER_TIMEOUT_S = 180.0
+# the stream: jobs registered back to back on a 10,000-node server with
+# 4 workers, at STREAM_COUNT and at the other counts of the batch tier's
+# sweep, STREAM_PAIRS pairs of runs (batching on and off) a count; a count
+# qualifies for backend.BATCH_MAX_COUNT where coalescing beat solo in
+# enough pairs for a one-sided sign test at STREAM_P
+STREAM_JOBS, STREAM_WORKERS, STREAM_COUNT = 16, 4, 1_000
+STREAM_COUNTS = (1_000, 500, 2_000, 4_000)
+STREAM_PAIRS, STREAM_P = 2, 0.05
+# plan rejections under concurrent workers (bench.py
+# _concurrent_rejection_rate's shape)
+REJECT_NODES, REJECT_JOBS, REJECT_COUNT, REJECT_WORKERS = 2_000, 8, 2_000, 8
+# the host binpack scheduler takes seconds an eval at this size, its 8
+# workers share one interpreter lock, and evals that lose a plan conflict
+# plan again
+REJECT_TIMEOUT_S = 720.0
 
 
 class CheckFailed(AssertionError):
@@ -542,7 +598,7 @@ def kernels_phase(np, torch, dev) -> dict:
                   f"near ties (largest top-two gap {float(gap.max())})")
             ties = len(bad)
         tail = (count, inp["jitter"], 1.5, js)
-        p_k = kernels._depth_order_take(d_k, k_k, c_k, *tail)
+        p_k = kernels._depth_order_take_one(d_k, k_k, c_k, *tail)
         p_p = kernels.fill_depth(inp["cap"], inp["used"], ask, count, feas,
                                  inp["coll"], BIG_COUNT, inp["aff"],
                                  max_per_node=mpn, k_max=k_max,
@@ -1922,6 +1978,551 @@ def small_phase(torch) -> None:
 
 # ------------------------------------------------------------------ main
 
+# ----------------------------------------------------- the server slice
+
+
+def lanes_phase(np, torch, dev) -> dict:
+    """The depth-curve kernel over the lanes of a full micro-batch window
+    (LANES lanes at the bucket, dense K = 128), each lane with its own
+    usage, ask, count and max_per_node. Its outputs bit-equal to one
+    one-lane launch a lane and to the plain lane version within the K1
+    tolerances; the window's placements bit-equal to each lane's solo
+    fill_depth_fused. Device ms per window against 8 solo launches, the
+    plain version's ms, the bound of the window's lanes."""
+    from nomad_tpu_torch.solver import cuda_kernels, kernels
+    from nomad_tpu_torch.solver.buckets import BATCH_LANES
+    inp = _inputs(np, torch, dev)
+    scale = torch.tensor([1.0, 0.5, 0.0, 1.2, 0.8, 0.3, 0.9, 0.1],
+                         device=dev)
+    used = torch.stack([torch.floor(inp["used"] * s) for s in scale])
+    cap = inp["cap"].expand(BATCH_LANES, -1, -1).contiguous()
+    ask = torch.tensor([[250, 512, 300, 0, 0], [500, 256, 300, 0, 0],
+                        [100, 2_048, 300, 0, 0], [1_000, 1_024, 0, 0, 0],
+                        [250, 512, 300, 0, 0], [2_000, 4_096, 300, 0, 0],
+                        [400, 700, 0, 0, 0], [50, 128, 100, 0, 0]],
+                       dtype=torch.float32, device=dev)
+    feas = inp["feasible"].expand(BATCH_LANES, -1).contiguous()
+    coll = inp["coll"].expand(BATCH_LANES, -1).contiguous()
+    aff = inp["aff"].expand(BATCH_LANES, -1).contiguous()
+    jitter = inp["jitter"].expand(BATCH_LANES, -1).contiguous()
+    counts = [STREAM_COUNT, 500, 2_000, 4_000, 1, 300, 2_000, 700]
+    desired = [max(c, 1) for c in counts]
+    mpn = [2 ** 30, 2 ** 30, 1, 2 ** 30, 2 ** 30, 3, 2 ** 30, 2]
+    curve = (cap, used, ask, feas, coll, desired, aff, mpn)
+    kw = dict(k_max=128)
+    before = dict(cuda_kernels.LAUNCHES)
+    d_l, k_l, c_l = cuda_kernels.depth_curve_lanes(*curve, **kw)
+    torch.cuda.synchronize()
+    check(cuda_kernels.LAUNCHES["depth_curve_lanes"] ==
+          before["depth_curve_lanes"] + 1 and
+          cuda_kernels.LAUNCHES["depth_curve"] == before["depth_curve"],
+          "lanes: the window took more than one launch")
+
+    def solo_curve(lane):
+        return cuda_kernels.depth_curve(
+            cap[lane], used[lane], ask[lane], feas[lane], coll[lane],
+            desired[lane], aff[lane], max_per_node=mpn[lane], **kw)
+    for lane in range(BATCH_LANES):
+        d_s, k_s, c_s = solo_curve(lane)
+        check(torch.equal(d_l[lane].view(torch.int32), d_s.view(torch.int32))
+              and torch.equal(k_l[lane], k_s) and torch.equal(c_l[lane], c_s),
+              f"lanes: lane {lane} differs from its solo launch")
+    d_p, k_p, c_p = kernels.depth_curve_lanes_ref(*curve, **kw)
+    check(torch.equal(c_l, c_p), "lanes: k_cap differs from plain")
+    fin = torch.isfinite(d_p)
+    check(torch.equal(torch.isfinite(d_l), fin),
+          "lanes: rows with no fitting depth differ from plain")
+    err = float((d_l[fin] - d_p[fin]).abs().max())
+    check(err <= ATOL, f"lanes: d_star max abs err {err}")
+    ties = int(((k_l != k_p) & fin).sum())
+    tail = dict(order_jitter=jitter, jitter_scales=[1.5] * BATCH_LANES,
+                jitter_samples=[0.0] * BATCH_LANES, **kw)
+    placed = cuda_kernels.fill_depth_lanes(
+        cap, used, ask, counts, feas, coll, desired, aff, mpn, **tail)
+    plain = kernels.fill_depth_lanes(
+        cap, used, ask, counts, feas, coll, desired, aff, mpn, **tail)
+    moved = 0
+    for lane in range(BATCH_LANES):
+        solo = cuda_kernels.fill_depth_fused(
+            cap[lane], used[lane], ask[lane], counts[lane], feas[lane],
+            coll[lane], desired[lane], aff[lane], max_per_node=mpn[lane],
+            order_jitter=jitter[lane], jitter_scale=1.5, jitter_samples=0.0,
+            **kw)
+        check(torch.equal(placed[lane], solo),
+              f"lanes: lane {lane}'s placements differ from its solo solve")
+        moved += _placements_agree(torch, placed[lane], plain[lane],
+                                   bool(ties), f"lanes: lane {lane}")
+    check(moved == 0, f"lanes: near ties moved {moved} nodes")
+
+    out = _times(torch, "depth_curve_kernel",
+                 lambda: cuda_kernels.depth_curve_lanes(*curve, **kw))
+
+    def eight_solo():
+        for lane in range(BATCH_LANES):
+            solo_curve(lane)
+    solo_ms, _ = _device_ms(torch, eight_solo, "depth_curve_kernel")
+    out["solo_8_ms"] = solo_ms
+    out.update(_plain_times(
+        torch, lambda: kernels.depth_curve_lanes_ref(*curve, **kw)))
+    depths = int(torch.clamp(c_p, max=128).sum())
+    nbytes = BATCH_LANES * (N_BUCKET * (2 * 5 * 4 + 1 + 4 + 4 + 3 * 4)
+                            + 5 * 4 + 2 * 4)
+    ops = depths * DEPTH_OPS_DENSE + BATCH_LANES * N_BUCKET * DEPTH_OPS_NODE
+    out.update(_bound(nbytes, ops))
+    out.update(max_abs_err=err, near_tie_rows=ties, moved_nodes=moved,
+               depths_evaluated=depths)
+    log(f"lanes: the window ({BATCH_LANES} lanes x {N_BUCKET} rows, dense "
+        f"K=128) bit-equal to {BATCH_LANES} one-lane launches; placements "
+        f"bit-equal to each lane's solo fill_depth_fused; plain d_star max "
+        f"abs err {err:.3g}, near-tie rows {ties}")
+    log(f"lanes: kernel {out['ms']} ms device per window ({out['call_ms']} "
+        f"ms per wrapper call), {BATCH_LANES} solo launches {solo_ms} ms "
+        f"device, plain {out['plain_ms']} ms, bound {out['bound_ms']} ms "
+        f"({out['bound_by']}: {nbytes} B, {ops} ops, {depths} depths)")
+    return out
+
+
+def _server(workers: int, snapshot: bytes = None, logs: list = None,
+            **config):
+    """The port's in-process Server on the card, its leadership
+    established (start): restored from `snapshot` first, so establishment
+    sees the cluster, and then under scheduler_algorithm tpu-batch and
+    `config`. No client heartbeats reach it here: the registered nodes'
+    heartbeat TTL is set past the run."""
+    from nomad_tpu_torch.server import Server
+    from nomad_tpu_torch.structs import SchedulerConfiguration
+    from nomad_tpu_torch.solver import backend
+    logs = [] if logs is None else logs
+    srv = Server(num_workers=workers, gc_interval=9999, logger=logs.append)
+    srv.heartbeats.min_ttl = 3600.0
+    if snapshot is not None:
+        srv.snapshot_restore(snapshot)
+    srv.start()
+    config.setdefault("scheduler_algorithm", "tpu-batch")
+    srv.set_scheduler_configuration(SchedulerConfiguration(**config))
+    if srv.state.node_count() >= backend.WARMUP_MIN_NODES:
+        # establishment's warmup runs on a thread: let it finish before
+        # anything is timed
+        deadline = time.monotonic() + SERVER_TIMEOUT_S
+        while not any("solver warmup" in m for m in list(logs)):
+            check(time.monotonic() < deadline,
+                  f"no warmup at establish: {logs[:5]}")
+            time.sleep(0.01)
+    return srv
+
+
+def _register_fleet(srv, np, n_nodes: int, seed: int) -> float:
+    from nomad_tpu_torch import mock
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    for i in range(n_nodes):
+        srv.node_register(_mk_node(mock, i, rng))
+    return time.perf_counter() - t0
+
+
+def _wait_evals(srv, eval_ids, timeout: float = SERVER_TIMEOUT_S,
+                done=("complete",)) -> float:
+    """Wait until every eval of `eval_ids` has a status in `done` (fail on
+    any other terminal status, or at the deadline); -> perf_counter at
+    completion."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        evs = [srv.state.eval_by_id(i) for i in eval_ids]
+        if all(e is not None and e.status in done for e in evs):
+            return time.perf_counter()
+        bad = [(e.job_id, e.status, e.status_description) for e in evs
+               if e is not None and e.status not in done
+               and e.status in ("complete", "failed", "cancelled")]
+        check(not bad, f"evals ended {bad}")
+        time.sleep(0.001)
+    check(False, f"evals not complete after {timeout} s: "
+          f"{[getattr(srv.state.eval_by_id(i), 'status', None) for i in eval_ids]}")
+
+
+def _check_committed(srv, jobs: dict) -> None:
+    """Every job's instances committed (desired run), no usage row over
+    capacity."""
+    for job_id, count in jobs.items():
+        live = sum(1 for a in srv.state.allocs_by_job("default", job_id)
+                   if a.desired_status == "run")
+        check(live == count, f"{job_id}: committed {live}/{count}")
+    view = srv.state.usage.view()
+    over = int((view.used > view.cap + 1e-3).any(axis=1).sum())
+    check(over == 0, f"{over} usage rows over capacity")
+
+
+def _shutdown(srv) -> None:
+    """Stop the server; a worker finishes the eval it is in first."""
+    srv.shutdown()
+    for w in srv.workers:
+        w.join(SERVER_TIMEOUT_S)
+        check(not w._thread or not w._thread.is_alive(),
+              f"worker {w.id} still running after shutdown")
+
+
+def server_phase(np, torch, card: str) -> dict:
+    """The port as a server on the card: the 50k eval through
+    Server.job_register and a worker, then a restart from a snapshot
+    (establishment reseeds the state cache and warms every kernel), a 2k
+    eval that builds and loads nothing, and the debug bundle."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.metrics import metrics
+    from nomad_tpu_torch.solver import cuda_kernels, state_cache
+    out: dict = {}
+    srv = _server(4)
+    try:
+        out["register_s"] = _register_fleet(srv, np, N_LIVE, 42)
+        nodes_only = srv.snapshot_save()
+        timers0 = {k: metrics.timer_sum(k) for k in LAYERS + PIPE_TIMERS}
+        counters0 = {k: metrics.counter(v) for k, v in COUNTERS.items()}
+        cuda_kernels.reset_launches()            # this path's window
+        t0 = time.perf_counter()
+        eval_id = srv.job_register(
+            _mk_batch_job(mock, "srv-big", BIG_COUNT))["eval_id"]
+        t1 = _wait_evals(srv, [eval_id])
+        launches = dict(cuda_kernels.LAUNCHES)   # read just after
+        torch.cuda.synchronize()
+        _check_committed(srv, {"srv-big": BIG_COUNT})
+        counters = {k: metrics.counter(v) - counters0[k]
+                    for k, v in COUNTERS.items()}
+        bad = {k: counters[k] for k in CARD_ZERO if counters[k]}
+        check(not bad, f"server 50k eval counted {bad}")
+        check(launches["depth_curve"] == BIG_CHUNKS,
+              f"server 50k eval: depth_curve launched "
+              f"{launches['depth_curve']} times")
+        out.update(wall_s=t1 - t0, launches=launches,
+                   layers_s={k.split(".", 1)[1]: metrics.timer_sum(k) - v
+                             for k, v in timers0.items()},
+                   counters=counters)
+        log(f"server: {N_LIVE} nodes registered through node_register in "
+            f"{out['register_s']:.3f} s; the 50k job through job_register "
+            f"and a worker: {BIG_COUNT} committed, 0 rows over capacity, "
+            f"register -> last commit {out['wall_s']} s ({card}); layers "
+            f"{json.dumps(out['layers_s'])}; launches {json.dumps(launches)}")
+        snap = srv.snapshot_save()
+    finally:
+        _shutdown(srv)
+
+    # a restart: a fresh server over the snapshot; the kernels' libraries
+    # are dropped from the process first, so the warmup has to load them
+    logs: list = []
+    cuda_kernels._fns.clear()
+    warm0 = metrics.counter("nomad.solver.warmup.artifacts")
+    errs0 = metrics.counter("nomad.solver.warmup.errors")
+    srv = _server(4, snapshot=snap, logs=logs)
+    try:
+        deadline = time.monotonic() + SERVER_TIMEOUT_S
+        while metrics.counter("nomad.solver.warmup.artifacts") == warm0 \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        seeded = [m for m in logs if "state cache" in m]
+        stats = state_cache.cache().stats()
+        check(seeded and str(N_LIVE) in seeded[0],
+              f"establish did not reseed the state cache: {logs[:5]}")
+        check(metrics.counter("nomad.solver.warmup.errors") == errs0,
+              f"warmup errors: {logs}")
+        warm = [m for m in logs if "solver warmup" in m]
+        check(warm, f"no warmup at establish: {logs[:5]}")
+        out["warmup_s"] = metrics.snapshot()["gauges"].get(
+            "nomad.solver.warmup.seconds")
+        out["warmup_artifacts"] = metrics.counter(
+            "nomad.solver.warmup.artifacts") - warm0
+        loads0, misses0 = len(cuda_kernels._fns), metrics.counter(
+            "nomad.compile_cache.misses")
+        t0 = time.perf_counter()
+        eval_id = srv.job_register(
+            _mk_batch_job(mock, "srv-mid", MID_COUNT))["eval_id"]
+        out["restart_2k_wall_s"] = _wait_evals(srv, [eval_id]) - t0
+        _check_committed(srv, {"srv-big": BIG_COUNT, "srv-mid": MID_COUNT})
+        check(len(cuda_kernels._fns) == loads0 and metrics.counter(
+            "nomad.compile_cache.misses") == misses0,
+            "the 2k eval after the warmup built or loaded a kernel")
+        bundle = srv.operator_debug_bundle()
+        rt = bundle["DeviceRuntime"]
+        check(rt["devices"] and rt["devices"][0]["kind"] ==
+              torch.cuda.get_device_name(0),
+              f"debug bundle devices {rt['devices']}")
+        check(bundle["Mesh"]["Shards"] == 1, f"mesh {bundle['Mesh']}")
+        check(all(v == "closed" for v in bundle["Breakers"].values()),
+              f"breakers {bundle['Breakers']}")
+        check(bundle["StateCache"]["rows"] >= N_LIVE,
+              f"state cache {bundle['StateCache']}")
+        out.update(reseed=seeded[0], cache=stats, device_runtime=rt,
+                   mesh=bundle["Mesh"], breakers=bundle["Breakers"])
+        log(f"server restart: {seeded[0]!r}; {warm[0]!r} (warmup "
+            f"{out['warmup_s']} s, {out['warmup_artifacts']} artifacts); "
+            f"the 2k eval then built and loaded no kernel "
+            f"({out['restart_2k_wall_s']} s register -> commit)")
+        log(f"server debug bundle: DeviceRuntime {json.dumps(rt)}; Mesh "
+            f"{json.dumps(bundle['Mesh'])}; Breakers "
+            f"{json.dumps(bundle['Breakers'])}; StateCache rows "
+            f"{bundle['StateCache']['rows']}")
+    finally:
+        _shutdown(srv)
+    out["nodes_snapshot"] = nodes_only
+    return out
+
+
+def _stream_run(np, torch, snapshot, count: int, batch: bool) -> dict:
+    """STREAM_JOBS jobs of `count` tasks registered back to back on a
+    fresh 10,000-node server with STREAM_WORKERS workers."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.metrics import metrics
+    from nomad_tpu_torch.solver import cuda_kernels
+    mb = ("dispatches", "solo", "early_fire")
+    srv = _server(STREAM_WORKERS, snapshot=snapshot,
+                  eval_batch_enabled=batch)
+    try:
+        jobs = [_mk_batch_job(mock, f"stream-{count}-{batch:d}-{j}", count)
+                for j in range(STREAM_JOBS)]
+        skip = metrics.sample_count("nomad.worker.submit_plan")
+        size0 = metrics.sample_count("nomad.solver.microbatch.size")
+        wait0 = metrics.sample_count("nomad.solver.microbatch.leader_wait")
+        c0 = {k: metrics.counter(f"nomad.solver.microbatch.{k}") for k in mb}
+        errs0 = metrics.counter("nomad.solver.dispatch_errors")
+        cpu0 = metrics.counter("nomad.solver.dispatch.torch")
+        cuda_kernels.reset_launches()            # this path's window
+        t0 = time.perf_counter()
+        ids = [srv.job_register(j)["eval_id"] for j in jobs]
+        t1 = _wait_evals(srv, ids)
+        launches = dict(cuda_kernels.LAUNCHES)   # read just after
+        _check_committed(srv, {j.id: count for j in jobs})
+        check(metrics.counter("nomad.solver.dispatch_errors") == errs0 and
+              metrics.counter("nomad.solver.dispatch.torch") == cpu0,
+              "the stream counted a dispatch error or a CPU solve")
+        sizes = metrics.samples["nomad.solver.microbatch.size"].raw_window(
+            size0) if size0 < metrics.sample_count(
+            "nomad.solver.microbatch.size") else []
+        waits = metrics.samples[
+            "nomad.solver.microbatch.leader_wait"].raw_window(wait0) \
+            if wait0 < metrics.sample_count(
+                "nomad.solver.microbatch.leader_wait") else []
+        r = {"count": count, "batch": batch, "wall_s": t1 - t0,
+             "evals_per_s": STREAM_JOBS / (t1 - t0),
+             "submit_plan_p50_s": metrics.percentile(
+                 "nomad.worker.submit_plan", 0.5, skip),
+             "submit_plan_p99_s": metrics.percentile(
+                 "nomad.worker.submit_plan", 0.99, skip),
+             "microbatch": {k: metrics.counter(
+                 f"nomad.solver.microbatch.{k}") - c0[k] for k in mb},
+             "window_sizes": sizes,
+             "leader_wait_s": statistics.median(waits) if waits else None,
+             "launches": launches}
+    finally:
+        _shutdown(srv)
+    return r
+
+
+def _sign_test_p(wins: int, pairs: int) -> float:
+    """One-sided sign test: the chance of `wins` or more wins in `pairs`
+    fair coin flips."""
+    return sum(math.comb(pairs, k) for k in range(wins, pairs + 1)) / \
+        2 ** pairs
+
+
+def stream_phase(np, torch, snapshot, card: str,
+                 pairs: int = STREAM_PAIRS) -> dict:
+    """The eval stream on a 10,000-node server: 16 jobs registered back
+    to back, `pairs` pairs of runs with micro-batching on and off (on
+    first in even pairs, off first in odd ones), at STREAM_COUNT and at
+    the other counts of the batch tier's sweep; every instance placed, no
+    node over capacity. During the sweep the batch tier's count ceiling
+    is raised to the count under test, so each `on` run can coalesce. A
+    count qualifies where the coalesced run was faster in enough pairs
+    for a one-sided sign test at STREAM_P; the pick is the largest count
+    that qualifies, else 0."""
+    from nomad_tpu_torch.solver import backend
+    runs = []
+    ceiling = backend.BATCH_MAX_COUNT
+    try:
+        for count in STREAM_COUNTS:
+            backend.BATCH_MAX_COUNT = count
+            for pair in range(pairs):
+                order = (True, False) if pair % 2 == 0 else (False, True)
+                for batch in order:
+                    r = _stream_run(np, torch, snapshot, count, batch)
+                    r["pair"] = pair
+                    runs.append(r)
+                    log(f"stream count {count} pair {pair} batch "
+                        f"{'on' if batch else 'off'}: {STREAM_JOBS} evals "
+                        f"in {r['wall_s']:.4f} s, {r['evals_per_s']:.3f} "
+                        f"evals/s; submit_plan p50 "
+                        f"{r['submit_plan_p50_s']:.5f} s p99 "
+                        f"{r['submit_plan_p99_s']:.5f} s; microbatch "
+                        f"{json.dumps(r['microbatch'])} sizes "
+                        f"{r['window_sizes']} leader wait "
+                        f"{r['leader_wait_s']}; launches "
+                        f"{json.dumps(r['launches'])} ({card})")
+    finally:
+        backend.BATCH_MAX_COUNT = ceiling
+    main = [r for r in runs if r["count"] == STREAM_COUNT and r["batch"]]
+    lanes = sum(r["launches"]["depth_curve_lanes"] for r in main)
+    check(lanes >= 1, f"the stream at {STREAM_COUNT} launched the lane "
+          f"entry {lanes} times")
+    summary = {}
+    for count in STREAM_COUNTS:
+        cell = {}
+        for batch in (True, False):
+            rs = [r for r in runs if r["count"] == count
+                  and r["batch"] == batch]
+            cell["on" if batch else "off"] = {
+                "evals_per_s": [r["evals_per_s"] for r in rs],
+                "median_eval_wall_s": statistics.median(
+                    r["wall_s"] for r in rs) / STREAM_JOBS,
+                "submit_plan_p50_s": [r["submit_plan_p50_s"] for r in rs],
+                "submit_plan_p99_s": [r["submit_plan_p99_s"] for r in rs]}
+        wall = {(r["pair"], r["batch"]): r["wall_s"] for r in runs
+                if r["count"] == count}
+        diffs = [(wall[(p, True)] - wall[(p, False)]) / STREAM_JOBS
+                 for p in range(pairs)]
+        wins = sum(d < 0 for d in diffs)
+        cell.update(pair_diff_s=diffs, wins=wins,
+                    median_pair_diff_s=statistics.median(diffs),
+                    sign_test_p=_sign_test_p(wins, pairs))
+        cell["qualifies"] = cell["sign_test_p"] <= STREAM_P
+        summary[count] = cell
+    qualified = [c for c in STREAM_COUNTS if summary[c]["qualifies"]]
+    pick = max(qualified) if qualified else 0
+    log(f"stream: per-eval wall on - off, median over {pairs} pairs; "
+        f"coalesced faster in: "
+        + "; ".join(f"{c}: {summary[c]['median_pair_diff_s']:+.5f} s, "
+                    f"{summary[c]['wins']}/{pairs} "
+                    f"(p {summary[c]['sign_test_p']:.4f})"
+                    for c in STREAM_COUNTS)
+        + f"; counts that qualify at p <= {STREAM_P}: {qualified}, pick "
+          f"{pick} (in the code: {backend.BATCH_MAX_COUNT})")
+    return {"runs": runs, "summary": summary, "batch_max_count_pick": pick,
+            "launches": {"depth_curve_lanes": lanes}}
+
+
+def _rejection_run(np, torch, snapshot, algorithm: str) -> dict:
+    """8 jobs of 2,000 tasks (cpu 400, mem 700; bench.py
+    `_concurrent_rejection_rate`) registered at once on a 2,000-node
+    server with 8 workers. Each plan and its PlanResult is recorded by
+    wrapping the server's planner instance.
+
+    A batch eval whose plans are rejected on both of its attempts
+    (scheduler MAX_BATCH_SCHEDULE_ATTEMPTS, 2, as in the reference and
+    Nomad) ends `failed` with its remainder parked in a blocked eval,
+    which nothing in the run releases (the reference has no periodic
+    unblock of such evals). So each job is held to: every instance
+    committed, or the eval failed on plan conflicts with a blocked eval
+    holding the rest; and no node over capacity. The instances left
+    unplaced are counted and reported."""
+    from nomad_tpu_torch import mock
+    srv = _server(REJECT_WORKERS, snapshot=snapshot,
+                  scheduler_algorithm=algorithm)
+    records = []
+    submit = srv.planner.submit_plan
+
+    def recorded(plan, *a, **kw):
+        result = submit(plan, *a, **kw)
+        records.append((plan, result))
+        return result
+    srv.planner.submit_plan = recorded
+    try:
+        jobs = [_mk_batch_job(mock, f"rej-{algorithm}-{j}", REJECT_COUNT,
+                              cpu=400, mem=700) for j in range(REJECT_JOBS)]
+        t0 = time.perf_counter()
+        ids = [srv.job_register(j)["eval_id"] for j in jobs]
+        t1 = _wait_evals(srv, ids, REJECT_TIMEOUT_S,
+                         done=("complete", "failed"))
+        placed, failed = {}, 0
+        for job, eval_id in zip(jobs, ids):
+            placed[job.id] = sum(
+                1 for a in srv.state.allocs_by_job("default", job.id)
+                if a.desired_status == "run")
+            if placed[job.id] == REJECT_COUNT:
+                continue
+            ev = srv.state.eval_by_id(eval_id)
+            held = [e for e in srv.state.iter_evals()
+                    if e.job_id == job.id and e.status == "blocked"]
+            check(ev.status == "failed" and
+                  ev.status_description == "maximum attempts reached" and
+                  held, f"{job.id}: {placed[job.id]}/{REJECT_COUNT} placed, "
+                  f"eval {ev.status} ({ev.status_description}), "
+                  f"{len(held)} blocked evals")
+            failed += 1
+        view = srv.state.usage.view()
+        over = int((view.used > view.cap + 1e-3).any(axis=1).sum())
+        check(over == 0, f"{over} usage rows over capacity")
+    finally:
+        _shutdown(srv)
+    rn = tn = ra = ta = 0
+    for plan, result in records:
+        if result is None:
+            continue
+        tn += len(plan.node_allocation)
+        rn += len(result.rejected_nodes)
+        ta += sum(len(v) for v in plan.node_allocation.values())
+        ra += sum(len(plan.node_allocation[n]) for n in result.rejected_nodes
+                  if n in plan.node_allocation)
+    return {"algorithm": algorithm, "plans": len(records),
+            "node_rejection_rate": rn / tn if tn else 0.0,
+            "alloc_rejection_rate": ra / ta if ta else 0.0,
+            "rejected_nodes": rn, "plan_nodes": tn, "wall_s": t1 - t0,
+            "failed_evals": failed,
+            "unplaced": REJECT_JOBS * REJECT_COUNT - sum(placed.values())}
+
+
+def rejection_phase(np, torch, card: str) -> dict:
+    srv = _server(0)
+    try:
+        _register_fleet(srv, np, REJECT_NODES, 7)
+        snap = srv.snapshot_save()
+    finally:
+        _shutdown(srv)
+    out = {}
+    for algorithm in ("tpu-batch", "binpack"):
+        r = out[algorithm] = _rejection_run(np, torch, snap, algorithm)
+        log(f"rejections {algorithm}: {REJECT_JOBS} x {REJECT_COUNT} tasks "
+            f"on {REJECT_NODES} nodes, {REJECT_WORKERS} workers: "
+            f"{r['failed_evals']} evals failed on plan conflicts, "
+            f"{r['unplaced']} instances left to their blocked evals; "
+            f"{r['plans']} plans, node rejection rate "
+            f"{r['node_rejection_rate']:.5f} ({r['rejected_nodes']}/"
+            f"{r['plan_nodes']}), alloc rejection rate "
+            f"{r['alloc_rejection_rate']:.5f}, wall {r['wall_s']:.3f} s "
+            f"({card})")
+    return out
+
+
+def server_fault_phase(np, torch, snapshot) -> dict:
+    """A fault fires once at `solver.dispatch.cuda` under a 2,000-task
+    eval on a 10,000-node server: the worker nacks it, the broker
+    redelivers it, and the second delivery commits everything; one
+    dispatch error, one eval failure, no solve on the CPU."""
+    from nomad_tpu_torch import faults, mock
+    from nomad_tpu_torch.metrics import metrics
+    from nomad_tpu_torch.solver import backend
+    names = {"dispatch_errors": "nomad.solver.dispatch_errors.cuda",
+             "eval_failures": "nomad.worker.eval_failures",
+             "cpu_solves": "nomad.solver.dispatch.torch"}
+    srv = _server(4, snapshot=snapshot)
+    try:
+        srv.eval_broker.initial_nack_delay = 0.05
+        c0 = {k: metrics.counter(v) for k, v in names.items()}
+        faults.install({"solver.dispatch.cuda": {"mode": "raise",
+                                                 "times": 1}})
+        t0 = time.perf_counter()
+        eval_id = srv.job_register(
+            _mk_batch_job(mock, "faulted", MID_COUNT))["eval_id"]
+        t1 = _wait_evals(srv, [eval_id])
+        _check_committed(srv, {"faulted": MID_COUNT})
+        d = {k: metrics.counter(v) - c0[k] for k, v in names.items()}
+        check(d["dispatch_errors"] == 1 and d["eval_failures"] == 1 and
+              d["cpu_solves"] == 0, f"server fault counted {d}")
+    finally:
+        faults.clear()
+        backend.reset()
+        _shutdown(srv)
+    log(f"server fault: solver.dispatch.cuda raised once under the 2k eval;"
+        f" the worker nacked it, the broker redelivered it, the second "
+        f"delivery committed {MID_COUNT} in {t1 - t0:.3f} s after "
+        f"register; counts {json.dumps(d)}")
+    return {"counts": d, "wall_s": t1 - t0}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1947,8 +2548,18 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    # the native stamping extension (native/, gitignored) is built from
+    # the checkout before the first eval stamps an allocation
+    from nomad_tpu_torch import runtime
+    from nomad_tpu_torch.structs import fastbatch
+    native = runtime.ensure_native()
+    native_loaded = bool(fastbatch._load_native())
+    log(f"native stamping extension: built {native}, loaded "
+        f"{native_loaded}")
     pow10 = pow10_phase(torch, dev)
     res = kernels_phase(np, torch, dev)
+    res["depth_curve_lanes"] = lanes_phase(np, torch, dev)
+    res["depth_curve_lanes"]["floor_ms"] = res["depth_curve"]["floor_ms"]
     res.update(chunked_phase(np, torch, dev, res["depth_curve"]["floor_ms"]))
     ex = explain_phase(np, torch, dev)
     main = main_path_phase(torch)
@@ -1957,10 +2568,19 @@ def main() -> int:
     prof = profile_phase(torch)
     small_phase(torch)
     ladder = ladder_phase(np, torch)
+    server = server_phase(np, torch, card)
+    nodes = server.pop("nodes_snapshot")        # the 10,000-node fleet
+    stream = stream_phase(np, torch, nodes, card)
+    rejections = rejection_phase(np, torch, card)
+    fault = server_fault_phase(np, torch, nodes)
 
     meta = {
         "depth_curve": ("nomad_tpu_torch/solver/csrc/depth_curve.cu",
                         "nomad_tpu/solver/pallas_kernels.py:174"),
+        # K1 over a window's lanes: the micro-batch window, which the
+        # reference runs as jit(vmap(fill_depth)) of the same kernel
+        "depth_curve_lanes": ("nomad_tpu_torch/solver/csrc/depth_curve.cu",
+                              "nomad_tpu/solver/pallas_kernels.py:174"),
         "score_capacity": ("nomad_tpu_torch/solver/csrc/score_capacity.cu",
                            "nomad_tpu/solver/pallas_kernels.py:31"),
         # no Pallas kernel: the step of place_chunked's lax.scan
@@ -1975,6 +2595,8 @@ def main() -> int:
     launches = dict(main["launches"])
     for name in ("chunked_step", "chunked_scan"):
         launches[name] = service["launches"][name]
+    # the windows' on the stream at STREAM_COUNT with batching on
+    launches["depth_curve_lanes"] = stream["launches"]["depth_curve_lanes"]
     rows = []
     for name, (src, rep) in meta.items():
         r = res[name]
@@ -1986,7 +2608,8 @@ def main() -> int:
                "floor_ms": r["floor_ms"], "call_ms": r["call_ms"]}
         for k in ("near_tie_rows", "moved_nodes", "grid_ms", "spread_ms",
                   "k512_ms", "depths_evaluated", "score_ms", "steps",
-                  "solve_device_ms", "barrier_ms", "dependency_floor_ms"):
+                  "solve_device_ms", "barrier_ms", "dependency_floor_ms",
+                  "solo_8_ms"):
             if k in r:
                 row[k] = r[k]
         rows.append(row)
@@ -1995,6 +2618,9 @@ def main() -> int:
                                 if k != "launches"},
                     "compare_50k": compare, "profiled_50k": prof,
                     "explain_reduce": ex, "ladder": ladder,
+                    "server": server, "stream": stream,
+                    "rejections": rejections, "server_fault": fault,
+                    "native_stamping": native_loaded,
                     "greedy_fill": res["greedy_fill"], "pow10": pow10,
                     "card": card,
                     "seconds": time.perf_counter() - t_start}))

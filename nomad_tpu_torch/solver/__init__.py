@@ -8,13 +8,18 @@ dispatch chain and health breaker, explain, tensorize, the card-resident
 state cache (state_cache.py) and the placer's serial route and pipelined
 plan lifecycle.
 
-Not ported yet: eval micro-batching, the fused and convex routes, the
-reference's host floor and pipeline degrade path (card work never moves
-to the CPU) and sharding (`make_mesh`, `sharded_fill_greedy`). The
-copied plan applier reaches `microbatch` lazily inside `try`
-(server/plan_apply.py); finding no such module here, it takes its
-documented solver-less branch and reports no in-flight evals. Its `state_cache` hooks find this package's
-cache: the evaluate pass gathers from it and every commit feeds it.
+Eval micro-batching (microbatch.py) coalesces concurrent evals' small
+depth solves into one lane-batched launch; the copied server's hooks
+(eval broker, overload controller, plan applier) reach it lazily and
+find it. `sharding.py` is the single-card part of the reference's
+(snapshot, generation, describe). `backend.warmup` builds every kernel
+at leadership establishment.
+
+Not ported yet: the fused and convex routes, the sharded solves
+(`make_mesh`, `sharded_fill_greedy`) and the reference's host floor and
+pipeline degrade path (card work never moves to the CPU). The copied
+plan applier's `state_cache` hooks find this package's cache: the
+evaluate pass gathers from it and every commit feeds it.
 """
 from .device import solve_device, use_device  # noqa: F401
 from .kernels import (  # noqa: F401

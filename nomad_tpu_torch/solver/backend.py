@@ -7,6 +7,12 @@ Every solve the placer issues routes through `select(kernel, n_padded,
          tails on the card — whenever the solve device is a card.
   torch  the plain PyTorch versions (kernels.py) on the CPU — only when
          the caller asked for the CPU (device.use_device("cpu")).
+  batch  eval-stream micro-batching (microbatch.py): a depth solve of at
+         most BATCH_MAX_COUNT instances, while micro-batching is enabled
+         and more than one eval is in flight, waits a short window for
+         siblings and solves with them as one lane-batched launch
+         (cuda_kernels.fill_depth_lanes; kernels.fill_depth_lanes on the
+         CPU). A window of one runs the solo chain above.
 
 The returned callable has ONE normalized positional signature per kernel,
 so the placer's call sites are backend-oblivious. It takes the placer's
@@ -40,6 +46,15 @@ never skips the card. Anything else — a bug, a kernel that does not build
 sites `solver.dispatch.<tier>` (and `device.lost.d<N>` on the cuda rung)
 ride the same catch, so the error path is provable without a sick card.
 
+The batch tier has no chain of its own: the micro-batcher classifies a
+window's device error (`nomad.solver.dispatch_errors.batch`), feeds the
+"batch" breaker and raises it to every lane; a solo solve takes the
+solo chain.
+
+`warmup` (from the server's leadership establishment) drives one
+synthetic solve of every kernel the card path uses through `select`, so
+a leader's first eval builds and loads nothing.
+
 Outside `async_dispatch()` a chain call ends at the solve's one host
 sync: the result is copied to the host there (or by the caller's
 `finish`), so an asynchronous device error surfaces inside the chain and
@@ -68,6 +83,16 @@ from . import device as _device, roundtrip
 # operators can monkeypatch them.
 BREAKER_THRESHOLD = int(os.environ.get("NOMAD_BREAKER_THRESHOLD", "3"))
 BREAKER_WINDOW_S = float(os.environ.get("NOMAD_BREAKER_WINDOW_S", "30"))
+
+# The batch tier's count ceiling, the port's own number (the reference's
+# HOST_MAX_COUNT, 2048, was set for a remote TPU's round trip and does
+# not carry over): the largest count at which coalescing beat solo on the
+# H100 in two sweeps of stream_sweep.py (10 pairs of runs a count at 500,
+# 1,000, 2,000 and 4,000; a count qualifies at a one-sided sign test of
+# p <= 0.05). No count qualified in both (PERF.md §6), so 0: the tier
+# never engages unless this is raised. Read at call time (tests patch
+# it; chip_smoke.py's stream phase raises it for its on runs).
+BATCH_MAX_COUNT = 0
 
 _cache: dict = {}
 _dispatch_ctx = threading.local()
@@ -408,27 +433,76 @@ def _build(kernel: str, tier: str, dev, k_max: int, max_steps: int,
                      f"preempt)")
 
 
-def select(kernel: str, n_padded: int = 0, *, k_max: int = 128,
+def _batch_eligible(kernel: str, count) -> bool:
+    """The batch tier's rule (ref backend._tier, `:595-624`): a depth
+    solve of 1..BATCH_MAX_COUNT instances while micro-batching is enabled
+    and more than one eval is in flight. Re-decided on every select: the
+    in-flight count moves."""
+    if kernel != "depth" or count is None or \
+            not 0 < int(count) <= BATCH_MAX_COUNT:
+        return False
+    from . import microbatch
+    return microbatch.enabled() and microbatch.concurrency() > 1
+
+
+def _lanes_fn(card: bool, k_max: int, spread_algorithm: bool, depth_grid):
+    """The batch tier's window solve over the stacked normalized depth
+    columns (tensorize.stack_lanes) -> placed i32[L, N] on the solve
+    device: one launch of the depth-curve kernel over the lanes on a
+    card, the plain lane solve on the CPU."""
+    from . import cuda_kernels, kernels
+    impl = cuda_kernels.fill_depth_lanes if card else kernels.fill_depth_lanes
+
+    def run(cap, used, ask, counts, feasible, coll, desired, aff, mpn,
+            order_jitter, jitter_scales, jitter_samples):
+        if aff is None:
+            aff = torch.zeros(cap.shape[:2], dtype=torch.float32,
+                              device=cap.device)
+        return impl(cap, used, ask, counts, feasible, coll, desired, aff,
+                    mpn, order_jitter=order_jitter,
+                    jitter_scales=jitter_scales,
+                    jitter_samples=jitter_samples, k_max=k_max,
+                    spread_algorithm=spread_algorithm,
+                    depth_grid=depth_grid)
+    return run
+
+
+def select(kernel: str, n_padded: int = 0, *, count=None, k_max: int = 128,
            spread_algorithm: bool = False, depth_grid=None,
            max_steps: int = 256):
     """-> (tier, chain) for `kernel` in {greedy, depth, chunked, preempt}.
     The tier follows the solve device (device.solve_device(), which
     raises when it is a card and none is present): "cuda" on a card,
-    "torch" on the CPU. Every card solve runs on the card: no small-count
+    "torch" on the CPU — or "batch" for a depth solve of `count` (the
+    instances asked) that may coalesce with concurrent evals
+    (_batch_eligible). Every card solve runs on the card: no small-count
     host pick (the reference's thresholds were set on a TPU) and no host
     floor. `n_padded` keeps the reference's signature."""
     dev = _device.solve_device()
     tier_name = tier()
     key = (kernel, tier_name, str(dev), k_max, spread_algorithm, depth_grid,
            max_steps)
-    cached = _cache.get(key)
-    if cached is not None:
-        return cached
-    fn = _build(kernel, tier_name, dev, k_max, max_steps, spread_algorithm,
-                depth_grid)
-    out = _cache[key] = (tier_name, _chain(
-        kernel, tier_name, fn, f"device.lost.d{dev.index or 0}"))
-    return out
+    solo = _cache.get(key)
+    if solo is None:
+        fn = _build(kernel, tier_name, dev, k_max, max_steps,
+                    spread_algorithm, depth_grid)
+        solo = _cache[key] = (tier_name, _chain(
+            kernel, tier_name, fn, f"device.lost.d{dev.index or 0}"))
+    if not _batch_eligible(kernel, count):
+        return solo
+    bkey = ("batch",) + key
+    batched = _cache.get(bkey)
+    if batched is None:
+        from . import microbatch
+        lanes = _lanes_fn(tier_name == "cuda", k_max, spread_algorithm,
+                          depth_grid)
+        skey = (kernel, k_max, spread_algorithm, depth_grid)
+        solo_fn = solo[1]
+
+        def run_batched(*args):
+            return microbatch.solve(skey, lanes, solo_fn, args)
+        batched = _cache[bkey] = ("batch", run_batched)
+    return batched
 
 
 def record(kernel: str, backend: str) -> None:
@@ -439,3 +513,93 @@ def record(kernel: str, backend: str) -> None:
     # attribute the selected tier/kernel onto the in-flight solve span
     from ..obs import trace
     trace.annotate(tier=backend, kernel=kernel)
+
+
+# ------------------------------------------------------------------ warmup
+
+# clusters below this don't warm by default: a unit-test server with a
+# handful of mock nodes would pay the kernel builds on every promotion.
+# NOMAD_AOT_WARMUP=1 forces, =0 disables.
+WARMUP_MIN_NODES = 256
+
+
+def warmup(n_nodes: int, k_maxes: tuple = (8, 64, 128),
+           budget_s: float = 300.0, cfg=None) -> dict:
+    """Build and load every kernel the card path uses before the first
+    real eval (ref backend.warmup, without its fused and convex blocks):
+    called from Server._establish_leadership on promotion (a background
+    thread), so a leader's first eval builds and loads no kernel. One
+    tiny synthetic solve per (kernel, regime) at the cluster's bucket,
+    driven through the real `select()` chains — the depth curve dense and
+    on the sampled grid for each k_max, the greedy pass and the chunked
+    scan — then one two-lane window of the batch tier's lane solve.
+    Most-valuable-first under `budget_s`. Raises nothing: a failure is
+    counted (`nomad.solver.warmup.errors`) and the eval pays the build
+    lazily (NOMAD_DEBUG=1 re-raises). With NOMAD_COMPILE_CACHE set the
+    built libraries persist, so a warm restart only loads them."""
+    from .buckets import node_bucket
+    from .kernels import DEPTH_GRID, NUM_XR
+    from .tensorize import stack_lanes
+
+    mode = os.environ.get("NOMAD_AOT_WARMUP", "")
+    if mode == "0" or (n_nodes < WARMUP_MIN_NODES and mode != "1"):
+        return {"skipped": True, "artifacts": 0, "seconds": 0.0}
+    bucket = node_bucket(n_nodes)
+    cap = np.zeros((bucket, NUM_XR), np.float32)
+    cap[:] = (4_000.0, 8_192.0, 500_000.0, 12_001.0, 10_000.0)
+    used = np.zeros_like(cap)
+    ask = np.zeros(NUM_XR, np.float32)
+    ask[:3] = (250.0, 512.0, 300.0)
+    feasible = np.ones(bucket, bool)
+    jitter = np.zeros(bucket, np.float32)
+    coll = np.zeros(bucket, np.int32)
+    depth_args = (cap, used, ask, np.int32(1), feasible, coll, np.int32(1),
+                  np.zeros(bucket, np.float32), np.int32(2 ** 30), jitter,
+                  np.float32(1.0), np.float32(0.0))
+    t0 = time.monotonic()
+    artifacts = 0
+    plan: list[tuple] = []
+    for k_max in k_maxes:
+        grid = tuple(g for g in DEPTH_GRID if g <= k_max) or (1,)
+        plan.append(("depth", {"k_max": k_max, "depth_grid": None}))
+        plan.append(("depth", {"k_max": k_max, "depth_grid": grid}))
+    plan.append(("greedy", {}))
+    plan.append(("chunked", {"max_steps": 256}))
+    plan.append(("lanes", {}))
+    for kernel, kw in plan:
+        if time.monotonic() - t0 > budget_s:
+            metrics.incr("nomad.solver.warmup.budget_exhausted")
+            break
+        try:
+            if kernel == "lanes":
+                lanes = _lanes_fn(tier() == "cuda", k_maxes[-1], False, None)
+                to_host(lanes(*stack_lanes([depth_args] * 2,
+                                           _ARG_DTYPES["depth"])))
+                artifacts += 1
+                continue
+            # no count: a synthetic solve never joins a live window
+            _, fn = select(kernel, bucket, **kw)
+            if kernel == "depth":
+                fn(*depth_args)
+            elif kernel == "greedy":
+                fn(cap, used, ask, np.int32(1), feasible, np.int32(2 ** 30))
+            else:
+                s_ids = np.full((1, bucket), -1, np.int32)
+                pad2 = np.full((1, 2), -1, np.int32)
+                fn(cap, used, ask, np.int32(1), feasible, coll,
+                   np.int32(1), s_ids, pad2,
+                   np.full((1, 2), -1.0, np.float32),
+                   np.full(1, -1, np.int32), np.zeros(1, np.float32),
+                   np.zeros(bucket, np.float32), s_ids, pad2,
+                   np.zeros(bucket, np.int32), np.int32(2 ** 30))
+            artifacts += 1
+        except Exception as e:  # noqa: BLE001 — warmup must never wedge
+            metrics.incr("nomad.solver.warmup.errors")
+            if os.environ.get("NOMAD_DEBUG"):
+                raise
+            del e
+    seconds = time.monotonic() - t0
+    metrics.incr("nomad.solver.warmup.artifacts", artifacts)
+    metrics.set_gauge("nomad.solver.warmup.seconds", round(seconds, 3))
+    return {"skipped": False, "artifacts": artifacts,
+            "seconds": round(seconds, 3), "bucket": bucket}

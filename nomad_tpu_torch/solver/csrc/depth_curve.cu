@@ -58,6 +58,17 @@
 // Output: one int32 [3, n] buffer: row 0 d_star (float32 bits), row 1
 // k_star, row 2 k_cap.
 //
+// Lanes: the eval-stream micro-batch window, which the reference runs as
+// one jit(vmap(fill_depth)) program (nomad_tpu/solver/microbatch.py
+// `_batched_fn`), is one launch here: a second grid axis over L lanes of
+// stacked [L, n, 5] / [L, n] inputs, each lane with its own ask row,
+// desired count and max_per_node (the solve's other statics, k_max, the
+// grid and the algorithm, are one key of the window). Block (x, y) runs
+// exactly what block x runs on lane y's slices, so every lane's output is
+// bit-equal to a launch of that lane alone. A solo solve is a launch of
+// one lane. The window has only its live lanes: a launch takes any lane
+// count up to MAX_LANES, so nothing is padded to a fixed shape.
+//
 // ptxas (CUDA 12.8, sm_90a, -Xptxas -v): 48 registers, 4,488 bytes of
 // shared memory, no spills.
 
@@ -76,18 +87,30 @@
 #define ROW (CHUNK + 1)
 #define UNROLL 8
 #define FULL_MASK 0xffffffffu
+#define MAX_LANES 8        // buckets.BATCH_LANES: the largest window
 
 struct DepthGrid {
   int n;                  // 0 = dense depths 1..k_max
   float g[MAX_GRID];
 };
 
+// per-lane scalars, by value (lane y reads entry y). The kernel takes it
+// as a __grid_constant__ parameter, so entry blockIdx.y is one indexed
+// load from the parameter bank; passed as a plain by-value struct of 8
+// entries, nvcc split it into scalars and picked entry y through chains
+// of compares and predicated loads, which made every launch ~7% slower
+// on an H100 (PERF.md §6).
+struct LaneScalars {
+  float desired[MAX_LANES];
+  float mpn[MAX_LANES];
+};
+
 __global__ void __launch_bounds__(THREADS) depth_curve_kernel(
     const float* __restrict__ cap, const float* __restrict__ used,
     const float* __restrict__ ask, const uint8_t* __restrict__ feasible,
     const int32_t* __restrict__ coll, const float* __restrict__ aff,
-    int n, float desired, float mpn, int k_max, DepthGrid grid,
-    int spread, int32_t* __restrict__ out) {
+    int n, const __grid_constant__ LaneScalars lanes, int k_max,
+    DepthGrid grid, int spread, int32_t* __restrict__ out) {
   __shared__ float s_u0[GROUP], s_u1[GROUP], s_safe0[GROUP], s_safe1[GROUP];
   __shared__ float s_cf[GROUP], s_aff[GROUP], s_aff_on[GROUP];
   __shared__ float s_best[GROUP], s_kbest[GROUP];
@@ -95,6 +118,18 @@ __global__ void __launch_bounds__(THREADS) depth_curve_kernel(
   __shared__ int s_off[GROUP + 1];
   __shared__ int s_max_depth;
   __shared__ float s_curve[GROUP * ROW];
+
+  // the lane's slices (a solo solve is one lane, y = 0)
+  const int ly = blockIdx.y;
+  cap += (size_t)ly * n * NUM_XR;
+  used += (size_t)ly * n * NUM_XR;
+  ask += (size_t)ly * NUM_XR;
+  feasible += (size_t)ly * n;
+  coll += (size_t)ly * n;
+  aff += (size_t)ly * n;
+  out += (size_t)ly * 3 * n;
+  const float desired = lanes.desired[ly];
+  const float mpn = lanes.mpn[ly];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -289,22 +324,30 @@ __global__ void __launch_bounds__(THREADS) depth_curve_kernel(
 }
 
 // Launch on `stream`; returns the launch's cudaError_t (0 = success).
-// `grid_depths` is a host array of `grid_n` depths (grid_n = 0: dense);
-// `out` is the int32 [3, n] output buffer.
+// `n_lanes` solves of `n` rows each, stacked lane-major (cap/used
+// [L, n, 5], ask [L, 5], feasible/coll/aff [L, n]); `desired` and `mpn`
+// host arrays of L scalars; `grid_depths` a host array of `grid_n` depths
+// (grid_n = 0: dense); `out` the int32 [L, 3, n] output buffer.
 extern "C" int depth_curve_launch(
     const float* cap, const float* used, const float* ask,
     const uint8_t* feasible, const int32_t* coll, const float* aff, int n,
-    float desired, float mpn, int k_max, const float* grid_depths,
-    int grid_n, int spread, int32_t* out, void* stream) {
+    int n_lanes, const float* desired, const float* mpn, int k_max,
+    const float* grid_depths, int grid_n, int spread, int32_t* out,
+    void* stream) {
   if (grid_n < 0 || grid_n > MAX_GRID) return (int)cudaErrorInvalidValue;
-  if (n <= 0) return 0;
+  if (n_lanes < 0 || n_lanes > MAX_LANES) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || n_lanes == 0) return 0;
   DepthGrid grid;
   grid.n = grid_n;
   for (int t = 0; t < MAX_GRID; ++t)
     grid.g[t] = t < grid_n ? grid_depths[t] : 0.0f;
-  const int blocks = (n + GROUP - 1) / GROUP;
+  LaneScalars ls;
+  for (int l = 0; l < MAX_LANES; ++l) {
+    ls.desired[l] = l < n_lanes ? desired[l] : 1.0f;
+    ls.mpn[l] = l < n_lanes ? mpn[l] : 0.0f;
+  }
+  const dim3 blocks((n + GROUP - 1) / GROUP, n_lanes);
   depth_curve_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      cap, used, ask, feasible, coll, aff, n, desired, mpn, k_max, grid,
-      spread, out);
+      cap, used, ask, feasible, coll, aff, n, ls, k_max, grid, spread, out);
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,13 @@
 of nomad_tpu/solver/pallas_kernels.py.
 
   depth_curve     csrc/depth_curve.cu, replaces `_depth_curve_kernel`
-                  (the depth solver's per-node curve producer)
+                  (the depth solver's per-node curve producer); one
+                  launch takes L lanes, so a solo solve is one lane
+  depth_curve_lanes  the same launch over a window's lanes: the
+                  eval-stream micro-batch window (the reference's
+                  jit(vmap(fill_depth)), microbatch.py `_batched_fn`);
+                  `fill_depth_lanes` is it plus the torch tail over
+                  [L, N], the tail a solo solve runs with L = 1
   score_capacity  csrc/score_capacity.cu, replaces
                   `_score_capacity_kernel` (the greedy inner pass; its
                   greedy entry also folds in the greedy tail's key step)
@@ -36,13 +42,17 @@ untouched; a launch that reports a CUDA error raises KernelLaunchError,
 a device error that feeds the backend's breaker before it raises.
 
 Wrappers: `fill_depth_fused`, `fill_greedy_binpack_fused` and
-`place_chunked` keep the reference signatures. A wrapper given CPU
+`place_chunked` keep the reference signatures; `fill_depth_lanes` takes
+kernels.fill_depth_lanes's. A wrapper given CPU
 tensors runs the plain version (kernels.py), as every wrapper here does,
 though the placer itself routes CPU solves to the torch tier
 (backend.select); given CUDA tensors it checks device, dtype, shape and
 contiguity, allocates its outputs (and the scan's scratch), launches on
 the current stream and raises if the launch reports an error. `LAUNCHES`
 counts the launches of each placement kernel; nothing else adds to it.
+Loading a library counts `nomad.compile_cache.hits` when it was found
+built (runtime.enable_compile_cache points BUILD_DIR at a durable
+directory) and `nomad.compile_cache.misses` when nvcc had to build it.
 """
 from __future__ import annotations
 
@@ -58,8 +68,10 @@ from pathlib import Path
 
 import torch
 
+from ..metrics import metrics
 from . import kernels
-from .kernels import NUM_XR, _depth_order_take, _greedy_fill
+from .buckets import BATCH_LANES
+from .kernels import NUM_XR, _greedy_fill
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -73,21 +85,25 @@ SOURCES = {"depth_curve": "depth_curve.cu",
            "chunked_scan": "chunked_scan.cu",
            "launch_floor": "launch_floor.cu",
            "pow10_check": "pow10_check.cu"}
-# the placement kernels
-KERNELS = ("depth_curve", "score_capacity", "chunked_step", "chunked_scan")
+# the placement kernels' launch counts (depth_curve counts solo solves,
+# depth_curve_lanes the windows: one entry of depth_curve.cu)
+KERNELS = ("depth_curve", "depth_curve_lanes", "score_capacity",
+           "chunked_step", "chunked_scan")
 MAX_GRID = 32           # csrc/depth_curve.cu DepthGrid capacity
+MAX_LANES = BATCH_LANES  # csrc/depth_curve.cu LaneScalars capacity
 
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_LOG: dict = {}    # name -> nvcc output (registers, spills)
 _fns: dict = {}         # (name, symbol) -> the library's function
 _build_lock = threading.Lock()
+_launch_lock = threading.Lock()     # LAUNCHES: workers launch concurrently
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
-    "depth_curve_launch": [_P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _P, _I,
-                           _I, _P, _P],
+    "depth_curve_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P,
+                           _I, _I, _P, _P],
     "score_capacity_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "chunked_step_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P,
                             _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P,
@@ -103,8 +119,9 @@ _ARGTYPES = {
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 class KernelBuildError(RuntimeError):
@@ -172,8 +189,11 @@ def _fn(name: str, symbol: str = "launch"):
         fn = _fns.get((name, symbol))
         if fn is None:
             path = _lib_path(name)
-            if not path.exists():
+            if path.exists():
+                metrics.incr("nomad.compile_cache.hits")
+            else:
                 build([name])
+                metrics.incr("nomad.compile_cache.misses")
             fn = getattr(ctypes.CDLL(str(path)), f"{name}_{symbol}")
             fn.argtypes = _ARGTYPES[f"{name}_{symbol}"]
             fn.restype = (ctypes.c_longlong if symbol == "scratch_bytes"
@@ -237,7 +257,8 @@ def _launched(name: str, err: int) -> None:
     if err != 0:
         raise KernelLaunchError(
             f"{name} kernel launch failed: cudaError_t {err}", err)
-    LAUNCHES[name] += 1
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def _stream(dev) -> int:
@@ -255,41 +276,86 @@ def _grid_array(grid: tuple) -> tuple:
     return arr, ctypes.addressof(arr)
 
 
-def depth_curve(cap, used, ask, feasible, job_collisions, desired_count,
-                affinity_boost, max_per_node=kernels.MAX_PER_NODE_CAP,
-                k_max: int = 128, spread_algorithm: bool = False,
-                depth_grid=None) -> tuple:
-    """(d_star f32[N], k_star i32[N], k_cap i32[N]) — one launch of the
-    depth-curve kernel on CUDA tensors (the three rows of one int32
-    [3, N] output buffer), kernels.depth_curve_ref on CPU tensors. d_star
-    is -inf where no depth fits."""
-    if cap.device.type == "cpu":
-        return kernels.depth_curve_ref(
-            cap, used, ask, feasible, job_collisions, desired_count,
-            affinity_boost, max_per_node=max_per_node, k_max=k_max,
-            spread_algorithm=spread_algorithm, depth_grid=depth_grid)
-    n = _check_rows(cap, used, ask, feasible,
-                    (job_collisions, "job_collisions", torch.int32),
-                    (affinity_boost, "affinity_boost", torch.float32))
-    dev = cap.device
+def _depth_statics(k_max, depth_grid) -> tuple:
+    """(grid, its address) for a depth-curve launch, after checking what
+    the kernel takes: at most MAX_GRID sampled depths, or 1..4096 dense."""
     grid = () if depth_grid is None else tuple(depth_grid)
     if len(grid) > MAX_GRID:
         raise ValueError(f"depth_grid has {len(grid)} depths, the kernel "
                          f"takes at most {MAX_GRID}")
     if not grid and not 1 <= int(k_max) <= 4096:
         raise ValueError(f"k_max {k_max} out of range")
-    desired = float(max(int(desired_count), 1))
-    mpn = float(min(int(max_per_node), kernels.MAX_PER_NODE_CAP))
-    _, g_ptr = _grid_array(grid)
-    out = torch.empty((3, n), dtype=torch.int32, device=dev)
+    return grid, _grid_array(grid)[1]
+
+
+def _launch_depth_curve(name, lead, cap, used, ask, feasible,
+                        job_collisions, desired_counts, affinity_boost,
+                        max_per_node, k_max, spread_algorithm,
+                        depth_grid) -> tuple:
+    """One launch of the depth-curve kernel on CUDA tensors, counted under
+    `name`: `lead` is () for one lane of [N] inputs (cap/used [N, 5], ask
+    [5], the rest [N]) and (L,) for L stacked lanes ([L, N, 5], [L, 5],
+    [L, N]); desired_counts and max_per_node are one host scalar a lane.
+    -> (d_star, k_star, k_cap) of shape lead + [N] (f32, i32, i32), the
+    rows of one int32 lead + [3, N] buffer; d_star is -inf where no depth
+    fits."""
+    dev = cap.device
+    if dev.type != "cuda":
+        raise ValueError(f"cap: on {dev}, expected a CUDA device")
+    if cap.dim() != len(lead) + 2:
+        raise ValueError(f"cap: shape {tuple(cap.shape)}, expected "
+                         f"{list(lead)} + [nodes, {NUM_XR}]")
+    n_lanes, n = (lead[0] if lead else 1), cap.shape[len(lead)]
+    if not 0 < n_lanes <= MAX_LANES:
+        raise ValueError(f"{n_lanes} lanes: the kernel takes 1.."
+                         f"{MAX_LANES}")
+    if len(desired_counts) != n_lanes or len(max_per_node) != n_lanes:
+        raise ValueError("desired_counts and max_per_node need one value "
+                         "a lane")
+    rows, col = lead + (n, NUM_XR), lead + (n,)
+    for t, what, dtype, shape in (
+            (cap, "cap", torch.float32, rows),
+            (used, "used", torch.float32, rows),
+            (ask, "ask", torch.float32, lead + (NUM_XR,)),
+            (feasible, "feasible", torch.bool, col),
+            (job_collisions, "job_collisions", torch.int32, col),
+            (affinity_boost, "affinity_boost", torch.float32, col)):
+        if not _fits(t, dtype, shape, dev):
+            _check(t, what, dtype, shape, dev)
+    grid, g_ptr = _depth_statics(k_max, depth_grid)
+    desired = (ctypes.c_float * n_lanes)(
+        *[float(max(int(d), 1)) for d in desired_counts])
+    mpn = (ctypes.c_float * n_lanes)(
+        *[float(min(int(m), kernels.MAX_PER_NODE_CAP))
+          for m in max_per_node])
+    out = torch.empty(lead + (3, n), dtype=torch.int32, device=dev)
     err = _fn("depth_curve")(
         cap.data_ptr(), used.data_ptr(), ask.data_ptr(), feasible.data_ptr(),
-        job_collisions.data_ptr(), affinity_boost.data_ptr(), n, desired,
-        mpn, int(k_max), g_ptr, len(grid), int(bool(spread_algorithm)),
-        out.data_ptr(), _stream(dev))
-    _launched("depth_curve", err)
-    d_star, k_star, k_cap = out.unbind(0)
+        job_collisions.data_ptr(), affinity_boost.data_ptr(), n, n_lanes,
+        ctypes.addressof(desired), ctypes.addressof(mpn), int(k_max), g_ptr,
+        len(grid), int(bool(spread_algorithm)), out.data_ptr(), _stream(dev))
+    _launched(name, err)
+    d_star, k_star, k_cap = out.unbind(len(lead))
     return d_star.view(torch.float32), k_star, k_cap
+
+
+def depth_curve(cap, used, ask, feasible, job_collisions, desired_count,
+                affinity_boost, max_per_node=kernels.MAX_PER_NODE_CAP,
+                k_max: int = 128, spread_algorithm: bool = False,
+                depth_grid=None) -> tuple:
+    """(d_star f32[N], k_star i32[N], k_cap i32[N]) — one launch of the
+    depth-curve kernel over one lane on CUDA tensors,
+    kernels.depth_curve_ref on CPU tensors. d_star is -inf where no depth
+    fits."""
+    if cap.device.type == "cpu":
+        return kernels.depth_curve_ref(
+            cap, used, ask, feasible, job_collisions, desired_count,
+            affinity_boost, max_per_node=max_per_node, k_max=k_max,
+            spread_algorithm=spread_algorithm, depth_grid=depth_grid)
+    return _launch_depth_curve(
+        "depth_curve", (), cap, used, ask, feasible, job_collisions,
+        (desired_count,), affinity_boost, (max_per_node,), k_max,
+        spread_algorithm, depth_grid)
 
 
 def fill_depth_fused(cap, used, ask, count, feasible, job_collisions,
@@ -304,8 +370,48 @@ def fill_depth_fused(cap, used, ask, count, feasible, job_collisions,
         cap, used, ask, feasible, job_collisions, desired_count,
         affinity_boost, max_per_node=max_per_node, k_max=k_max,
         spread_algorithm=spread_algorithm, depth_grid=depth_grid)
-    return _depth_order_take(d_star, k_star, k_cap, count, order_jitter,
-                             jitter_scale, jitter_samples)
+    return kernels._depth_order_take_one(d_star, k_star, k_cap, count,
+                                         order_jitter, jitter_scale,
+                                         jitter_samples)
+
+
+def depth_curve_lanes(cap, used, ask, feasible, job_collisions,
+                      desired_counts, affinity_boost, max_per_node,
+                      k_max: int = 128, spread_algorithm: bool = False,
+                      depth_grid=None) -> tuple:
+    """(d_star f32[L, N], k_star i32[L, N], k_cap i32[L, N]) — one launch
+    of the depth-curve kernel over a window's stacked CUDA tensors
+    (cap/used [L, N, 5], ask [L, 5], feasible/job_collisions/
+    affinity_boost [L, N]; desired_counts and max_per_node L host
+    scalars), kernels.depth_curve_lanes_ref on CPU tensors. Lane l equals
+    depth_curve on lane l's slices, bit for bit."""
+    if cap.device.type == "cpu":
+        return kernels.depth_curve_lanes_ref(
+            cap, used, ask, feasible, job_collisions, desired_counts,
+            affinity_boost, max_per_node, k_max=k_max,
+            spread_algorithm=spread_algorithm, depth_grid=depth_grid)
+    return _launch_depth_curve(
+        "depth_curve_lanes", tuple(cap.shape[:1]), cap, used, ask, feasible,
+        job_collisions, desired_counts, affinity_boost, max_per_node, k_max,
+        spread_algorithm, depth_grid)
+
+
+def fill_depth_lanes(cap, used, ask, counts, feasible, job_collisions,
+                     desired_counts, affinity_boost, max_per_node,
+                     order_jitter=None, jitter_scales=None,
+                     jitter_samples=None, k_max: int = 128,
+                     spread_algorithm: bool = False, depth_grid=None):
+    """kernels.fill_depth_lanes with the depth-curve kernel as its
+    producer: one launch for the whole window, then the torch tail over
+    [L, N]. Lane l equals fill_depth_fused on lane l alone, bit for
+    bit."""
+    d_star, k_star, k_cap = depth_curve_lanes(
+        cap, used, ask, feasible, job_collisions, desired_counts,
+        affinity_boost, max_per_node, k_max=k_max,
+        spread_algorithm=spread_algorithm, depth_grid=depth_grid)
+    return kernels._depth_order_take(d_star, k_star, k_cap, counts,
+                                     order_jitter, jitter_scales,
+                                     jitter_samples)
 
 
 def _launch_score_capacity(cap, used, ask, feasible, spread: bool,

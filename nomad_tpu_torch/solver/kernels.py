@@ -14,13 +14,17 @@ explain entries). Three placement paths and the preemption pass:
   * the chunked scan (place_chunked): the full interacting score model
     (spreads, distinct_property quotas, affinity, anti-affinity) with
     the running state carried step by step.
+  * fill_depth_lanes: the depth solve over a lane axis, the eval-stream
+    micro-batch window (one row a coalesced eval; each row equal to its
+    solo fill_depth).
   * preempt_top_k: victim selection over every candidate node at once.
     It stays plain torch on the card too — one pass of a few dozen
     tensor operations per preemption eval, with no Pallas counterpart
     and no loop over the candidates.
 
 Each hand kernel in cuda_kernels.py computes what one producer here
-computes: `depth_curve_ref` for the depth-curve kernel,
+computes: `depth_curve_ref` for the depth-curve kernel (and
+`depth_curve_lanes_ref` for its launch over a window's lanes),
 `score_capacity_ref` for the score/capacity kernel and
 `chunked_step_ref` for the chunked-step kernel. The tails
 (`_depth_order_take`, `_greedy_take`, `_chunked_take` and the scan's
@@ -264,57 +268,97 @@ def depth_curve_ref(cap: torch.Tensor, used: torch.Tensor,
     return d_star, k_star, k_cap
 
 
+def _lane_values(values, dtype, dev):
+    """Per-lane host scalars as an operand of the [L, N] tail: the one
+    value itself when every lane has it (a solo solve, or a window of
+    equal settings: no host-to-device copy), else an [L, 1] column on
+    `dev`."""
+    if all(v == values[0] for v in values):
+        return values[0]
+    return torch.tensor([[v] for v in values], dtype=dtype, device=dev)
+
+
 def _depth_order_take(d_star: torch.Tensor, k_star: torch.Tensor,
-                      k_cap: torch.Tensor, count,
+                      k_cap: torch.Tensor, counts,
                       order_jitter: Optional[torch.Tensor],
-                      jitter_scale, jitter_samples) -> torch.Tensor:
-    """Shared tail of the depth solver (ref kernels._depth_order_take):
-    Efraimidis-Spirakis ordering over the full-depth density ranking,
-    depth take, and leftover deepening to exact capacity, best density
-    first. jitter_samples <= 0 selects the deterministic regime (no
-    gumbel noise, depth uncapped); otherwise the take per node is capped
-    at ceil(jitter_samples) + 1, the host stack's resurfacing bound."""
-    n = d_star.shape[0]
+                      jitter_scales, jitter_samples) -> torch.Tensor:
+    """Shared tail of the depth solver (ref kernels._depth_order_take)
+    over a lane axis: row l of each [L, N] input is one solve, with
+    counts[l], jitter_scales[l] and jitter_samples[l] (sequences of L
+    host scalars; None: 0.5 and 0.0 for every lane, the solo defaults);
+    a solo solve is one lane (_depth_order_take_one). Efraimidis-Spirakis
+    ordering over the full-depth density ranking, depth take, and
+    leftover deepening to exact capacity, best density first.
+    jitter_samples <= 0 selects the deterministic regime (no gumbel noise,
+    depth uncapped); otherwise the take per node is capped at
+    ceil(jitter_samples) + 1, the host stack's resurfacing bound. Row l
+    of the result depends on row l alone: the sorts are stable along the
+    row, the prefix sums are int32 (exact in any order) and the float
+    operations elementwise."""
     dev = d_star.device
-    js = float(np.float32(jitter_samples))
-    det = js <= 0.0
-    jcap = MAX_PER_NODE_CAP if det else int(math.ceil(js)) + 1
-    k_star = torch.clamp(k_star, max=max(jcap, 1))
+    n_lanes = d_star.shape[0]
+    if jitter_scales is None:
+        jitter_scales = [0.5] * n_lanes
+    if jitter_samples is None:
+        jitter_samples = [0.0] * n_lanes
+    js = [float(np.float32(x)) for x in jitter_samples]
+    det = [x <= 0.0 for x in js]
+    jcap = [MAX_PER_NODE_CAP if d else int(math.ceil(x)) + 1
+            for d, x in zip(det, js)]
+    k_star = torch.clamp(k_star, max=_lane_values(
+        [max(c, 1) for c in jcap], torch.int32, dev))
     fin = torch.isfinite(d_star)
     k_star = torch.where(fin, k_star, 0)
-    rank = torch.argsort(torch.argsort(-d_star, stable=True), stable=True)
-    n_fin = torch.clamp(fin.sum(dtype=torch.int32), min=1)
+    rank = torch.argsort(torch.argsort(-d_star, dim=1, stable=True), dim=1,
+                         stable=True)
+    n_fin = torch.clamp(fin.sum(dim=1, dtype=torch.int32, keepdim=True),
+                        min=1)
     # E-S order in LOG space: argmax u^(1/w) == argmin
     # log(-log u) - g*log(2(n-r)+1); w itself overflows f32 at scale
     base_w = 2.0 * (n_fin - rank).to(torch.float32) + 1.0
     if order_jitter is None:
-        order_jitter = torch.full((n,), 0.5, dtype=torch.float32,
+        order_jitter = torch.full(d_star.shape, 0.5, dtype=torch.float32,
                                   device=dev)
     u = torch.clamp(order_jitter, 1e-9, 1.0 - 1e-9)
-    if det:
-        gumbel = torch.zeros((n,), dtype=torch.float32, device=dev)
-    else:
+    det_l = _lane_values(det, torch.bool, dev)
+    if det_l is True:
+        gumbel = torch.zeros(d_star.shape, dtype=torch.float32, device=dev)
+    elif det_l is False:
         gumbel = torch.log(-torch.log(u))
-    scale = torch.full((), float(np.float32(jitter_scale)), dtype=torch.float32,
-                       device=dev)
+    else:
+        gumbel = torch.where(det_l, 0.0, torch.log(-torch.log(u)))
+    scale = _lane_values([float(np.float32(s)) for s in jitter_scales],
+                         torch.float32, dev)
+    if not isinstance(scale, torch.Tensor):
+        scale = torch.full((), scale, dtype=torch.float32, device=dev)
     key = gumbel - scale * torch.log(base_w)
     key = torch.where(fin, key, math.inf)
-    order = torch.argsort(key, stable=True)           # smaller = earlier
-    count = int(count)
-    ks = k_star[order]
-    prior = torch.cumsum(ks, 0, dtype=torch.int32) - ks
+    order = torch.argsort(key, dim=1, stable=True)    # smaller = earlier
+    count = _lane_values([int(c) for c in counts], torch.int32, dev)
+    ks = torch.gather(k_star, 1, order)
+    prior = torch.cumsum(ks, 1, dtype=torch.int32) - ks
     take = torch.minimum((count - prior).clamp(min=0), ks)
-    placed = torch.zeros((n,), dtype=torch.int32, device=dev)
-    placed[order] = take
+    placed = torch.zeros(d_star.shape, dtype=torch.int32, device=dev)
+    placed.scatter_(1, order, take)
 
     # leftover beyond sum(k_star): deepen already-filled nodes to their
     # feasible max, best density first
-    leftover = count - placed.sum(dtype=torch.int32)
-    room = torch.where(take > 0, k_cap[order] - take, 0)
-    prior_r = torch.cumsum(room, 0, dtype=torch.int32) - room
+    leftover = count - placed.sum(dim=1, dtype=torch.int32, keepdim=True)
+    room = torch.where(take > 0, torch.gather(k_cap, 1, order) - take, 0)
+    prior_r = torch.cumsum(room, 1, dtype=torch.int32) - room
     extra = torch.minimum((leftover - prior_r).clamp(min=0), room)
-    placed[order] += extra.to(torch.int32)
+    placed.scatter_add_(1, order, extra.to(torch.int32))
     return placed
+
+
+def _depth_order_take_one(d_star, k_star, k_cap, count, order_jitter,
+                          jitter_scale, jitter_samples) -> torch.Tensor:
+    """The tail of one solo solve: _depth_order_take over one lane of
+    [N] inputs. -> placed i32[N]."""
+    return _depth_order_take(
+        d_star[None], k_star[None], k_cap[None], (count,),
+        None if order_jitter is None else order_jitter[None],
+        (jitter_scale,), (jitter_samples,))[0]
 
 
 def fill_depth(cap: torch.Tensor, used: torch.Tensor, ask: torch.Tensor,
@@ -334,8 +378,46 @@ def fill_depth(cap: torch.Tensor, used: torch.Tensor, ask: torch.Tensor,
         cap, used, ask, feasible, job_collisions, desired_count,
         affinity_boost, max_per_node=max_per_node, k_max=k_max,
         spread_algorithm=spread_algorithm, depth_grid=depth_grid)
-    return _depth_order_take(d_star, k_star, k_cap, count, order_jitter,
-                             jitter_scale, jitter_samples)
+    return _depth_order_take_one(d_star, k_star, k_cap, count, order_jitter,
+                                 jitter_scale, jitter_samples)
+
+
+def depth_curve_lanes_ref(cap, used, ask, feasible, job_collisions,
+                          desired_counts, affinity_boost, max_per_node,
+                          k_max: int = 128, spread_algorithm: bool = False,
+                          depth_grid: Optional[tuple] = None) -> tuple:
+    """Plain version of the depth-curve kernel over a window: lane l of
+    the stacked inputs (cap/used [L, N, R'], ask [L, R'], the rest
+    [L, N]; desired_counts and max_per_node L host scalars) through
+    depth_curve_ref. -> (d_star f32[L, N], k_star i32[L, N],
+    k_cap i32[L, N])."""
+    rows = [depth_curve_ref(
+        cap[lane], used[lane], ask[lane], feasible[lane],
+        job_collisions[lane], desired_counts[lane], affinity_boost[lane],
+        max_per_node=max_per_node[lane], k_max=k_max,
+        spread_algorithm=spread_algorithm, depth_grid=depth_grid)
+        for lane in range(cap.shape[0])]
+    return tuple(torch.stack(col) for col in zip(*rows))
+
+
+def fill_depth_lanes(cap, used, ask, counts, feasible, job_collisions,
+                     desired_counts, affinity_boost, max_per_node,
+                     order_jitter=None, jitter_scales=None,
+                     jitter_samples=None, k_max: int = 128,
+                     spread_algorithm: bool = False,
+                     depth_grid: Optional[tuple] = None) -> torch.Tensor:
+    """fill_depth over a lane axis — the eval-stream micro-batch window
+    (ref microbatch.py `_batched_fn`, jit(vmap(fill_depth))): row l of
+    the stacked inputs is one solve; -> placed i32[L, N], row l equal to
+    fill_depth on lane l alone. The per-lane scalars (counts,
+    desired_counts, max_per_node, jitter_scales, jitter_samples) are
+    sequences of L host scalars; order_jitter is [L, N] or None."""
+    d_star, k_star, k_cap = depth_curve_lanes_ref(
+        cap, used, ask, feasible, job_collisions, desired_counts,
+        affinity_boost, max_per_node, k_max=k_max,
+        spread_algorithm=spread_algorithm, depth_grid=depth_grid)
+    return _depth_order_take(d_star, k_star, k_cap, counts, order_jitter,
+                             jitter_scales, jitter_samples)
 
 
 def plan_fit_verdict(cap: torch.Tensor, used: torch.Tensor,

@@ -47,8 +47,15 @@ the eval, naming the chunk. The reference's degrade path, which re-solves
 the remaining chunks on the host, is not ported: card work never moves to
 the CPU.
 
-Not ported: the fused and convex routes, eval micro-batching and the
-preemption scan sharded over a device mesh.
+Eval micro-batching (microbatch.py): every eval configures the batcher
+from the scheduler config and marks itself in flight around
+`_compute_placements`, as the reference's placer does; a serial depth
+solve passes its count to backend.select, which may send it to the
+batch tier. Pipelined chunk solves never batch (their counts are far
+above BATCH_MAX_COUNT, and their chained usage stays on the card).
+
+Not ported: the fused and convex routes and the preemption scan sharded
+over a device mesh.
 """
 from __future__ import annotations
 
@@ -65,7 +72,8 @@ from ..structs import (
     skeleton_for,
 )
 from ..scheduler.stack import SelectOptions
-from . import backend, device as _device, explain as explain_mod, roundtrip
+from . import backend, device as _device, explain as explain_mod
+from . import microbatch, roundtrip
 from ..obs import trace
 from .buckets import node_bucket, pow2
 from .tensorize import (
@@ -144,11 +152,20 @@ class SolverPlacer:
         self._skel: dict = {}
 
     def compute_placements(self, destructive, place) -> bool:
-        # hot-reload the explain ring capacity from the replicated
-        # scheduler config (enabled-ness is resolved per solve in
-        # _prep_solve)
-        explain_mod.configure(capacity=getattr(
-            self.ctx.scheduler_config, "placement_explain_recent", 256))
+        cfg = self.ctx.scheduler_config
+        # hot-reload the stream-coalescing knobs from the replicated
+        # scheduler config (same path as the SchedulerAlgorithm enum) and
+        # mark this eval in flight so concurrent small solves can find
+        # each other in the micro-batcher
+        microbatch.configure(
+            enabled=(getattr(cfg, "eval_batch_enabled", True)
+                     and os.environ.get("NOMAD_EVAL_BATCH", "") != "0"),
+            window_s=getattr(cfg, "eval_batch_window_ms", 8.0) / 1000.0)
+        # hot-reload the explain ring capacity from the same config
+        # (enabled-ness is resolved per solve in _prep_solve)
+        explain_mod.configure(
+            capacity=getattr(cfg, "placement_explain_recent", 256))
+        microbatch.eval_started()
         # per-eval host↔device transition accounting: every dispatch
         # seam notes itself; the total lands in the
         # nomad.solver.device_round_trips histogram at eval exit
@@ -157,6 +174,7 @@ class SolverPlacer:
             return self._compute_placements(destructive, place)
         finally:
             roundtrip.end()
+            microbatch.eval_finished()
 
     def _compute_placements(self, destructive, place) -> bool:
         sched = self.sched
@@ -542,8 +560,10 @@ class SolverPlacer:
         and bring the placement vector back at the one host sync."""
         gt = prep.gt
         if prep.use_depth:
+            # `count` lets a small solve take the batch tier while other
+            # evals are in flight (backend._batch_eligible)
             bname, fn = backend.select(
-                "depth", gt.cap.shape[0], k_max=prep.k_max,
+                "depth", gt.cap.shape[0], count=count, k_max=prep.k_max,
                 spread_algorithm=prep.spread_alg,
                 depth_grid=prep.depth_grid)
             backend.record("depth", bname)

@@ -11,6 +11,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..structs import (
     Allocation, Node, TaskGroup, DEFAULT_MAX_DYNAMIC_PORT,
@@ -501,25 +502,29 @@ def _build_from_objects(ctx, job, tg: TaskGroup, nodes: list[Node],
     )
 
 
-def stack_lanes(lane_args: list, pad_args: tuple, n_lanes: int) -> tuple:
-    """Column-stack K solves' normalized arg tuples into ONE batched arg
-    tuple of exactly `n_lanes` rows (the eval-stream micro-batch layout:
-    jit(vmap(solve)) maps axis 0 of every column back to one eval's solve).
-
-    Rows past len(lane_args) are filled from `pad_args` — the caller's
-    inert clone of lane 0 (count=0 places nothing) — so every dispatch
-    hits the same compiled artifact regardless of how many evals
-    coalesced. A column that is None in every lane stays None (an absent
-    optional input like affinities; vmap treats None as an empty pytree,
-    no batch axis needed). Mixed None/array columns are a caller bug —
-    the micro-batcher's queue key separates those shapes upstream.
-    """
-    rows = list(lane_args) + [pad_args] * (n_lanes - len(lane_args))
+def stack_lanes(lane_args: list, dtypes: dict) -> tuple:
+    """Column-stack a window's normalized arg tuples into ONE batched arg
+    tuple of len(lane_args) rows on the solve device (ref
+    tensorize.stack_lanes, less its padding to a fixed lane count): the
+    positions in `dtypes` (position -> dtype: the signature's arrays,
+    numpy or tensors such as the state cache's twins) stack into
+    [L, ...] tensors, every other position (a per-lane scalar) into a
+    list of L host scalars. A column that is None in every lane stays
+    None; the queue key keeps None and array columns apart."""
+    from .device import solve_device
+    dev = solve_device()
     cols = []
-    for i in range(len(pad_args)):
-        vals = [r[i] for r in rows]
+    for i in range(len(lane_args[0])):
+        vals = [r[i] for r in lane_args]
         if all(v is None for v in vals):
             cols.append(None)
-            continue
-        cols.append(np.stack(vals))
+        elif i not in dtypes:
+            cols.append([v.item() if hasattr(v, "item") else v
+                         for v in vals])
+        else:
+            cols.append(torch.stack([
+                v.to(device=dev, dtype=dtypes[i])
+                if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.asarray(v)).to(
+                    device=dev, dtype=dtypes[i]) for v in vals]))
     return tuple(cols)

@@ -494,3 +494,95 @@ def test_kernel_build_error_on_the_card_never_feeds_the_breaker(
         assert metrics.counter("nomad.solver.dispatch_errors") == e0
     finally:
         backend.reset()
+
+
+def _lane_inputs(dev, n_lanes=8, n=3_000):
+    """Stacked lanes, each with its own usage, ask and scalars; the last
+    two are count-0 clones of lane 0 (lanes that place nothing)."""
+    cols = [_inputs(dev, n=n, seed=10 + lane) for lane in range(n_lanes - 2)]
+    cols += [cols[0]] * 2
+    cap, used, ask, feas, coll, aff = (torch.stack(c).contiguous()
+                                       for c in zip(*cols))
+    ask[:, 0] = torch.tensor([250, 500, 100, 900, 300, 50, 250, 250],
+                             dtype=torch.float32, device=dev)[:n_lanes]
+    counts = [5_000, 40, 700, 1, 2_000, 300, 0, 0][:n_lanes]
+    desired = [c + 7 for c in counts]
+    mpn = [2 ** 30, 1, 2 ** 30, 3, 2 ** 30, 2 ** 30, 2 ** 30, 2 ** 30]
+    return cap, used, ask, feas, coll, aff, counts, desired, mpn[:n_lanes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [None, GRID128], ids=["dense", "grid"])
+def test_depth_curve_lanes_equal_solo_launches_and_plain(dev, grid):
+    cap, used, ask, feas, coll, aff, counts, desired, mpn = \
+        _lane_inputs(dev)
+    kw = dict(k_max=128, depth_grid=grid)
+    before = cuda_kernels.LAUNCHES["depth_curve_lanes"]
+    d_l, k_l, c_l = cuda_kernels.depth_curve_lanes(
+        cap, used, ask, feas, coll, desired, aff, mpn, **kw)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["depth_curve_lanes"] == before + 1
+    for lane in range(cap.shape[0]):
+        d_s, k_s, c_s = cuda_kernels.depth_curve(
+            cap[lane], used[lane], ask[lane], feas[lane], coll[lane],
+            desired[lane], aff[lane], max_per_node=mpn[lane], **kw)
+        assert torch.equal(d_l[lane].view(torch.int32),
+                           d_s.view(torch.int32)), lane
+        assert torch.equal(k_l[lane], k_s) and torch.equal(c_l[lane], c_s)
+    d_p, k_p, c_p = kernels.depth_curve_lanes_ref(
+        cap, used, ask, feas, coll, desired, aff, mpn, **kw)
+    assert torch.equal(c_l, c_p)
+    fin = torch.isfinite(d_p)
+    assert torch.equal(torch.isfinite(d_l), fin)
+    assert float((d_l[fin] - d_p[fin]).abs().max()) <= ATOL
+    assert torch.equal(k_l[fin], k_p[fin])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [None, GRID128], ids=["dense", "grid"])
+def test_fill_depth_lanes_equals_solo_fill_depth_fused(dev, grid):
+    cap, used, ask, feas, coll, aff, counts, desired, mpn = \
+        _lane_inputs(dev)
+    n_lanes, n = cap.shape[:2]
+    jitter = torch.rand((n_lanes, n), generator=torch.Generator().manual_seed(
+        5)).to(dev)
+    scales = [0.5, 1.5, 0.5, 1.0, 0.5, 2.0, 0.5, 0.5]
+    samples = [0.0, 0.0, 1.7, 0.0, 2.5, 0.0, 0.0, 0.0] if grid else \
+        [0.0] * n_lanes
+    out = cuda_kernels.fill_depth_lanes(
+        cap, used, ask, counts, feas, coll, desired, aff, mpn,
+        order_jitter=jitter, jitter_scales=scales, jitter_samples=samples,
+        k_max=128, depth_grid=grid)
+    plain = kernels.fill_depth_lanes(
+        cap, used, ask, counts, feas, coll, desired, aff, mpn,
+        order_jitter=jitter, jitter_scales=scales, jitter_samples=samples,
+        k_max=128, depth_grid=grid)
+    for lane in range(n_lanes):
+        solo = cuda_kernels.fill_depth_fused(
+            cap[lane], used[lane], ask[lane], counts[lane], feas[lane],
+            coll[lane], desired[lane], aff[lane], max_per_node=mpn[lane],
+            order_jitter=jitter[lane], jitter_scale=scales[lane],
+            jitter_samples=samples[lane], k_max=128, depth_grid=grid)
+        assert torch.equal(out[lane], solo), lane
+        assert int(out[lane].sum()) == int(plain[lane].sum())
+    assert not out[n_lanes - 2:].any()
+
+
+@pytest.mark.cuda
+def test_depth_curve_takes_at_most_a_windows_lanes(dev):
+    """One launch takes 1..BATCH_LANES lanes (the largest window); a
+    solo solve is one lane, counted as a solo launch."""
+    cap, used, ask, feas, coll, aff, counts, desired, mpn = \
+        _lane_inputs(dev, n=64)
+    n_lanes = cuda_kernels.MAX_LANES + 1
+    wide = [t[:1].expand(n_lanes, *t.shape[1:]).contiguous()
+            for t in (cap, used, ask, feas, coll, aff)]
+    with pytest.raises(ValueError, match="lanes"):
+        cuda_kernels.depth_curve_lanes(
+            *wide[:5], desired[:1] * n_lanes, wide[5], mpn[:1] * n_lanes)
+    before = dict(cuda_kernels.LAUNCHES)
+    cuda_kernels.depth_curve(cap[0], used[0], ask[0], feas[0], coll[0],
+                             desired[0], aff[0], max_per_node=mpn[0])
+    assert cuda_kernels.LAUNCHES["depth_curve"] == before["depth_curve"] + 1
+    assert cuda_kernels.LAUNCHES["depth_curve_lanes"] == \
+        before["depth_curve_lanes"]

@@ -1,10 +1,13 @@
 """Guards on the port package nomad_tpu_torch:
 
-  * it runs evals (the depth solve and the chunked scan) with neither
-    jax nor any nomad_tpu module loaded;
+  * it runs evals (the depth solve and the chunked scan, then a job
+    through a two-worker in-process server) with neither jax nor any
+    nomad_tpu module loaded;
   * no module of it, and not chip_smoke.py, imports jax or nomad_tpu;
   * each module it copies verbatim from nomad_tpu is byte-equal to its
-    original (the reference is frozen, so drift is a port fault);
+    original (the reference is frozen, so drift is a port fault), and
+    the two adapted copies differ only where they name the port's
+    package (rpc/codec.py's allow-list, server/server.py:57);
   * with no card and no use_device("cpu"), the first solve raises.
 """
 import ast
@@ -24,9 +27,20 @@ REF = ROOT / "nomad_tpu"
 # modules the port carries over byte for byte (paths under each package)
 VERBATIM = (
     ["metrics.py", "chrono.py", "mock.py", "api_codec.py",
-     "obs/trace.py", "state/__init__.py", "state/store.py",
-     "state/usage_index.py", "rpc/dedup.py", "server/fsm.py",
-     "server/plan_apply.py", "solver/roundtrip.py"]
+     "obs/__init__.py", "obs/trace.py", "state/__init__.py",
+     "state/store.py", "state/usage_index.py", "rpc/__init__.py",
+     "rpc/dedup.py", "rpc/server.py", "rpc/client.py", "rpc/retry.py",
+     "server/__init__.py", "server/fsm.py", "server/plan_apply.py",
+     "server/lifecycle.py", "server/blocked_evals.py",
+     "server/eval_broker.py", "server/worker.py", "server/periodic.py",
+     "server/heartbeat.py", "server/core_sched.py",
+     "server/deployment_watcher.py", "server/drainer.py",
+     "server/volume_watcher.py", "server/event_broker.py",
+     "server/overload.py", "server/search.py", "server/acl_endpoint.py",
+     "integrations/__init__.py", "integrations/connect.py",
+     "integrations/services.py", "integrations/secrets.py",
+     "integrations/template.py", "solver/roundtrip.py"]
+    + sorted(f"acl/{p.name}" for p in (REF / "acl").glob("*.py"))
     + sorted(f"structs/{p.name}" for p in (REF / "structs").glob("*.py"))
     + sorted(f"scheduler/{p.name}" for p in (REF / "scheduler").glob("*.py"))
 )
@@ -66,6 +80,32 @@ _EVAL = textwrap.dedent("""
     h.process(lambda s, p: new_scheduler(job.type, s, p), ev)
     assert len(h.state.allocs_by_job("default", job.id)) == 4
     assert metrics.counter("nomad.solver.kernel.chunked.torch") == 1
+    # the in-process server: two workers, a job through the broker
+    import time
+    from nomad_tpu_torch.server import Server
+    srv = Server(num_workers=2, gc_interval=9999)
+    srv.heartbeats.min_ttl = 3600.0
+    srv.start()
+    try:
+        srv.set_scheduler_configuration(
+            SchedulerConfiguration(scheduler_algorithm="tpu-batch"))
+        for _ in range(8):
+            srv.node_register(mock.node())
+        job = mock.batch_job()
+        job.task_groups[0].count = 5
+        job.task_groups[0].networks = []
+        job.task_groups[0].tasks[0].resources.networks = []
+        eval_id = srv.job_register(job)["eval_id"]
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            ev = srv.state.eval_by_id(eval_id)
+            if ev is not None and ev.status == "complete":
+                break
+            time.sleep(0.02)
+        assert srv.state.eval_by_id(eval_id).status == "complete"
+        assert len(srv.state.allocs_by_job("default", job.id)) == 5
+    finally:
+        srv.shutdown()
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "jaxlib",
                                                    "nomad_tpu.")))
@@ -138,6 +178,17 @@ def test_rpc_codec_differs_only_in_its_package_allow_list():
     assert len(ref) == len(port)
     assert diff == [('_ALLOWED_PREFIXES = ("nomad_tpu.",)',
                      '_ALLOWED_PREFIXES = ("nomad_tpu_torch.",)')]
+
+
+def test_server_differs_only_in_its_backend_module_name():
+    ref = (REF / "server/server.py").read_text().splitlines()
+    port = (PORT / "server/server.py").read_text().splitlines()
+    diff = [(i + 1, a, b) for i, (a, b) in enumerate(zip(ref, port))
+            if a != b]
+    assert len(ref) == len(port)
+    assert diff == [(57, '    backend = sys.modules.get("nomad_tpu.solver.backend")',
+                     '    backend = sys.modules.get('
+                     '"nomad_tpu_torch.solver.backend")')]
 
 
 def test_first_solve_raises_without_a_card_or_a_cpu_request(monkeypatch):
