@@ -153,6 +153,22 @@ prints no result):
               worker nacks, the broker redelivers, the second delivery
               commits everything; 1 dispatch error, 1 eval failure, 0 CPU
               solves. Faults cleared and the breaker reset after.
+ 14. convex   (a) the convex-solve kernel (csrc/convex_solve.cu) against
+              its plain version at bench.py `_convex_run`'s cluster
+              (10,000 nodes, 16,384 rows, count 3,000, fairness 0.05),
+              binpack and spread, at tolerance 1e-4 and 1e-9, and a
+              128-row case that runs all 200 iterations: the solve bit
+              for bit, the whole eval's placements, fit, convex_won and
+              iterations equal, one launch each of the kernel and K2,
+              0 rows over capacity; device ms, per-call ms, plain ms,
+              bound and dependency floor (`convex <case>` lines). (b)
+              scheduler_algorithm "convex" set through the operator API
+              on a 10,000-node server: a 5,000-task job under convex and
+              tpu-batch in turns, register -> commit walls; a convex eval
+              counts 1 convex dispatch, 1 round trip, 1 launch of the
+              kernel, 0 CPU solves (`convex server` lines). (c)
+              solver.dispatch.convex faulted once: nacked, redelivered,
+              committed in one plan (`convex fault`).
 
 Servers run with their heartbeat TTL set past the run (no clients here)
 and stop in a `finally`. The native stamping extension (native/) is
@@ -417,15 +433,19 @@ def _median_ms(torch, fn, reps=REPS) -> float:
     return statistics.median(times)
 
 
-def _device_ms(torch, fn, kernel: str, reps=REPS) -> tuple:
+def _device_ms(torch, fn, kernel: str, reps=REPS, per_call=1) -> tuple:
     """(kernel ms, all device ms) per call from a torch.profiler trace of
     `reps` calls: the named kernel's own device time, and the device time
-    of every kernel the call launches. (None, None) when the profiler
-    records no device activity."""
+    of every kernel the call launches. A call launches the named kernel
+    `per_call` times; a trace that recorded another number of its
+    launches is logged and taken again, and after three such traces the
+    kernel's time is None (the caller times with CUDA events). (None,
+    None) when the profiler records no device activity."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    total = 0.0
     for _ in range(3):                  # a trace may miss the kernel
         try:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -436,6 +456,7 @@ def _device_ms(torch, fn, kernel: str, reps=REPS) -> tuple:
             log(f"profiler unavailable ({e}); timing with CUDA events")
             return None, None
         mine = total = 0.0
+        n_mine = 0
         for e in prof.events():
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
@@ -443,9 +464,16 @@ def _device_ms(torch, fn, kernel: str, reps=REPS) -> tuple:
             total += us
             if kernel in e.name:
                 mine += us
-        if mine > 0 or (not kernel and total > 0):
+                n_mine += 1
+        if not kernel:
+            if total > 0:
+                return None, total / reps / 1e3
+            continue
+        if n_mine == reps * per_call:
             return mine / reps / 1e3, total / reps / 1e3
-    return None, None
+        log(f"profiler trace recorded {n_mine} launches of {kernel}, "
+            f"{reps * per_call} expected; tracing again")
+    return None, (total / reps / 1e3 if total > 0 else None)
 
 
 def _placements_agree(torch, got, want, producer_differs: bool, what: str):
@@ -2060,8 +2088,10 @@ def lanes_phase(np, torch, dev) -> dict:
     def eight_solo():
         for lane in range(BATCH_LANES):
             solo_curve(lane)
-    solo_ms, _ = _device_ms(torch, eight_solo, "depth_curve_kernel")
-    out["solo_8_ms"] = solo_ms
+    solo_ms, _ = _device_ms(torch, eight_solo, "depth_curve_kernel",
+                            per_call=BATCH_LANES)
+    # the 8 launches' device time together, per call of eight_solo
+    out["solo_8_ms"] = solo_ms or _queued_ms(torch, eight_solo)
     out.update(_plain_times(
         torch, lambda: kernels.depth_curve_lanes_ref(*curve, **kw)))
     depths = int(torch.clamp(c_p, max=128).sum())
@@ -2076,8 +2106,9 @@ def lanes_phase(np, torch, dev) -> dict:
         f"bit-equal to each lane's solo fill_depth_fused; plain d_star max "
         f"abs err {err:.3g}, near-tie rows {ties}")
     log(f"lanes: kernel {out['ms']} ms device per window ({out['call_ms']} "
-        f"ms per wrapper call), {BATCH_LANES} solo launches {solo_ms} ms "
-        f"device, plain {out['plain_ms']} ms, bound {out['bound_ms']} ms "
+        f"ms per wrapper call), {BATCH_LANES} solo launches "
+        f"{out['solo_8_ms']} ms device together, plain {out['plain_ms']} "
+        f"ms, bound {out['bound_ms']} ms "
         f"({out['bound_by']}: {nbytes} B, {ops} ops, {depths} depths)")
     return out
 
@@ -2523,6 +2554,263 @@ def server_fault_phase(np, torch, snapshot) -> dict:
     return {"counts": d, "wall_s": t1 - t0}
 
 
+# the convex phase: the server's convex job (below the pipeline's 8,192,
+# so the serial route takes it, as the reference's does), the runs in
+# turns against tpu-batch, and the faulted job
+CONVEX_COUNT = 5_000
+CONVEX_ORDER = ("convex", "tpu-batch", "tpu-batch", "convex")
+CONVEX_TIMED = ("bench_binpack", "bench_spread", "bench_binpack_deep",
+                "bench_spread_deep")
+# float32 operations a row of the convex solve needs (csrc/
+# convex_solve.cu; an add, multiply, divide, floor, min or max is one, a
+# fused multiply-add two, a 10**x one): its inputs once (capacity 20,
+# score 10, cost 2, the sum of u and the start 4, the start's objective 7:
+# 43), then each iteration the gradient step 7, the bracket 4, 50
+# halvings of 4 and the projection 3, the objective 7: 221
+CONVEX_OPS_ROW = 43
+CONVEX_OPS_ROW_ITER = 221
+
+
+def _convex_bound(b: int, iters: int) -> dict:
+    """The least time for one convex solve of `b` rows and `iters`
+    iterations: cap, used, ask, feasible, collisions and affinity read
+    once; the iterate, u and cost written once; the operations above."""
+    nbytes = b * (2 * 5 * 4 + 1 + 4 + 4) + 5 * 4 + b * 3 * 4 + 16
+    ops = b * (CONVEX_OPS_ROW + iters * CONVEX_OPS_ROW_ITER)
+    out = _bound(nbytes, ops)
+    out.update(bytes=nbytes, ops=ops)
+    return out
+
+
+def _convex_args(np, torch, dev, name) -> tuple:
+    """testing.CONVEX_CASES[name] on the card: (convex_solve's args,
+    convex_eval's args, spread, the host cap, used and ask)."""
+    from nomad_tpu_torch.testing import convex_fixture
+    cap, used, feas, coll, ask, count, kw = convex_fixture(name)
+    b = cap.shape[0]
+    aff = np.zeros(b, np.float32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    knobs = (kw["max_iters"], kw["tolerance"], kw["fairness_weight"],
+             kw["quota_budget"])
+    solve = (t(cap), t(used), t(ask), t(feas), t(coll), t(aff), count,
+             kw["max_per_node"], *knobs)
+    evals = (t(cap), t(used), t(np.arange(b, dtype=np.int32)),
+             t(np.ones(b, bool)), t(ask), count, t(feas),
+             kw["max_per_node"], t(aff), t(coll), None, False, *knobs)
+    return solve, evals, kw["spread_algorithm"], (cap, used, ask)
+
+
+def convex_kernel_phase(np, torch, dev, floor_ms) -> dict:
+    """(a) The convex-solve kernel against its plain version on the card
+    at bench.py `_convex_run`'s cluster (10,000 nodes, 16,384 rows, count
+    3,000, fairness 0.05), binpack and spread, at tolerance 1e-4 and at
+    1e-9 (the loop runs until the objective stops moving), and a
+    128-row spread case that runs all 200 iterations: iterate, u, cost,
+    budget, iterations and gap bit-equal; the whole eval (kernel, K2's
+    greedy entry, torch tail) placing as the plain eval, with one launch
+    of each kernel and 0 rows over capacity in the host AllocsFit
+    re-walk. Device ms (profiler; queued events beside it), per-call ms,
+    the plain version's ms, the bound and the dependency floor (cluster
+    reductions x one cluster barrier of the solve's shape, from an empty
+    loop of BARRIER_STEPS)."""
+    from nomad_tpu_torch.solver import convex, cuda_kernels
+    from nomad_tpu_torch.testing import CONVEX_CASES
+    out: dict = {}
+    barrier_ms = _queued_ms(torch, lambda: cuda_kernels.cluster_barrier(
+        BARRIER_STEPS, dev, threads=1024), 5) / BARRIER_STEPS
+    for name in CONVEX_TIMED + ("small_spread_deep",):
+        check(name in CONVEX_CASES, f"no convex fixture {name}")
+        solve, evals, spread, (cap, used, ask) = _convex_args(
+            np, torch, dev, name)
+
+        def run():
+            return cuda_kernels.convex_solve(*solve, spread_algorithm=spread)
+        got, want = run(), convex.convex_solve_ref(
+            *solve, spread_algorithm=spread)
+        torch.cuda.synchronize()
+        err = float((got[0] - want[0]).abs().max())
+        for g, w in zip(got, want):
+            if g.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            check(torch.equal(g, w),
+                  f"convex {name}: the kernel's solve differs from plain")
+        k0 = dict(cuda_kernels.LAUNCHES)
+        card = convex.to_host(cuda_kernels.convex_eval_fused(
+            *evals, spread_algorithm=spread))
+        per_eval = {k: cuda_kernels.LAUNCHES[k] - k0[k]
+                    for k in ("convex_solve", "score_capacity")}
+        plain = convex.to_host(convex.convex_eval(
+            *evals, spread_algorithm=spread))
+        check(np.array_equal(card[0], plain[0]) and
+              np.array_equal(card[1], plain[1]) and card[2] == plain[2]
+              and card[4] == plain[4] and abs(card[3] - plain[3]) <= 1e-6,
+              f"convex {name}: card eval {card[2:]} against plain "
+              f"{plain[2:]}")
+        check(per_eval == {"convex_solve": 1, "score_capacity": 1},
+              f"convex {name}: launches per eval {per_eval}")
+        post = used + card[0][:, None].astype(np.float32) * ask[None, :]
+        over = int((post > cap + 1e-3).any(axis=1).sum())
+        check(over == 0, f"convex {name}: {over} rows over capacity")
+        iters = card[2]
+        r = {"iterations": iters, "gap": float(card[3]), "won": card[4],
+             "placed": int(card[0].sum()), "launches_per_eval": per_eval,
+             "violations": over, "max_abs_err": err,
+             "reductions": 2 + iters * (convex.PROJECT_ITERS + 2),
+             "floor_ms": floor_ms, "barrier_ms": barrier_ms}
+        r["dependency_floor_ms"] = r["reductions"] * barrier_ms
+        r.update(_convex_bound(cap.shape[0], iters))
+        if name in CONVEX_TIMED:
+            r.update(_times(torch, "convex_solve", run))
+            r["queued_ms"] = _queued_ms(torch, run)
+        else:
+            r["ms"] = r["queued_ms"] = _queued_ms(torch, run, 3)
+        if name == "bench_binpack":
+            r["plain_ms"] = _median_ms(torch, lambda: convex.convex_solve_ref(
+                *solve, spread_algorithm=spread), 3)
+            ev = _kernel_list(torch, lambda: convex.to_host(
+                cuda_kernels.convex_eval_fused(
+                    *evals, spread_algorithm=spread)))
+            r["eval_kernels"], r["eval_device_ms"] = (ev["kernels"],
+                                                      ev["device_ms"])
+            r["eval_call_ms"] = _median_ms(torch, lambda: convex.to_host(
+                cuda_kernels.convex_eval_fused(
+                    *evals, spread_algorithm=spread)), 30)
+        log(f"convex {name}: kernel = plain bit for bit; {iters} "
+            f"iterations, gap {r['gap']}, won {r['won']}, placed "
+            f"{r['placed']}, 0 rows over capacity, launches per eval "
+            f"{json.dumps(per_eval)}; {r['ms']} ms device per solve "
+            f"(queued {r['queued_ms']}), {r.get('call_ms')} ms per call, "
+            f"plain {r.get('plain_ms')} ms; bound {r['bound_ms']} ms "
+            f"({r['bound_by']}: {r['bytes']} B, {r['ops']} ops); "
+            f"dependency floor {r['dependency_floor_ms']} ms "
+            f"({r['reductions']} cluster reductions x "
+            f"{barrier_ms * 1e3} us barrier)")
+        out[name] = r
+    b = out["bench_binpack"]
+    log(f"convex eval on the card (bench_binpack): {b['eval_device_ms']} ms "
+        f"device, {b['eval_call_ms']} ms per call with its one host copy; "
+        f"kernels {json.dumps(b['eval_kernels'])}")
+    return out
+
+
+def convex_server_phase(np, torch, snapshot) -> dict:
+    """(b) scheduler_algorithm "convex" set through the operator API on a
+    10,000-node server (4 workers, explain on), a 5,000-task batch job
+    under it and under tpu-batch in turns (CONVEX_ORDER): every instance
+    committed, 0 rows over capacity; a convex eval counts 1 convex
+    dispatch, 1 device round trip, 1 convex-solve launch and 1 K2 launch,
+    0 solves on the CPU, 0 dispatch errors; the warmup's convex block
+    runs first, as establishment under a convex config would. (c)
+    solver.dispatch.convex faulted once under a 2,000-task convex eval:
+    the worker nacks it, the broker redelivers it, the second delivery
+    commits everything in one plan (nothing of the faulted solve
+    committed); 1 convex dispatch error, 1 eval failure, 0 CPU solves."""
+    from nomad_tpu_torch import faults, mock
+    from nomad_tpu_torch.metrics import metrics
+    from nomad_tpu_torch.solver import backend, cuda_kernels
+    from nomad_tpu_torch.structs import SchedulerConfiguration
+    names = {"convex": "nomad.solver.dispatch.convex",
+             "dispatch_errors": "nomad.solver.dispatch_errors",
+             "cpu_solves": "nomad.solver.dispatch.torch",
+             "eval_failures": "nomad.worker.eval_failures",
+             "convex_errors": "nomad.solver.dispatch_errors.convex"}
+    rt_name = "nomad.solver.device_round_trips"
+    out: dict = {"runs": []}
+    jobs: dict = {}
+    srv = _server(4, snapshot=snapshot, scheduler_algorithm="convex")
+    try:
+        # what establishment runs under a "convex" config (this server
+        # was established under the snapshot's tpu-batch one): the warmup
+        # with its convex block, so no timed eval loads a kernel
+        a0 = metrics.counter("nomad.solver.warmup.artifacts")
+        warm = backend.warmup(srv.state.node_count(),
+                              cfg=SchedulerConfiguration(
+                                  scheduler_algorithm="convex"))
+        check(metrics.counter("nomad.solver.warmup.artifacts") - a0 == 11,
+              f"convex warmup: {warm}")
+        out["warmup"] = warm
+        for i, alg in enumerate(CONVEX_ORDER):
+            srv.set_scheduler_configuration(
+                SchedulerConfiguration(scheduler_algorithm=alg))
+            c0 = {k: metrics.counter(v) for k, v in names.items()}
+            rt0 = metrics.sample_count(rt_name)
+            cuda_kernels.reset_launches()        # this eval's window
+            t0 = time.perf_counter()
+            job_id = f"cvx-{i}"
+            eval_id = srv.job_register(
+                _mk_batch_job(mock, job_id, CONVEX_COUNT))["eval_id"]
+            t1 = _wait_evals(srv, [eval_id])
+            launches = dict(cuda_kernels.LAUNCHES)   # read just after
+            jobs[job_id] = CONVEX_COUNT
+            _check_committed(srv, jobs)
+            d = {k: metrics.counter(v) - c0[k] for k, v in names.items()}
+            rts = (metrics.percentile(rt_name, 0.0, skip=rt0),
+                   metrics.percentile(rt_name, 1.0, skip=rt0))
+            rec = _explain_record(eval_id)
+            check(rec["placed_total"] == CONVEX_COUNT,
+                  f"{job_id}: explain placed_total {rec['placed_total']}")
+            check(d["cpu_solves"] == 0 and d["dispatch_errors"] == 0,
+                  f"{job_id} ({alg}) counted {d}")
+            want = 1 if alg == "convex" else 0
+            check(d["convex"] == want and launches["convex_solve"] == want,
+                  f"{job_id} ({alg}): {d['convex']} convex dispatches, "
+                  f"{launches['convex_solve']} convex_solve launches")
+            if alg == "convex":
+                check(metrics.sample_count(rt_name) - rt0 == 1 and
+                      rts == (1, 1), f"{job_id}: round trips {rts}")
+                check(launches["score_capacity"] == 1,
+                      f"{job_id}: K2 launched {launches['score_capacity']}")
+            run = {"algorithm": alg, "wall_s": t1 - t0, "counts": d,
+                   "round_trips": rts[1], "launches": launches,
+                   "iterations": metrics.snapshot()["gauges"].get(
+                       "nomad.solver.convex.iterations")}
+            out["runs"].append(run)
+            log(f"convex server: {job_id} under {alg}: {CONVEX_COUNT} "
+                f"committed, 0 rows over capacity, register -> commit "
+                f"{run['wall_s']} s, {rts[1]} round trips, launches "
+                f"{json.dumps(launches)}, counts {json.dumps(d)}")
+        for alg in ("convex", "tpu-batch"):
+            out[f"{alg}_wall_s"] = [r["wall_s"] for r in out["runs"]
+                                    if r["algorithm"] == alg]
+        out["launches"] = {k: sum(r["launches"][k] for r in out["runs"]
+                                  if r["algorithm"] == "convex")
+                           for k in ("convex_solve", "score_capacity")}
+
+        # (c) a faulted convex dispatch: nacked, redelivered, committed
+        srv.set_scheduler_configuration(
+            SchedulerConfiguration(scheduler_algorithm="convex"))
+        srv.eval_broker.initial_nack_delay = 0.05
+        c0 = {k: metrics.counter(v) for k, v in names.items()}
+        faults.install({"solver.dispatch.convex": {"mode": "raise",
+                                                   "times": 1}})
+        t0 = time.perf_counter()
+        eval_id = srv.job_register(
+            _mk_batch_job(mock, "cvx-faulted", MID_COUNT))["eval_id"]
+        t1 = _wait_evals(srv, [eval_id])
+        jobs["cvx-faulted"] = MID_COUNT
+        _check_committed(srv, jobs)
+        d = {k: metrics.counter(v) - c0[k] for k, v in names.items()}
+        plans = {a.create_index for a in
+                 srv.state.allocs_by_job("default", "cvx-faulted")}
+        check(d["convex_errors"] == 1 and d["eval_failures"] == 1 and
+              d["cpu_solves"] == 0 and d["convex"] == 1 and
+              len(plans) == 1, f"convex fault counted {d}, {len(plans)} "
+              f"commits")
+        out["fault"] = {"counts": d, "wall_s": t1 - t0}
+        log(f"convex fault: solver.dispatch.convex raised once under a "
+            f"{MID_COUNT}-task convex eval; the worker nacked it, the "
+            f"broker redelivered it, the second delivery committed "
+            f"{MID_COUNT} in one plan, {t1 - t0:.3f} s after register; "
+            f"counts {json.dumps(d)}")
+    finally:
+        faults.clear()
+        backend.reset()
+        _shutdown(srv)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2573,6 +2861,11 @@ def main() -> int:
     stream = stream_phase(np, torch, nodes, card)
     rejections = rejection_phase(np, torch, card)
     fault = server_fault_phase(np, torch, nodes)
+    t_cvx = time.perf_counter()
+    cvx = convex_kernel_phase(np, torch, dev,
+                              res["depth_curve"]["floor_ms"])
+    cvx_server = convex_server_phase(np, torch, nodes)
+    log(f"convex phase: {time.perf_counter() - t_cvx:.1f} s")
 
     meta = {
         "depth_curve": ("nomad_tpu_torch/solver/csrc/depth_curve.cu",
@@ -2589,6 +2882,9 @@ def main() -> int:
         # no Pallas kernel: place_chunked's lax.scan, one XLA program
         "chunked_scan": ("nomad_tpu_torch/solver/csrc/chunked_scan.cu",
                          "nomad_tpu/solver/kernels.py:345"),
+        # no Pallas kernel: convex_eval's lax.while_loop, one XLA program
+        "convex_solve": ("nomad_tpu_torch/solver/csrc/convex_solve.cu",
+                         "nomad_tpu/solver/convex.py:129"),
     }
     # each kernel's launches on the path that runs it: the scan's two on
     # the service path (the step kernel no longer runs there)
@@ -2597,6 +2893,10 @@ def main() -> int:
         launches[name] = service["launches"][name]
     # the windows' on the stream at STREAM_COUNT with batching on
     launches["depth_curve_lanes"] = stream["launches"]["depth_curve_lanes"]
+    # the convex solve's on the server's convex evals; its row's numbers
+    # from the main path's shape, bench_binpack
+    launches["convex_solve"] = cvx_server["launches"]["convex_solve"]
+    res["convex_solve"] = cvx["bench_binpack"]
     rows = []
     for name, (src, rep) in meta.items():
         r = res[name]
@@ -2609,7 +2909,8 @@ def main() -> int:
         for k in ("near_tie_rows", "moved_nodes", "grid_ms", "spread_ms",
                   "k512_ms", "depths_evaluated", "score_ms", "steps",
                   "solve_device_ms", "barrier_ms", "dependency_floor_ms",
-                  "solo_8_ms"):
+                  "solo_8_ms", "iterations", "eval_device_ms",
+                  "eval_call_ms"):
             if k in r:
                 row[k] = r[k]
         rows.append(row)
@@ -2620,6 +2921,10 @@ def main() -> int:
                     "explain_reduce": ex, "ladder": ladder,
                     "server": server, "stream": stream,
                     "rejections": rejections, "server_fault": fault,
+                    "convex": {k: {f: v for f, v in r.items()
+                                   if f != "eval_kernels"}
+                               for k, r in cvx.items()},
+                    "convex_server": cvx_server,
                     "native_stamping": native_loaded,
                     "greedy_fill": res["greedy_fill"], "pow10": pow10,
                     "card": card,

@@ -15,9 +15,13 @@ find it. `sharding.py` is the single-card part of the reference's
 (snapshot, generation, describe). `backend.warmup` builds every kernel
 at leadership establishment.
 
-Not ported yet: the fused and convex routes, the sharded solves
-(`make_mesh`, `sharded_fill_greedy`) and the reference's host floor and
-pipeline degrade path (card work never moves to the CPU). The copied
+The convex tier (convex.py; scheduler_algorithm "convex") solves a
+depth or greedy eval as one projected-gradient program over the state
+cache's resident twins, one launch of csrc/convex_solve.cu on a card.
+
+Not ported yet: the fused route, the sharded solves (`make_mesh`,
+`sharded_fill_greedy`) and the reference's host floor and pipeline
+degrade path (card work never moves to the CPU). The copied
 plan applier's `state_cache` hooks find this package's cache: the
 evaluate pass gathers from it and every commit feeds it.
 """

@@ -46,6 +46,13 @@ never skips the card. Anything else — a bug, a kernel that does not build
 sites `solver.dispatch.<tier>` (and `device.lost.d<N>` on the cuda rung)
 ride the same catch, so the error path is provable without a sick card.
 
+The convex tier (`select_convex`, under scheduler_algorithm "convex")
+has a chain of one rung too: the whole eval (cuda_kernels.
+convex_eval_fused on a card, convex.convex_eval on the CPU) and its one
+host copy; a device error also counts `nomad.solver.dispatch_errors
+.convex`. The reference's demotion from convex to the classic ladder is
+not ported, by the rule above.
+
 The batch tier has no chain of its own: the micro-batcher classifies a
 window's device error (`nomad.solver.dispatch_errors.batch`), feeds the
 "batch" breaker and raises it to every lane; a solo solve takes the
@@ -112,6 +119,11 @@ _ARG_DTYPES = {
                 14: torch.int32, 15: torch.int32},
     "preempt": {0: torch.float32, 1: torch.int32, 2: torch.float32,
                 3: torch.float32},
+    # convex.convex_eval's: twins, idx, valid, ask, feasible, affinity,
+    # collisions
+    "convex": {0: torch.float32, 1: torch.float32, 2: torch.int32,
+               3: torch.bool, 4: torch.float32, 6: torch.bool,
+               8: torch.float32, 9: torch.int32},
 }
 
 
@@ -505,6 +517,92 @@ def select(kernel: str, n_padded: int = 0, *, count=None, k_max: int = 128,
     return batched
 
 
+# ------------------------------------------------------------------ convex
+
+def convex_enabled(cfg=None, algorithm=None) -> bool:
+    """The convex tier's gate (ref backend.convex_enabled): on when the
+    eval's effective scheduler algorithm is "convex" and the hot-
+    reloadable SchedulerConfiguration.solver_convex_enabled kill switch
+    is on; NOMAD_SOLVER_CONVEX=0/1 overrides both."""
+    env = os.environ.get("NOMAD_SOLVER_CONVEX", "")
+    if env == "0":
+        return False
+    if env == "1":
+        return True
+    if algorithm is not None and algorithm != "convex":
+        return False
+    return bool(getattr(cfg, "solver_convex_enabled", True))
+
+
+def select_convex(kernel: str, *, spread_algorithm: bool = False,
+                  twins_device=None):
+    """-> (tier, run) for the convex solve of a `kernel` ("depth" or
+    "greedy") eval, or None when the convex route declines: the resident
+    twins live on another device than the solves (ref select_convex's
+    twin/tier mismatch). The reference also declines its host tier and
+    remaps its pallas and batch tiers to the XLA program; the port has
+    one tier a solve device, so on a card every depth and greedy eval
+    takes the convex route.
+
+    `run(*convex_args)` takes convex.convex_eval's positional args (the
+    twins, idx, valid, ask, count, ...) and returns its outputs on the
+    host through ONE copy (convex.to_host)."""
+    dev = _device.solve_device()
+    tier_name = tier()
+    if twins_device is not None and torch.device(twins_device) != dev:
+        return None
+    key = ("convex", kernel, tier_name, str(dev), spread_algorithm)
+    cached = _cache.get(key)
+    if cached is None:
+        cached = _cache[key] = (tier_name, _convex_chain(
+            kernel, tier_name, dev, spread_algorithm))
+    return cached
+
+
+def _fire_convex_sites(tier: str, dev) -> None:
+    """The convex dispatch's fault sites: `solver.dispatch.convex`, the
+    tier's own `solver.dispatch.<tier>` and, on a card, its
+    `device.lost.d<N>`."""
+    faults.fire("solver.dispatch.convex")
+    faults.fire(f"solver.dispatch.{tier}")
+    if tier == "cuda":
+        faults.fire(f"device.lost.d{dev.index or 0}")
+
+
+def _convex_chain(kernel: str, tier: str, dev, spread_algorithm: bool):
+    """The convex dispatch: the eval (cuda_kernels.convex_eval_fused on a
+    card, convex.convex_eval on the CPU) and its one host copy. A
+    classified device error is counted (`nomad.solver.dispatch_errors
+    .convex` besides the tier's), fed to the tier's breaker and raised
+    out of the eval; anything else raises untouched. The reference's
+    demotion to the classic ladder is not ported: a failing kernel is
+    reported, never papered over."""
+    from . import convex, cuda_kernels
+    impl = (cuda_kernels.convex_eval_fused if tier == "cuda"
+            else convex.convex_eval)
+
+    def run(*args):
+        from ..obs import trace
+        try:
+            with trace.span("solver.dispatch.convex", tier=tier,
+                            convex=True, kernel=kernel):
+                _fire_convex_sites(tier, dev)
+                host = convex.to_host(impl(
+                    *on_device("convex", args, dev),
+                    spread_algorithm=spread_algorithm))
+        except device_error_types() as e:
+            metrics.incr("nomad.solver.dispatch_errors.convex")
+            note_dispatch_failure(tier, e)
+            raise
+        _breaker.record_success(tier)
+        metrics.incr("nomad.solver.dispatch.convex")
+        metrics.incr(f"nomad.solver.dispatch.convex.{tier}")
+        if tier == "cuda":
+            roundtrip.note("convex")
+        return host
+    return run
+
+
 def record(kernel: str, backend: str) -> None:
     """Emit the per-solve routing metrics
     (`nomad.solver.kernel.<kernel>.<tier>`)."""
@@ -526,13 +624,14 @@ WARMUP_MIN_NODES = 256
 def warmup(n_nodes: int, k_maxes: tuple = (8, 64, 128),
            budget_s: float = 300.0, cfg=None) -> dict:
     """Build and load every kernel the card path uses before the first
-    real eval (ref backend.warmup, without its fused and convex blocks):
+    real eval (ref backend.warmup, without its fused block):
     called from Server._establish_leadership on promotion (a background
     thread), so a leader's first eval builds and loads no kernel. One
     tiny synthetic solve per (kernel, regime) at the cluster's bucket,
     driven through the real `select()` chains — the depth curve dense and
     on the sampled grid for each k_max, the greedy pass and the chunked
-    scan — then one two-lane window of the batch tier's lane solve.
+    scan — then one two-lane window of the batch tier's lane solve, and
+    one convex eval per spread setting when the config routes to convex.
     Most-valuable-first under `budget_s`. Raises nothing: a failure is
     counted (`nomad.solver.warmup.errors`) and the eval pays the build
     lazily (NOMAD_DEBUG=1 re-raises). With NOMAD_COMPILE_CACHE set the
@@ -598,6 +697,33 @@ def warmup(n_nodes: int, k_maxes: tuple = (8, 64, 128),
             if os.environ.get("NOMAD_DEBUG"):
                 raise
             del e
+    # the convex solve (ref warmup's convex block): one synthetic eval per
+    # spread setting through the real select_convex chain, whenever the
+    # config could route evals to the "convex" algorithm
+    if convex_enabled(cfg, getattr(cfg, "scheduler_algorithm", "convex")) \
+            and time.monotonic() - t0 <= budget_s:
+        idx = np.arange(bucket, dtype=np.int32)
+        valid = np.ones(bucket, bool)
+        cls = np.zeros(bucket, np.int32)
+        for spread in (False, True):
+            if time.monotonic() - t0 > budget_s:
+                metrics.incr("nomad.solver.warmup.budget_exhausted")
+                break
+            try:
+                sel = select_convex("greedy", spread_algorithm=spread)
+                if sel is None:
+                    continue
+                sel[1](cap, used, idx, valid, ask, np.int32(1), feasible,
+                       np.int32(2 ** 30), np.zeros(bucket, np.float32),
+                       coll, cls, np.bool_(False), np.int32(200),
+                       np.float32(1e-4), np.float32(0.05),
+                       np.float32(2 ** 30))
+                artifacts += 1
+            except Exception as e:  # noqa: BLE001 — warmup never wedges
+                metrics.incr("nomad.solver.warmup.errors")
+                if os.environ.get("NOMAD_DEBUG"):
+                    raise
+                del e
     seconds = time.monotonic() - t0
     metrics.incr("nomad.solver.warmup.artifacts", artifacts)
     metrics.set_gauge("nomad.solver.warmup.seconds", round(seconds, 3))

@@ -625,10 +625,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// An empty persistent loop of `steps` cluster barriers on the scan's
-// launch shape: the dependency floor of a solve of that many steps (for
-// measurement only).
-__global__ void __launch_bounds__(THREADS, 1) cluster_barrier_kernel(
+// An empty persistent loop of `steps` cluster barriers on a cluster of
+// CLUSTER CTAs of up to 1,024 threads: the dependency floor of a
+// persistent solve of that many dependent steps (for measurement only;
+// the scan's shape is 512 threads, the convex solve's 1,024).
+__global__ void __launch_bounds__(1024, 1) cluster_barrier_kernel(
     int steps) {
   cg::cluster_group cluster = cg::this_cluster();
   for (int t = 0; t < steps; ++t) cluster.sync();
@@ -748,12 +749,15 @@ extern "C" int chunked_scan_launch(
   return (int)cudaGetLastError();
 }
 
-// `steps` cluster barriers in one launch of the scan's shape (8 CTAs of
-// 512 threads), for measurement only.
-extern "C" int chunked_scan_barrier_launch(int steps, void* stream) {
+// `steps` cluster barriers in one launch of 8 CTAs of `threads` threads
+// (the scan's 512, the convex solve's 1,024), for measurement only.
+extern "C" int chunked_scan_barrier_launch(int steps, int threads,
+                                           void* stream) {
+  if (threads < 1 || threads > 1024) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   scan_config(&cfg, &attr, 0, stream);
+  cfg.blockDim = dim3(threads, 1, 1);
   cudaError_t err = cudaLaunchKernelEx(&cfg, cluster_barrier_kernel, steps);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

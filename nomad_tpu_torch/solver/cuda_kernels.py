@@ -17,6 +17,13 @@ of nomad_tpu/solver/pallas_kernels.py.
                   running state on chip (no Pallas counterpart: the
                   reference runs the scan as one XLA program);
                   `place_chunked` launches it once per solve
+  convex_solve    csrc/convex_solve.cu, the convex tier's projected-
+                  gradient solve in one launch: a persistent cluster of 8
+                  CTAs that keeps the iterate on chip (no Pallas
+                  counterpart: the reference runs it as one XLA program,
+                  convex.py `convex_eval`); `convex_eval_fused` is the
+                  whole eval with it and the score/capacity kernel's
+                  greedy entry as the baseline
   chunked_step    csrc/chunked_step.cu, one scan step's score pass: the
                   score the scan kernel shares (csrc/chunked_score.cuh),
                   held bit for bit against the plain step; no placer path
@@ -41,12 +48,12 @@ nvcc) raises KernelBuildError, which the backend passes through
 untouched; a launch that reports a CUDA error raises KernelLaunchError,
 a device error that feeds the backend's breaker before it raises.
 
-Wrappers: `fill_depth_fused`, `fill_greedy_binpack_fused` and
-`place_chunked` keep the reference signatures; `fill_depth_lanes` takes
-kernels.fill_depth_lanes's. A wrapper given CPU
-tensors runs the plain version (kernels.py), as every wrapper here does,
-though the placer itself routes CPU solves to the torch tier
-(backend.select); given CUDA tensors it checks device, dtype, shape and
+Wrappers: `fill_depth_fused`, `fill_greedy_binpack_fused`,
+`place_chunked` and `convex_eval_fused` keep the reference signatures;
+`fill_depth_lanes` takes kernels.fill_depth_lanes's. A wrapper given CPU
+tensors runs the plain version (kernels.py, convex.py), though the
+placer itself routes CPU solves to the torch tier (backend.select);
+given CUDA tensors it checks device, dtype, shape and
 contiguity, allocates its outputs (and the scan's scratch), launches on
 the current stream and raises if the launch reports an error. `LAUNCHES`
 counts the launches of each placement kernel; nothing else adds to it.
@@ -69,7 +76,7 @@ from pathlib import Path
 import torch
 
 from ..metrics import metrics
-from . import kernels
+from . import convex, kernels
 from .buckets import BATCH_LANES
 from .kernels import NUM_XR, _greedy_fill
 
@@ -83,12 +90,13 @@ SOURCES = {"depth_curve": "depth_curve.cu",
            "score_capacity": "score_capacity.cu",
            "chunked_step": "chunked_step.cu",
            "chunked_scan": "chunked_scan.cu",
+           "convex_solve": "convex_solve.cu",
            "launch_floor": "launch_floor.cu",
            "pow10_check": "pow10_check.cu"}
 # the placement kernels' launch counts (depth_curve counts solo solves,
 # depth_curve_lanes the windows: one entry of depth_curve.cu)
 KERNELS = ("depth_curve", "depth_curve_lanes", "score_capacity",
-           "chunked_step", "chunked_scan")
+           "chunked_step", "chunked_scan", "convex_solve")
 MAX_GRID = 32           # csrc/depth_curve.cu DepthGrid capacity
 MAX_LANES = BATCH_LANES  # csrc/depth_curve.cu LaneScalars capacity
 
@@ -112,7 +120,10 @@ _ARGTYPES = {
                             _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
                             _I, _P, _P, _P, _P],
     "chunked_scan_scratch_bytes": [_I, _I, _I, _I, _I],
-    "chunked_scan_barrier_launch": [_I, _P],
+    "chunked_scan_barrier_launch": [_I, _I, _P],
+    "convex_solve_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                            _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P],
+    "convex_solve_scratch_bytes": [_I],
     "launch_floor_launch": [_P],
     "pow10_check_launch": [ctypes.c_uint, ctypes.c_uint, _P, _P],
 }
@@ -602,11 +613,69 @@ def place_chunked(cap, used, ask, count, feasible, job_collisions,
         spread_algorithm=spread_algorithm, placed_init=placed_init)[:4]
 
 
-def cluster_barrier(steps: int, dev) -> None:
-    """One launch of `steps` cluster barriers on the scan kernel's shape
-    (8 CTAs of 512 threads) on `dev`'s current stream: a solve's
-    dependency floor, for measurement only; not counted in LAUNCHES."""
-    err = _fn("chunked_scan", "barrier_launch")(int(steps), _stream(dev))
+def convex_solve(cap, used, ask, feasible, job_collisions, affinity_boost,
+                 count, max_per_node, max_iters, tolerance, fairness_weight,
+                 quota_budget, spread_algorithm: bool = False) -> tuple:
+    """The convex solve (convex.convex_solve_ref's signature and returns:
+    x, u_int, cost, budget_int, iterations, gap) — one launch of the
+    convex-solve kernel on CUDA tensors, its outputs left on the card;
+    the plain version on CPU tensors."""
+    if cap.device.type == "cpu":
+        return convex.convex_solve_ref(
+            cap, used, ask, feasible, job_collisions, affinity_boost, count,
+            max_per_node, max_iters, tolerance, fairness_weight,
+            quota_budget, spread_algorithm=spread_algorithm)
+    n = _check_rows(cap, used, ask, feasible,
+                    (job_collisions, "job_collisions", torch.int32),
+                    (affinity_boost, "affinity_boost", torch.float32))
+    dev = cap.device
+    x = torch.empty((n,), dtype=torch.float32, device=dev)
+    cost = torch.empty((n,), dtype=torch.float32, device=dev)
+    u_int = torch.empty((n,), dtype=torch.int32, device=dev)
+    scalars = torch.empty((4,), dtype=torch.int32, device=dev)
+    nbytes = int(_fn("convex_solve", "scratch_bytes")(n))
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    err = _fn("convex_solve")(
+        cap.data_ptr(), used.data_ptr(), ask.data_ptr(), feasible.data_ptr(),
+        job_collisions.data_ptr(), affinity_boost.data_ptr(), n,
+        min(int(max_per_node), kernels.MAX_PER_NODE_CAP), int(count),
+        int(max_iters), int(bool(spread_algorithm)), float(tolerance),
+        float(fairness_weight), float(quota_budget),
+        convex.curvature(spread_algorithm),
+        convex.step_offset(spread_algorithm), kernels._INV_MAX_SCORE,
+        scratch.data_ptr(), x.data_ptr(), u_int.data_ptr(), cost.data_ptr(),
+        scalars.data_ptr(), _stream(dev))
+    _launched("convex_solve", err)
+    return (x, u_int, cost, scalars[0], scalars[1],
+            scalars[2:3].view(torch.float32).reshape(()))
+
+
+def convex_eval_fused(cap_res, used_res, idx, valid, ask, count, feasible,
+                      max_per_node, affinity_boost, job_collisions,
+                      class_ids, distinct_hosts, max_iters, tolerance,
+                      fairness_weight, quota_budget,
+                      spread_algorithm: bool = False,
+                      n_classes: int = 0) -> tuple:
+    """convex.convex_eval with the convex-solve kernel as its solve and
+    the score/capacity kernel's greedy entry as its baseline: one launch
+    of each, the gather, rounding and selection as torch ops behind them
+    on the same stream, nothing read back. CPU tensors run the plain
+    eval."""
+    return convex.convex_eval(
+        cap_res, used_res, idx, valid, ask, count, feasible, max_per_node,
+        affinity_boost, job_collisions, class_ids, distinct_hosts,
+        max_iters, tolerance, fairness_weight, quota_budget,
+        spread_algorithm=spread_algorithm, n_classes=n_classes,
+        solve=convex_solve, greedy=fill_greedy_binpack_fused)
+
+
+def cluster_barrier(steps: int, dev, threads: int = 512) -> None:
+    """One launch of `steps` cluster barriers on 8 CTAs of `threads`
+    threads (the scan kernel's 512, the convex solve's 1,024) on `dev`'s
+    current stream: a persistent solve's dependency floor, for
+    measurement only; not counted in LAUNCHES."""
+    err = _fn("chunked_scan", "barrier_launch")(int(steps), int(threads),
+                                                _stream(dev))
     if err != 0:
         raise RuntimeError(f"cluster_barrier kernel launch failed: "
                            f"cudaError_t {err}")

@@ -150,11 +150,15 @@ def _greedy_fill(capacity: torch.Tensor, key: torch.Tensor,
                  count) -> torch.Tensor:
     """Greedy tail, take step: smallest key (best score) first, each node
     to its capacity. One stable sort + cumsum. i32[N] instances per
-    node."""
+    node. `count` is a host integer or a 0-dim int32 tensor on the
+    solve device (the convex solve's budget), read there without a host
+    sync."""
     order = torch.argsort(key, stable=True)                 # best first
     cap_sorted = capacity[order]
     prior = torch.cumsum(cap_sorted, 0, dtype=torch.int32) - cap_sorted
-    take = torch.minimum((int(count) - prior).clamp(min=0), cap_sorted)
+    if not isinstance(count, torch.Tensor):
+        count = int(count)
+    take = torch.minimum((count - prior).clamp(min=0), cap_sorted)
     placed = torch.zeros_like(capacity)
     placed[order] = take
     return placed
@@ -418,6 +422,18 @@ def fill_depth_lanes(cap, used, ask, counts, feasible, job_collisions,
         spread_algorithm=spread_algorithm, depth_grid=depth_grid)
     return _depth_order_take(d_star, k_star, k_cap, counts, order_jitter,
                              jitter_scales, jitter_samples)
+
+
+def gather_rows(cap_res: torch.Tensor, used_res: torch.Tensor,
+                idx: torch.Tensor, valid: torch.Tensor) -> tuple:
+    """Rows `idx` of the state cache's bucket-padded twins in eval
+    (shuffled) order, rows where `valid` is False zeroed, as the host
+    np.pad path pads (ref kernels.gather_rows). Torch indexing on the
+    twins' device: enqueued, no host sync."""
+    m2 = valid[:, None]
+    rows = idx.to(torch.int64)
+    return (torch.where(m2, cap_res[rows], 0.0),
+            torch.where(m2, used_res[rows], 0.0))
 
 
 def plan_fit_verdict(cap: torch.Tensor, used: torch.Tensor,

@@ -54,8 +54,15 @@ solve passes its count to backend.select, which may send it to the
 batch tier. Pipelined chunk solves never batch (their counts are far
 above BATCH_MAX_COUNT, and their chained usage stays on the card).
 
-Not ported: the fused and convex routes and the preemption scan sharded
-over a device mesh.
+Convex tier (scheduler_algorithm "convex"): a depth or greedy solve
+first tries `_convex_solve`, the whole eval as one projected-gradient
+solve over the state cache's resident twins (backend.select_convex; on a
+card one launch of csrc/convex_solve.cu), as the reference's placer
+does; it declines to the route above where the reference declines. The
+scan and the pipelined lifecycle never take it.
+
+Not ported: the fused route and the preemption scan sharded over a
+device mesh.
 """
 from __future__ import annotations
 
@@ -73,7 +80,7 @@ from ..structs import (
 )
 from ..scheduler.stack import SelectOptions
 from . import backend, device as _device, explain as explain_mod
-from . import microbatch, roundtrip
+from . import microbatch, roundtrip, sharding
 from ..obs import trace
 from .buckets import node_bucket, pow2
 from .tensorize import (
@@ -554,11 +561,118 @@ class SolverPlacer:
             return None
         return gt.cap_dev, gt.used_dev
 
-    def _dispatch(self, prep, tg, count: int) -> np.ndarray:
-        """The solve through the backend's dispatch chain: select the
-        tier, launch (on the cache's twins where they served the eval),
-        and bring the placement vector back at the one host sync."""
+    def _convex_solve(self, kernel: str, prep, count: int):
+        """The convex tier (ref placer._convex_solve): the eval's
+        allocation as ONE projected-gradient solve over the state cache's
+        resident twins — gather, iterate, round, fit verdict and greedy
+        baseline on the device, brought back at one host sync
+        (backend.select_convex). -> (placed_h padded, fit_h, tier), or
+        None when the route declines: the algorithm or the kill switch
+        is off, there are no resident twins (cache disabled, unversioned
+        view, a stale view, in-plan corrections), or their generation or
+        device differs from the solve's. The iteration-count and
+        objective-gap gauges and the won/fell_back counters ride the same
+        sync. A device error raises out of the eval (the chain counts it
+        and feeds the breaker)."""
+        cfg = self.ctx.scheduler_config
+        if not backend.convex_enabled(
+                cfg, cfg.effective_scheduler_algorithm()):
+            return None
         gt = prep.gt
+        if gt.resident is None or gt.rows is None:
+            return None
+        if gt.gen is not None and gt.gen != sharding.generation():
+            return None
+        cap_res, used_res = gt.resident
+        bucket = gt.cap.shape[0]
+        sel = backend.select_convex(kernel,
+                                    spread_algorithm=prep.spread_alg,
+                                    twins_device=cap_res.device)
+        if sel is None:
+            return None
+        tier, run = sel
+        idx = np.zeros(bucket, np.int32)
+        idx[:prep.n] = gt.rows
+        valid = np.zeros(bucket, bool)
+        valid[:prep.n] = True
+        aff = (prep.aff if prep.aff is not None
+               else np.zeros(bucket, np.float32))
+        # per-tenant quota -> a hard budget cap for THIS eval's
+        # placements: quota minus the namespace's current allocations
+        quota = int(getattr(cfg, "solver_convex_namespace_quota", 0) or 0)
+        if quota > 0:
+            ns = getattr(self.sched.job, "namespace", "default")
+            try:
+                ns_used = self.state.namespace_alloc_counts().get(ns, 0)
+            except AttributeError:
+                ns_used = 0     # restored pre-knob state views
+            budget = float(max(0, quota - ns_used))
+        else:
+            budget = float(2 ** 30)
+        placed_h, fit_h, iters, gap, won = run(
+            cap_res, used_res, idx, valid, gt.ask, np.int32(count),
+            gt.feasible, np.int32(prep.max_per_node), aff,
+            gt.job_collisions, np.zeros(bucket, np.int32),
+            np.bool_(gt.distinct_hosts),
+            np.int32(getattr(cfg, "solver_convex_max_iters", 200)),
+            np.float32(getattr(cfg, "solver_convex_tolerance", 1e-4)),
+            np.float32(getattr(cfg, "solver_convex_fairness_weight", 0.05)),
+            np.float32(budget))
+        metrics.set_gauge("nomad.solver.convex.iterations", iters)
+        metrics.set_gauge("nomad.solver.convex.objective_gap", float(gap))
+        metrics.incr("nomad.solver.convex.won" if won
+                     else "nomad.solver.convex.fell_back")
+        return placed_h, fit_h, tier
+
+    def _stamp_verdict(self, prep, placed: np.ndarray,
+                       fit: np.ndarray) -> None:
+        """Attach the convex solve's plan-evaluate verdict to the eval's
+        plan (ref placer._stamp_verdict): per view row, the verified ask
+        k * ask at the solve's journal version for placed rows whose
+        post-solve fit held. The applier takes it as a monotone fast
+        path (plan_apply._shape_dense): a True row whose actual ask is
+        elementwise <= the verified one fits at the same usage bits, so
+        its dense re-compare is skipped; anything else re-checks. Solves
+        of one plan at different journal versions void the stamp."""
+        gt = prep.gt
+        if gt.version < 0 or gt.rows is None or fit is None:
+            return
+        plan = self.plan
+        sv = getattr(plan, "solver_verdict", None)
+        if sv is not None and (sv.get("version") != gt.version or
+                               sv.get("uid") != gt.uid or
+                               sv.get("epoch") != gt.epoch):
+            plan.solver_verdict = None
+            return
+        if sv is None:
+            sv = plan.solver_verdict = {
+                "version": gt.version, "uid": gt.uid, "epoch": gt.epoch,
+                "rows": {}}
+        ask = np.asarray(gt.ask, np.float32)
+        for i in np.flatnonzero(placed > 0):
+            if not fit[i]:
+                continue
+            row = int(gt.rows[i])
+            if row in sv["rows"]:
+                # two solves verified the same node independently: the
+                # row re-checks normally
+                del sv["rows"][row]
+                continue
+            sv["rows"][row] = np.float32(placed[i]) * ask
+
+    def _dispatch(self, prep, tg, count: int) -> np.ndarray:
+        """The solve through the backend's dispatch chain: the convex
+        tier where it engages, else select the tier, launch (on the
+        cache's twins where they served the eval), and bring the
+        placement vector back at the one host sync."""
+        gt = prep.gt
+        kernel = "depth" if prep.use_depth else "greedy"
+        cvx = self._convex_solve(kernel, prep, count)
+        if cvx is not None:
+            placed_h, fit_h, bname = cvx
+            backend.record(kernel, bname)
+            self._stamp_verdict(prep, placed_h[:prep.n], fit_h)
+            return placed_h
         if prep.use_depth:
             # `count` lets a small solve take the batch tier while other
             # evals are in flight (backend._batch_eligible)

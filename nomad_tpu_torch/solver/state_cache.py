@@ -130,7 +130,8 @@ class GatherResult:
     ready for dispatch (padding rows zero, exactly like the host np.pad
     path). `gen` is the generation the twins were seeded at."""
 
-    __slots__ = ("cap", "used", "cap_dev", "used_dev", "gen")
+    __slots__ = ("cap", "used", "cap_dev", "used_dev", "gen", "resident",
+                 "version", "uid", "epoch")
 
     def __init__(self, cap, used, cap_dev=None, used_dev=None, gen=None):
         self.cap = cap
@@ -138,6 +139,12 @@ class GatherResult:
         self.cap_dev = cap_dev
         self.used_dev = used_dev
         self.gen = gen
+        # resident=True requests: the whole twins (cap, used) with the
+        # journal version, uid and epoch their bits reflect
+        self.resident = None
+        self.version = -1
+        self.uid = 0
+        self.epoch = -1
 
 
 class TensorCache:
@@ -352,7 +359,8 @@ class TensorCache:
     # -------------------------------------------------------------- reading
 
     def gather(self, view, rows: np.ndarray, bucket: int = 0,
-               tier: str = "") -> Optional[GatherResult]:
+               tier: str = "",
+               resident: bool = False) -> Optional[GatherResult]:
         """Serve one eval's (shuffled) node rows from the cache, advancing
         it to the view's version first. Returns None when the cache is
         disabled or the view carries no versioning stamp (plain test
@@ -364,15 +372,21 @@ class TensorCache:
         device too, padded to `bucket` rows, when `tier` (the backend
         tier the caller resolved, "cuda" or "torch") solves on the
         device the twins live on. The twins move to the solve device
-        first if they are elsewhere. (The reference's `fused` flag, the
-        zero-launch resident handle of its fused route, is not ported.)"""
+        first if they are elsewhere.
+
+        `resident=True` (the reference's `fused` flag, which its convex
+        route sets) instead hands back the whole current twins with the
+        journal version their bits reflect (`resident`, `version`, `uid`,
+        `epoch`), gathering nothing: the convex solve gathers the eval's
+        rows behind its own launch. No tier check there; the convex
+        selector compares the twins' device with the solve device."""
         if view.uid == 0 or view.delta_log is None or not self.enabled():
             return None
         # the lock covers only version bookkeeping + the journal replay;
         # the per-eval fancy-index copies and the device gather run
         # OUTSIDE it on captured references — once displaced or replaced,
         # generation arrays (host and device) are never mutated again
-        dev = None
+        dev = res = None
         with self._lock:
             if view.uid == self._uid and view.epoch < self._epoch:
                 # a snapshot from BEFORE a node-set change: never roll the
@@ -392,7 +406,14 @@ class TensorCache:
                     if not seeded:  # a reseed already counted its miss
                         self._hit()
                     src_cap, src_used = self.cap, self.used
-                    if bucket and self.cap is not None:
+                    if resident and self.cap is not None:
+                        # twin updates are functional: these references
+                        # keep exactly this version's bits
+                        pair = self._device_pair_locked("")
+                        if pair is not None:
+                            res = (pair, self.version, self._uid,
+                                   self._epoch)
+                    elif bucket and self.cap is not None:
                         dev = self._device_pair_locked(tier)
                 else:
                     for gen in self._ring:
@@ -413,6 +434,9 @@ class TensorCache:
             out.gen = GENERATION
             out.cap_dev, out.used_dev = self._gather_device(dev, rows,
                                                             bucket)
+        if res is not None:
+            out.resident, out.version, out.uid, out.epoch = res
+            out.gen = GENERATION
         return out
 
     def _device_pair_locked(self, tier: str) -> Optional[tuple]:

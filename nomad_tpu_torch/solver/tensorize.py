@@ -42,11 +42,11 @@ class GroupTensors:
     gen: Optional[int] = None          # mesh generation the twins ride
                                        # (ISSUE 14: placer._dev_mats
                                        # declines stale-generation twins)
-    # whole-eval residency (ISSUE 15): the zero-launch resident-twin
-    # handle (cap_res, used_res, sharded) + the view row index per node
-    # and the usage-journal version the twins' bits reflect — the fused
-    # dispatch gathers in-program and the plan applier's verdict
-    # fast-path trusts the version stamp. Dropped (like the dev twins)
+    # the convex route's resident twins (cap_res, used_res), whole and
+    # ungathered, + the view row index per node and the usage-journal
+    # version the twins' bits reflect — the convex solve gathers its
+    # rows behind its own launch and the plan applier's verdict fast
+    # path trusts the version stamp. Dropped (like the dev twins)
     # whenever the host copies diverge via in-plan corrections.
     resident: object = None
     rows: Optional[np.ndarray] = None  # i64[N] view row per node
@@ -342,11 +342,15 @@ def _build_dense(ctx, job, tg: TaskGroup, nodes: list[Node], feasible_fn,
     # the state cache serves versioned views: host copies of the SAME bits
     # a fresh view gather yields (the bit-identity contract), plus bucket-
     # padded twins on the solve device for the dispatch. Unversioned views
-    # (plain test fakes) and a disabled cache take the view path. The
-    # fused route is not ported, so no zero-launch resident handle is
-    # asked for and `resident` stays None.
+    # (plain test fakes) and a disabled cache take the view path. Under
+    # the "convex" algorithm the cache hands back the resident twins
+    # instead (no gather launches): the convex solve gathers the eval's
+    # rows itself, as the reference's does.
+    cfg = getattr(ctx, "scheduler_config", None)
+    cvx = cfg is not None and backend.convex_enabled(
+        cfg, cfg.effective_scheduler_algorithm())
     cached = state_cache.gather(view, rows, bucket=node_bucket(n),
-                                tier=backend.tier())
+                                tier=backend.tier(), resident=cvx)
     gen = None
     resident = None
     res_version, res_uid, res_epoch = -1, 0, -1
@@ -354,6 +358,9 @@ def _build_dense(ctx, job, tg: TaskGroup, nodes: list[Node], feasible_fn,
         cap, used = cached.cap, cached.used
         cap_dev, used_dev = cached.cap_dev, cached.used_dev
         gen = cached.gen
+        resident = cached.resident
+        res_version = cached.version
+        res_uid, res_epoch = cached.uid, cached.epoch
     else:
         cap = view.cap[rows]                   # fancy index => fresh arrays
         used = view.used[rows]

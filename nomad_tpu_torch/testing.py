@@ -336,3 +336,91 @@ def explain_boundary_case(n=8):
     cls = np.arange(n, dtype=np.int32) % 2
     return (cap, used, ask, np.ones(n, bool), np.zeros(n, np.int32),
             placed, cls, np.bool_(False))
+
+
+# ------------------------------------------------------- convex fixtures
+
+def convex_case(n=10_000, bucket=16_384, seed=1910, count=3_000):
+    """bench.py `_convex_run`'s fragmented cluster (seed 1910): uniform
+    caps, beta-skewed usage (most nodes part-full, a tail nearly
+    exhausted), 5% infeasible, same-job collisions 0..3; n live rows in
+    a `bucket`-row solve (padding rows zero and infeasible), as the
+    placer pads. -> (cap, used, feasible, coll, ask, count)."""
+    rng = np.random.default_rng(seed)
+    cap = np.zeros((bucket, 5), np.float32)
+    cap[:n] = (4_000.0, 8_192.0, 500_000.0, 12_001.0, 10_000.0)
+    used = np.zeros_like(cap)
+    used[:n, 0] = (rng.beta(2, 3, n) * 3_900).astype(np.float32)
+    used[:n, 1] = (rng.beta(2, 3, n) * 8_000).astype(np.float32)
+    used[:n, 2] = (rng.beta(2, 5, n) * 400_000).astype(np.float32)
+    feasible = np.zeros(bucket, bool)
+    feasible[:n] = rng.random(n) > 0.05
+    coll = np.zeros(bucket, np.int32)
+    coll[:n] = rng.integers(0, 4, n)
+    ask = np.zeros(5, np.float32)
+    ask[:3] = (250.0, 512.0, 300.0)
+    return cap, used, feasible, coll, ask, count
+
+
+def convex_fuzz_cluster(rng, b=128):
+    """tests/test_convex.py's fragmented cluster of `b` rows: uniform
+    caps, beta-skewed usage, 10% infeasible, random same-job collisions.
+    -> (cap, used, feasible, coll, ask)."""
+    cap = np.zeros((b, 5), np.float32)
+    cap[:] = (4_000.0, 8_192.0, 500_000.0, 12_001.0, 10_000.0)
+    used = np.zeros_like(cap)
+    used[:, 0] = (rng.beta(2, 3, b) * 3_900).astype(np.float32)
+    used[:, 1] = (rng.beta(2, 3, b) * 8_000).astype(np.float32)
+    used[:, 2] = (rng.beta(2, 5, b) * 400_000).astype(np.float32)
+    feasible = rng.random(b) > 0.1
+    coll = rng.integers(0, 4, b).astype(np.int32)
+    ask = np.zeros(5, np.float32)
+    ask[:3] = (250.0, 512.0, 300.0)
+    return cap, used, feasible, coll, ask
+
+
+# the convex solve's fixtures for the card tests and chip_smoke.py: the
+# kernel against the plain version. The bench_* cases are the main
+# path's shape (10,000 nodes, 16,384 rows); small_spread_deep runs all
+# 200 iterations (the objective keeps moving by float32 noise)
+CONVEX_CASES = ("bench_binpack", "bench_spread", "bench_binpack_deep",
+                "bench_spread_deep", "fuzz_quota", "fuzz_distinct",
+                "fuzz_affinity", "fuzz_zero", "fuzz_above_cap",
+                "homogeneous", "small_spread_deep")
+
+
+def convex_fixture(name):
+    """-> (cap, used, feasible, coll, ask, count, kw): convex_eval's
+    inputs for CONVEX_CASES[name]; kw holds spread_algorithm, tolerance,
+    max_iters, fairness_weight, quota_budget, max_per_node and
+    affinity_boost (None: zeros)."""
+    kw = dict(spread_algorithm=name.endswith(("spread", "spread_deep")),
+              tolerance=1e-9 if name.endswith("deep") else 1e-4,
+              max_iters=200, fairness_weight=0.05,
+              quota_budget=float(2 ** 30), max_per_node=2 ** 30,
+              affinity_boost=None)
+    if name.startswith("bench"):
+        return (*convex_case(), kw)
+    if name == "small_spread_deep":
+        return (*convex_case(100, 128, count=300), kw)
+    if name == "homogeneous":
+        cap = np.zeros((64, 5), np.float32)
+        cap[:] = (4_000.0, 8_192.0, 500_000.0, 12_001.0, 10_000.0)
+        used = np.zeros_like(cap)
+        used[:, 0], used[:, 1] = 1_000.0, 2_048.0
+        ask = np.zeros(5, np.float32)
+        ask[:3] = (250.0, 512.0, 300.0)
+        return (cap, used, np.ones(64, bool), np.zeros(64, np.int32), ask,
+                37, kw)
+    rng = np.random.default_rng(41)
+    case = convex_fuzz_cluster(rng)
+    count = {"fuzz_zero": 0, "fuzz_above_cap": 100_000}.get(name, 60)
+    if name == "fuzz_quota":
+        kw["quota_budget"] = 5.0
+    if name == "fuzz_distinct":
+        kw["max_per_node"] = 1
+    if name == "fuzz_affinity":
+        kw["affinity_boost"] = np.where(
+            rng.random(128) < 0.3, rng.uniform(-0.5, 0.5, 128),
+            0.0).astype(np.float32)
+    return (*case, count, kw)

@@ -13,8 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from nomad_tpu_torch.solver import cuda_kernels, kernels
-from nomad_tpu_torch.testing import SCAN_CASES, chunked_case, split_solves
+from nomad_tpu_torch.solver import convex, cuda_kernels, kernels
+from nomad_tpu_torch.testing import (
+    CONVEX_CASES, SCAN_CASES, chunked_case, convex_fixture, split_solves,
+)
 
 NUM_XR = 5
 ATOL = 1e-4
@@ -586,3 +588,80 @@ def test_depth_curve_takes_at_most_a_windows_lanes(dev):
     assert cuda_kernels.LAUNCHES["depth_curve"] == before["depth_curve"] + 1
     assert cuda_kernels.LAUNCHES["depth_curve_lanes"] == \
         before["depth_curve_lanes"]
+
+
+def _convex_inputs(name, dev):
+    """CONVEX_CASES[name] as convex_solve's and convex_eval's args on
+    `dev`."""
+    cap, used, feas, coll, ask, count, kw = convex_fixture(name)
+    b = cap.shape[0]
+    aff = kw["affinity_boost"]
+    aff = np.zeros(b, np.float32) if aff is None else aff
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    solve = (t(cap), t(used), t(ask), t(feas), t(coll), t(aff), count,
+             kw["max_per_node"], kw["max_iters"], kw["tolerance"],
+             kw["fairness_weight"], kw["quota_budget"])
+    evals = (t(cap), t(used), t(np.arange(b, dtype=np.int32)),
+             t(np.ones(b, bool)), t(ask), count, t(feas),
+             kw["max_per_node"], t(aff), t(coll), None, False,
+             kw["max_iters"], kw["tolerance"], kw["fairness_weight"],
+             kw["quota_budget"])
+    return solve, evals, kw["spread_algorithm"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CONVEX_CASES)
+def test_convex_solve_kernel_matches_plain(dev, name):
+    """The convex-solve kernel returns the plain version's iterate, u,
+    cost, budget, iteration count and gap bit for bit (both sum in the
+    kernel's cluster order), in one launch; the whole eval on the card
+    (kernel, K2's greedy entry, torch tail) places as the plain eval:
+    placements, fit and convex_won equal, iterations equal, the gap
+    within 1e-6."""
+    solve, evals, spread = _convex_inputs(name, dev)
+    before = cuda_kernels.LAUNCHES["convex_solve"]
+    got = cuda_kernels.convex_solve(*solve, spread_algorithm=spread)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["convex_solve"] == before + 1
+    want = convex.convex_solve_ref(*solve, spread_algorithm=spread)
+    for g, w in zip(got, want):
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+    k0 = dict(cuda_kernels.LAUNCHES)
+    card = convex.to_host(cuda_kernels.convex_eval_fused(
+        *evals, spread_algorithm=spread))
+    assert cuda_kernels.LAUNCHES["convex_solve"] == k0["convex_solve"] + 1
+    assert cuda_kernels.LAUNCHES["score_capacity"] == \
+        k0["score_capacity"] + 1
+    plain = convex.to_host(convex.convex_eval(*evals,
+                                              spread_algorithm=spread))
+    np.testing.assert_array_equal(card[0], plain[0])
+    np.testing.assert_array_equal(card[1], plain[1])
+    assert card[2] == plain[2] and card[4] == plain[4]
+    np.testing.assert_allclose(card[3], plain[3], atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_greedy_fill_reads_a_device_count_without_a_sync(dev):
+    """The greedy tail takes the convex budget as a 0-dim device tensor
+    with no host sync, and places what the host count places."""
+    cap, used, ask, feas, _, _ = _inputs(dev)
+    capacity, key = cuda_kernels._launch_score_capacity(
+        cap, used, ask, feas, False, True, 2 ** 30)
+    for count in (0, 1, 777, 10 ** 6):
+        want = kernels._greedy_fill(capacity, key, count)
+        budget = torch.tensor(count, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = kernels._greedy_fill(capacity, key, budget)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.equal(got, want)
+        assert torch.equal(
+            cuda_kernels.fill_greedy_binpack_fused(cap, used, ask, count,
+                                                   feas),
+            kernels.fill_greedy_binpack(cap, used, ask, count, feas))

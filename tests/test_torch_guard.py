@@ -1,8 +1,8 @@
 """Guards on the port package nomad_tpu_torch:
 
-  * it runs evals (the depth solve and the chunked scan, then a job
-    through a two-worker in-process server) with neither jax nor any
-    nomad_tpu module loaded;
+  * it runs evals (the depth solve, the chunked scan and the convex
+    solve, then a job through a two-worker in-process server) with
+    neither jax nor any nomad_tpu module loaded;
   * no module of it, and not chip_smoke.py, imports jax or nomad_tpu;
   * each module it copies verbatim from nomad_tpu is byte-equal to its
     original (the reference is frozen, so drift is a port fault), and
@@ -80,6 +80,20 @@ _EVAL = textwrap.dedent("""
     h.process(lambda s, p: new_scheduler(job.type, s, p), ev)
     assert len(h.state.allocs_by_job("default", job.id)) == 4
     assert metrics.counter("nomad.solver.kernel.chunked.torch") == 1
+    # the "convex" algorithm: the projected-gradient solve (convex.py)
+    h.state.set_scheduler_config(
+        h.get_next_index(),
+        SchedulerConfiguration(scheduler_algorithm="convex"))
+    job = mock.batch_job()
+    job.task_groups[0].count = 7
+    job.task_groups[0].networks = []
+    job.task_groups[0].tasks[0].resources.networks = []
+    h.state.upsert_job(h.get_next_index(), job)
+    ev = Evaluation(job_id=job.id, type=job.type)
+    h.process(lambda s, p: new_scheduler(job.type, s, p), ev)
+    assert len(h.state.allocs_by_job("default", job.id)) == 7
+    assert metrics.counter("nomad.solver.dispatch.convex.torch") == 1
+    assert "nomad_tpu_torch.solver.convex" in sys.modules
     # the in-process server: two workers, a job through the broker
     import time
     from nomad_tpu_torch.server import Server
@@ -164,6 +178,20 @@ def test_no_port_source_imports_jax_or_the_reference():
             if top in ("jax", "jaxlib", "nomad_tpu"):
                 bad.append(f"{path.relative_to(ROOT)}: {mod}")
     assert not bad, bad
+
+
+@pytest.mark.parametrize("rel", ["solver/convex.py", "solver/kernels.py",
+                                 "solver/cuda_kernels.py"])
+def test_convex_route_imports_neither_jax_nor_the_reference(rel):
+    """The convex tier's modules are among the guarded sources and import
+    only torch, numpy and the port."""
+    path = PORT / rel
+    assert path in set(_sources())
+    tops = {m.split(".")[0] for m in _imported_modules(path) if m}
+    assert tops <= {"__future__", "numpy", "torch", "nomad_tpu_torch",
+                    "ctypes", "functools", "hashlib", "os", "shutil",
+                    "subprocess", "threading", "time", "pathlib", "math",
+                    "typing"}, sorted(tops)
 
 
 @pytest.mark.parametrize("rel", VERBATIM)

@@ -168,10 +168,17 @@ def _scenario(Server, mock, structs) -> list:
             _settle(srv)
             out.append((job_id, _digest(srv)))
         # drain the node with the most web allocs, forced: every alloc on
-        # it migrates at the drainer's next poll
+        # it migrates at the drainer's next poll. The drain's own evals
+        # run with the drainer held, then its poll marks the migrations
+        # and their evals move them: one order on both sides (left free,
+        # the poll lands before or after the worker takes the drain's
+        # evals, and the two orders place differently)
         web = [a.node_id for a in srv.state.allocs_by_job("default", "web")]
         target = max(sorted(set(web)), key=web.count)
+        srv.drainer.stop()
         srv.node_update_drain(target, structs.DrainStrategy(deadline_sec=-1))
+        _settle(srv)
+        srv.drainer.start()
         _wait(lambda: all(
             a.desired_transition.should_migrate()
             for a in srv.state.allocs_by_node(target)
@@ -301,16 +308,23 @@ def test_warmup_drives_every_solve_through_its_chain(request, monkeypatch,
                                                      seam):
     """backend.warmup below the floor only when forced: the depth curve
     dense and on the grid for each k_max, greedy, the chunked scan and a
-    window, each through its chain without an error; =0 disables it."""
+    window, each through its chain without an error, and with no config
+    or a "convex" one (the reference's rule) one convex eval per spread
+    setting; =0 disables it."""
     if seam == "card":
         request.getfixturevalue("card")
     assert backend.warmup(64)["skipped"]
     monkeypatch.setenv("NOMAD_AOT_WARMUP", "1")
     errors0 = metrics.counter("nomad.solver.warmup.errors")
     cpu0 = _cpu_solves()
+    convex0 = metrics.counter("nomad.solver.dispatch.convex")
     out = backend.warmup(64)
-    assert not out["skipped"] and out["artifacts"] == 9
+    assert not out["skipped"] and out["artifacts"] == 11
     assert out["bucket"] == 64
+    assert metrics.counter("nomad.solver.dispatch.convex") == convex0 + 2
+    batch = port_structs.SchedulerConfiguration(
+        scheduler_algorithm="tpu-batch")
+    assert backend.warmup(64, cfg=batch)["artifacts"] == 9
     assert metrics.counter("nomad.solver.warmup.errors") == errors0
     assert (_cpu_solves() > cpu0) == (seam == "torch")
     monkeypatch.setenv("NOMAD_AOT_WARMUP", "0")
