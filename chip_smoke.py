@@ -169,6 +169,32 @@ prints no result):
               kernel, 0 CPU solves (`convex server` lines). (c)
               solver.dispatch.convex faulted once: nacked, redelivered,
               committed in one plan (`convex fault`).
+ 15. raft     three port Servers in this process on one in-memory
+              VirtualNetwork, each with a durable WAL (server/durable.py)
+              in a temp dir at raft_fsync = always, group commit on, the
+              DISK timing of tests/test_raft.py (RAFT_TIMING) and 4
+              workers each (idle workers parked: testing.
+              park_follower_workers). (a) The 10,000-node fleet through
+              the leader's node_register from 16 threads (entries per
+              leader append, i.e. per fsync, and per AppendEntries); the
+              50k job through job_register on the leader and the same job
+              on an in-memory-log Server over the server phase's fleet
+              snapshot, in turns (RAFT_ORDER): register -> last commit on
+              the leader, -> both followers applied the leader's index,
+              layers, raft samples, fsyncs, one replication hop's codec
+              cost; then a count-1 job (K2's greedy entry). Every
+              instance on every store, 0 rows over capacity, no election
+              mid-eval, 0 CPU solves, 0 dispatch errors, 0 swallowed
+              state-cache errors; K1 launched 4 times a raft 50k eval.
+              (b) The leader crashed (net.crash): crash -> new leader
+              established (its barrier reseeds the state cache at 10,000
+              rows on the card), -> warmup done, a 2,000-task job (one
+              pinned eval id) register -> commit; the twins equal a fresh
+              reseed's; the crashed server rebuilt over its data_dir
+              recovers from its WAL and catches up (its store's allocs and
+              usage equal the leader's); a fresh Server over the new
+              leader's snapshot places the 2k job exactly as the new
+              leader did (`raft ...` lines).
 
 Servers run with their heartbeat TTL set past the run (no clients here)
 and stop in a `finally`. The native stamping extension (native/) is
@@ -2811,6 +2837,553 @@ def convex_server_phase(np, torch, snapshot) -> dict:
     return out
 
 
+# ----------------------------------------------------- the raft slice
+
+# three Raft servers in this process on one in-memory network, a durable
+# WAL each at raft_fsync = always (the default) with group commit on
+RAFT_SERVERS, RAFT_WORKERS, RAFT_SEED = 3, 4, 9
+# bench.py's election timeout for in-process clusters under load
+# (bench.py:1208), the heartbeat of tests/test_raft.py's DISK profile: a
+# server's log compaction (an FSM snapshot written and fsync'd under its
+# raft lock, every 8,192 entries) at 10,000 nodes, or a 50k eval holding
+# the interpreter, must not outlast it. With DISK's 1.2-2.4 s a follower
+# campaigned during the fleet's registration on the H100's host.
+RAFT_TIMING = dict(election_timeout=(6.0, 12.0), heartbeat_interval=0.15)
+# the fleet's registrations: concurrent writers (bench.py
+# _write_storm_run's shape), so group commit batches their fsyncs
+RAFT_WRITERS = 16
+# the 50k job through consensus against the in-memory log, in turns; the
+# second job of each side lands on the fleet the first one filled
+RAFT_ORDER = (("raft", "raft-a"), ("memory", "raft-a"),
+              ("memory", "raft-b"), ("raft", "raft-b"))
+# the 2k job after the failover, under one eval id on the new leader and
+# on a fresh server built from its snapshot
+RAFT_EVAL_ID = "0000feed-beef-0000-0000-00000000c0de"
+RAFT_SAMPLES = ("nomad.raft.apply_wait", "nomad.raft.batch_entries",
+                "nomad.raft.replicate_batch_entries")
+RAFT_SWALLOWED = ("nomad.swallowed_errors.state_cache.standby_feed",
+                  "nomad.swallowed_errors.state_cache.note_commit")
+RAFT_CACHE = ("reseeds", "promote_warm", "twin_seeds", "hits", "misses",
+              "commit_feeds")
+
+
+def _raft_server(net, name: str, logs: dict):
+    """A port Server on the virtual network; its log lines, stamped with
+    perf_counter, in logs[name]."""
+    from nomad_tpu_torch.server import Server
+    lines = logs.setdefault(name, [])
+    srv = Server(num_workers=RAFT_WORKERS, gc_interval=9999,
+                 logger=lambda m: lines.append((time.perf_counter(), m)))
+    srv.heartbeats.min_ttl = 3600.0
+    srv.rpc_listen_virtual(net, name)
+    return srv
+
+
+def _raft_start(srv, name: str, peers: dict, root: str) -> None:
+    """enable_raft over `root`/<name> and start. Idle workers wait while
+    their broker is off (testing.park_follower_workers): one process
+    holds all three servers, and a follower's spinning worker would hold
+    the interpreter lock between the leader's torch calls."""
+    from nomad_tpu_torch.testing import park_follower_workers
+    srv.enable_raft(name, peers, data_dir=os.path.join(root, name),
+                    seed=RAFT_SEED * 1000 + int(name[1:]), **RAFT_TIMING)
+    srv.start()
+    park_follower_workers(srv)
+
+
+def _raft_leader(servers, timeout: float = SERVER_TIMEOUT_S):
+    """The one leader every live server names, its recovery barrier done
+    for its current term."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        led = [s for s in servers if s.raft_node.is_leader()]
+        if len(led) == 1:
+            s = led[0]
+            if s.is_leader and s._established_term == \
+                    s.raft_node.current_term and all(
+                        o.raft_node.leadership()[1] == s.rpc_addr
+                        for o in servers):
+                return s
+        time.sleep(0.001)
+    check(False, f"no established raft leader among "
+          f"{[s.raft_node.node_id for s in servers]}")
+
+
+def _raft_applied(servers, index: int,
+                  timeout: float = SERVER_TIMEOUT_S) -> float:
+    """perf_counter once every server has applied `index`."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if all(s.raft_node.last_applied >= index for s in servers):
+            return time.perf_counter()
+        time.sleep(0.0005)
+    check(False, f"servers short of index {index}: "
+          f"{[s.raft_node.last_applied for s in servers]}")
+
+
+def _store_sums(srv) -> dict:
+    """What two replicas must agree on: live allocations and usage."""
+    import numpy as np
+    view = srv.state.usage.view()
+    return {"allocs": sum(1 for a in srv.state.iter_allocs()
+                          if a.desired_status == "run"),
+            "nodes": srv.state.node_count(),
+            "used": np.asarray(view.used, np.float64).sum(axis=0).tolist(),
+            "over": int((view.used > view.cap + 1e-3).any(axis=1).sum())}
+
+
+def _sample_stats(name: str, skip: int) -> dict:
+    from nomad_tpu_torch.metrics import metrics
+    s = metrics.samples.get(name)
+    vals = sorted(s.raw_window(skip)) if s is not None else []
+    if not vals:
+        return {"n": 0}
+    return {"n": len(vals), "sum": sum(vals), "p50": vals[len(vals) // 2],
+            "max": vals[-1]}
+
+
+def _raft_window():
+    """Counters, layer timers, raft samples and swallowed errors now."""
+    from nomad_tpu_torch.metrics import metrics
+    return ({k: metrics.counter(v) for k, v in COUNTERS.items()},
+            {k: metrics.timer_sum(k) for k in LAYERS + PIPE_TIMERS},
+            {k: metrics.sample_count(k) for k in RAFT_SAMPLES},
+            {k: metrics.counter(k) for k in RAFT_SWALLOWED})
+
+
+def _raft_deltas(window, on_card: bool, what: str) -> dict:
+    from nomad_tpu_torch.metrics import metrics
+    counters0, timers0, samples0, swallowed0 = window
+    counters = {k: metrics.counter(v) - counters0[k]
+                for k, v in COUNTERS.items()}
+    bad = {k: counters[k] for k in (CARD_ZERO if on_card else HEALTHY_ZERO)
+           if counters[k]}
+    check(not bad, f"{what}: counted {bad}")
+    swallowed = {k: metrics.counter(k) - v for k, v in swallowed0.items()}
+    check(not any(swallowed.values()), f"{what}: swallowed {swallowed}")
+    return {"counters": counters, "swallowed": swallowed,
+            "layers_s": {k.split(".", 1)[1]: metrics.timer_sum(k) - v
+                         for k, v in timers0.items()},
+            "raft": {k: _sample_stats(k, v) for k, v in samples0.items()}}
+
+
+def _raft_eval(leader, followers, job_id: str, count: int,
+               on_card: bool) -> dict:
+    """One job through job_register on the raft leader: register -> the
+    eval complete on the leader (its last commit), and -> both followers
+    applied the leader's index then; every instance on every store, no
+    row over capacity, no election, no error counted or swallowed."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.solver import cuda_kernels
+    term = leader.raft_node.current_term
+    fsync0 = {s.raft_node.node_id: dict(s.raft_node._durable.stats())
+              for s in [leader] + followers}
+    window = _raft_window()
+    cuda_kernels.reset_launches()                # this eval's window
+    t0 = time.perf_counter()
+    eval_id = leader.job_register(
+        _mk_batch_job(mock, job_id, count))["eval_id"]
+    t1 = _wait_evals(leader, [eval_id])
+    index = leader.raft_node.commit_index
+    t2 = _raft_applied(followers, index)
+    launches = dict(cuda_kernels.LAUNCHES)       # read just after
+    out = _raft_deltas(window, on_card, f"raft {job_id}")
+    out["launches"] = launches
+    check(leader.raft_node.current_term == term and
+          leader.raft_node.is_leader(),
+          f"raft {job_id}: an election during the eval (term {term} -> "
+          f"{leader.raft_node.current_term})")
+    for s in [leader] + followers:
+        _check_committed(s, {job_id: count})
+    sums = [_store_sums(s) for s in [leader] + followers]
+    check(all(x == sums[0] for x in sums),
+          f"raft {job_id}: replicas differ {sums}")
+    out["fsyncs"] = {
+        s.raft_node.node_id: {
+            k: s.raft_node._durable.stats()[k] - fsync0[s.raft_node.node_id][k]
+            for k in ("fsyncs", "appends")}
+        for s in [leader] + followers}
+    out.update(leader_commit_s=t1 - t0, followers_applied_s=t2 - t0,
+               index=index, term=term, window=[t0, t2])
+    return out
+
+
+def _memory_eval(srv, job_id: str, count: int, on_card: bool) -> dict:
+    """The same job through the in-memory-log server's job_register."""
+    from nomad_tpu_torch import mock
+    window = _raft_window()
+    t0 = time.perf_counter()
+    eval_id = srv.job_register(_mk_batch_job(mock, job_id, count))["eval_id"]
+    t1 = _wait_evals(srv, [eval_id])
+    out = _raft_deltas(window, on_card, f"memory {job_id}")
+    _check_committed(srv, {job_id: count})
+    out.update(leader_commit_s=t1 - t0)
+    return out
+
+
+def _codec_hop_s(leader) -> dict:
+    """One replication hop's codec cost (rpc/virtual.py encodes and
+    decodes every request): the largest plan-results entry of the
+    leader's log through codec.encode + codec.decode."""
+    from nomad_tpu_torch.rpc import codec
+
+    def allocs(e) -> int:
+        # one plan's results, or a coalesced batch of them
+        reqs = e.payload.get("results") or [e.payload["result"]]
+        return sum(len(r.alloc_placements or []) for r in reqs)
+    with leader.raft_node._lock:
+        plans = [e for e in leader.raft_node.log
+                 if e.type.startswith("ApplyPlanResults")]
+    if not plans:
+        return {}
+    big = max(plans, key=allocs)
+    t0 = time.perf_counter()
+    blob = codec.encode(big.payload)
+    t1 = time.perf_counter()
+    codec.decode(blob)
+    t2 = time.perf_counter()
+    return {"allocs": allocs(big), "type": big.type, "bytes": len(blob),
+            "encode_s": t1 - t0, "decode_s": t2 - t1}
+
+
+def _join_new_threads(before: set, timeout: float = 60.0) -> None:
+    """Wait for the threads the phase's servers started to end (a
+    warmup thread still in a torch call when the interpreter exits
+    aborts the process), all but the two loops a shut-down server
+    leaves parked on an event."""
+    import threading
+    deadline = time.monotonic() + timeout
+    left = []
+    for t in threading.enumerate():
+        if t in before or t is threading.current_thread():
+            continue
+        if t.name in ("volume-watcher", "periodic-dispatch"):
+            continue
+        t.join(max(0.0, deadline - time.monotonic()))
+        if t.is_alive():
+            left.append(t.name)
+    if left:
+        log(f"threads still running after the phase: {left}")
+
+
+def _log_times(logs: dict, needle: str) -> list:
+    return sorted((t, name, m) for name, lines in logs.items()
+                  for t, m in list(lines) if needle in m)
+
+
+def raft_phase(np, torch, card: str, nodes_snapshot: bytes,
+               n_nodes: int = N_LIVE, big: int = BIG_COUNT,
+               mid: int = MID_COUNT, on_card: bool = True) -> dict:
+    """The port as a replicated, durable three-server cluster (phase 15):
+    the fleet and the 50k job committed through Raft group commit, the
+    same job on the in-memory log in turns, the count-1 job, a leader
+    crash and the new leader's first 2k eval against a fresh server
+    built from its snapshot, and the crashed server's restart from its
+    WAL. A failed check prints the servers' last log lines."""
+    import re
+    import tempfile
+    import threading
+
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.metrics import metrics
+    from nomad_tpu_torch.rpc.virtual import VirtualNetwork
+    from nomad_tpu_torch.server.fsm import JOB_REGISTER
+    from nomad_tpu_torch.solver import cuda_kernels, state_cache
+    from nomad_tpu_torch.structs import Evaluation, SchedulerConfiguration
+    out: dict = {"timing": RAFT_TIMING, "writers": RAFT_WRITERS}
+    threads_before = set(threading.enumerate())
+    root = tempfile.mkdtemp(prefix="nomad-raft-")
+    net = VirtualNetwork(seed=RAFT_SEED)
+    logs: dict = {}
+    names = [f"r{i}" for i in range(RAFT_SERVERS)]
+    servers = {n: _raft_server(net, n, logs) for n in names}
+    peers = {n: s.rpc_addr for n, s in servers.items()}
+    mem = fresh = None
+    try:
+        t0 = time.perf_counter()
+        for n in names:
+            _raft_start(servers[n], n, peers, root)
+        leader = _raft_leader(list(servers.values()))
+        out["first_election_s"] = time.perf_counter() - t0
+        leader.set_scheduler_configuration(SchedulerConfiguration(
+            scheduler_algorithm="tpu-batch"))
+        followers = [s for s in servers.values() if s is not leader]
+        # the fleet: RAFT_WRITERS threads through node_register at
+        # raft_fsync = always
+        rng = np.random.default_rng(42)
+        fleet = [_mk_node(mock, i, rng) for i in range(n_nodes)]
+        errors: list = []
+
+        def writer(k):
+            try:
+                for node in fleet[k::RAFT_WRITERS]:
+                    leader.node_register(node)
+            except Exception as e:  # noqa: BLE001 — checked below
+                errors.append(repr(e))
+        fsync0 = {n: dict(s.raft_node._durable.stats())
+                  for n, s in servers.items()}
+        batch0 = metrics.sample_count("nomad.raft.batch_entries")
+        repl0 = metrics.sample_count("nomad.raft.replicate_batch_entries")
+        threads = [threading.Thread(target=writer, args=(k,))
+                   for k in range(RAFT_WRITERS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        t1 = time.perf_counter()
+        check(not errors, f"raft fleet registration: {errors[:3]}")
+        t2 = _raft_applied(followers, leader.raft_node.commit_index)
+        check(all(s.state.node_count() == n_nodes
+                  for s in servers.values()),
+              f"raft fleet: {[s.state.node_count() for s in servers.values()]}")
+        out["fleet"] = {
+            "register_s": t1 - t0, "followers_applied_s": t2 - t0,
+            "fsync": leader.raft_node._durable.stats()["fsync_mode"],
+            "batch_entries": _sample_stats("nomad.raft.batch_entries",
+                                           batch0),
+            "replicate_batch_entries": _sample_stats(
+                "nomad.raft.replicate_batch_entries", repl0),
+            "fsyncs": {n: s.raft_node._durable.stats()["fsyncs"] -
+                       fsync0[n]["fsyncs"] for n, s in servers.items()}}
+        check(out["fleet"]["fsync"] == "always",
+              f"raft_fsync {out['fleet']['fsync']}")
+        log(f"raft fleet: {n_nodes} nodes through node_register from "
+            f"{RAFT_WRITERS} threads at raft_fsync=always in "
+            f"{out['fleet']['register_s']} s (followers applied at "
+            f"{out['fleet']['followers_applied_s']} s); entries per "
+            f"leader append (one fsync) "
+            f"{json.dumps(out['fleet']['batch_entries'])}; per "
+            f"AppendEntries {json.dumps(out['fleet']['replicate_batch_entries'])}; "
+            f"fsyncs {json.dumps(out['fleet']['fsyncs'])}")
+
+        # the 50k job through consensus and on the in-memory log, in turns
+        runs = []
+        for side, job_id in RAFT_ORDER:
+            if side == "raft":
+                # what establishment over a populated store does; the
+                # in-memory server's restore did it at its own start
+                state_cache.reseed(leader.state)
+                r = _raft_eval(leader, followers, job_id, big, on_card)
+                if "codec_hop" not in out:
+                    out["codec_hop"] = _codec_hop_s(leader)
+            else:
+                if mem is None:
+                    mem = _server(RAFT_WORKERS, snapshot=nodes_snapshot)
+                r = _memory_eval(mem, job_id, big, on_card)
+                if job_id == RAFT_ORDER[-2][1]:     # its last run
+                    _shutdown(mem)
+                    mem = None
+            r.update(side=side, job=job_id)
+            runs.append(r)
+            log(f"raft compare {side} {job_id}: {big} committed, register "
+                f"-> leader commit {r['leader_commit_s']} s"
+                + (f", -> both followers applied "
+                   f"{r['followers_applied_s']} s; entries per leader "
+                   f"append {json.dumps(r['raft']['nomad.raft.batch_entries'])}"
+                   f", per AppendEntries "
+                   f"{json.dumps(r['raft']['nomad.raft.replicate_batch_entries'])}"
+                   f", apply_wait {json.dumps(r['raft']['nomad.raft.apply_wait'])}"
+                   f", fsyncs {json.dumps(r['fsyncs'])}"
+                   if side == "raft" else "")
+                + f"; layers {json.dumps(r['layers_s'])} ({card})")
+        # the count-1 job: K2's greedy entry under consensus
+        r = _raft_eval(leader, followers, "raft-one", 1, on_card)
+        r.update(side="raft", job="raft-one")
+        runs.append(r)
+        # the raft path's launches: each raft eval's own window, summed
+        launches = {k: sum(r["launches"][k] for r in runs
+                           if r["side"] == "raft")
+                    for k in cuda_kernels.LAUNCHES}
+        out["runs"], out["launches"] = runs, launches
+        if on_card:
+            for r in runs:
+                if r["side"] == "raft":
+                    want = BIG_CHUNKS if r["job"] != "raft-one" else 0
+                    check(r["launches"]["depth_curve"] == want,
+                          f"raft {r['job']}: depth_curve launched "
+                          f"{r['launches']['depth_curve']} times")
+            check(runs[-1]["launches"]["score_capacity"] == 1,
+                  f"raft-one: score_capacity launched "
+                  f"{runs[-1]['launches']['score_capacity']} times")
+        walls = {side: sorted(r["leader_commit_s"] for r in runs[:4]
+                              if r["side"] == side)
+                 for side in ("raft", "memory")}
+        overlap = walls["raft"][0] <= walls["memory"][-1] and \
+            walls["memory"][0] <= walls["raft"][-1]
+        out["compare"] = {"walls_s": walls,
+                          "verdict": "unresolved" if overlap else
+                          ("raft slower" if walls["raft"][0] >
+                           walls["memory"][-1] else "raft faster")}
+        # followers' standby warmups (backend.warmup on their own
+        # threads): did any run inside a raft eval's window?
+        spans = []
+        for t, name, m in _log_times(logs, "standby warmup"):
+            secs = re.search(r"in ([0-9.]+)s", m)
+            spans.append((name, t - float(secs.group(1)) if secs else t, t))
+        out["standby_warmups"] = [
+            {"server": n, "start": a, "end": b,
+             "overlaps_a_raft_eval": any(
+                 a < r["window"][1] and r["window"][0] < b
+                 for r in runs if r["side"] == "raft")}
+            for n, a, b in spans]
+        log(f"raft compare: 50k register -> last commit, raft "
+            f"{walls['raft']} s, in-memory log {walls['memory']} s: "
+            f"{out['compare']['verdict']}; one replication hop's codec "
+            f"{json.dumps(out['codec_hop'])}; launches {json.dumps(launches)}; "
+            f"count-1 {r['leader_commit_s']} s; follower warmups "
+            f"{json.dumps(out['standby_warmups'])}")
+
+        # (b) the leader crashes
+        old = leader
+        old_name = old.raft_node.node_id
+        term = old.raft_node.current_term
+        cache = state_cache.cache()
+        c0 = {k: metrics.counter(f"nomad.solver.state_cache.{k}")
+              for k in RAFT_CACHE}
+        stats0 = cache.stats()
+        window = _raft_window()
+        t_crash = time.perf_counter()
+        net.crash(old_name)
+        rest = [s for s in servers.values() if s is not old]
+        leader = _raft_leader(rest)
+        t_est = time.perf_counter()
+        new_name = leader.raft_node.node_id
+        lines = logs[new_name]
+        deadline = time.monotonic() + SERVER_TIMEOUT_S
+        while not any("solver warmup" in m for t, m in list(lines)
+                      if t >= t_crash):
+            check(time.monotonic() < deadline,
+                  f"no warmup after the failover: {lines[-5:]}")
+            time.sleep(0.001)
+        t_warm = next(t for t, m in list(lines)
+                      if t >= t_crash and "solver warmup" in m)
+        reseeded = [m for t, m in list(lines)
+                    if t >= t_crash and "state cache" in m]
+        check(reseeded and str(n_nodes) in reseeded[0],
+              f"the new leader did not reseed the state cache: {lines[-8:]}")
+        stats1 = cache.stats()
+        check(stats1["uid"] == leader.state.usage.uid and
+              stats1["rows"] == n_nodes,
+              f"state cache after the failover {stats1}")
+        # the reseeded twins against a fresh reseed of the same store
+        cap_w, used_w = (t.clone() for t in cache.twins())
+        cache.reset()
+        state_cache.reseed(leader.state)
+        cap_f, used_f = cache.twins()
+        check(torch.equal(cap_w, cap_f) and torch.equal(used_w, used_f),
+              "the new leader's twins differ from a fresh reseed's")
+        if on_card:
+            check(stats1["twins_device"] == DEVICE,
+                  f"twins on {stats1['twins_device']}")
+        snap = leader.snapshot_save()
+        job = _mk_batch_job(mock, "raft-after", mid)
+
+        def pinned():
+            return Evaluation(id=RAFT_EVAL_ID, namespace="default",
+                              priority=job.priority, type=job.type,
+                              job_id=job.id, triggered_by="job-register",
+                              status="pending")
+        t_reg = time.perf_counter()
+        leader.raft.apply(JOB_REGISTER, {"job": job.copy(),
+                                         "evals": [pinned()]})
+        t_commit = _wait_evals(leader, [RAFT_EVAL_ID])
+        follower = next(s for s in rest if s is not leader)
+        _raft_applied([follower], leader.raft_node.commit_index)
+        fo = _raft_deltas(window, on_card, "raft failover")
+        check(leader.raft_node.current_term > term,
+              f"failover: term {leader.raft_node.current_term}")
+        _check_committed(leader, {"raft-after": mid})
+        got = {a.name: a.node_id
+               for a in leader.state.allocs_by_job("default", "raft-after")}
+        c1 = {k: metrics.counter(f"nomad.solver.state_cache.{k}") - v
+              for k, v in c0.items()}
+        out["failover"] = {
+            "crashed": old_name, "new_leader": new_name,
+            "term": [term, leader.raft_node.current_term],
+            "crash_to_established_s": t_est - t_crash,
+            "established_to_warm_s": t_warm - t_est,
+            "register_to_commit_s": t_commit - t_reg,
+            # what a user waits: the phase's own twin check and snapshot
+            # between the warmup and the register left out
+            "crash_to_first_commit_s":
+                (t_warm - t_crash) + (t_commit - t_reg),
+            "crash_to_first_commit_wall_s": t_commit - t_crash,
+            "establish_timings_s": dict(
+                getattr(leader, "_establish_timings", {}) or {}),
+            "reseed": reseeded[0], "cache_before": stats0,
+            "cache_after": stats1, "cache_counters": c1,
+            "counters": fo["counters"]}
+
+        # the crashed server restarts from its WAL and catches up, well
+        # inside autopilot's dead-server threshold (LastContactThresholdSec,
+        # 10 s from the new leader's election), which would reap it from
+        # the configuration
+        out["failover"]["crash_to_restart_s"] = time.perf_counter() - t_crash
+        _shutdown(old)
+        net.restart(old_name)
+        t0 = time.perf_counter()
+        back = _raft_server(net, old_name, logs)
+        servers[old_name] = back
+        _raft_start(back, old_name, peers, root)
+        index = leader.raft_node.commit_index
+        t1 = _raft_applied([back], index)
+        check(not back.raft_node.is_leader(), "the restarted server leads")
+        want_sums = _store_sums(leader)
+        got_sums = _store_sums(back)
+        check(got_sums == want_sums and want_sums["over"] == 0,
+              f"restart: {got_sums} against the leader's {want_sums}")
+        out["restart"] = {"caught_up_s": t1 - t0, "index": index,
+                          "store": got_sums,
+                          "durable": back.raft_node._durable.stats()}
+        log(f"raft restart: {old_name} rebuilt over its data_dir, "
+            f"recovered and caught up to index {index} in "
+            f"{out['restart']['caught_up_s']} s; store {json.dumps(got_sums)} "
+            f"equals the leader's")
+        # a fresh server over the new leader's snapshot places the same
+        fresh = _server(1, snapshot=snap)
+        fresh.raft.apply(JOB_REGISTER, {"job": job.copy(),
+                                        "evals": [pinned()]})
+        _wait_evals(fresh, [RAFT_EVAL_ID])
+        want = {a.name: a.node_id
+                for a in fresh.state.allocs_by_job("default", "raft-after")}
+        _shutdown(fresh)
+        fresh = None
+        moved = sum(1 for k in want if got.get(k) != want[k])
+        check(len(got) == len(want) == mid and moved == 0,
+              f"failover: {moved} of {mid} placements differ from a fresh "
+              f"reseeded server's")
+        out["failover"]["placements_equal_fresh"] = True
+        log(f"raft failover: {old_name} crashed at term {term}; {new_name} "
+            f"established in {out['failover']['crash_to_established_s']} "
+            f"s (barrier steps {json.dumps(out['failover']['establish_timings_s'])}), "
+            f"warm {out['failover']['established_to_warm_s']} s later; "
+            f"the 2k job register -> commit "
+            f"{out['failover']['register_to_commit_s']} s, crash -> "
+            f"first commit {out['failover']['crash_to_first_commit_s']} "
+            f"s (wall {out['failover']['crash_to_first_commit_wall_s']} s with "
+            f"this phase's twin check and snapshot); {mid} placements equal a fresh server's over the snapshot; "
+            f"{reseeded[0]!r}; twins equal a fresh reseed's; state cache "
+            f"{json.dumps(stats1)}, counters {json.dumps(c1)}")
+
+    except CheckFailed:
+        for name, lines in sorted(logs.items()):
+            for t, m in list(lines)[-25:]:
+                log(f"  raft log {name} {t}: {m}")
+        raise
+    finally:
+        for s in (mem, fresh):
+            if s is not None:
+                _shutdown(s)
+        for s in servers.values():
+            s.shutdown()
+        _join_new_threads(threads_before)
+        shutil.rmtree(root, ignore_errors=True)
+    out["campaigns"] = [(name, m) for _, name, m in
+                        _log_times(logs, "campaigning")]
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2866,6 +3439,9 @@ def main() -> int:
                               res["depth_curve"]["floor_ms"])
     cvx_server = convex_server_phase(np, torch, nodes)
     log(f"convex phase: {time.perf_counter() - t_cvx:.1f} s")
+    t_raft = time.perf_counter()
+    raft = raft_phase(np, torch, card, nodes)
+    log(f"raft phase: {time.perf_counter() - t_raft:.1f} s")
 
     meta = {
         "depth_curve": ("nomad_tpu_torch/solver/csrc/depth_curve.cu",
@@ -2924,7 +3500,7 @@ def main() -> int:
                     "convex": {k: {f: v for f, v in r.items()
                                    if f != "eval_kernels"}
                                for k, r in cvx.items()},
-                    "convex_server": cvx_server,
+                    "convex_server": cvx_server, "raft": raft,
                     "native_stamping": native_loaded,
                     "greedy_fill": res["greedy_fill"], "pow10": pow10,
                     "card": card,

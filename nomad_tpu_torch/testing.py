@@ -21,6 +21,33 @@ def seeded_urandom(seed):
         os.urandom = real
 
 
+def park_follower_workers(server) -> None:
+    """Let a Raft server's idle workers wait while its broker is off.
+
+    The worker loop (server/worker.py `run`, a copy of the reference's)
+    dequeues from its own server's broker, which a follower keeps
+    disabled: `dequeue` then returns at once and the loop spins. Servers
+    in one process share one interpreter lock, and every torch call of
+    the leader's solve releases it and waits for a spinning follower to
+    hand it back (up to the switch interval, 5 ms), so an eval of a few
+    thousand calls takes tens of seconds. Servers in their own
+    processes, as a deployment runs them, share nothing. This wraps the
+    server's `eval_broker.dequeue` so that, while the broker is
+    disabled, a call first waits on the broker's condition for its
+    timeout; enabling the broker (the server becoming leader) wakes it
+    at once. Nothing else changes."""
+    broker = server.eval_broker
+    inner = broker.dequeue
+
+    def dequeue(schedulers, timeout=None):
+        with broker._lock:
+            if not broker._enabled:
+                broker._cond.wait(0.5 if timeout is None else timeout)
+        return inner(schedulers, timeout=timeout)
+
+    broker.dequeue = dequeue
+
+
 def fill_count(view, cpu, mem) -> int:
     """Instances of (cpu MHz, mem MB) that fit on a usage view's free
     capacity, node by node."""

@@ -665,3 +665,102 @@ def test_greedy_fill_reads_a_device_count_without_a_sync(dev):
             cuda_kernels.fill_greedy_binpack_fused(cap, used, ask, count,
                                                    feas),
             kernels.fill_greedy_binpack(cap, used, ask, count, feas))
+
+
+def _raft_leader(servers, timeout=60.0):
+    import time
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        led = [s for s in servers if s.raft_node.is_leader()]
+        if len(led) == 1 and led[0].is_leader and \
+                led[0]._established_term == led[0].raft_node.current_term:
+            return led[0]
+        time.sleep(0.01)
+    raise AssertionError("no established raft leader")
+
+
+def _raft_placed(srv, job_id, count, timeout=60.0) -> bool:
+    import time
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if len([a for a in srv.state.allocs_by_job("default", job_id)
+                if a.desired_status == "run"]) == count:
+            return True
+        time.sleep(0.01)
+    return False
+
+
+@pytest.mark.cuda
+def test_raft_cluster_places_on_the_card_and_reseeds_after_a_crash(
+        dev, tmp_path, monkeypatch):
+    """Three port servers on the in-memory network, a durable WAL each:
+    a job placed through the leader on the card; after the leader's
+    crash the new leader's establishment reseeds the state cache on the
+    card, its twins equal to a fresh reseed's, and it places the next
+    job there."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.metrics import metrics
+    from nomad_tpu_torch.rpc.virtual import VirtualNetwork
+    from nomad_tpu_torch.server import Server
+    from nomad_tpu_torch.solver import backend, state_cache
+    from nomad_tpu_torch.structs import SchedulerConfiguration
+    from nomad_tpu_torch.testing import park_follower_workers
+
+    monkeypatch.setenv("NOMAD_AOT_WARMUP", "1")
+    backend.reset()
+    state_cache.reset()
+    net = VirtualNetwork(seed=4)
+    servers = []
+    try:
+        for i in range(3):
+            s = Server(num_workers=1, gc_interval=9999)
+            s.heartbeats.min_ttl = 3600.0
+            s.rpc_listen_virtual(net, f"c{i}")
+            servers.append(s)
+        peers = {f"c{i}": s.rpc_addr for i, s in enumerate(servers)}
+        for i, s in enumerate(servers):
+            s.enable_raft(f"c{i}", peers, data_dir=str(tmp_path / f"c{i}"),
+                          seed=4000 + i, election_timeout=(1.2, 2.4),
+                          heartbeat_interval=0.15)
+            s.start()
+            park_follower_workers(s)
+        leader = _raft_leader(servers)
+        leader.set_scheduler_configuration(SchedulerConfiguration(
+            scheduler_algorithm="tpu-batch"))
+        for _ in range(48):
+            leader.node_register(mock.node())
+
+        def job(job_id, count):
+            j = mock.batch_job()
+            j.id = j.name = job_id
+            tg = j.task_groups[0]
+            tg.count = count
+            tg.networks = []
+            tg.tasks[0].resources.networks = []
+            return j
+        cpu0 = metrics.counter("nomad.solver.dispatch.torch")
+        launches0 = cuda_kernels.LAUNCHES["depth_curve"]
+        leader.job_register(job("card-a", 40))
+        assert _raft_placed(leader, "card-a", 40)
+        assert cuda_kernels.LAUNCHES["depth_curve"] > launches0
+
+        net.crash(leader.raft_node.node_id)
+        rest = [s for s in servers if s is not leader]
+        new = _raft_leader(rest)
+        cache = state_cache.cache()
+        st = cache.stats()
+        assert st["uid"] == new.state.usage.uid and st["rows"] == 48
+        assert st["twins_device"] == str(dev)
+        cap_w, used_w = (t.clone() for t in cache.twins())
+        cache.reset()
+        state_cache.reseed(new.state)
+        cap_f, used_f = cache.twins()
+        assert torch.equal(cap_w, cap_f) and torch.equal(used_w, used_f)
+        new.job_register(job("card-b", 30))
+        assert _raft_placed(new, "card-b", 30)
+        assert metrics.counter("nomad.solver.dispatch.torch") == cpu0
+    finally:
+        for s in servers:
+            s.shutdown()
+        backend.reset()
+        state_cache.reset()

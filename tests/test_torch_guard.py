@@ -1,8 +1,9 @@
 """Guards on the port package nomad_tpu_torch:
 
   * it runs evals (the depth solve, the chunked scan and the convex
-    solve, then a job through a two-worker in-process server) with
-    neither jax nor any nomad_tpu module loaded;
+    solve, then a job through a two-worker in-process server, then one
+    through a three-server Raft cluster with durable WALs) with neither
+    jax nor any nomad_tpu module loaded;
   * no module of it, and not chip_smoke.py, imports jax or nomad_tpu;
   * each module it copies verbatim from nomad_tpu is byte-equal to its
     original (the reference is frozen, so drift is a port fault), and
@@ -39,7 +40,10 @@ VERBATIM = (
      "server/overload.py", "server/search.py", "server/acl_endpoint.py",
      "integrations/__init__.py", "integrations/connect.py",
      "integrations/services.py", "integrations/secrets.py",
-     "integrations/template.py", "solver/roundtrip.py"]
+     "integrations/template.py", "solver/roundtrip.py", "tlsutil.py",
+     "rpc/virtual.py", "server/durable.py", "server/raft.py",
+     "server/gossip.py"]
+    + sorted(f"jobspec/{p.name}" for p in (REF / "jobspec").glob("*.py"))
     + sorted(f"acl/{p.name}" for p in (REF / "acl").glob("*.py"))
     + sorted(f"structs/{p.name}" for p in (REF / "structs").glob("*.py"))
     + sorted(f"scheduler/{p.name}" for p in (REF / "scheduler").glob("*.py"))
@@ -120,6 +124,56 @@ _EVAL = textwrap.dedent("""
         assert len(srv.state.allocs_by_job("default", job.id)) == 5
     finally:
         srv.shutdown()
+    # three Raft servers on the in-memory transport, one durable WAL
+    # each: a job committed through the elected leader
+    import tempfile
+    from nomad_tpu_torch.rpc.virtual import VirtualNetwork
+    from nomad_tpu_torch.testing import park_follower_workers
+    net = VirtualNetwork(seed=2)
+    servers = []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for i in range(3):
+                s = Server(num_workers=1, gc_interval=9999)
+                s.heartbeats.min_ttl = 3600.0
+                s.rpc_listen_virtual(net, f"s{{i}}")
+                servers.append(s)
+            peers = {{f"s{{i}}": s.rpc_addr for i, s in enumerate(servers)}}
+            for i, s in enumerate(servers):
+                s.enable_raft(f"s{{i}}", peers, data_dir=f"{{tmp}}/raft{{i}}",
+                              seed=2000 + i, election_timeout=(1.0, 2.0),
+                              heartbeat_interval=0.1)
+                s.start()
+                park_follower_workers(s)
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline:
+                led = [s for s in servers if s.raft_node.is_leader()
+                       and s.is_leader]
+                if len(led) == 1:
+                    break
+                time.sleep(0.02)
+            leader = led[0]
+            leader.set_scheduler_configuration(
+                SchedulerConfiguration(scheduler_algorithm="tpu-batch"))
+            for _ in range(6):
+                leader.node_register(mock.node())
+            job = mock.batch_job()
+            job.task_groups[0].count = 4
+            job.task_groups[0].networks = []
+            job.task_groups[0].tasks[0].resources.networks = []
+            eval_id = leader.job_register(job)["eval_id"]
+            while time.monotonic() < deadline:
+                if all(len(s.state.allocs_by_job("default", job.id)) == 4
+                       for s in servers):
+                    break
+                time.sleep(0.02)
+            assert leader.state.eval_by_id(eval_id).status == "complete"
+            assert all(len(s.state.allocs_by_job("default", job.id)) == 4
+                       for s in servers)
+        finally:
+            for s in servers:
+                s.shutdown()
+    assert "nomad_tpu_torch.server.durable" in sys.modules
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "jaxlib",
                                                    "nomad_tpu.")))
