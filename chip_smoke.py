@@ -135,8 +135,9 @@ prints no result):
               shard, breakers closed, the state cache's rows).
  11. stream   16 jobs of 1,000 tasks registered back to back on a fresh
               10,000-node server with 4 workers, micro-batching on and off
-              in turns (on, off, off, on), then at 500, 2,000 and 4,000:
-              evals/s, submit_plan p50/p99, the batcher's counters and
+              in turns (on, off, off, on) (stream_sweep.py runs the
+              sweep's other counts, 500, 2,000 and 4,000, with more
+              pairs): evals/s, submit_plan p50/p99, the batcher's counters and
               window sizes, the window launches; every instance
               placed, no row over capacity. Per count, the runs in pairs
               and a one-sided sign test on them: a count qualifies for
@@ -173,8 +174,8 @@ prints no result):
               VirtualNetwork, each with a durable WAL (server/durable.py)
               in a temp dir at raft_fsync = always, group commit on, the
               DISK timing of tests/test_raft.py (RAFT_TIMING) and 4
-              workers each (idle workers parked: testing.
-              park_follower_workers). (a) The 10,000-node fleet through
+              workers each (a follower's workers wait on its disabled
+              broker). (a) The 10,000-node fleet through
               the leader's node_register from 16 threads (entries per
               leader append, i.e. per fsync, and per AppendEntries); the
               50k job through job_register on the leader and the same job
@@ -195,6 +196,42 @@ prints no result):
               usage equal the leader's); a fresh Server over the new
               leader's snapshot places the 2k job exactly as the new
               leader did (`raft ...` lines).
+ 16. agent    the port as Nomad's agent, every agent its own OS process
+              (`python -m nomad_tpu_torch.cli agent -config <file>`,
+              data dirs under build/, no NOMAD_SOLVER_DEVICE: each solves
+              on cuda:0). (a) A -dev agent: scheduler set to tpu-batch
+              and an HCL raw_exec job (3 x /bin/sleep) run through the
+              port's CLI; job, alloc (its placement metrics) and node
+              status; the 3 task processes under its data dir; /ui 200;
+              from /v1/metrics `nomad.solver.dispatch.cuda` >= 1, 0 on
+              the CPU's tier, 0 dispatch errors; /v1/agent/self's device
+              row names the card; its cold build (compile-cache misses,
+              start -> first commit); job stop ends the tasks. (b) Three
+              server agents (TCP RPC, gossip retry_join, bootstrap_expect
+              3, Raft on the agent's defaults: 0.4-0.8 s election
+              timeout, raft_fsync always, WALs under the data dirs), two
+              client agents in datacenter `real`, and the node simulator
+              (`python -m nomad_tpu_torch.testing simulate`): 10,000
+              bench-fleet nodes registered over the servers' RPC and
+              heartbeated every half TTL. Over HTTP: the 50k job
+              (register -> last commit on the leader within
+              AGENT_BIG_BOUND_S, -> both followers applied), a count-1
+              job and a count-2 raw_exec job that must run one sleep on
+              each client agent; each process's CPU seconds during the
+              eval (/proc/<pid>/stat); the leader's and a follower's
+              snapshots decoded with the port's codec: every job's
+              allocs, no alloc id or name twice, 0 usage rows over
+              capacity. (c) kill -9 of the leader: crash -> a survivor
+              established, its state cache promoted warm or reseeded, its
+              warmup, a 2,000-task job register -> commit, the new
+              leader's snapshot held as in (b); the killed agent
+              restarted over its data dir catches up (its alloc count the
+              leader's) and loads its kernels (compile-cache hits, no
+              miss). Every leader change with its term (`agent elections`);
+              every node ready at the end and none marked down for a
+              missed TTL (`nomad.heartbeat.invalidate`, every server). Every child process is
+              stopped and every task process reaped in a `finally`
+              (`agent ...` lines).
 
 Servers run with their heartbeat TTL set past the run (no clients here)
 and stop in a `finally`. The native stamping extension (native/) is
@@ -1193,23 +1230,10 @@ def service_phase(np, torch) -> dict:
 # ------------------------------------------------------------ phase 4
 
 def _mk_node(mock, i, rng, pin="", racks=0):
-    """bench.py's heterogeneous fleet node. With `racks`, the service
-    layout: datacenter dc1..dc3 by i % 3 and meta.rack r0.. by i % racks."""
-    n = mock.node()
-    if pin:
-        n.id = f"{pin}{i:06d}"
-    n.name = f"bench-{i}"
-    n.node_class = f"c{int(rng.integers(0, 4))}"
-    n.datacenter = "dc1" if i % 2 == 0 else "dc2"
-    if racks:
-        n.datacenter = f"dc{i % 3 + 1}"
-        n.meta["rack"] = f"r{i % racks}"
-    n.node_resources.cpu.cpu_shares = int(
-        rng.choice([4_000, 8_000, 16_000, 32_000]))
-    n.node_resources.memory.memory_mb = int(
-        rng.choice([8_192, 16_384, 32_768, 65_536]))
-    n.node_resources.disk.disk_mb = 500_000
-    return n
+    """bench.py's heterogeneous fleet node (`testing.bench_node`, which
+    the agent phase's node simulator registers too)."""
+    from nomad_tpu_torch.testing import bench_node
+    return bench_node(mock, i, rng, pin, racks)
 
 
 def _mk_batch_job(mock, job_id, count, cpu=250, mem=512, disk=300,
@@ -2378,11 +2402,12 @@ def _sign_test_p(wins: int, pairs: int) -> float:
 
 
 def stream_phase(np, torch, snapshot, card: str,
-                 pairs: int = STREAM_PAIRS) -> dict:
+                 pairs: int = STREAM_PAIRS,
+                 counts: tuple = STREAM_COUNTS) -> dict:
     """The eval stream on a 10,000-node server: 16 jobs registered back
     to back, `pairs` pairs of runs with micro-batching on and off (on
-    first in even pairs, off first in odd ones), at STREAM_COUNT and at
-    the other counts of the batch tier's sweep; every instance placed, no
+    first in even pairs, off first in odd ones), at each of `counts`
+    (the batch tier's sweep by default); every instance placed, no
     node over capacity. During the sweep the batch tier's count ceiling
     is raised to the count under test, so each `on` run can coalesce. A
     count qualifies where the coalesced run was faster in enough pairs
@@ -2392,7 +2417,7 @@ def stream_phase(np, torch, snapshot, card: str,
     runs = []
     ceiling = backend.BATCH_MAX_COUNT
     try:
-        for count in STREAM_COUNTS:
+        for count in counts:
             backend.BATCH_MAX_COUNT = count
             for pair in range(pairs):
                 order = (True, False) if pair % 2 == 0 else (False, True)
@@ -2417,7 +2442,7 @@ def stream_phase(np, torch, snapshot, card: str,
     check(lanes >= 1, f"the stream at {STREAM_COUNT} launched the lane "
           f"entry {lanes} times")
     summary = {}
-    for count in STREAM_COUNTS:
+    for count in counts:
         cell = {}
         for batch in (True, False):
             rs = [r for r in runs if r["count"] == count
@@ -2438,14 +2463,14 @@ def stream_phase(np, torch, snapshot, card: str,
                     sign_test_p=_sign_test_p(wins, pairs))
         cell["qualifies"] = cell["sign_test_p"] <= STREAM_P
         summary[count] = cell
-    qualified = [c for c in STREAM_COUNTS if summary[c]["qualifies"]]
+    qualified = [c for c in counts if summary[c]["qualifies"]]
     pick = max(qualified) if qualified else 0
     log(f"stream: per-eval wall on - off, median over {pairs} pairs; "
         f"coalesced faster in: "
         + "; ".join(f"{c}: {summary[c]['median_pair_diff_s']:+.5f} s, "
                     f"{summary[c]['wins']}/{pairs} "
                     f"(p {summary[c]['sign_test_p']:.4f})"
-                    for c in STREAM_COUNTS)
+                    for c in counts)
         + f"; counts that qualify at p <= {STREAM_P}: {qualified}, pick "
           f"{pick} (in the code: {backend.BATCH_MAX_COUNT})")
     return {"runs": runs, "summary": summary, "batch_max_count_pick": pick,
@@ -2880,15 +2905,10 @@ def _raft_server(net, name: str, logs: dict):
 
 
 def _raft_start(srv, name: str, peers: dict, root: str) -> None:
-    """enable_raft over `root`/<name> and start. Idle workers wait while
-    their broker is off (testing.park_follower_workers): one process
-    holds all three servers, and a follower's spinning worker would hold
-    the interpreter lock between the leader's torch calls."""
-    from nomad_tpu_torch.testing import park_follower_workers
+    """enable_raft over `root`/<name> and start."""
     srv.enable_raft(name, peers, data_dir=os.path.join(root, name),
                     seed=RAFT_SEED * 1000 + int(name[1:]), **RAFT_TIMING)
     srv.start()
-    park_follower_workers(srv)
 
 
 def _raft_leader(servers, timeout: float = SERVER_TIMEOUT_S):
@@ -3384,6 +3404,680 @@ def raft_phase(np, torch, card: str, nodes_snapshot: bytes,
     return out
 
 
+# ------------------------------------------------------------ phase 16
+#
+# The port as Nomad's agent, each agent its own OS process (`python -m
+# nomad_tpu_torch.cli agent -config <file>`), driven over HTTP and the
+# CLI, the fleet from the node simulator (`python -m
+# nomad_tpu_torch.testing simulate`). No agent is told which device to
+# use: each solves on cuda:0, the solve device's default.
+
+AGENT_KEY = "chip-smoke-agent-cluster-key"
+AGENT_SERVERS, AGENT_CLIENTS = 3, 2
+AGENT_REAL_DC = "real"          # the client agents' datacenter
+AGENT_WAIT_S = 240.0            # the bound of every wait of the phase
+AGENT_BIG_BOUND_S = 120.0       # the 50k job: register -> last commit
+# how often the phase polls an agent's HTTP API while it waits: each poll
+# is a request thread in an agent whose interpreter the eval and its
+# heartbeat service share
+AGENT_POLL_S = 0.05
+# the cluster's scheduler configuration, set through the operator API.
+# Each raft entry of the 50k eval is bounded at 50,000 / 16 = 3,125
+# allocs (~1 MB): at the default 4 chunks, coalesced into entries of
+# 12,500-25,000 allocs (3.8-7.6 MB), encoding, shipping, decoding and
+# persisting one entry outlasts the agents' 0.4-0.8 s election timeout
+# (their replication loop sends heartbeats behind it), and the cluster
+# changed leader every few seconds without committing the job (PERF.md,
+# ROADMAP Queue 3 item 14)
+AGENT_SCHEDULER = {"SchedulerAlgorithm": "tpu-batch",
+                   "PlanPipelineChunks": 16, "PlanCommitBatchMax": 1}
+AGENT_SLEEP_JOB = """job "agent-sleep" {
+  datacenters = ["dc1"]
+  type = "service"
+  group "g" {
+    count = 3
+    task "t" {
+      driver = "raw_exec"
+      config {
+        command = "/bin/sleep"
+        args    = ["600"]
+      }
+      resources {
+        cpu    = 50
+        memory = 32
+      }
+    }
+  }
+}
+"""
+
+
+def _cli(env: dict, addr: str, *args, timeout: float = 120.0) -> str:
+    """Run the port's CLI against `addr`; fail unless it exits 0."""
+    r = subprocess.run([sys.executable, "-m", "nomad_tpu_torch.cli", *args],
+                       env=dict(env, NOMAD_ADDR=addr), capture_output=True,
+                       text=True, timeout=timeout, cwd=str(ROOT))
+    check(r.returncode == 0, f"cli {' '.join(args)}: rc {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    return r.stdout
+
+
+def _counters(agent) -> dict:
+    return agent.get("/v1/metrics")["telemetry"]["counters"]
+
+
+def _agent_solves(counters: dict, on_card: bool, what: str,
+                  since: dict = None) -> dict:
+    """The agent's solves (counted from `since`, the counters at an
+    earlier read) ran on its device and none failed: on the card
+    `nomad.solver.dispatch.cuda` >= 1 and 0 on the CPU's plain tier."""
+    from nomad_tpu_torch.solver.cuda_kernels import KERNELS
+    since = since or {}
+
+    def c(name):
+        return int(counters.get(name, 0) - since.get(name, 0))
+    out = {"dispatch_cuda": c("nomad.solver.dispatch.cuda"),
+           "dispatch_torch": c("nomad.solver.dispatch.torch"),
+           "dispatch_errors": c("nomad.solver.dispatch_errors"),
+           "compile_cache_hits": c("nomad.compile_cache.hits"),
+           "compile_cache_misses": c("nomad.compile_cache.misses"),
+           "launches": {k: c(f"nomad.solver.kernel_launches.{k}")
+                        for k in KERNELS}}
+    check(out["dispatch_errors"] == 0, f"{what}: {out}")
+    if on_card:
+        check(out["dispatch_cuda"] >= 1 and out["dispatch_torch"] == 0,
+              f"{what}: solves not on the card: {out}")
+    else:
+        check(out["dispatch_torch"] >= 1, f"{what}: {out}")
+    return out
+
+
+def _wait(fn, what: str, timeout: float = AGENT_WAIT_S,
+          interval: float = AGENT_POLL_S):
+    from nomad_tpu_torch.testing import wait_until
+    got = wait_until(fn, timeout, interval)
+    check(got is not None, f"{what}: not within {timeout} s")
+    return got
+
+
+def _agent_dev(base: str, env: dict, kind: str, on_card: bool) -> dict:
+    """(a) One -dev agent (server and client in one process): a raw_exec
+    job through the CLI, its tasks real processes."""
+    from nomad_tpu_torch.testing import AgentProcess, free_ports, task_pids
+    t0 = time.monotonic()
+    dev = AgentProcess("dev", {"ports": {"http": free_ports(1)[0]}}, base,
+                       env, args=("-dev",)).start()
+    try:
+        check(dev.wait_http(AGENT_WAIT_S), f"dev agent: {dev.tail()}")
+        t_http = time.monotonic() - t0
+        addr = dev.url("")
+        _cli(env, addr, "operator", "scheduler", "set-config",
+             "-scheduler-algorithm", "tpu-batch")
+        cfg = json.loads(_cli(env, addr, "operator", "scheduler",
+                              "get-config"))
+        check(cfg["SchedulerConfig"]["SchedulerAlgorithm"] == "tpu-batch",
+              f"scheduler config {cfg}")
+        spec = os.path.join(base, "agent-sleep.nomad")
+        with open(spec, "w") as f:
+            f.write(AGENT_SLEEP_JOB)
+        t_run = time.monotonic()
+        out = _cli(env, addr, "job", "run", spec)
+        check("Evaluation status: complete" in out, f"job run: {out}")
+        allocs = dev.get("/v1/job/agent-sleep/allocations")
+        check(len(allocs) == 3, f"dev: {len(allocs)} allocs")
+        t_commit = time.monotonic()
+        _wait(lambda: sum(a["ClientStatus"] == "running" for a in
+                          dev.get("/v1/job/agent-sleep/allocations")) == 3,
+              "dev: 3 allocs running")
+        pids = _wait(lambda: (lambda p: p if len(p) == 3 else None)(
+            task_pids(dev.dir, "sleep 600")), "dev: 3 sleep processes")
+        status = _cli(env, addr, "job", "status", "agent-sleep")
+        check(status.count("running") >= 3, f"job status: {status}")
+        alloc = dev.get(f"/v1/allocation/{allocs[0]['ID']}")
+        astatus = _cli(env, addr, "alloc", "status", allocs[0]["ID"])
+        check("Status        = running" in astatus, f"alloc: {astatus}")
+        metric = alloc.get("Metrics") or {}
+        check(metric.get("NodesEvaluated", 0) >= 1 and
+              metric.get("ScoreMeta"),
+              f"alloc placement metrics: {metric}")
+        nodes = _cli(env, addr, "node", "status")
+        check(" ready " in nodes, f"node status: {nodes}")
+        ui = dev.raw("/ui")
+        check(b"<html" in ui[:4096].lower(), "GET /ui: no html")
+        solves = _agent_solves(_counters(dev), on_card, "agent dev")
+        devices = dev.get("/v1/agent/self")["stats"]["device_runtime"][
+            "devices"]
+        if on_card:
+            check(devices and devices[0]["kind"] == kind,
+                  f"agent self devices {devices}, card {kind}")
+        _cli(env, addr, "job", "stop", "agent-sleep")
+        _wait(lambda: not task_pids(dev.dir, "sleep 600"),
+              "dev: task processes gone after job stop")
+    finally:
+        dev.stop()
+    check(dev.proc.returncode == 0,
+          f"dev agent exited {dev.proc.returncode}: {dev.tail()}")
+    res = {"http_up_s": t_http, "job_run_to_commit_s": t_commit - t_run,
+           "start_to_first_commit_s": t_commit - t0,
+           "task_pids": len(pids), "alloc_metric": {
+               k: metric.get(k) for k in ("NodesEvaluated",
+                                          "NodesExhausted",
+                                          "NodesFiltered")},
+           "devices": [d["kind"] for d in devices], **solves}
+    log(f"agent dev: up {t_http:.3f} s, job run -> committed "
+        f"{res['job_run_to_commit_s']:.3f} s, start -> first commit "
+        f"{res['start_to_first_commit_s']:.3f} s, cold build: "
+        f"{solves['compile_cache_misses']} compile-cache misses, "
+        f"{solves['compile_cache_hits']} hits; dispatch.cuda "
+        f"{solves['dispatch_cuda']}, torch {solves['dispatch_torch']}, "
+        f"errors 0; 3 sleep processes, alloc metrics {res['alloc_metric']}, "
+        f"device {res['devices']}; /ui 200; job stop ended the tasks")
+    return res
+
+
+class _LeaderWatch:
+    """Polls every live server agent's /v1/status/leader and records each
+    change of leader (seconds since `t0`, its name); `terms` reads the
+    term of each from the servers' logs."""
+
+    def __init__(self, servers, t0: float):
+        import threading
+        self.servers, self.t0 = servers, t0
+        self.changes: list = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="leader-watch")
+        self._thread.start()
+
+    def leader(self):
+        led = [s for s in self.servers if s.alive() and s.is_leader()]
+        return led[0] if len(led) == 1 else None
+
+    def _run(self):
+        last = None
+        while not self._stop.wait(0.1):
+            s = self.leader()
+            if s is not None and s is not last:
+                last = s
+                self.changes.append({"t": time.monotonic() - self.t0,
+                                     "leader": s.name})
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(10.0)
+
+    def between(self, a: float, b: float) -> list:
+        return [c for c in self.changes if a <= c["t"] <= b]
+
+    def terms(self) -> dict:
+        """Each server's terms won and campaigns, from its agent log; each
+        recorded change gets the term its leader won next."""
+        won, campaigns = {}, {}
+        for s in self.servers:
+            lines = s.tail(1 << 22).splitlines()
+            won[s.name] = [int(ln.rsplit("term ", 1)[1].rstrip(")"))
+                           for ln in lines if "became leader (term" in ln]
+            campaigns[s.name] = sum("campaigning (term" in ln
+                                    for ln in lines)
+        seen = {k: list(v) for k, v in won.items()}
+        for c in self.changes:
+            c["term"] = seen[c["leader"]].pop(0) if seen[c["leader"]] \
+                else None
+        return {"won": won, "campaigns": campaigns}
+
+
+def _sim_stats(path: str) -> list:
+    out = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("{"):
+                out.append(json.loads(line))
+    return out
+
+
+def _sim_rate(stats: list, a: float, b: float) -> float:
+    """Heartbeats a second over the simulator's reports that bracket
+    monotonic times a and b (the clock is system-wide)."""
+    rows = [s for s in stats if s["event"] == "stats"]
+    lo = [s for s in rows if s["mono"] <= a][-1:] or rows[:1]
+    hi = [s for s in rows if s["mono"] >= b][:1] or rows[-1:]
+    if not lo or hi[0]["mono"] <= lo[0]["mono"]:
+        return 0.0
+    return (hi[0]["heartbeats"] - lo[0]["heartbeats"]) / \
+        (hi[0]["mono"] - lo[0]["mono"])
+
+
+def _snapshot_check(raw: bytes, jobs: dict, what: str) -> dict:
+    """Decode a server's snapshot with the port's codec and hold it: each
+    job of `jobs` with exactly its count of live allocs, no alloc id or
+    name twice, no usage row over capacity."""
+    from nomad_tpu_torch.rpc import codec
+    from nomad_tpu_torch.server.fsm import NomadFSM
+    blob = codec.decode(raw)
+    allocs = blob["allocs"]
+    check(all(k == a.id for k, a in allocs.items()),
+          f"{what}: alloc keyed by another id")
+    out = {"bytes": len(raw), "allocs": len(allocs), "index": blob["index"]}
+    for job_id, count in jobs.items():
+        live = [a for a in allocs.values()
+                if a.job_id == job_id and a.desired_status == "run"]
+        check(len(live) == count, f"{what}: {job_id} {len(live)}/{count}")
+        check(len({a.id for a in live}) == count and
+              len({a.name for a in live}) == count,
+              f"{what}: {job_id} holds an alloc id or name twice")
+    fsm = NomadFSM()
+    fsm.restore_bytes(raw)
+    view = fsm.state.usage.view()
+    over = int((view.used > view.cap + 1e-3).any(axis=1).sum())
+    check(over == 0, f"{what}: {over} usage rows over capacity")
+    out["over"] = over
+    return out
+
+
+def _write(watch, path: str, body, timeout: float = AGENT_WAIT_S):
+    """PUT `body` through the current leader, retried across elections
+    (as Nomad's clients retry on no leader). -> (leader, response,
+    monotonic time of the accepted request)."""
+    deadline = time.monotonic() + timeout
+    last = None
+    while True:
+        s = watch.leader()
+        if s is not None:
+            try:
+                t = time.monotonic()
+                return s, s.put(path, body), t
+            except Exception as e:      # noqa: BLE001 — retried until the deadline
+                last = e
+        check(time.monotonic() < deadline,
+              f"PUT {path}: no leader took it: {last!r}")
+        time.sleep(0.2)
+
+
+def _submit(watch, job: dict):
+    """Register `job` -> (leader, eval id, monotonic time of the accepted
+    register)."""
+    s, resp, t = _write(watch, "/v1/jobs", {"Job": job})
+    return s, resp["eval_id"], t
+
+
+def _placed(agent, job_id: str) -> int:
+    """The job's instances placed, from its summary on `agent`."""
+    summary = agent.get(f"/v1/job/{job_id}/summary")["Summary"]
+    return sum(g["Starting"] + g["Running"] + g["Complete"]
+               for g in summary.values())
+
+
+def _place_whole(watch, leader, job_id: str, count: int, eval_id: str,
+                 t_reg: float, bound: float) -> tuple:
+    """Wait until all `count` instances of the registered job are placed,
+    within `bound` seconds of its register (`t_reg`). An eval that ends
+    short (a leader change fenced its plans and it failed after its
+    attempts, its remainder left to a blocked eval) is followed, as an
+    operator would follow it, by `job eval` (PUT
+    /v1/job/<id>/evaluate) on the current leader. `leader` is the server
+    that took the register, polled while it lives. -> (leader,
+    monotonic time all were placed, the evals: id, status,
+    description)."""
+    deadline = t_reg + bound
+    evals = []
+    while True:
+        def terminal():
+            s = leader if leader.alive() else watch.leader()
+            if s is None:
+                return None
+            ev = s.get(f"/v1/evaluation/{eval_id}", 10.0)
+            return (s, ev) if ev["Status"] in ("complete", "failed",
+                                               "canceled") else None
+        leader, ev = _wait(terminal, f"eval {eval_id} of {job_id} ended",
+                           max(1.0, deadline - time.monotonic()))
+        t_end = time.monotonic()
+        evals.append({"id": eval_id, "status": ev["Status"],
+                      "description": ev.get("StatusDescription", "")})
+        placed = _placed(leader, job_id)
+        if placed == count:
+            return leader, t_end, evals
+        check(time.monotonic() < deadline,
+              f"{job_id}: {placed}/{count} placed {bound} s after its "
+              f"register; evals {evals}")
+        leader, resp, _ = _write(watch, f"/v1/job/{job_id}/evaluate", {})
+        eval_id = resp["EvalID"]
+
+
+def _invalidated(servers) -> int:
+    """Nodes the live servers have marked down for a missed TTL (each
+    counts on the leader it was then)."""
+    return sum(int(_counters(s).get("nomad.heartbeat.invalidate", 0))
+               for s in servers if s.alive())
+
+
+def _api_job(job) -> dict:
+    from nomad_tpu_torch.api_codec import to_api
+    return to_api(job)
+
+
+def _alloc_total(agent) -> int:
+    return agent.get("/v1/metrics")["allocs"]
+
+
+def _agent_cluster(base: str, env: dict, on_card: bool, n_nodes: int,
+                   big: int, mid: int) -> dict:
+    """(b) three server agents, two client agents and the node
+    simulator, each its own process; the 50k job over HTTP; then (c) a
+    kill -9 of the leader and its restart over its data dir."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.testing import (
+        client_agent, cpu_seconds, free_ports, server_agent, task_pids)
+    ports = free_ports(3 * AGENT_SERVERS + AGENT_CLIENTS)
+    sp = [{"http": ports[i], "rpc": ports[AGENT_SERVERS + i],
+           "serf": ports[2 * AGENT_SERVERS + i]}
+          for i in range(AGENT_SERVERS)]
+    rpcs = [f"127.0.0.1:{p['rpc']}" for p in sp]
+    t0 = time.monotonic()
+    servers = [server_agent(
+        f"server{i}", base, sp[i], AGENT_SERVERS,
+        [f"127.0.0.1:{sp[j]['serf']}" for j in range(AGENT_SERVERS)
+         if j != i], AGENT_KEY, env) for i in range(AGENT_SERVERS)]
+    clients = [client_agent(f"client{i}", base,
+                            ports[3 * AGENT_SERVERS + i], rpcs, AGENT_KEY,
+                            AGENT_REAL_DC, env)
+               for i in range(AGENT_CLIENTS)]
+    procs = list(servers) + list(clients)
+    sim = None
+    sim_log = os.path.join(base, "simulator.log")
+    watch = None
+    res: dict = {}
+    try:
+        for s in servers:
+            s.start()
+        for s in servers:
+            check(s.wait_http(AGENT_WAIT_S), f"{s.name}: {s.tail()}")
+        watch = _LeaderWatch(servers, t0)
+        leader = _wait(watch.leader, "a leader among the server agents")
+        res["leader_s"] = time.monotonic() - t0
+        _write(watch, "/v1/operator/scheduler/configuration",
+               AGENT_SCHEDULER)
+        for c in clients:
+            c.start()
+        t_fleet = time.monotonic()
+        with open(sim_log, "w") as f:
+            sim = subprocess.Popen(
+                [sys.executable, "-m", "nomad_tpu_torch.testing",
+                 "simulate", "-servers", ",".join(rpcs), "-nodes",
+                 str(n_nodes), "-key", AGENT_KEY],
+                cwd=str(ROOT), env=env, stdout=f, stderr=subprocess.STDOUT,
+                start_new_session=True)
+        want_nodes = n_nodes + AGENT_CLIENTS
+        _wait(lambda: (lambda s: s is not None and s.get("/v1/metrics")[
+            "nodes"] == want_nodes)(watch.leader()),
+              f"{want_nodes} nodes registered", interval=1.0)
+        t_fleet_end = time.monotonic()
+        reg = _wait(lambda: [s for s in _sim_stats(sim_log)
+                             if s["event"] == "registered"],
+                    "the simulator's registered report", interval=0.2)
+        res["fleet"] = {
+            "nodes": want_nodes, "seconds": t_fleet_end - t_fleet,
+            "simulator_register_s": reg[0]["register_s"],
+            "invalidated": _invalidated(servers),
+            "elections": watch.between(t_fleet - t0, t_fleet_end - t0)}
+        log(f"agent fleet: {want_nodes} nodes ({n_nodes} simulated, "
+            f"{AGENT_CLIENTS} client agents) registered through the "
+            f"servers' RPC in {res['fleet']['seconds']:.3f} s (simulator "
+            f"{res['fleet']['simulator_register_s']}), nodes marked down "
+            f"{res['fleet']['invalidated']}, elections "
+            f"{res['fleet']['elections']}")
+
+        # the 50k job, then the count-1 job, over HTTP
+        leader = _wait(watch.leader, "a leader")
+        counters0 = _counters(leader)
+        cpu0 = {s.name: cpu_seconds(s.pid) for s in servers}
+        big_job = _mk_batch_job(mock, "agent-big", big)
+        leader, big_eval, t_reg = _submit(watch, _api_job(big_job))
+        leader, t_commit, big_evals = _place_whole(
+            watch, leader, "agent-big", big, big_eval, t_reg,
+            AGENT_BIG_BOUND_S)
+        cpu1 = {s.name: cpu_seconds(s.pid) for s in servers}
+        followers = [s for s in servers if s is not leader]
+        applied = {}
+        for f in followers:
+            _wait(lambda: _placed(f, "agent-big") == big,
+                  f"{f.name} applied the {big} allocs")
+            applied[f.name] = time.monotonic() - t_reg
+        t_done = time.monotonic()
+        sims = _sim_stats(sim_log)
+        apply_wait = leader.get("/v1/metrics")["telemetry"]["samples"].get(
+            "nomad.raft.apply_wait")
+        res["big"] = {
+            "count": big, "leader": leader.name, "evals": big_evals,
+            "scheduler": AGENT_SCHEDULER,
+            "register_to_leader_commit_s": t_commit - t_reg,
+            "register_to_followers_applied_s": applied,
+            "cpu_s_during_eval": {k: cpu1[k] - cpu0[k] for k in cpu0},
+            "heartbeats_per_s": _sim_rate(sims, t_reg, t_done),
+            "invalidated_since_fleet": _invalidated(servers)
+            - res["fleet"]["invalidated"],
+            "elections": watch.between(t_reg - t0, t_done - t0),
+            "raft_apply_wait": apply_wait}
+        one_job = _mk_batch_job(mock, "agent-one", 1)
+        leader, one_eval, t_one = _submit(watch, _api_job(one_job))
+        leader, _, _ = _place_whole(watch, leader, "agent-one", 1, one_eval,
+                                    t_one, AGENT_WAIT_S)
+        # the leader's solves of the 50k and count-1 evals
+        res["solves"] = _agent_solves(_counters(leader), on_card,
+                                      "agent cluster", counters0)
+        res["launches"] = res["solves"]["launches"]
+        log(f"agent cluster: {big:,} tasks, register -> last commit on "
+            f"{leader.name} {res['big']['register_to_leader_commit_s']:.3f}"
+            f" s (PR 9's in-process raft figure 4.08-5.57 s, another "
+            f"setup) over evals {big_evals}, -> followers applied "
+            f"{applied}; CPU s during the "
+            f"eval {res['big']['cpu_s_during_eval']}; heartbeats "
+            f"{res['big']['heartbeats_per_s']:.1f}/s, nodes marked down "
+            f"{res['big']['invalidated_since_fleet']}; elections "
+            f"{res['big']['elections']}; launches with the count-1 job "
+            f"{res['launches']}")
+
+        # the count-2 raw_exec job on the two client agents
+        sleep = {"ID": "agent-real", "Name": "agent-real",
+                 "Type": "service", "Datacenters": [AGENT_REAL_DC],
+                 "TaskGroups": [{"Name": "g", "Count": AGENT_CLIENTS,
+                                 "Tasks": [{
+                                     "Name": "t", "Driver": "raw_exec",
+                                     "Config": {"command": "/bin/sleep",
+                                                "args": ["601"]},
+                                     "Resources": {"CPU": 50,
+                                                   "MemoryMB": 32}}]}]}
+        leader, real_eval, t_real = _submit(watch, sleep)
+        _place_whole(watch, leader, "agent-real", AGENT_CLIENTS, real_eval,
+                     t_real, AGENT_WAIT_S)
+        _wait(lambda: sum(a["ClientStatus"] == "running" for a in
+                          watch.leader().get(
+                              "/v1/job/agent-real/allocations"))
+              == AGENT_CLIENTS, "agent-real running")
+        on = {c.name: task_pids(c.dir, "sleep 601") for c in clients}
+        check(all(len(p) == 1 for p in on.values()),
+              f"agent-real's tasks by client: {on}")
+
+        # (c) kill -9 the leader, once it has its kernels (it placed the
+        # jobs above, or warmed: a server that led before the fleet
+        # registered never warms as a standby, ROADMAP Queue 3 item 15)
+        old = _wait(lambda: (lambda s: s if s is not None and (
+            not on_card or sum(_counters(s).get(f"nomad.compile_cache.{k}",
+                                                0)
+                               for k in ("hits", "misses")))
+            else None)(watch.leader()), "a leader that has its kernels")
+        old_term = old.get("/v1/operator/debug")["Raft"]["Term"]
+        warmups0 = {s.name: s.tail(1 << 22).count("solver warmup")
+                    for s in servers}
+        # nodes a leader has marked down for a missed TTL, so far
+        invalidated0 = {s.name: _counters(s).get(
+            "nomad.heartbeat.invalidate", 0) for s in servers}
+        t_kill = time.monotonic()
+        old.kill9()
+        # /v1/status/leader answers the server's is_leader, which its
+        # recovery barrier sets once every establish step but the
+        # broker's restore has run
+        new = _wait(lambda: (lambda s: s if s is not None and s is not old
+                             else None)(watch.leader()),
+                    "a new leader after the kill", interval=0.01)
+        t_new = time.monotonic()
+        bundle = _wait(lambda: (lambda b: b if b["Raft"]["Term"] != old_term
+                                and "total" in b["Meta"]["EstablishTimings"]
+                                else None)(new.get("/v1/operator/debug")),
+                       "the new leader's establish timings", interval=0.1)
+        cache = {k: int(bundle["Metrics"]["counters"].get(
+            f"nomad.solver.state_cache.{k}", 0)) for k in RAFT_CACHE}
+        timings = bundle["Meta"]["EstablishTimings"]
+        # the killed agent restarted over its data dir at once: the new
+        # leader's autopilot drops a peer it has not reached for 10 s of
+        # its reign (LastContactThresholdSec), and a dropped server that
+        # comes back campaigns at ever higher terms, which unseat the
+        # leader (the reference's Raft has no pre-vote): in run D the
+        # restart came 13 s after the election and the cluster changed
+        # leader for minutes
+        t_re = time.monotonic()
+        old.start()
+        mid_job = _mk_batch_job(mock, "agent-mid", mid)
+        new, mid_eval, t_mid = _submit(watch, _api_job(mid_job))
+        new, t_mid_commit, mid_evals = _place_whole(
+            watch, new, "agent-mid", mid, mid_eval, t_mid, AGENT_WAIT_S)
+        # the new leader's establishment warmup (a thread; from 256 nodes)
+        # logs when done
+        if n_nodes >= 256:
+            _wait(lambda: new.tail(1 << 22).count("solver warmup") >
+                  warmups0[new.name], f"{new.name}'s warmup after the kill",
+                  interval=0.1)
+        warm = [line.strip() for line in new.tail(20000).splitlines()
+                if "solver warmup" in line]
+        res["failover"] = {
+            "killed": old.name, "new_leader": new.name,
+            "crash_to_established_s": t_new - t_kill,
+            "establish_timings": timings,
+            "state_cache": cache,
+            "promoted_warm": cache["promote_warm"] >= 1,
+            "warmup_log": warm[-1:],
+            "mid_register_to_commit_s": t_mid_commit - t_mid,
+            "mid_evals": mid_evals,
+            "crash_to_mid_commit_s": t_mid_commit - t_kill,
+            "elections": watch.between(t_kill - t0,
+                                       time.monotonic() - t0)}
+        log(f"agent failover: kill -9 {old.name}; crash -> {new.name} "
+            f"established {t_new - t_kill:.3f} s (its establish steps "
+            f"{timings}); state cache "
+            f"{res['failover']['state_cache']} (promoted warm: "
+            f"{res['failover']['promoted_warm']}); warmup {warm[-1:]}; "
+            f"{mid:,}-task job register -> commit "
+            f"{res['failover']['mid_register_to_commit_s']:.3f} s, all "
+            f"placed")
+
+        # the restarted agent catches up
+        check(old.wait_http(AGENT_WAIT_S), f"{old.name}: {old.tail()}")
+        target = _alloc_total(_wait(watch.leader, "a leader"))
+        _wait(lambda: _alloc_total(old) == target,
+              f"{old.name} caught up to {target} allocs", interval=0.05)
+        t_caught = time.monotonic()
+        if on_card:
+            # a follower loads its kernels in its standby warmup, once its
+            # store crosses the warmup floor
+            _wait(lambda: old.get("/v1/metrics")["telemetry"]["gauges"].get(
+                "nomad.standby.warmed"), f"{old.name}'s standby warmup",
+                interval=0.1)
+        rc = _counters(old)
+        hits = int(rc.get("nomad.compile_cache.hits", 0))
+        misses = int(rc.get("nomad.compile_cache.misses", 0))
+        if on_card:
+            check(misses == 0, f"{old.name} ran nvcc on restart: {misses}")
+        res["restart"] = {"caught_up_s": t_caught - t_re, "allocs": target,
+                          "compile_cache_hits": hits,
+                          "compile_cache_misses": misses}
+        log(f"agent restart: {old.name} over its data dir caught up to "
+            f"{target:,} allocs in {t_caught - t_re:.3f} s; compile cache "
+            f"{hits} hits, {misses} misses")
+
+        # the leader's and a follower's snapshots, at the end: saving one
+        # pickles the whole store under its lock (26 MB here), long enough
+        # at the agents' election timeout to hand leadership on
+        jobs = {"agent-big": big, "agent-one": 1,
+                "agent-real": AGENT_CLIENTS, "agent-mid": mid}
+        snaps = {}
+        leader = _wait(watch.leader, "a leader")
+        for s in (leader, old if old is not leader else
+                  next(f for f in servers if f is not leader)):
+            raw = s.raw("/v1/operator/snapshot", 300.0)
+            snaps[s.name] = _snapshot_check(raw, jobs, s.name)
+        res["snapshots"] = snaps
+        log(f"agent snapshots: {snaps}; agent-real ran one sleep on "
+            f"each client agent {on}")
+        res["terms"] = watch.terms()
+        res["elections"] = list(watch.changes)
+        sims = _sim_stats(sim_log)
+        res["simulator"] = sims[-1] if sims else None
+        nodes = new.get("/v1/nodes")
+        down = [n["Name"] for n in nodes if n["Status"] != "ready"]
+        # the killed server's count before its kill, every server's since
+        # (the restarted one counts from its restart)
+        res["nodes_invalidated"] = int(invalidated0[old.name] + sum(
+            _counters(s).get("nomad.heartbeat.invalidate", 0)
+            for s in servers))
+        check(not down and not res["nodes_invalidated"],
+              f"the simulator did not keep the fleet ready: {len(down)} "
+              f"nodes not ready ({down[:5]}), "
+              f"{res['nodes_invalidated']} marked down for a missed TTL; "
+              f"simulator {res['simulator']}")
+        log(f"agent elections: {res['elections']} (terms won "
+            f"{res['terms']}); simulator {res['simulator']}; every node "
+            f"ready, none marked down for a missed TTL")
+    except BaseException:
+        # what a failed phase needs to be read: who led when, and each
+        # server's elections
+        if watch is not None:
+            log(f"agent cluster failed; elections {watch.terms()}, "
+                f"leaders seen {watch.changes}")
+        raise
+    finally:
+        if watch is not None:
+            watch.stop()
+        if sim is not None and sim.poll() is None:
+            sim.terminate()
+            try:
+                sim.wait(60)
+            except subprocess.TimeoutExpired:
+                sim.kill()
+                sim.wait(30)
+        for p in procs:
+            p.stop()
+    return res
+
+
+def agent_phase(torch, card: str, n_nodes: int = 10_000,
+                big: int = 50_000, mid: int = 2_000,
+                on_card: bool = True) -> dict:
+    """The port as Nomad's agent (phase 16): (a) a -dev agent, (b) three
+    server agents, two client agents and the node simulator's fleet,
+    each its own process, (c) a kill -9 failover and a restart. Every
+    child process is stopped, and every task process reaped, before the
+    phase returns or raises."""
+    import tempfile
+    from nomad_tpu_torch.testing import child_env, reap_tasks
+    (ROOT / "build").mkdir(exist_ok=True)
+    base = tempfile.mkdtemp(prefix="agent-phase-", dir=str(ROOT / "build"))
+    env = child_env()
+    env.pop("NOMAD_SOLVER_DEVICE", None)
+    if not on_card:
+        env["NOMAD_SOLVER_DEVICE"] = "cpu"
+    kind = torch.cuda.get_device_name(0) if on_card else card
+    try:
+        dev = _agent_dev(base, env, kind, on_card)
+        cluster = _agent_cluster(base, env, on_card, n_nodes, big, mid)
+    finally:
+        # raw_exec tasks are session leaders: the client agents' tasks
+        # outlive them by design, so the phase ends them by pid
+        reaped = reap_tasks(base)
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"agent phase: every agent stopped, {len(reaped)} task processes "
+        f"reaped")
+    return {"dev": dev, **cluster}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3431,7 +4125,8 @@ def main() -> int:
     ladder = ladder_phase(np, torch)
     server = server_phase(np, torch, card)
     nodes = server.pop("nodes_snapshot")        # the 10,000-node fleet
-    stream = stream_phase(np, torch, nodes, card)
+    # the stream at STREAM_COUNT only; stream_sweep.py runs every count
+    stream = stream_phase(np, torch, nodes, card, counts=(STREAM_COUNT,))
     rejections = rejection_phase(np, torch, card)
     fault = server_fault_phase(np, torch, nodes)
     t_cvx = time.perf_counter()
@@ -3442,6 +4137,9 @@ def main() -> int:
     t_raft = time.perf_counter()
     raft = raft_phase(np, torch, card, nodes)
     log(f"raft phase: {time.perf_counter() - t_raft:.1f} s")
+    t_agent = time.perf_counter()
+    agent = agent_phase(torch, card)
+    log(f"agent phase: {time.perf_counter() - t_agent:.1f} s")
 
     meta = {
         "depth_curve": ("nomad_tpu_torch/solver/csrc/depth_curve.cu",
@@ -3481,7 +4179,11 @@ def main() -> int:
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": None,
-               "floor_ms": r["floor_ms"], "call_ms": r["call_ms"]}
+               "floor_ms": r["floor_ms"], "call_ms": r["call_ms"],
+               # the cluster leader agent's launches on the agent path
+               # (the 50k and count-1 jobs over HTTP), read from its
+               # /v1/metrics
+               "agent_launches": agent["launches"][name]}
         for k in ("near_tie_rows", "moved_nodes", "grid_ms", "spread_ms",
                   "k512_ms", "depths_evaluated", "score_ms", "steps",
                   "solve_device_ms", "barrier_ms", "dependency_floor_ms",
@@ -3501,6 +4203,7 @@ def main() -> int:
                                    if f != "eval_kernels"}
                                for k, r in cvx.items()},
                     "convex_server": cvx_server, "raft": raft,
+                    "agent": agent,
                     "native_stamping": native_loaded,
                     "greedy_fill": res["greedy_fill"], "pow10": pow10,
                     "card": card,

@@ -54,6 +54,14 @@ class Worker:
             ev, token = self.server.eval_broker.dequeue(
                 self.server.scheduler_types, timeout=DEQUEUE_TIMEOUT)
             if ev is None:
+                # a disabled broker (every follower's) answers at once:
+                # wait on its condition, which enabling it (leadership)
+                # notifies, instead of spinning on the interpreter lock
+                # that the server's Raft threads need
+                broker = self.server.eval_broker
+                with broker._lock:
+                    if not broker._enabled and not self._stop.is_set():
+                        broker._cond.wait(DEQUEUE_TIMEOUT)
                 continue
             # ref worker.go:461 `nomad.worker.dequeue_eval`
             metrics.add_sample("nomad.worker.dequeue_eval",

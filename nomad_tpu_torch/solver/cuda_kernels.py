@@ -56,10 +56,11 @@ placer itself routes CPU solves to the torch tier (backend.select);
 given CUDA tensors it checks device, dtype, shape and
 contiguity, allocates its outputs (and the scan's scratch), launches on
 the current stream and raises if the launch reports an error. `LAUNCHES`
-counts the launches of each placement kernel; nothing else adds to it.
+counts the launches of each placement kernel; nothing else adds to it
+(the metrics registry's `nomad.solver.kernel_launches.<name>` mirrors it).
 Loading a library counts `nomad.compile_cache.hits` when it was found
 built (runtime.enable_compile_cache points BUILD_DIR at a durable
-directory) and `nomad.compile_cache.misses` when nvcc had to build it.
+directory); each library nvcc builds counts `nomad.compile_cache.misses`.
 """
 from __future__ import annotations
 
@@ -97,6 +98,12 @@ SOURCES = {"depth_curve": "depth_curve.cu",
 # depth_curve_lanes the windows: one entry of depth_curve.cu)
 KERNELS = ("depth_curve", "depth_curve_lanes", "score_capacity",
            "chunked_step", "chunked_scan", "convex_solve")
+# the kernels the placer's solves launch: the first one a process finds
+# unbuilt has all of them built at once (one nvcc a source), so a cold
+# server pays the slowest build once, not each build as its solve first
+# needs it, and its data dir then holds them all for a restart
+SOLVE_KERNELS = ("depth_curve", "score_capacity", "chunked_scan",
+                 "convex_solve")
 MAX_GRID = 32           # csrc/depth_curve.cu DepthGrid capacity
 MAX_LANES = BATCH_LANES  # csrc/depth_curve.cu LaneScalars capacity
 
@@ -184,6 +191,7 @@ def build(names=None) -> float:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)
+    metrics.incr("nomad.compile_cache.misses", len(todo) - len(failed))
     if failed:
         raise KernelBuildError("CUDA kernel build failed:\n" +
                                "\n".join(failed))
@@ -203,8 +211,7 @@ def _fn(name: str, symbol: str = "launch"):
             if path.exists():
                 metrics.incr("nomad.compile_cache.hits")
             else:
-                build([name])
-                metrics.incr("nomad.compile_cache.misses")
+                build(SOLVE_KERNELS if name in SOLVE_KERNELS else [name])
             fn = getattr(ctypes.CDLL(str(path)), f"{name}_{symbol}")
             fn.argtypes = _ARGTYPES[f"{name}_{symbol}"]
             fn.restype = (ctypes.c_longlong if symbol == "scratch_bytes"
@@ -270,6 +277,7 @@ def _launched(name: str, err: int) -> None:
             f"{name} kernel launch failed: cudaError_t {err}", err)
     with _launch_lock:
         LAUNCHES[name] += 1
+    metrics.incr(f"nomad.solver.kernel_launches.{name}")
 
 
 def _stream(dev) -> int:

@@ -2,15 +2,40 @@
 `torch.device` from.
 
 The default is the first card, `cuda:0`. A caller that wants the CPU (the
-tests, a box with no card) asks for it with `use_device("cpu")`. With no
-card present and no such request, the first solve raises: the solver never
-carries on on the CPU by itself.
+tests, a box with no card) asks for it with `use_device("cpu")`; a process
+started by another (an agent, the node simulator) is asked through the
+environment: `NOMAD_SOLVER_DEVICE=cpu` (or `cuda:N`), read once at import.
+With no card present and no such request, the first solve raises: the
+solver never carries on on the CPU by itself.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
-_device = torch.device("cuda:0")
+ENV = "NOMAD_SOLVER_DEVICE"
+
+
+def _requested(value: str) -> torch.device:
+    """The device `NOMAD_SOLVER_DEVICE` asks for (`cuda:0` when unset);
+    raises ValueError, naming the variable, on anything but `cpu`,
+    `cuda` or `cuda:N`."""
+    if not value:
+        return torch.device("cuda:0")
+    try:
+        dev = torch.device(value)
+    except RuntimeError as e:
+        raise ValueError(f"{ENV}={value!r} is not a device: {e}") from None
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{ENV}={value!r}: the solver runs on 'cpu' or "
+                         "'cuda[:N]'")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda:0")
+    return dev
+
+
+_device = _requested(os.environ.get(ENV, ""))
 
 
 def use_device(dev) -> torch.device:
@@ -29,6 +54,6 @@ def solve_device() -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"solve device is {dev} but no CUDA device is present; "
-            "call nomad_tpu_torch.solver.device.use_device('cpu') to "
-            "solve on the CPU")
+            "call nomad_tpu_torch.solver.device.use_device('cpu') (or "
+            f"start the process with {ENV}=cpu) to solve on the CPU")
     return dev

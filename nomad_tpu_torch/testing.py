@@ -1,8 +1,25 @@
-"""Helpers shared by the port's tests and chip_smoke.py."""
+"""Helpers shared by the port's tests and chip_smoke.py.
+
+Run as a program, it is the node simulator (`NodeSimulator`):
+
+    python -m nomad_tpu_torch.testing simulate -servers H:P,H:P,H:P \
+        -nodes 10000 -seed 42 -key <cluster key>
+"""
 from __future__ import annotations
 
+import argparse
 import contextlib
+import heapq
+import json
 import os
+import signal
+import socket
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+from pathlib import Path
 
 import numpy as np
 
@@ -22,17 +39,16 @@ def seeded_urandom(seed):
 
 
 def park_follower_workers(server) -> None:
-    """Let a Raft server's idle workers wait while its broker is off.
+    """Let a reference Server's idle workers wait while its broker is off.
 
-    The worker loop (server/worker.py `run`, a copy of the reference's)
+    The reference's worker loop (nomad_tpu/server/worker.py `run`)
     dequeues from its own server's broker, which a follower keeps
-    disabled: `dequeue` then returns at once and the loop spins. Servers
-    in one process share one interpreter lock, and every torch call of
-    the leader's solve releases it and waits for a spinning follower to
-    hand it back (up to the switch interval, 5 ms), so an eval of a few
-    thousand calls takes tens of seconds. Servers in their own
-    processes, as a deployment runs them, share nothing. This wraps the
-    server's `eval_broker.dequeue` so that, while the broker is
+    disabled: `dequeue` then returns at once and the loop spins. The
+    port's worker waits on the broker's condition instead
+    (server/worker.py); a test that runs reference servers in the same
+    process as the port's parks theirs with this, or their spinning
+    holds the interpreter lock between the port's torch calls. This
+    wraps the server's `eval_broker.dequeue` so that, while the broker is
     disabled, a call first waits on the broker's condition for its
     timeout; enabling the broker (the server becoming leader) wakes it
     at once. Nothing else changes."""
@@ -451,3 +467,430 @@ def convex_fixture(name):
             rng.random(128) < 0.3, rng.uniform(-0.5, 0.5, 128),
             0.0).astype(np.float32)
     return (*case, count, kw)
+
+
+# ------------------------------------------------ agents as processes
+#
+# The port's agents as a deployment runs them, each its own OS process
+# (`python -m nomad_tpu_torch.cli agent -config <file>`) driven over HTTP,
+# and the node simulator, which stands in for a fleet of client agents
+# over the servers' socket RPC. chip_smoke.py's agent phase and
+# tests/test_torch_agent_cluster.py use them.
+
+REPO_ROOT = Path(__file__).resolve().parents[1]
+
+
+def free_ports(n: int) -> list:
+    """`n` distinct free TCP ports on 127.0.0.1."""
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def wait_until(fn, timeout: float, interval: float = 0.05):
+    """Poll `fn` until it returns something true (returned) or `timeout`
+    seconds pass (-> None). An exception counts as not yet."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            got = fn()
+            if got:
+                return got
+        except (OSError, ValueError, KeyError):
+            pass
+        if time.monotonic() >= deadline:
+            return None
+        time.sleep(interval)
+
+
+def cpu_seconds(pid: int) -> float:
+    """User + system CPU seconds of process `pid`, all its threads
+    (/proc/<pid>/stat)."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def reap_tasks(base: str) -> list:
+    """SIGKILL every process whose working directory lies under `base`
+    (an agent's data dir): raw_exec tasks are session leaders and outlive
+    their agent. -> the pids killed."""
+    base = os.path.realpath(base)
+    killed = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            cwd = os.path.realpath(f"/proc/{pid}/cwd")
+        except OSError:
+            continue
+        if cwd == base or cwd.startswith(base + os.sep):
+            try:
+                os.kill(int(pid), signal.SIGKILL)
+                killed.append(int(pid))
+            except OSError:
+                pass
+    return killed
+
+
+def task_pids(base: str, needle: str) -> list:
+    """Live processes whose cwd lies under `base` and whose command line
+    holds `needle`."""
+    base = os.path.realpath(base)
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            cwd = os.path.realpath(f"/proc/{pid}/cwd")
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if cwd.startswith(base + os.sep) and needle in cmd:
+            out.append(int(pid))
+    return sorted(out)
+
+
+def child_env(**extra) -> dict:
+    """The environment of a spawned port process: this one's, with the
+    repository on PYTHONPATH and `extra` (NOMAD_SOLVER_DEVICE, ...)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO_ROOT)
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+class AgentProcess:
+    """One port agent in its own OS process, `python -m
+    nomad_tpu_torch.cli agent -config <dir>/agent.json`, with its log in
+    <dir>/agent.log; driven over its HTTP API."""
+
+    def __init__(self, name: str, config: dict, base_dir: str,
+                 env: dict = None, args: tuple = ()):
+        self.name = name
+        self.dir = os.path.join(base_dir, name)
+        os.makedirs(self.dir, exist_ok=True)
+        self.config = dict(config, data_dir=self.dir)
+        self.http_port = self.config["ports"]["http"]
+        self.env = env if env is not None else child_env()
+        self.args = tuple(args)
+        self.proc = None
+
+    def start(self) -> "AgentProcess":
+        cfg = os.path.join(self.dir, "agent.json")
+        with open(cfg, "w") as f:
+            json.dump(self.config, f)
+        with open(os.path.join(self.dir, "agent.log"), "ab") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "nomad_tpu_torch.cli", "agent",
+                 "-config", cfg, *self.args],
+                cwd=self.dir, env=self.env, stdout=log,
+                stderr=subprocess.STDOUT, start_new_session=True)
+        return self
+
+    @property
+    def pid(self) -> int:
+        return self.proc.pid
+
+    def alive(self) -> bool:
+        return self.proc is not None and self.proc.poll() is None
+
+    def kill9(self) -> None:
+        if self.alive():
+            os.kill(self.proc.pid, signal.SIGKILL)
+        if self.proc is not None:
+            self.proc.wait(timeout=30)
+
+    def stop(self, timeout: float = 30.0) -> None:
+        """SIGTERM (the agent shuts down), SIGKILL after `timeout`."""
+        if self.alive():
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                self.kill9()
+
+    def url(self, path: str) -> str:
+        return f"http://127.0.0.1:{self.http_port}{path}"
+
+    def raw(self, path: str, timeout: float = 60.0) -> bytes:
+        with urllib.request.urlopen(self.url(path), timeout=timeout) as r:
+            return r.read()
+
+    def get(self, path: str, timeout: float = 60.0):
+        return json.loads(self.raw(path, timeout) or b"null")
+
+    def put(self, path: str, body, timeout: float = 120.0):
+        req = urllib.request.Request(
+            self.url(path), data=json.dumps(body).encode(), method="PUT",
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            raw = r.read()
+        return json.loads(raw) if raw else None
+
+    def wait_http(self, timeout: float) -> bool:
+        return bool(wait_until(
+            lambda: self.alive() and self.get("/v1/agent/health", 2.0)
+            is not None, timeout, 0.1))
+
+    def is_leader(self) -> bool:
+        try:
+            return bool(self.get("/v1/status/leader", 5.0))
+        except (OSError, ValueError):
+            return False
+
+    def tail(self, nbytes: int = 3000) -> str:
+        try:
+            with open(os.path.join(self.dir, "agent.log"), "rb") as f:
+                f.seek(0, 2)
+                f.seek(max(0, f.tell() - nbytes))
+                return f.read().decode(errors="replace")
+        except OSError:
+            return ""
+
+
+def server_agent(name: str, base_dir: str, ports: dict, n_servers: int,
+                 join: list, key: str, env: dict = None) -> AgentProcess:
+    """A server agent as Nomad's production shape runs it: TCP RPC,
+    gossip `join` to its peers, `bootstrap_expect` = `n_servers`, Raft on
+    the agent's defaults (WAL under its data dir, raft_fsync always)."""
+    return AgentProcess(name, {
+        "name": name,
+        "ports": {"http": ports["http"], "rpc": ports["rpc"],
+                  "serf": ports["serf"]},
+        "server": {"enabled": True, "bootstrap_expect": n_servers,
+                   "encrypt": key, "retry_join": list(join)},
+        "client": {"enabled": False},
+    }, base_dir, env)
+
+
+def client_agent(name: str, base_dir: str, http_port: int, servers: list,
+                 key: str, datacenter: str, env: dict = None
+                 ) -> AgentProcess:
+    """A client-only agent that runs real tasks, in `datacenter`,
+    registered through the servers' RPC."""
+    return AgentProcess(name, {
+        "name": name, "datacenter": datacenter,
+        "ports": {"http": http_port},
+        "server": {"enabled": False, "encrypt": key},
+        "client": {"enabled": True, "servers": list(servers)},
+    }, base_dir, env)
+
+
+def bench_node(mock, i, rng, pin="", racks=0):
+    """bench.py's heterogeneous fleet node (10,000 of them make the main
+    path's cluster). With `racks`, the service layout: datacenter
+    dc1..dc3 by i % 3 and meta.rack r0.. by i % racks."""
+    n = mock.node()
+    if pin:
+        n.id = f"{pin}{i:06d}"
+    n.name = f"bench-{i}"
+    n.node_class = f"c{int(rng.integers(0, 4))}"
+    n.datacenter = "dc1" if i % 2 == 0 else "dc2"
+    if racks:
+        n.datacenter = f"dc{i % 3 + 1}"
+        n.meta["rack"] = f"r{i % racks}"
+    n.node_resources.cpu.cpu_shares = int(
+        rng.choice([4_000, 8_000, 16_000, 32_000]))
+    n.node_resources.memory.memory_mb = int(
+        rng.choice([8_192, 16_384, 32_768, 65_536]))
+    n.node_resources.disk.disk_mb = 500_000
+    return n
+
+
+# the TTL a node assumes when a write's answer names none (the client's
+# default, client/client.py)
+DEFAULT_TTL_S = 10.0
+# the simulator's threads, each with its own connection pool, and how
+# often it asks the servers who leads
+SIM_THREADS = 16
+LEADER_POLL_S = 0.25
+
+
+def _ttl(resp, prior: float) -> float:
+    """The heartbeat TTL a Node.Register / Node.UpdateStatus answer gives;
+    `prior` when it gives none (a retried write answered from another
+    server's dedup record, `{"index": i, "deduped": True}`), as the
+    client agent reads it."""
+    return float(resp.get("heartbeat_ttl", prior))
+
+
+class NodeSimulator:
+    """Stands in for `n_nodes` client agents (bench_node rows from
+    `seed`): registers each over the servers' socket RPC
+    (`ServerRpc.node_register`) and heartbeats it as the client agent
+    does (`Node.UpdateStatus` ready, every half TTL: client/client.py
+    `_heartbeat_loop`), from SIM_THREADS threads with a connection pool
+    each. A thread registers its share of the fleet and heartbeats the
+    nodes it has registered as they fall due, so no node waits on the
+    rest of the registration. A watcher asks the servers for the Raft
+    leader every LEADER_POLL_S and points every thread's server list
+    at it first (a follower would forward each call to the leader).
+
+    A heartbeat `missed` when it returned after its node's TTL, counted
+    from the start of the last call that succeeded."""
+
+    def __init__(self, servers: list, n_nodes: int, seed: int,
+                 key: bytes = None):
+        from . import mock
+        from .rpc import ServerRpc
+        from .rpc.server import DEFAULT_KEY
+        self.servers = list(servers)
+        self.key = key or DEFAULT_KEY
+        rng = np.random.default_rng(seed)
+        self.nodes = [bench_node(mock, i, rng) for i in range(n_nodes)]
+        self.threads = max(1, min(SIM_THREADS, n_nodes))
+        self.rpcs = [ServerRpc(self.servers, key=self.key, timeout=30.0,
+                               retry_seed=seed * 1000 + t)
+                     for t in range(self.threads)]
+        self._lock = threading.Lock()
+        self.registered = 0
+        self.heartbeats = 0
+        self.missed = 0
+        self.errors: dict = {}
+        self.max_age = 0.0          # the longest gap between good calls / TTL
+        self.leaders: list = []     # (seconds since start, leader addr)
+        self.t0 = time.monotonic()
+        self.register_s = None
+
+    def _error(self, e: Exception) -> None:
+        with self._lock:
+            k = type(e).__name__
+            self.errors[k] = self.errors.get(k, 0) + 1
+
+    def _shard(self, t: int, stop: threading.Event) -> None:
+        rpc = self.rpcs[t]
+        todo = list(range(t, len(self.nodes), self.threads))
+        todo.reverse()
+        due: list = []              # (due, node index)
+        ok_at, ttl = {}, {}
+        while not stop.is_set():
+            now = time.monotonic()
+            if due and due[0][0] <= now:
+                _, i = heapq.heappop(due)
+                start = time.monotonic()
+                try:
+                    resp = rpc.node_update_status(self.nodes[i].id, "ready")
+                except Exception as e:      # noqa: BLE001 — counted, retried
+                    self._error(e)
+                    heapq.heappush(due, (time.monotonic() + 0.1, i))
+                    continue
+                end = time.monotonic()
+                age = (end - ok_at[i]) / ttl[i]
+                with self._lock:
+                    self.heartbeats += 1
+                    self.missed += age > 1.0
+                    self.max_age = max(self.max_age, age)
+                ok_at[i], ttl[i] = start, _ttl(resp, ttl[i])
+                heapq.heappush(due, (start + ttl[i] / 2, i))
+            elif todo:
+                i = todo[-1]
+                start = time.monotonic()
+                try:
+                    resp = rpc.node_register(self.nodes[i])
+                except Exception as e:      # noqa: BLE001 — counted, retried
+                    self._error(e)
+                    stop.wait(0.1)
+                    continue
+                todo.pop()
+                ok_at[i], ttl[i] = start, _ttl(resp, DEFAULT_TTL_S)
+                heapq.heappush(due, (start + ttl[i] / 2, i))
+                with self._lock:
+                    self.registered += 1
+            else:
+                stop.wait(min(0.05, max(0.0, due[0][0] - now))
+                          if due else 0.05)
+
+    def _watch_leader(self, stop: threading.Event) -> None:
+        from .rpc import RpcClient
+        rpc = RpcClient(self.servers, key=self.key, timeout=5.0)
+        try:
+            while not stop.wait(LEADER_POLL_S):
+                try:
+                    cfg = rpc.call("Operator.RaftGetConfiguration")
+                except Exception as e:      # noqa: BLE001 — counted
+                    self._error(e)
+                    continue
+                lead = [s["Address"] for s in cfg["Servers"] if s["Leader"]]
+                if not lead or (self.leaders and
+                                self.leaders[-1][1] == lead[0]):
+                    continue
+                with self._lock:
+                    self.leaders.append((time.monotonic() - self.t0,
+                                         lead[0]))
+                order = lead[:1] + [a for a in self.servers
+                                    if a != lead[0]]
+                for r in self.rpcs:
+                    r.rpc.set_servers(order)
+        finally:
+            rpc.close()
+
+    def stats(self) -> dict:
+        with self._lock:
+            now = time.monotonic()
+            return {"t": now - self.t0, "mono": now,
+                    "nodes": len(self.nodes), "registered": self.registered,
+                    "register_s": self.register_s,
+                    "heartbeats": self.heartbeats, "missed": self.missed,
+                    "max_age_ttl": self.max_age, "errors": dict(self.errors),
+                    "leaders": list(self.leaders)}
+
+    def run(self, stop: threading.Event, report, every: float = 1.0) -> None:
+        """Register and heartbeat until `stop`; `report(event, stats)`
+        once the fleet is registered and every `every` seconds."""
+        threads = [threading.Thread(target=self._shard, args=(t, stop),
+                                    daemon=True, name=f"sim-{t}")
+                   for t in range(self.threads)]
+        threads.append(threading.Thread(target=self._watch_leader,
+                                        args=(stop,), daemon=True,
+                                        name="sim-leader"))
+        for th in threads:
+            th.start()
+        try:
+            while not stop.wait(every):
+                st = self.stats()
+                if self.register_s is None and \
+                        st["registered"] == len(self.nodes):
+                    self.register_s = st["t"]
+                    report("registered", self.stats())
+                report("stats", st)
+        finally:
+            stop.set()
+            for th in threads:
+                th.join(30.0)
+            for r in self.rpcs:
+                r.close()
+        report("stopped", self.stats())
+
+
+def simulate_main(argv) -> int:
+    p = argparse.ArgumentParser(prog="nomad_tpu_torch.testing simulate")
+    p.add_argument("-servers", required=True,
+                   help="comma-separated host:port RPC addresses")
+    p.add_argument("-nodes", type=int, required=True)
+    p.add_argument("-seed", type=int, default=42)
+    p.add_argument("-key", default="", help="the cluster's encrypt key")
+    args = p.parse_args(argv)
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    signal.signal(signal.SIGINT, lambda *_: stop.set())
+    sim = NodeSimulator(args.servers.split(","), args.nodes, args.seed,
+                        key=args.key.encode() or None)
+
+    def report(event, st):
+        print(json.dumps(dict(st, event=event)), flush=True)
+    sim.run(stop, report)
+    return 0
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] != ["simulate"]:
+        sys.exit("usage: python -m nomad_tpu_torch.testing simulate ...")
+    sys.exit(simulate_main(sys.argv[2:]))

@@ -704,7 +704,6 @@ def test_raft_cluster_places_on_the_card_and_reseeds_after_a_crash(
     from nomad_tpu_torch.server import Server
     from nomad_tpu_torch.solver import backend, state_cache
     from nomad_tpu_torch.structs import SchedulerConfiguration
-    from nomad_tpu_torch.testing import park_follower_workers
 
     monkeypatch.setenv("NOMAD_AOT_WARMUP", "1")
     backend.reset()
@@ -723,7 +722,6 @@ def test_raft_cluster_places_on_the_card_and_reseeds_after_a_crash(
                           seed=4000 + i, election_timeout=(1.2, 2.4),
                           heartbeat_interval=0.15)
             s.start()
-            park_follower_workers(s)
         leader = _raft_leader(servers)
         leader.set_scheduler_configuration(SchedulerConfiguration(
             scheduler_algorithm="tpu-batch"))

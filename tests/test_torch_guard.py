@@ -7,9 +7,13 @@
   * no module of it, and not chip_smoke.py, imports jax or nomad_tpu;
   * each module it copies verbatim from nomad_tpu is byte-equal to its
     original (the reference is frozen, so drift is a port fault), and
-    the two adapted copies differ only where they name the port's
-    package (rpc/codec.py's allow-list, server/server.py:57);
-  * with no card and no use_device("cpu"), the first solve raises.
+    the adapted copies differ only where they name the port's package
+    (rpc/codec.py's allow-list, server/server.py:57);
+  * with no card and no use_device("cpu") or NOMAD_SOLVER_DEVICE=cpu,
+    the first solve raises, in process and in a spawned agent;
+  * agent/http.py differs from the reference only where it names the
+    port's UI package (:1370), and server/worker.py only where its loop
+    waits on a disabled broker instead of spinning.
 """
 import ast
 import os
@@ -42,16 +46,42 @@ VERBATIM = (
      "integrations/services.py", "integrations/secrets.py",
      "integrations/template.py", "solver/roundtrip.py", "tlsutil.py",
      "rpc/virtual.py", "server/durable.py", "server/raft.py",
-     "server/gossip.py"]
+     "server/gossip.py", "cli.py", "ui/__init__.py", "ui/index.html",
+     "agent/__init__.py", "agent/agent.py", "agent/config_file.py",
+     "agent/monitor.py"]
+    + sorted(f"api/{p.name}" for p in (REF / "api").glob("*.py"))
+    + sorted(f"client/{p.name}" for p in (REF / "client").glob("*.py"))
     + sorted(f"jobspec/{p.name}" for p in (REF / "jobspec").glob("*.py"))
     + sorted(f"acl/{p.name}" for p in (REF / "acl").glob("*.py"))
     + sorted(f"structs/{p.name}" for p in (REF / "structs").glob("*.py"))
     + sorted(f"scheduler/{p.name}" for p in (REF / "scheduler").glob("*.py"))
 )
 
+# the lines the port's worker loop adds after `if ev is None:`
+WORKER_WAIT = [
+    "                # a disabled broker (every follower's) answers at once:",
+    "                # wait on its condition, which enabling it (leadership)",
+    "                # notifies, instead of spinning on the interpreter lock",
+    "                # that the server's Raft threads need",
+    "                broker = self.server.eval_broker",
+    "                with broker._lock:",
+    "                    if not broker._enabled and not self._stop.is_set():",
+    "                        broker._cond.wait(DEQUEUE_TIMEOUT)"]
+
+
 _EVAL = textwrap.dedent("""
     import sys
     sys.path.insert(0, {root!r})
+
+    class _Unimportable:
+        # jax and the reference package cannot be imported at all here
+        def find_spec(self, name, path=None, target=None):
+            if name in ("jax", "jaxlib", "nomad_tpu") or name.startswith(
+                    ("jax.", "jaxlib.", "nomad_tpu.")):
+                raise ImportError(f"{{name}} is unimportable in this test")
+            return None
+
+    sys.meta_path.insert(0, _Unimportable())
     import nomad_tpu_torch
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.metrics import metrics
@@ -128,7 +158,6 @@ _EVAL = textwrap.dedent("""
     # each: a job committed through the elected leader
     import tempfile
     from nomad_tpu_torch.rpc.virtual import VirtualNetwork
-    from nomad_tpu_torch.testing import park_follower_workers
     net = VirtualNetwork(seed=2)
     servers = []
     with tempfile.TemporaryDirectory() as tmp:
@@ -144,7 +173,6 @@ _EVAL = textwrap.dedent("""
                               seed=2000 + i, election_timeout=(1.0, 2.0),
                               heartbeat_interval=0.1)
                 s.start()
-                park_follower_workers(s)
             deadline = time.monotonic() + 60
             while time.monotonic() < deadline:
                 led = [s for s in servers if s.raft_node.is_leader()
@@ -174,6 +202,41 @@ _EVAL = textwrap.dedent("""
             for s in servers:
                 s.shutdown()
     assert "nomad_tpu_torch.server.durable" in sys.modules
+    # a dev agent: a job placed over HTTP through the port's SDK, and /ui
+    import urllib.request
+    from nomad_tpu_torch.agent import Agent, AgentConfig
+    from nomad_tpu_torch.api.client import Client as Api
+    agent = Agent(AgentConfig(dev_mode=True, client_enabled=False,
+                              http_port=0))
+    agent.server.heartbeats.min_ttl = 3600.0
+    agent.start()
+    try:
+        api = Api(agent.http_addr)
+        api.operator.scheduler_set_configuration(
+            {{"SchedulerAlgorithm": "tpu-batch"}})
+        for _ in range(4):
+            agent.server.node_register(mock.node())
+        job = {{"ID": "guard-http", "Name": "guard-http", "Type": "batch",
+               "Datacenters": ["dc1"],
+               "TaskGroups": [{{"Name": "g", "Count": 3, "Tasks": [{{
+                   "Name": "t", "Driver": "mock_driver",
+                   "Resources": {{"CPU": 100, "MemoryMB": 64}}}}]}}]}}
+        eval_id = api.jobs.register(job)["eval_id"]
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            ev = agent.server.state.eval_by_id(eval_id)
+            if ev is not None and ev.status == "complete":
+                break
+            time.sleep(0.02)
+        allocs = api.jobs.allocations("guard-http")
+        allocs = allocs[0] if isinstance(allocs, tuple) else allocs
+        assert len(allocs) == 3, allocs
+        with urllib.request.urlopen(agent.http_addr + "/ui",
+                                    timeout=30) as r:
+            assert r.status == 200 and b"<html" in r.read(4096).lower()
+    finally:
+        agent.shutdown()
+    assert "nomad_tpu_torch.ui" in sys.modules
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "jaxlib",
                                                    "nomad_tpu.")))
@@ -248,9 +311,26 @@ def test_convex_route_imports_neither_jax_nor_the_reference(rel):
                     "typing"}, sorted(tops)
 
 
+def _worker_waits(ref: bytes) -> bytes:
+    """The reference's worker.py with the port's one change: its loop
+    waits on a disabled broker instead of spinning (ROADMAP Queue 3
+    item 13)."""
+    lines = ref.decode().splitlines(keepends=True)
+    at = lines.index("            if ev is None:\n") + 1
+    return "".join(lines[:at] + [ln + "\n" for ln in WORKER_WAIT] +
+                   lines[at:]).encode()
+
+
+# copies that differ from the reference by one stated change
+ADAPTED = {"server/worker.py": _worker_waits}
+
+
 @pytest.mark.parametrize("rel", VERBATIM)
 def test_verbatim_copy_is_byte_equal(rel):
-    assert (PORT / rel).read_bytes() == (REF / rel).read_bytes(), rel
+    want = (REF / rel).read_bytes()
+    if rel in ADAPTED:
+        want = ADAPTED[rel](want)
+    assert (PORT / rel).read_bytes() == want, rel
 
 
 def test_rpc_codec_differs_only_in_its_package_allow_list():
@@ -271,6 +351,148 @@ def test_server_differs_only_in_its_backend_module_name():
     assert diff == [(57, '    backend = sys.modules.get("nomad_tpu.solver.backend")',
                      '    backend = sys.modules.get('
                      '"nomad_tpu_torch.solver.backend")')]
+
+
+def test_http_differs_only_in_its_ui_package():
+    ref = (REF / "agent/http.py").read_text().splitlines()
+    port = (PORT / "agent/http.py").read_text().splitlines()
+    diff = [(i + 1, a, b) for i, (a, b) in enumerate(zip(ref, port))
+            if a != b]
+    assert len(ref) == len(port)
+    assert diff == [(
+        1370,
+        '                html = (res.files("nomad_tpu.ui") / '
+        '"index.html").read_bytes()',
+        '                html = (res.files("nomad_tpu_torch.ui") / '
+        '"index.html").read_bytes()')]
+
+
+
+
+def test_port_worker_waits_while_its_broker_is_off():
+    """A follower's worker parks on its disabled broker: a second of it
+    costs the process a few dozen dequeue calls, not a spinning core."""
+    import time as _time
+    from nomad_tpu_torch.server import Server
+    srv = Server(num_workers=2, gc_interval=9999)
+    srv.eval_broker.set_enabled(False)
+    calls = []
+    inner = srv.eval_broker.dequeue
+
+    def counted(*a, **k):
+        calls.append(1)
+        return inner(*a, **k)
+    srv.eval_broker.dequeue = counted
+    try:
+        for w in srv.workers:
+            w.start()
+        _time.sleep(1.0)
+    finally:
+        for w in srv.workers:
+            w.stop()
+        with srv.eval_broker._lock:
+            srv.eval_broker._cond.notify_all()
+        for w in srv.workers:
+            w.join(5.0)
+    assert not any(w._thread.is_alive() for w in srv.workers)
+    assert len(calls) <= 20, len(calls)
+
+
+_DEVICE = textwrap.dedent("""
+    import sys
+    sys.path.insert(0, {root!r})
+    from nomad_tpu_torch.solver import device
+    print("DEVICE", device._device)
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.metrics import metrics
+    from nomad_tpu_torch.scheduler import Harness, new_scheduler
+    from nomad_tpu_torch.structs import Evaluation, SchedulerConfiguration
+    h = Harness()
+    h.state.set_scheduler_config(
+        h.get_next_index(),
+        SchedulerConfiguration(scheduler_algorithm="tpu-batch"))
+    for _ in range(4):
+        h.state.upsert_node(h.get_next_index(), mock.node())
+    job = mock.job()
+    job.task_groups[0].count = 2
+    job.task_groups[0].tasks[0].resources.networks = []
+    h.state.upsert_job(h.get_next_index(), job)
+    ev = Evaluation(job_id=job.id, type=job.type)
+    try:
+        h.process(lambda s, p: new_scheduler(job.type, s, p), ev)
+    except RuntimeError as e:
+        print("RAISED", e)
+    print("PLACED", len(h.state.allocs_by_job("default", job.id)),
+          "TORCH", metrics.counter("nomad.solver.dispatch.torch"))
+""")
+
+
+@pytest.mark.parametrize("value,want", [
+    (None, ["DEVICE cuda:0", "RAISED solve device is cuda:0 but no CUDA "
+            "device is present", "PLACED 0 TORCH 0"]),
+    ("cpu", ["DEVICE cpu", "PLACED 2 TORCH 1"]),
+    ("cuda", ["DEVICE cuda:0", "RAISED", "PLACED 0 TORCH 0"]),
+])
+def test_solver_device_env_is_a_request(value, want):
+    """NOMAD_SOLVER_DEVICE, read at import, is a spawned process's
+    use_device: unset the device is cuda:0 and, with no card here, the
+    first solve raises; `cpu` solves on the CPU; no value falls back."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env.pop("NOMAD_SOLVER_DEVICE", None)
+    if value is not None:
+        env["NOMAD_SOLVER_DEVICE"] = value
+    out = subprocess.run(
+        [sys.executable, "-c", _DEVICE.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-3000:]
+    for line in want:
+        assert line in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("value", ["gpu0", "meta", "cuda:x"])
+def test_malformed_solver_device_env_raises_at_import(value):
+    env = dict(os.environ, NOMAD_SOLVER_DEVICE=value)
+    out = subprocess.run(
+        [sys.executable, "-c", f"import sys; sys.path.insert(0, "
+         f"{str(ROOT)!r}); import nomad_tpu_torch.solver.device"],
+        capture_output=True, text=True, timeout=120, env=env, cwd=ROOT)
+    assert out.returncode != 0
+    assert "ValueError: NOMAD_SOLVER_DEVICE=" in out.stderr, out.stderr
+
+
+def test_agent_without_a_card_or_a_request_places_nothing(tmp_path):
+    """A port -dev agent started with no card and no NOMAD_SOLVER_DEVICE:
+    its first solve raises the "no CUDA device" error, the worker nacks
+    the eval (it never completes), nothing is placed and nothing is
+    solved on the CPU."""
+    from nomad_tpu_torch.testing import (
+        AgentProcess, child_env, free_ports, wait_until)
+    env = child_env()
+    env.pop("NOMAD_SOLVER_DEVICE", None)
+    agent = AgentProcess("nocard", {"ports": {"http": free_ports(1)[0]}},
+                         str(tmp_path), env, args=("-dev",)).start()
+    try:
+        assert agent.wait_http(90.0), agent.tail()
+        assert wait_until(lambda: [n for n in agent.get("/v1/nodes")
+                                   if n["Status"] == "ready"], 60.0, 0.1)
+        agent.put("/v1/operator/scheduler/configuration",
+                  {"SchedulerAlgorithm": "tpu-batch"})
+        job = {"ID": "nocard", "Name": "nocard", "Type": "batch",
+               "Datacenters": ["dc1"],
+               "TaskGroups": [{"Name": "g", "Count": 2, "Tasks": [{
+                   "Name": "t", "Driver": "mock_driver",
+                   "Resources": {"CPU": 100, "MemoryMB": 64}}]}]}
+        eval_id = agent.put("/v1/jobs", {"Job": job})["eval_id"]
+        assert wait_until(lambda: "no CUDA device is present" in
+                          agent.tail(20000), 60.0, 0.1), agent.tail()
+        counters = agent.get("/v1/metrics")["telemetry"]["counters"]
+        assert counters.get("nomad.worker.eval_failures", 0) >= 1
+        assert not counters.get("nomad.solver.dispatch.torch")
+        assert agent.get(f"/v1/evaluation/{eval_id}")["Status"] != \
+            "complete"
+        assert agent.get("/v1/job/nocard/allocations") == []
+    finally:
+        agent.stop()
 
 
 def test_first_solve_raises_without_a_card_or_a_cpu_request(monkeypatch):
