@@ -58,11 +58,16 @@ prints no result):
               the default knobs say: 4 chunks of the dense depth curve,
               each chunk's plan committed while later chunks solve), a
               2,000-task job (the grid, serial) and a count-1 job (the
-              greedy pass, serial). Every instance committed, no usage
-              row over capacity; the 50k eval counted 1 pipelined eval, 4
-              chunks and 4 depth-curve launches; the state cache's twins
-              on cuda:0, fed by every commit (equal to the committed
-              usage), served hits and rode every dispatch; the plain tier
+              greedy pass, serial), at the defaults: the 50k eval on the
+              classic route, the 2k and count-1 evals on the whole-eval
+              fused route. Every instance committed, no usage row over
+              capacity; the 50k eval counted 1 pipelined eval, 4 chunks,
+              4 depth-curve launches, no fused dispatch and one dispatch
+              on the twins' rows; the 2k eval one launch of K1's gather
+              entry, the count-1 eval one of K2's, each one verdict
+              launch, one fused dispatch and one device round trip; the
+              state cache's twins on cuda:0, fed by every commit (equal
+              to the committed usage), served hits; the plain tier
               untouched. The launch counts are zeroed just before and
               read just after.
      service  the slice at full width: a fresh FSM of 10,000 bench-fleet
@@ -85,7 +90,8 @@ prints no result):
               masks on the card and the CPU (equal; [C, V], wall, device
               time). Launch counts zeroed before (a), read after (c).
   5. compare  the same 50k eval on fresh clusters, serial
-              (plan_pipeline_enabled=False) and pipelined, each with
+              (plan_pipeline_enabled=False: at the defaults the serial
+              eval takes the fused route) and pipelined, each with
               explain on and off (placement_explain_enabled), in turns
               (COMPARE_ORDER, two runs a cell), each with the applier
               thread running and after a full garbage collection: the
@@ -124,6 +130,26 @@ prints no result):
               one-lane launches and, placements, to each lane's solo
               fill_depth_fused; plain version within K1's tolerances;
               device ms per window against 8 solo launches, the bound.
+              Then the fused window (the batch tier with the fused route
+              on, forced: BATCH_MAX_COUNT is 0): 8 lanes of one resident
+              twin pair, each its own shuffled idx, one launch of K1's
+              gather entry and one of the verdict, each lane bit-equal to
+              its solo fused eval; its device ms.
+     fused    (after `lanes`) the whole-eval fused route's kernel entries
+              at the main path's shapes (16,384 rows, 10,000 live in
+              shuffled idx over the twins): K1's gather entry dense at
+              K=128 on the 50k eval's fleet, on the grid and under the
+              spread algorithm; K2's greedy gather entry placing 1, 2,000
+              and 5,000; the fit verdict (csrc/fit_verdict.cu) on the 2k
+              fused eval's placements and on over-full ones. Each
+              bit-equal to its plain version (the gather entries to their
+              kernel's plain entry on gather_rows' rows, and to the torch
+              versions within K1's and K2's tolerances; the verdict to
+              kernels.fit_verdict_ref), one launch each; device ms,
+              per-call ms, plain ms, bound, launch floor; each fused
+              eval's kernels and one call with its host copy (`fused K1
+              gather`, `fused K2 gather`, `fused fit verdict`, `fused
+              ... eval` lines).
  10. server   the port's Server(num_workers=4) on the card: 10,000 nodes
               through node_register, the 50k job through job_register, a
               worker and the pipelined applier (every instance committed,
@@ -133,18 +159,33 @@ prints no result):
               warms every kernel, after which a 2k eval builds and loads
               nothing; the debug bundle (the card in DeviceRuntime, one
               shard, breakers closed, the state cache's rows).
+     fused pairs  (after `server`) the fused route against the classic one
+              in turns, FUSED_PAIRS pairs (on first in even pairs): each
+              leg a fresh one-worker server over the 10,000-node
+              snapshot with solver_fused_enabled on or off, running the
+              2k eval, the count-1 eval and the stream (16 jobs of 1,000
+              back to back), every eval id pinned; per eval its wall,
+              nomad.plan.evaluate, verdict_fastpath, dispatch.fused.cuda
+              and the most round trips an eval counted. Placements equal
+              in both legs of every pair; on, one fused dispatch and one
+              round trip an eval and the verdict's fast path on the 2k
+              eval; off, none; a sign test per eval kind (`fused pair`,
+              `fused pairs` lines).
  11. stream   16 jobs of 1,000 tasks registered back to back on a fresh
               10,000-node server with 4 workers, micro-batching on and off
               in turns (on, off, off, on) (stream_sweep.py runs the
               sweep's other counts, 500, 2,000 and 4,000, with more
               pairs): evals/s, submit_plan p50/p99, the batcher's counters and
               window sizes, the window launches; every instance
-              placed, no row over capacity. Per count, the runs in pairs
+              placed, no row over capacity. Here with the fused route
+              off, so the windows are the classic lanes entry
+              (stream_sweep.py runs the defaults: fused windows). Per
+              count, the runs in pairs
               and a one-sided sign test on them: a count qualifies for
               backend.BATCH_MAX_COUNT only where the coalesced run beat
               solo in enough pairs (p <= 0.05); two pairs a count, as
               here, can never qualify one (stream_sweep.py runs more).
- 12. rejections  8 jobs of 2,000 tasks (cpu 400, mem 700) at once on a
+ 12. rejections  8 jobs of 1,000 tasks (cpu 400, mem 700) at once on a
               2,000-node server with 8 workers, under tpu-batch and under
               binpack: node and alloc rejection rates from each plan's
               PlanResult (the planner instance wrapped); each job placed
@@ -302,15 +343,21 @@ COUNTERS = {"evals": "nomad.plan.pipeline.evals",
             "dispatch_errors": "nomad.solver.dispatch_errors",
             "breaker_opened": "nomad.solver.tier_breaker_opened",
             "torch_serves": "nomad.solver.dispatch.torch",
+            "torch_fused_serves": "nomad.solver.dispatch.fused.torch",
+            # the whole-eval fused route's dispatches on the card
+            "fused": "nomad.solver.dispatch.fused.cuda",
             # explain: records, reduces run on the card, swallowed errors
             "explain_records": "nomad.solver.explain.records",
             "explain_errors": "nomad.solver.explain.errors"}
 # counters every healthy phase must leave at 0
 HEALTHY_ZERO = ("dispatch_errors", "breaker_opened", "explain_errors")
 # and every eval on the card: no solve served by the CPU's plain tier
-CARD_ZERO = HEALTHY_ZERO + ("torch_serves",)
-# the kernels the 50k main path runs; the service path runs chunked_scan
-MAIN_KERNELS = ("depth_curve", "score_capacity")
+CARD_ZERO = HEALTHY_ZERO + ("torch_serves", "torch_fused_serves")
+# the kernels the main path runs: the 50k eval the classic depth curve,
+# the 2k and count-1 evals the fused route's entries; the service path
+# runs chunked_scan
+MAIN_KERNELS = ("depth_curve", "depth_curve_gather", "score_capacity_gather",
+                "fit_verdict")
 # the card the port solves on (the solve device's default)
 DEVICE = "cuda:0"
 BIG_CHUNKS = 4          # SchedulerConfiguration.plan_pipeline_chunks default
@@ -371,12 +418,20 @@ STREAM_JOBS, STREAM_WORKERS, STREAM_COUNT = 16, 4, 1_000
 STREAM_COUNTS = (1_000, 500, 2_000, 4_000)
 STREAM_PAIRS, STREAM_P = 2, 0.05
 # plan rejections under concurrent workers (bench.py
-# _concurrent_rejection_rate's shape)
-REJECT_NODES, REJECT_JOBS, REJECT_COUNT, REJECT_WORKERS = 2_000, 8, 2_000, 8
+# _concurrent_rejection_rate's shape, each job cut from 2,000 tasks to
+# 1,000: the binpack run is host scheduling under one interpreter lock,
+# 237-286 s at 2,000, and the script keeps to its running time)
+REJECT_NODES, REJECT_JOBS, REJECT_COUNT, REJECT_WORKERS = 2_000, 8, 1_000, 8
 # the host binpack scheduler takes seconds an eval at this size, its 8
 # workers share one interpreter lock, and evals that lose a plan conflict
 # plan again
 REJECT_TIMEOUT_S = 720.0
+
+
+def _cpu_solves(metrics) -> float:
+    """Solves served by the CPU's plain tier, classic or fused."""
+    return metrics.counter("nomad.solver.dispatch.torch") + \
+        metrics.counter("nomad.solver.dispatch.fused.torch")
 
 
 class CheckFailed(AssertionError):
@@ -1416,6 +1471,7 @@ def _explain_record(eval_id: str) -> dict:
 
 def main_path_phase(torch) -> dict:
     from nomad_tpu_torch import mock
+    from nomad_tpu_torch.metrics import metrics
     from nomad_tpu_torch.solver import cuda_kernels, state_cache
     t0 = time.perf_counter()
     fsm, planner = _cluster(N_LIVE, seed=42)
@@ -1423,13 +1479,19 @@ def main_path_phase(torch) -> dict:
         f"{time.perf_counter() - t0:.3f} s")
     s = fsm.state
     state_cache.reset()                       # hits counted from here
+    # at the defaults the 50k eval pipelines on the classic route (its
+    # chunks ride the twins' rows, gathered once), and the 2k and count-1
+    # evals take the whole-eval fused route: one launch of a gather entry
+    # and one of the fit verdict, no twin gather
     evals = [("big", BIG_COUNT, "depth_curve"),
-             ("mid", MID_COUNT, "depth_curve"),
-             ("one", 1, "score_capacity")]
+             ("mid", MID_COUNT, "depth_curve_gather"),
+             ("one", 1, "score_capacity_gather")]
+    rt = "nomad.solver.device_round_trips"
     out = {"evals": {}}
     cuda_kernels.reset_launches()                 # the main path's window
     with _applier(planner):
         for job_id, count, kname in evals:
+            rt0 = metrics.sample_count(rt)
             r = _drive(torch, fsm, planner,
                        _mk_batch_job(mock, job_id, count))
             c = r["counters"]
@@ -1440,9 +1502,16 @@ def main_path_phase(torch) -> dict:
             rose = r["launches"][kname]
             check(rose == (BIG_CHUNKS if pipelined else 1),
                   f"{job_id}: {kname} launched {rose} times")
-            check(c["twin_dispatches"] == 1,
+            check(c["twin_dispatches"] == int(pipelined) and
+                  c["fused"] == int(not pipelined) and
+                  r["launches"]["fit_verdict"] == int(not pipelined),
                   f"{job_id}: {c['twin_dispatches']} dispatches rode the "
-                  f"state cache's twins, expected 1")
+                  f"state cache's twins, {c['fused']} fused dispatches, "
+                  f"{r['launches']['fit_verdict']} verdict launches")
+            r["round_trips_max"] = metrics.percentile(rt, 1.0, skip=rt0)
+            if not pipelined:
+                check(r["round_trips_max"] == 1,
+                      f"{job_id}: {r['round_trips_max']} round trips")
             check(c["torch_depth"] == c["torch_greedy"] == 0,
                   f"{job_id}: the plain torch tier served a solve on the "
                   f"card")
@@ -1468,7 +1537,8 @@ def main_path_phase(torch) -> dict:
                 f"nomad.solver.explain.errors {c['explain_errors']}")
             log(f"main {job_id}: {r['committed']}/{count} committed in "
                 f"{r['wall_s']} s ({kname} launches +{rose}, pipelined "
-                f"{pipelined}, overcommitted rows 0); layers "
+                f"{pipelined}, fused dispatches {c['fused']}, round trips "
+                f"{r['round_trips_max']}, overcommitted rows 0); layers "
                 f"{json.dumps(r['layers_s'])}; pipeline "
                 f"{json.dumps(r['pipeline_s'])}; cache {json.dumps(stats)}")
     out["launches"] = dict(cuda_kernels.LAUNCHES)  # read just after
@@ -1512,10 +1582,14 @@ def compare_phase(torch) -> dict:
             r = _drive(torch, fsm, planner,
                        _mk_batch_job(mock, f"cmp-{i}-{mode}", BIG_COUNT))
         launches = dict(cuda_kernels.LAUNCHES)     # read just after
-        want = BIG_CHUNKS if pipelined else 1
-        check(launches["depth_curve"] == want,
-              f"compare {mode}: depth_curve launched "
-              f"{launches['depth_curve']} times, expected {want}")
+        # serial, the eval takes the whole-eval fused route (the default):
+        # one launch of K1's gather entry; pipelined, a classic launch a
+        # chunk
+        want = {"depth_curve": BIG_CHUNKS if pipelined else 0,
+                "depth_curve_gather": 0 if pipelined else 1}
+        got = {k: launches[k] for k in want}
+        check(got == want, f"compare {mode}: launches {got}, expected "
+              f"{want}")
         c = r["counters"]
         check(c["evals"] == int(pipelined),
               f"compare {mode}: pipeline counters {c}")
@@ -1757,8 +1831,11 @@ def ladder_phase(np, torch) -> dict:
         fired = faults.fired("solver.dispatch.cuda")
     finally:
         faults.clear()
+    # the 2k eval takes the fused route: its dispatch fires the tier's
+    # site, and raises before any launch
     check(fired == 1 and committed == 0 and c["dispatch_errors"] == 1 and
-          c["torch_serves"] == 0 and launched["depth_curve"] == 0,
+          c["torch_serves"] == c["torch_fused_serves"] == 0 and
+          launched["depth_curve"] == launched["depth_curve_gather"] == 0,
           f"ladder: 2k eval faulted {fired}x committed {committed}, "
           f"counters {c}, launches {launched}")
     out["serial"] = {"faults": fired, "committed": committed,
@@ -1788,6 +1865,7 @@ def ladder_phase(np, torch) -> dict:
     per_chunk = BIG_COUNT // BIG_CHUNKS
     check("chunk 2 of 4" in str(e) and committed == 2 * per_chunk and
           c["dispatch_errors"] == 1 and c["torch_serves"] == 0 and
+          c["torch_fused_serves"] == 0 and c["fused"] == 0 and
           launched["depth_curve"] == BIG_CHUNKS,
           f"ladder: the faulted 50k eval ({e}) committed {committed}, "
           f"counters {c}, launches {launched}")
@@ -2151,6 +2229,46 @@ def lanes_phase(np, torch, dev) -> dict:
     out.update(_bound(nbytes, ops))
     out.update(max_abs_err=err, near_tie_rows=ties, moved_nodes=moved,
                depths_evaluated=depths)
+
+    # the fused window (the batch tier with the whole-eval route on; forced
+    # here, BATCH_MAX_COUNT being 0): one resident twin pair, each lane its
+    # own shuffled idx, ask, count and max_per_node; one launch of K1's
+    # gather entry and one of the verdict for the window, each lane equal
+    # to its solo fused eval
+    f_inp = _fused_inputs(np, torch, dev)
+    rng = np.random.default_rng(SEED + 3)
+    idx = np.zeros((BATCH_LANES, N_BUCKET), np.int32)
+    idx[0, :N_LIVE] = f_inp["idx"][:N_LIVE].cpu().numpy()
+    for lane in range(1, BATCH_LANES):
+        idx[lane, :N_LIVE] = rng.permutation(N_LIVE)
+    idx = torch.from_numpy(idx).to(dev)
+    valid = f_inp["valid"].expand(BATCH_LANES, -1).contiguous()
+    feas_f = f_inp["feasible"].expand(BATCH_LANES, -1).contiguous()
+    twins = (f_inp["cap"], f_inp["used"])
+    window = (*twins, idx, valid, ask, counts, feas_f, coll, desired, aff,
+              mpn)
+    before = dict(cuda_kernels.LAUNCHES)
+    placed_w, fit_w = cuda_kernels.fused_eval_depth_lanes(*window, **tail)
+    torch.cuda.synchronize()
+    check(cuda_kernels.LAUNCHES["depth_curve_gather"] ==
+          before["depth_curve_gather"] + 1 and
+          cuda_kernels.LAUNCHES["fit_verdict"] == before["fit_verdict"] + 1,
+          "lanes: the fused window took more than one launch of each")
+    for lane in range(BATCH_LANES):
+        solo = cuda_kernels.fused_eval_depth(
+            *twins, idx[lane], valid[lane], ask[lane], counts[lane],
+            feas_f[lane], coll[lane], desired[lane], aff[lane], mpn[lane],
+            jitter[lane], 1.5, 0.0, None, False, k_max=128)
+        check(torch.equal(placed_w[lane], solo[0]) and
+              torch.equal(fit_w[lane], solo[1]),
+              f"lanes: fused lane {lane} differs from its solo fused eval")
+    out["fused_window_ms"] = _kernel_list(
+        torch, lambda: cuda_kernels.fused_eval_depth_lanes(
+            *window, **tail))["device_ms"]
+    log(f"lanes: the fused window ({BATCH_LANES} lanes of one twin pair, "
+        f"shuffled idx) bit-equal to each lane's solo fused eval, one "
+        f"launch of the gather entry and one of the verdict; "
+        f"{out['fused_window_ms']} ms device for every kernel it runs")
     log(f"lanes: the window ({BATCH_LANES} lanes x {N_BUCKET} rows, dense "
         f"K=128) bit-equal to {BATCH_LANES} one-lane launches; placements "
         f"bit-equal to each lane's solo fill_depth_fused; plain d_star max "
@@ -2161,6 +2279,418 @@ def lanes_phase(np, torch, dev) -> dict:
         f"ms, bound {out['bound_ms']} ms "
         f"({out['bound_by']}: {nbytes} B, {ops} ops, {depths} depths)")
     return out
+
+
+# ----------------------------------------------------- the fused route
+
+# float32 operations of the fit verdict a row: per dimension a fused
+# multiply-add (2), the add of FIT_EPS and the compare
+FIT_OPS_ROW = 5 * 4
+# the fused pairs: runs of the 2k, count-1 and stream evals with the
+# whole-eval route on and off in turns; one worker, so both legs of a pair
+# plan and commit every eval in one order from one snapshot and their
+# placements can be compared
+FUSED_PAIRS = 10
+FUSED_WORKERS = 1
+FUSED_EVAL_IDS = {"mid": "0000f05e-0000-0000-0000-000000000002",
+                  "one": "0000f05e-0000-0000-0000-000000000001"}
+
+
+def _fused_inputs(np, torch, dev):
+    """The fused route's inputs at the main path's bucket: the seeded
+    fleet of _inputs as the state cache's twins, and one eval's idx over
+    them, its N_LIVE live rows shuffled (rows past N_LIVE invalid)."""
+    inp = _inputs(np, torch, dev)
+    rng = np.random.default_rng(SEED + 2)
+    idx = np.zeros(N_BUCKET, np.int32)
+    idx[:N_LIVE] = rng.permutation(N_LIVE)
+    valid = np.arange(N_BUCKET) < N_LIVE
+    inp["idx"] = torch.from_numpy(idx).to(dev)
+    inp["valid"] = torch.from_numpy(valid).to(dev)
+    inp["feasible"] = inp["feasible"] & inp["valid"]
+    return inp
+
+
+def _fused_gather_bytes(extra_per_row: int) -> int:
+    """Bytes a gather entry moves at the bucket: idx and valid for every
+    row, the two twin rows of each live row, `extra_per_row` more."""
+    return N_BUCKET * (4 + 1 + extra_per_row) + N_LIVE * 2 * 5 * 4 + 5 * 4
+
+
+def fused_kernel_phase(np, torch, dev, floor_ms: float) -> dict:
+    """The fused route's three kernel entries at the main path's shapes
+    (16,384 rows, 10,000 live in shuffled idx): (a) K1's gather entry,
+    dense K = 128 on the 50k eval's inputs, on the grid and under the
+    spread algorithm; (b) K2's greedy gather entry, placing 1, 2,000 and
+    5,000; (c) the fit verdict on the 2k fused eval's placements and on
+    over-full ones. Each entry bit-equal to its plain version: the gather
+    entries to the plain entries of their kernels on gather_rows' rows
+    (the same arithmetic on the same rows), and to the plain torch
+    versions within K1's and K2's tolerances; the verdict to
+    kernels.fit_verdict_ref bit for bit. Device ms, per-call ms, the
+    bound and the launch floor for each."""
+    from nomad_tpu_torch.solver import cuda_kernels, kernels
+    inp = _fused_inputs(np, torch, dev)
+    grid128 = tuple(g for g in kernels.DEPTH_GRID if g <= 128)
+    twins = (inp["cap"], inp["used"])
+    sel = (inp["idx"], inp["valid"])
+    cap, used = kernels.gather_rows(*twins, *sel)
+    empty_used = torch.zeros_like(inp["used"])
+    cap_e, used_e = kernels.gather_rows(inp["cap"], empty_used, *sel)
+    out = {}
+
+    # (a) K1's gather entry
+    a = {"max_abs_err": 0.0, "cases": []}
+
+    def one(t):                 # one lane of a [N] column
+        return t[None].contiguous()
+    for name, u_res, u_rows, kw in (
+            ("dense_k128", empty_used, used_e, dict(k_max=128)),
+            ("grid_k128", inp["used"], used,
+             dict(k_max=128, depth_grid=grid128)),
+            ("spread_dense_k128", inp["used"], used,
+             dict(k_max=128, spread_algorithm=True))):
+        c_rows = cap_e if u_res is empty_used else cap
+        cols = (one(inp["ask"]), one(inp["feasible"]), one(inp["coll"]),
+                (BIG_COUNT,), one(inp["aff"]), (2 ** 30,))
+        before = cuda_kernels.LAUNCHES["depth_curve_gather"]
+        got = cuda_kernels.depth_curve_gather(
+            inp["cap"], u_res, one(inp["idx"]), one(inp["valid"]), *cols,
+            **kw)
+        torch.cuda.synchronize()
+        check(cuda_kernels.LAUNCHES["depth_curve_gather"] == before + 1,
+              f"fused K1 gather {name}: not one launch")
+        plain_entry = cuda_kernels.depth_curve(
+            c_rows, u_rows, inp["ask"], inp["feasible"], inp["coll"],
+            BIG_COUNT, inp["aff"], **kw)
+        for g, w, what in zip(got, plain_entry, ("d_star", "k_star",
+                                                 "k_cap")):
+            g = g[0].view(torch.int32) if g.dtype == torch.float32 else g[0]
+            w = w.view(torch.int32) if w.dtype == torch.float32 else w
+            check(torch.equal(g, w), f"fused K1 gather {name}: {what} "
+                  f"differs from the plain entry on the gathered rows")
+        d_p, k_p, c_p = kernels.depth_curve_ref(
+            c_rows, u_rows, inp["ask"], inp["feasible"], inp["coll"],
+            BIG_COUNT, inp["aff"], **kw)
+        check(torch.equal(got[2][0], c_p), f"fused K1 gather {name}: k_cap")
+        fin = torch.isfinite(d_p)
+        err = float((got[0][0][fin] - d_p[fin]).abs().max())
+        check(err <= ATOL, f"fused K1 gather {name}: d_star err {err}")
+        a["max_abs_err"] = max(a["max_abs_err"], err)
+        a["cases"].append(name)
+        log(f"fused K1 gather {name}: bit-equal to the plain entry on the "
+            f"gathered rows; plain torch d_star max abs err {err:.3g}, "
+            f"k_cap equal")
+
+    def k1_run(u_res=empty_used, **kw):
+        return lambda: cuda_kernels.depth_curve_gather(
+            inp["cap"], u_res, one(inp["idx"]), one(inp["valid"]),
+            one(inp["ask"]), one(inp["feasible"]), one(inp["coll"]),
+            (BIG_COUNT,), one(inp["aff"]), (2 ** 30,), **kw)
+    a.update(_times(torch, "depth_curve_kernel", k1_run(k_max=128)))
+    a["grid_ms"] = _times(torch, "depth_curve_kernel", k1_run(
+        inp["used"], k_max=128, depth_grid=grid128))["ms"]
+    a["spread_ms"] = _times(torch, "depth_curve_kernel", k1_run(
+        inp["used"], k_max=128, spread_algorithm=True))["ms"]
+    a.update(_plain_times(torch, lambda: kernels.depth_curve_ref(
+        *kernels.gather_rows(inp["cap"], empty_used, *sel), inp["ask"],
+        inp["feasible"], inp["coll"], BIG_COUNT, inp["aff"], k_max=128)))
+    _, _, c_p = kernels.depth_curve_ref(cap_e, used_e, inp["ask"],
+                                        inp["feasible"], inp["coll"],
+                                        BIG_COUNT, inp["aff"], k_max=128)
+    depths = int(torch.clamp(c_p, max=128).sum())
+    nbytes = _fused_gather_bytes(1 + 4 + 4 + 3 * 4)
+    a.update(_bound(nbytes, depths * DEPTH_OPS_DENSE
+                    + N_BUCKET * DEPTH_OPS_NODE))
+    a.update(floor_ms=floor_ms, depths_evaluated=depths)
+    out["depth_curve_gather"] = a
+    log(f"fused K1 gather entry (dense K=128, the 50k eval's fleet): "
+        f"kernel {a['ms']} ms device ({a['call_ms']} ms per wrapper call), "
+        f"grid {a['grid_ms']} ms, spread {a['spread_ms']} ms; plain "
+        f"(gather_rows + depth_curve_ref) {a['plain_ms']} ms; bound "
+        f"{a['bound_ms']} ms ({a['bound_by']}: {nbytes} B, {depths} "
+        f"depths); launch floor {floor_ms} ms")
+
+    # (b) K2's greedy gather entry
+    b = {"moved_nodes": 0}
+    c_g, key_g = cuda_kernels.score_capacity_gather(
+        *twins, *sel, inp["ask"], inp["feasible"])
+    c_e, key_e = cuda_kernels._launch_score_capacity(
+        cap, used, inp["ask"], inp["feasible"], False, True, 2 ** 30)
+    torch.cuda.synchronize()
+    check(torch.equal(c_g, c_e) and torch.equal(key_g.view(torch.int32),
+                                                key_e.view(torch.int32)),
+          "fused K2 gather: differs from the greedy entry on the gathered "
+          "rows")
+    c_p, key_p = kernels._greedy_key(*kernels.score_capacity_ref(
+        cap, used, inp["ask"], inp["feasible"]), 2 ** 30)
+    check(torch.equal(c_g, c_p), "fused K2 gather: capacity differs")
+    b["max_abs_err"] = float((key_g - key_p).abs().max())
+    check(b["max_abs_err"] <= ATOL, f"fused K2 gather: key err "
+          f"{b['max_abs_err']}")
+    for count in (1, MID_COUNT, 5_000):
+        got, fit = cuda_kernels.fused_eval_greedy(
+            *twins, *sel, inp["ask"], count, inp["feasible"], 2 ** 30, None,
+            False, inp["coll"])
+        want = kernels.fill_greedy_binpack(cap, used, inp["ask"], count,
+                                           inp["feasible"])
+        moved = _placements_agree(torch, got, want, b["max_abs_err"] > 0,
+                                  f"fused greedy count={count}")
+        check(moved == 0, f"fused greedy count={count}: moved {moved}")
+        check(torch.equal(fit, kernels.fused_fit_verdict(
+            cap, used, inp["ask"], got)), f"fused greedy count={count}: fit")
+        b["moved_nodes"] += moved
+        log(f"fused greedy eval count={count}: placed {int(got.sum())} like "
+            f"the plain fill on the gathered rows (nodes moved {moved}); "
+            f"verdict bit-equal to the plain one")
+    b.update(_times(torch, "score_capacity_kernel",
+                    lambda: cuda_kernels.score_capacity_gather(
+                        *twins, *sel, inp["ask"], inp["feasible"])))
+    b.update(_plain_times(torch, lambda: kernels._greedy_key(
+        *kernels.score_capacity_ref(*kernels.gather_rows(*twins, *sel),
+                                    inp["ask"], inp["feasible"]), 2 ** 30)))
+    nbytes = _fused_gather_bytes(1 + 2 * 4)
+    b.update(_bound(nbytes, N_BUCKET * SCORE_OPS_NODE))
+    b["floor_ms"] = floor_ms
+    out["score_capacity_gather"] = b
+    log(f"fused K2 gather entry: kernel {b['ms']} ms device ({b['call_ms']} "
+        f"ms per wrapper call), plain {b['plain_ms']} ms, bound "
+        f"{b['bound_ms']} ms ({b['bound_by']}: {nbytes} B), key max abs err "
+        f"{b['max_abs_err']:.3g}")
+
+    # (c) the fit verdict, on the 2k fused eval's placements
+    placed, fit = cuda_kernels.fused_eval_depth(
+        *twins, *sel, inp["ask"], MID_COUNT, inp["feasible"], inp["coll"],
+        MID_COUNT, inp["aff"], 2 ** 30, inp["jitter"], 1.5, 0.4, None,
+        False, k_max=128, depth_grid=grid128)
+    want = kernels.fill_depth(cap, used, inp["ask"], MID_COUNT,
+                              inp["feasible"], inp["coll"], MID_COUNT,
+                              inp["aff"], k_max=128,
+                              order_jitter=inp["jitter"], jitter_scale=1.5,
+                              jitter_samples=0.4, depth_grid=grid128)
+    moved = _placements_agree(torch, placed, want, True, "fused 2k eval")
+    over = placed + (torch.arange(N_BUCKET, device=dev) % 5 == 0).to(
+        torch.int32) * 40
+    c = {"max_abs_err": 0.0}
+    for what, p in (("the 2k eval's placements", placed.clone()),
+                    ("over-full placements", over)):
+        before = cuda_kernels.LAUNCHES["fit_verdict"]
+        p_k, f_k = cuda_kernels.fit_verdict(*twins, *sel, inp["ask"], p)
+        torch.cuda.synchronize()
+        check(cuda_kernels.LAUNCHES["fit_verdict"] == before + 1,
+              "fused fit verdict: not one launch")
+        f_p = kernels.fit_verdict_ref(*twins, *sel, inp["ask"], p)
+        check(torch.equal(f_k, f_p) and torch.equal(p_k, p),
+              f"fused fit verdict on {what}: differs from plain")
+        host = cuda_kernels.fused_to_host(p_k, f_k)
+        check(np.array_equal(host[0], p.cpu().numpy()) and
+              np.array_equal(host[1], f_p.cpu().numpy()),
+              "fused fit verdict: the one host copy differs")
+        log(f"fused fit verdict on {what}: bit-equal to the plain verdict "
+            f"({int(f_p.sum())} of {N_BUCKET} rows fit); one host copy")
+    check(bool(fit[placed > 0].all()), "fused 2k eval: a placed row unfit")
+    c.update(_times(torch, "fit_verdict_kernel",
+                    lambda: cuda_kernels.fit_verdict(*twins, *sel,
+                                                     inp["ask"], placed)))
+    c.update(_plain_times(torch, lambda: kernels.fit_verdict_ref(
+        *twins, *sel, inp["ask"], placed)))
+    nbytes = _fused_gather_bytes(4 + 4 + 1)
+    c.update(_bound(nbytes, N_BUCKET * FIT_OPS_ROW))
+    c["floor_ms"] = floor_ms
+    out["fit_verdict"] = c
+    log(f"fused fit verdict: kernel {c['ms']} ms device ({c['call_ms']} ms "
+        f"per wrapper call), plain {c['plain_ms']} ms, bound "
+        f"{c['bound_ms']} ms ({c['bound_by']}: {nbytes} B)")
+
+    # the whole fused evals, one call each: every kernel they run and the
+    # call with its one host copy
+    for name, run in (
+            ("2k", lambda: cuda_kernels.fused_to_host(
+                *cuda_kernels.fused_eval_depth(
+                    *twins, *sel, inp["ask"], MID_COUNT, inp["feasible"],
+                    inp["coll"], MID_COUNT, inp["aff"], 2 ** 30,
+                    inp["jitter"], 1.5, 0.4, None, False, k_max=128,
+                    depth_grid=grid128))),
+            ("count-1", lambda: cuda_kernels.fused_to_host(
+                *cuda_kernels.fused_eval_greedy(
+                    *twins, *sel, inp["ask"], 1, inp["feasible"], 2 ** 30,
+                    None, False, inp["coll"])))):
+        ev = _kernel_list(torch, run)
+        ev["call_ms"] = _median_ms(torch, run, CALL_REPS)
+        out[f"eval_{name}"] = ev
+        log(f"fused {name} eval, one call with its host copy: "
+            f"{ev['call_ms']} ms; kernels {json.dumps(ev)}")
+    out["moved_nodes_2k"] = moved
+    return out
+
+
+def _register_pinned(srv, job, eval_id: str) -> None:
+    """job_register's raft entry with the eval's id pinned, so two runs
+    of one eval shuffle and place alike (the stack's rng is seeded by the
+    eval id)."""
+    from nomad_tpu_torch.server.fsm import JOB_REGISTER
+    from nomad_tpu_torch.structs import Evaluation
+    srv.raft.apply(JOB_REGISTER, {"job": job, "evals": [Evaluation(
+        id=eval_id, namespace="default", priority=job.priority,
+        type=job.type, job_id=job.id, triggered_by="job-register",
+        status="pending")]})
+
+
+FUSED_METRICS = {"fused": "nomad.solver.dispatch.fused.cuda",
+                 "classic": "nomad.solver.dispatch.cuda",
+                 "fastpath": "nomad.plan.verdict_fastpath",
+                 "dispatch_errors": "nomad.solver.dispatch_errors",
+                 "cpu": "nomad.solver.dispatch.torch",
+                 "cpu_fused": "nomad.solver.dispatch.fused.torch"}
+
+
+def _fused_evals(torch, srv, jobs: list) -> dict:
+    """Register `jobs` [(job, eval id)] back to back and wait for their
+    evals: wall, nomad.plan.evaluate seconds, counter deltas, the most
+    device round trips one eval counted, launch deltas."""
+    from nomad_tpu_torch.metrics import metrics
+    from nomad_tpu_torch.solver import cuda_kernels
+    rt = "nomad.solver.device_round_trips"
+    c0 = {k: metrics.counter(v) for k, v in FUSED_METRICS.items()}
+    e0 = metrics.timer_sum("nomad.plan.evaluate")
+    rt0 = metrics.sample_count(rt)
+    l0 = dict(cuda_kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    for job, eval_id in jobs:
+        _register_pinned(srv, job, eval_id)
+    t1 = _wait_evals(srv, [e for _, e in jobs])
+    torch.cuda.synchronize()
+    d = {k: metrics.counter(v) - c0[k] for k, v in FUSED_METRICS.items()}
+    check(d["dispatch_errors"] == 0 and d["cpu"] == d["cpu_fused"] == 0,
+          f"fused run counted {d}")
+    return {"wall_s": t1 - t0, "evaluate_s":
+            metrics.timer_sum("nomad.plan.evaluate") - e0, "counts": d,
+            "round_trips_max": metrics.percentile(rt, 1.0, skip=rt0)
+            if metrics.sample_count(rt) > rt0 else None,
+            "launches": {k: cuda_kernels.LAUNCHES[k] - v
+                         for k, v in l0.items() if cuda_kernels.LAUNCHES[k]
+                         - v}}
+
+
+def _fused_run(np, torch, snapshot, fused: bool, pair: int) -> dict:
+    """One leg: a fresh one-worker server over the fleet's snapshot with
+    the fused route on or off; the 2k eval, the count-1 eval, then the
+    stream (STREAM_JOBS jobs of STREAM_COUNT tasks back to back), every
+    eval id pinned. -> each eval's measurements and the alloc -> node
+    maps."""
+    from nomad_tpu_torch import mock
+    srv = _server(FUSED_WORKERS, snapshot=snapshot,
+                  solver_fused_enabled=fused)
+    out: dict = {"fused": fused, "pair": pair}
+    try:
+        mid = _mk_batch_job(mock, f"fu-mid-{pair}", MID_COUNT)
+        out["mid"] = _fused_evals(torch, srv, [(mid, FUSED_EVAL_IDS["mid"])])
+        one = _mk_batch_job(mock, f"fu-one-{pair}", 1)
+        out["one"] = _fused_evals(torch, srv, [(one, FUSED_EVAL_IDS["one"])])
+        stream = [(_mk_batch_job(mock, f"fu-stream-{pair}-{j}",
+                                 STREAM_COUNT),
+                   f"0000f05e-0000-0000-0001-{j:012d}")
+                  for j in range(STREAM_JOBS)]
+        out["stream"] = _fused_evals(torch, srv, stream)
+        jobs = {mid.id: MID_COUNT, one.id: 1}
+        jobs.update({j.id: STREAM_COUNT for j, _ in stream})
+        _check_committed(srv, jobs)
+        out["maps"] = {job_id: {a.name: a.node_id for a in
+                                srv.state.allocs_by_job("default", job_id)}
+                       for job_id in jobs}
+    finally:
+        _shutdown(srv)
+    return out
+
+
+def fused_pairs_phase(np, torch, snapshot, card: str) -> dict:
+    """The fused route against the classic one through the server, in
+    turns: FUSED_PAIRS pairs (on first in even pairs), each leg a fresh
+    one-worker server over the 10,000-node snapshot running the 2k eval,
+    the count-1 eval and the 1,000-task stream. Every eval committed, no
+    row over capacity, no dispatch error or CPU solve; placements equal in
+    both legs of every pair; with the route on the 2k and count-1 evals
+    each take one fused dispatch on the card and one round trip, and the
+    applier takes the verdict's fast path; off, none."""
+    from nomad_tpu_torch.solver import cuda_kernels
+    runs = []
+    for pair in range(FUSED_PAIRS):
+        order = (True, False) if pair % 2 == 0 else (False, True)
+        legs = {}
+        for fused in order:
+            r = _fused_run(np, torch, snapshot, fused, pair)
+            legs[fused] = r
+            runs.append(r)
+            for what in ("mid", "one", "stream"):
+                e = r[what]
+                log(f"fused pair {pair} {what} fused "
+                    f"{'on' if fused else 'off'}: wall {e['wall_s']:.6f} s, "
+                    f"nomad.plan.evaluate {e['evaluate_s']:.6f} s, "
+                    f"verdict_fastpath {e['counts']['fastpath']}, "
+                    f"dispatch.fused.cuda {e['counts']['fused']}, "
+                    f"dispatch.cuda {e['counts']['classic']}, round trips "
+                    f"(max an eval) {e['round_trips_max']}, launches "
+                    f"{json.dumps(e['launches'])} ({card})")
+        check(legs[True]["maps"] == legs[False]["maps"],
+              f"fused pair {pair}: placements differ with the route on "
+              f"and off")
+        on, off = legs[True], legs[False]
+        for what, n_evals in (("mid", 1), ("one", 1),
+                              ("stream", STREAM_JOBS)):
+            check(on[what]["counts"]["fused"] == n_evals and
+                  off[what]["counts"]["fused"] == 0,
+                  f"fused pair {pair} {what}: fused dispatches on "
+                  f"{on[what]['counts']['fused']}, off "
+                  f"{off[what]['counts']['fused']}")
+            check(on[what]["round_trips_max"] == 1,
+                  f"fused pair {pair} {what}: "
+                  f"{on[what]['round_trips_max']} round trips an eval")
+        check(on["mid"]["counts"]["fastpath"] > 0 and
+              off["mid"]["counts"]["fastpath"] == 0,
+              f"fused pair {pair}: verdict fast path on "
+              f"{on['mid']['counts']['fastpath']}, off "
+              f"{off['mid']['counts']['fastpath']}")
+    summary = {}
+    for what in ("mid", "one", "stream"):
+        cell = {}
+        for fused in (True, False):
+            rs = [r[what] for r in runs if r["fused"] is fused]
+            cell["on" if fused else "off"] = {
+                "wall_s": [r["wall_s"] for r in rs],
+                "median_wall_s": statistics.median(r["wall_s"] for r in rs),
+                "evaluate_s": [r["evaluate_s"] for r in rs],
+                "median_evaluate_s": statistics.median(
+                    r["evaluate_s"] for r in rs),
+                "fastpath": [r["counts"]["fastpath"] for r in rs],
+                "round_trips_max": [r["round_trips_max"] for r in rs]}
+        wall = {(r["pair"], r["fused"]): r[what]["wall_s"] for r in runs}
+        diffs = [wall[(p, True)] - wall[(p, False)]
+                 for p in range(FUSED_PAIRS)]
+        wins = sum(x < 0 for x in diffs)
+        cell.update(pair_diff_s=diffs, wins=wins,
+                    median_pair_diff_s=statistics.median(diffs),
+                    sign_test_p=_sign_test_p(wins, FUSED_PAIRS),
+                    loses_p=_sign_test_p(FUSED_PAIRS - wins, FUSED_PAIRS))
+        summary[what] = cell
+        log(f"fused pairs {what}: median wall on "
+            f"{cell['on']['median_wall_s']:.6f} s, off "
+            f"{cell['off']['median_wall_s']:.6f} s; median pair diff (on - "
+            f"off) {cell['median_pair_diff_s']:+.6f} s, on faster in "
+            f"{wins}/{FUSED_PAIRS} (sign test p {cell['sign_test_p']:.4f}, "
+            f"slower p {cell['loses_p']:.4f}); median evaluate on "
+            f"{cell['on']['median_evaluate_s']:.6f} s, off "
+            f"{cell['off']['median_evaluate_s']:.6f} s")
+    # the classic K2 entry's launches on its path: the count-1 eval with
+    # the route off (each leg's own window)
+    offs = [r for r in runs if not r["fused"]]
+    launches = {"score_capacity": offs[0]["one"]["launches"].get(
+        "score_capacity", 0)}
+    check(launches["score_capacity"] == 1,
+          f"fused off: the count-1 eval launched K2 "
+          f"{launches['score_capacity']} times")
+    for r in runs:
+        r.pop("maps")
+    return {"runs": runs, "summary": summary, "launches": launches}
 
 
 def _server(workers: int, snapshot: bytes = None, logs: list = None,
@@ -2344,15 +2874,18 @@ def server_phase(np, torch, card: str) -> dict:
     return out
 
 
-def _stream_run(np, torch, snapshot, count: int, batch: bool) -> dict:
+def _stream_run(np, torch, snapshot, count: int, batch: bool,
+                fused: bool = True) -> dict:
     """STREAM_JOBS jobs of `count` tasks registered back to back on a
-    fresh 10,000-node server with STREAM_WORKERS workers."""
+    fresh 10,000-node server with STREAM_WORKERS workers, the whole-eval
+    fused route on or off (its coalesced windows are then the fused
+    lanes or the classic lanes entry)."""
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.metrics import metrics
     from nomad_tpu_torch.solver import cuda_kernels
     mb = ("dispatches", "solo", "early_fire")
     srv = _server(STREAM_WORKERS, snapshot=snapshot,
-                  eval_batch_enabled=batch)
+                  eval_batch_enabled=batch, solver_fused_enabled=fused)
     try:
         jobs = [_mk_batch_job(mock, f"stream-{count}-{batch:d}-{j}", count)
                 for j in range(STREAM_JOBS)]
@@ -2361,7 +2894,7 @@ def _stream_run(np, torch, snapshot, count: int, batch: bool) -> dict:
         wait0 = metrics.sample_count("nomad.solver.microbatch.leader_wait")
         c0 = {k: metrics.counter(f"nomad.solver.microbatch.{k}") for k in mb}
         errs0 = metrics.counter("nomad.solver.dispatch_errors")
-        cpu0 = metrics.counter("nomad.solver.dispatch.torch")
+        cpu0 = _cpu_solves(metrics)
         cuda_kernels.reset_launches()            # this path's window
         t0 = time.perf_counter()
         ids = [srv.job_register(j)["eval_id"] for j in jobs]
@@ -2369,7 +2902,7 @@ def _stream_run(np, torch, snapshot, count: int, batch: bool) -> dict:
         launches = dict(cuda_kernels.LAUNCHES)   # read just after
         _check_committed(srv, {j.id: count for j in jobs})
         check(metrics.counter("nomad.solver.dispatch_errors") == errs0 and
-              metrics.counter("nomad.solver.dispatch.torch") == cpu0,
+              _cpu_solves(metrics) == cpu0,
               "the stream counted a dispatch error or a CPU solve")
         sizes = metrics.samples["nomad.solver.microbatch.size"].raw_window(
             size0) if size0 < metrics.sample_count(
@@ -2403,7 +2936,7 @@ def _sign_test_p(wins: int, pairs: int) -> float:
 
 def stream_phase(np, torch, snapshot, card: str,
                  pairs: int = STREAM_PAIRS,
-                 counts: tuple = STREAM_COUNTS) -> dict:
+                 counts: tuple = STREAM_COUNTS, fused: bool = True) -> dict:
     """The eval stream on a 10,000-node server: 16 jobs registered back
     to back, `pairs` pairs of runs with micro-batching on and off (on
     first in even pairs, off first in odd ones), at each of `counts`
@@ -2422,7 +2955,8 @@ def stream_phase(np, torch, snapshot, card: str,
             for pair in range(pairs):
                 order = (True, False) if pair % 2 == 0 else (False, True)
                 for batch in order:
-                    r = _stream_run(np, torch, snapshot, count, batch)
+                    r = _stream_run(np, torch, snapshot, count, batch,
+                                    fused)
                     r["pair"] = pair
                     runs.append(r)
                     log(f"stream count {count} pair {pair} batch "
@@ -2438,7 +2972,12 @@ def stream_phase(np, torch, snapshot, card: str,
     finally:
         backend.BATCH_MAX_COUNT = ceiling
     main = [r for r in runs if r["count"] == STREAM_COUNT and r["batch"]]
-    lanes = sum(r["launches"]["depth_curve_lanes"] for r in main)
+    # the windows' lanes entry: the classic one, or the fused route's
+    # gather entry (which fused solo solves launch too: count windows)
+    if fused:
+        lanes = sum(r["microbatch"]["dispatches"] for r in main)
+    else:
+        lanes = sum(r["launches"]["depth_curve_lanes"] for r in main)
     check(lanes >= 1, f"the stream at {STREAM_COUNT} launched the lane "
           f"entry {lanes} times")
     summary = {}
@@ -2478,7 +3017,7 @@ def stream_phase(np, torch, snapshot, card: str,
 
 
 def _rejection_run(np, torch, snapshot, algorithm: str) -> dict:
-    """8 jobs of 2,000 tasks (cpu 400, mem 700; bench.py
+    """8 jobs of 1,000 tasks (cpu 400, mem 700; bench.py
     `_concurrent_rejection_rate`) registered at once on a 2,000-node
     server with 8 workers. Each plan and its PlanResult is recorded by
     wrapping the server's planner instance.
@@ -2578,8 +3117,10 @@ def server_fault_phase(np, torch, snapshot) -> dict:
     from nomad_tpu_torch.metrics import metrics
     from nomad_tpu_torch.solver import backend
     names = {"dispatch_errors": "nomad.solver.dispatch_errors.cuda",
+             "fused_errors": "nomad.solver.dispatch_errors.fused",
              "eval_failures": "nomad.worker.eval_failures",
-             "cpu_solves": "nomad.solver.dispatch.torch"}
+             "cpu_solves": "nomad.solver.dispatch.torch",
+             "cpu_fused_solves": "nomad.solver.dispatch.fused.torch"}
     srv = _server(4, snapshot=snapshot)
     try:
         srv.eval_broker.initial_nack_delay = 0.05
@@ -2592,8 +3133,11 @@ def server_fault_phase(np, torch, snapshot) -> dict:
         t1 = _wait_evals(srv, [eval_id])
         _check_committed(srv, {"faulted": MID_COUNT})
         d = {k: metrics.counter(v) - c0[k] for k, v in names.items()}
-        check(d["dispatch_errors"] == 1 and d["eval_failures"] == 1 and
-              d["cpu_solves"] == 0, f"server fault counted {d}")
+        # the 2k eval takes the fused route, whose dispatch fires the
+        # tier's fault site too
+        check(d["dispatch_errors"] == 1 and d["fused_errors"] == 1 and
+              d["eval_failures"] == 1 and d["cpu_solves"] == 0 and
+              d["cpu_fused_solves"] == 0, f"server fault counted {d}")
     finally:
         faults.clear()
         backend.reset()
@@ -2765,6 +3309,7 @@ def convex_server_phase(np, torch, snapshot) -> dict:
     names = {"convex": "nomad.solver.dispatch.convex",
              "dispatch_errors": "nomad.solver.dispatch_errors",
              "cpu_solves": "nomad.solver.dispatch.torch",
+             "cpu_fused_solves": "nomad.solver.dispatch.fused.torch",
              "eval_failures": "nomad.worker.eval_failures",
              "convex_errors": "nomad.solver.dispatch_errors.convex"}
     rt_name = "nomad.solver.device_round_trips"
@@ -2779,7 +3324,8 @@ def convex_server_phase(np, torch, snapshot) -> dict:
         warm = backend.warmup(srv.state.node_count(),
                               cfg=SchedulerConfiguration(
                                   scheduler_algorithm="convex"))
-        check(metrics.counter("nomad.solver.warmup.artifacts") - a0 == 11,
+        # 9 classic, 7 fused, 2 convex artifacts
+        check(metrics.counter("nomad.solver.warmup.artifacts") - a0 == 18,
               f"convex warmup: {warm}")
         out["warmup"] = warm
         for i, alg in enumerate(CONVEX_ORDER):
@@ -2802,7 +3348,8 @@ def convex_server_phase(np, torch, snapshot) -> dict:
             rec = _explain_record(eval_id)
             check(rec["placed_total"] == CONVEX_COUNT,
                   f"{job_id}: explain placed_total {rec['placed_total']}")
-            check(d["cpu_solves"] == 0 and d["dispatch_errors"] == 0,
+            check(d["cpu_solves"] == d["cpu_fused_solves"] == 0 and
+                  d["dispatch_errors"] == 0,
                   f"{job_id} ({alg}) counted {d}")
             want = 1 if alg == "convex" else 0
             check(d["convex"] == want and launches["convex_solve"] == want,
@@ -3223,9 +3770,10 @@ def raft_phase(np, torch, card: str, nodes_snapshot: bytes,
                     check(r["launches"]["depth_curve"] == want,
                           f"raft {r['job']}: depth_curve launched "
                           f"{r['launches']['depth_curve']} times")
-            check(runs[-1]["launches"]["score_capacity"] == 1,
-                  f"raft-one: score_capacity launched "
-                  f"{runs[-1]['launches']['score_capacity']} times")
+            # the count-1 eval takes the fused route: K2's gather entry
+            check(runs[-1]["launches"]["score_capacity_gather"] == 1,
+                  f"raft-one: score_capacity_gather launched "
+                  f"{runs[-1]['launches']['score_capacity_gather']} times")
         walls = {side: sorted(r["leader_commit_s"] for r in runs[:4]
                               if r["side"] == side)
                  for side in ("raft", "memory")}
@@ -3470,14 +4018,18 @@ def _agent_solves(counters: dict, on_card: bool, what: str,
                   since: dict = None) -> dict:
     """The agent's solves (counted from `since`, the counters at an
     earlier read) ran on its device and none failed: on the card
-    `nomad.solver.dispatch.cuda` >= 1 and 0 on the CPU's plain tier."""
+    `nomad.solver.dispatch.cuda` and `.fused.cuda` >= 1 together and 0 on
+    the CPU's plain tier (classic or fused)."""
     from nomad_tpu_torch.solver.cuda_kernels import KERNELS
     since = since or {}
 
     def c(name):
         return int(counters.get(name, 0) - since.get(name, 0))
-    out = {"dispatch_cuda": c("nomad.solver.dispatch.cuda"),
-           "dispatch_torch": c("nomad.solver.dispatch.torch"),
+    out = {"dispatch_cuda": c("nomad.solver.dispatch.cuda")
+           + c("nomad.solver.dispatch.fused.cuda"),
+           "dispatch_torch": c("nomad.solver.dispatch.torch")
+           + c("nomad.solver.dispatch.fused.torch"),
+           "dispatch_fused": c("nomad.solver.dispatch.fused"),
            "dispatch_errors": c("nomad.solver.dispatch_errors"),
            "compile_cache_hits": c("nomad.compile_cache.hits"),
            "compile_cache_misses": c("nomad.compile_cache.misses"),
@@ -3937,9 +4489,21 @@ def _agent_cluster(base: str, env: dict, on_card: bool, n_nodes: int,
         t_re = time.monotonic()
         old.start()
         mid_job = _mk_batch_job(mock, "agent-mid", mid)
+        # the promoted leader's kernel builds during its first eval (its
+        # standby warmup built and loaded the solve kernels, the fused
+        # route's included), and its fused dispatches
+        promoted, pc0 = new, _counters(new)
         new, mid_eval, t_mid = _submit(watch, _api_job(mid_job))
         new, t_mid_commit, mid_evals = _place_whole(
             watch, new, "agent-mid", mid, mid_eval, t_mid, AGENT_WAIT_S)
+        pc = _counters(promoted)
+        first_eval = {k: int(pc.get(name, 0) - pc0.get(name, 0))
+                      for k, name in (
+                          ("compile_cache_misses",
+                           "nomad.compile_cache.misses"),
+                          ("compile_cache_hits", "nomad.compile_cache.hits"),
+                          ("dispatch_fused_cuda",
+                           "nomad.solver.dispatch.fused.cuda"))}
         # the new leader's establishment warmup (a thread; from 256 nodes)
         # logs when done
         if n_nodes >= 256:
@@ -3958,6 +4522,7 @@ def _agent_cluster(base: str, env: dict, on_card: bool, n_nodes: int,
             "mid_register_to_commit_s": t_mid_commit - t_mid,
             "mid_evals": mid_evals,
             "crash_to_mid_commit_s": t_mid_commit - t_kill,
+            "first_eval": first_eval,
             "elections": watch.between(t_kill - t0,
                                        time.monotonic() - t0)}
         log(f"agent failover: kill -9 {old.name}; crash -> {new.name} "
@@ -3967,7 +4532,8 @@ def _agent_cluster(base: str, env: dict, on_card: bool, n_nodes: int,
             f"{res['failover']['promoted_warm']}); warmup {warm[-1:]}; "
             f"{mid:,}-task job register -> commit "
             f"{res['failover']['mid_register_to_commit_s']:.3f} s, all "
-            f"placed")
+            f"placed; on {promoted.name} during it "
+            f"{json.dumps(first_eval)}")
 
         # the restarted agent catches up
         check(old.wait_http(AGENT_WAIT_S), f"{old.name}: {old.tail()}")
@@ -4115,6 +4681,11 @@ def main() -> int:
     res = kernels_phase(np, torch, dev)
     res["depth_curve_lanes"] = lanes_phase(np, torch, dev)
     res["depth_curve_lanes"]["floor_ms"] = res["depth_curve"]["floor_ms"]
+    fused_k = fused_kernel_phase(np, torch, dev,
+                                 res["depth_curve"]["floor_ms"])
+    res.update({k: fused_k[k] for k in ("depth_curve_gather",
+                                        "score_capacity_gather",
+                                        "fit_verdict")})
     res.update(chunked_phase(np, torch, dev, res["depth_curve"]["floor_ms"]))
     ex = explain_phase(np, torch, dev)
     main = main_path_phase(torch)
@@ -4125,8 +4696,14 @@ def main() -> int:
     ladder = ladder_phase(np, torch)
     server = server_phase(np, torch, card)
     nodes = server.pop("nodes_snapshot")        # the 10,000-node fleet
-    # the stream at STREAM_COUNT only; stream_sweep.py runs every count
-    stream = stream_phase(np, torch, nodes, card, counts=(STREAM_COUNT,))
+    t_fused = time.perf_counter()
+    fused = fused_pairs_phase(np, torch, nodes, card)
+    log(f"fused pairs phase: {time.perf_counter() - t_fused:.1f} s")
+    # the stream at STREAM_COUNT only, with the fused route off: its
+    # coalesced windows are the classic lanes entry (depth_curve_lanes);
+    # stream_sweep.py runs every count at the defaults
+    stream = stream_phase(np, torch, nodes, card, counts=(STREAM_COUNT,),
+                          fused=False)
     rejections = rejection_phase(np, torch, card)
     fault = server_fault_phase(np, torch, nodes)
     t_cvx = time.perf_counter()
@@ -4159,6 +4736,17 @@ def main() -> int:
         # no Pallas kernel: convex_eval's lax.while_loop, one XLA program
         "convex_solve": ("nomad_tpu_torch/solver/csrc/convex_solve.cu",
                          "nomad_tpu/solver/convex.py:129"),
+        # the whole-eval fused route: K1's and K2's gather entries (the
+        # reference's fused programs inline gather_rows before the Pallas
+        # kernels' work) and the verdict (no Pallas kernel: part of the
+        # fused XLA program)
+        "depth_curve_gather": ("nomad_tpu_torch/solver/csrc/depth_curve.cu",
+                               "nomad_tpu/solver/pallas_kernels.py:174"),
+        "score_capacity_gather": (
+            "nomad_tpu_torch/solver/csrc/score_capacity.cu",
+            "nomad_tpu/solver/pallas_kernels.py:31"),
+        "fit_verdict": ("nomad_tpu_torch/solver/csrc/fit_verdict.cu",
+                        "nomad_tpu/solver/kernels.py:439"),
     }
     # each kernel's launches on the path that runs it: the scan's two on
     # the service path (the step kernel no longer runs there)
@@ -4170,6 +4758,9 @@ def main() -> int:
     # the convex solve's on the server's convex evals; its row's numbers
     # from the main path's shape, bench_binpack
     launches["convex_solve"] = cvx_server["launches"]["convex_solve"]
+    # the classic K2 entry's on the count-1 eval with the fused route off
+    # (the main path's count-1 eval takes the fused route)
+    launches["score_capacity"] = fused["launches"]["score_capacity"]
     res["convex_solve"] = cvx["bench_binpack"]
     rows = []
     for name, (src, rep) in meta.items():
@@ -4188,7 +4779,7 @@ def main() -> int:
                   "k512_ms", "depths_evaluated", "score_ms", "steps",
                   "solve_device_ms", "barrier_ms", "dependency_floor_ms",
                   "solo_8_ms", "iterations", "eval_device_ms",
-                  "eval_call_ms"):
+                  "eval_call_ms", "plain_device_ms", "fused_window_ms"):
             if k in r:
                 row[k] = r[k]
         rows.append(row)
@@ -4203,6 +4794,7 @@ def main() -> int:
                                    if f != "eval_kernels"}
                                for k, r in cvx.items()},
                     "convex_server": cvx_server, "raft": raft,
+                    "fused": {"kernels": fused_k, "pairs": fused},
                     "agent": agent,
                     "native_stamping": native_loaded,
                     "greedy_fill": res["greedy_fill"], "pow10": pow10,

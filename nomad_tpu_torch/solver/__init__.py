@@ -19,7 +19,14 @@ The convex tier (convex.py; scheduler_algorithm "convex") solves a
 depth or greedy eval as one projected-gradient program over the state
 cache's resident twins, one launch of csrc/convex_solve.cu on a card.
 
-Not ported yet: the fused route, the sharded solves (`make_mesh`,
+The whole-eval fused route (on by default; `fused_eval_depth`,
+`fused_eval_greedy`) runs a depth or greedy eval's gather, solve and
+plan-fit verdict from the resident twins behind one host sync: on a card
+the gather entry of the depth-curve or score/capacity kernel, the torch
+tail and csrc/fit_verdict.cu; the verdict rides the plan to the
+applier's fast path.
+
+Not ported yet: the sharded solves (`make_mesh`,
 `sharded_fill_greedy`) and the reference's host floor and pipeline
 degrade path (card work never moves to the CPU). The copied
 plan applier's `state_cache` hooks find this package's cache: the
@@ -29,6 +36,7 @@ from .device import solve_device, use_device  # noqa: F401
 from .kernels import (  # noqa: F401
     DEPTH_GRID, FIT_EPS, NUM_XR, XR_CPU, XR_DISK, XR_MBITS, XR_MEM,
     XR_PORTS, depth_curve_ref, fill_depth, fill_greedy_binpack,
+    fused_eval_depth, fused_eval_greedy, fused_fit_verdict, gather_rows,
     instance_capacity, place_chunked, plan_fit_verdict, preempt_top_k,
     preemption_distance, score_capacity_ref, score_fit,
 )

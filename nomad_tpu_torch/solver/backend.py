@@ -58,9 +58,19 @@ window's device error (`nomad.solver.dispatch_errors.batch`), feeds the
 "batch" breaker and raises it to every lane; a solo solve takes the
 solo chain.
 
+The fused tier (`select_fused`, on by default: SchedulerConfiguration.
+solver_fused_enabled, NOMAD_SOLVER_FUSED) runs a depth or greedy eval
+whole — gather from the state cache's resident twins, solve, plan-fit
+verdict — behind one host copy (cuda_kernels.fused_eval_depth/_greedy on
+a card, kernels.fused_eval_* on the CPU). Its chain has one rung too; a
+device error also counts `nomad.solver.dispatch_errors.fused` and is
+raised out of the eval, where the reference re-solves through the
+classic ladder.
+
 `warmup` (from the server's leadership establishment) drives one
-synthetic solve of every kernel the card path uses through `select`, so
-a leader's first eval builds and loads nothing.
+synthetic solve of every kernel the card path uses through `select`,
+`select_fused` and `select_convex`, so a leader's first eval builds and
+loads nothing.
 
 Outside `async_dispatch()` a chain call ends at the solve's one host
 sync: the result is copied to the host there (or by the caller's
@@ -124,7 +134,21 @@ _ARG_DTYPES = {
     "convex": {0: torch.float32, 1: torch.float32, 2: torch.int32,
                3: torch.bool, 4: torch.float32, 6: torch.bool,
                8: torch.float32, 9: torch.int32},
+    # kernels.fused_eval_depth's and fused_eval_greedy's: twins, idx,
+    # valid, ask, feasible, then the depth columns or the greedy's class
+    # ids and collisions
+    "fused_depth": {0: torch.float32, 1: torch.float32, 2: torch.int32,
+                    3: torch.bool, 4: torch.float32, 6: torch.bool,
+                    7: torch.int32, 9: torch.float32, 11: torch.float32,
+                    14: torch.int32},
+    "fused_greedy": {0: torch.float32, 1: torch.float32, 2: torch.int32,
+                     3: torch.bool, 4: torch.float32, 6: torch.bool,
+                     8: torch.int32, 10: torch.int32},
 }
+# a fused depth window's stacked lane columns: fused_depth's positions 2..13
+# (idx through jitter_samples; the class ids and distinct_hosts stay out)
+FUSED_LANE_DTYPES = {i - 2: t for i, t in _ARG_DTYPES["fused_depth"].items()
+                     if 2 <= i < 14}
 
 
 def reset() -> None:
@@ -603,6 +627,171 @@ def _convex_chain(kernel: str, tier: str, dev, spread_algorithm: bool):
     return run
 
 
+# ------------------------------------------------------------------- fused
+
+def fused_enabled(cfg=None) -> bool:
+    """The whole-eval fused route's gate (ref backend.fused_enabled):
+    SchedulerConfiguration.solver_fused_enabled, hot-reloadable, on by
+    default; NOMAD_SOLVER_FUSED=0/1 overrides."""
+    env = os.environ.get("NOMAD_SOLVER_FUSED", "")
+    if env == "0":
+        return False
+    if env == "1":
+        return True
+    return bool(getattr(cfg, "solver_fused_enabled", True))
+
+
+def select_fused(kernel: str, n_padded: int = 0, *, count=None,
+                 k_max: int = 128, spread_algorithm: bool = False,
+                 depth_grid=None, twins_device=None):
+    """-> (tier, run) for the whole-eval fused program of a `kernel`
+    ("depth" or "greedy") eval, or None where the route declines: another
+    kernel, or resident twins on another device than the solves (ref
+    select_fused's twin/tier mismatch). The reference also declines its
+    host tier and its pallas tier, where its Pallas kernel owns the shape
+    and fusing would trade it for an XLA program; the port's fused
+    program runs the same hand kernels, so it fuses on the `cuda` tier and
+    on `torch` (a CPU request), as the reference fuses on its xla tier. A
+    depth eval that may coalesce (_batch_eligible) takes the "batch" tier:
+    its window is one launch of the fused lanes (microbatch.solve_fused).
+
+    `run(*fused_args)` takes kernels.fused_eval_depth's (or _greedy's)
+    positional args — the twins, idx, valid, ask, count, ... — and returns
+    (placed i32[B], fit bool[B]) on the host through ONE copy
+    (cuda_kernels.fused_to_host): the eval's one sync. The placer
+    explains on the host, so the program reduces no explain classes."""
+    if kernel not in ("depth", "greedy"):
+        return None
+    dev = _device.solve_device()
+    tier_name = tier()
+    if twins_device is not None and torch.device(twins_device) != dev:
+        return None
+    key = ("fused", kernel, tier_name, str(dev), k_max, spread_algorithm,
+           depth_grid)
+    solo = _cache.get(key)
+    if solo is None:
+        solo = _cache[key] = (tier_name, _fused_chain(
+            kernel, tier_name, dev, k_max, spread_algorithm, depth_grid))
+    if not _batch_eligible(kernel, count):
+        return solo
+    bkey = ("batch",) + key
+    batched = _cache.get(bkey)
+    if batched is None:
+        from . import microbatch
+        lanes = _fused_lanes_fn(tier_name == "cuda", k_max, spread_algorithm,
+                                depth_grid)
+        skey = ("fused", kernel, k_max, spread_algorithm, depth_grid)
+        solo_fn = solo[1]
+
+        def run_batched(*args):
+            # a window's faults and errors are the micro-batcher's; a
+            # window of one runs the solo chain, with its own sites
+            with _fused_span("batch", kernel):
+                return microbatch.solve_fused(skey, lanes, solo_fn, args)
+        batched = _cache[bkey] = ("batch", run_batched)
+    return batched
+
+
+@contextmanager
+def _fused_span(tier: str, kernel: str):
+    """The fused dispatch's span (ref _fused_chain): solver.dispatch.fused,
+    or solver.dispatch.batch around a window's whole wait."""
+    from ..obs import trace
+    name = "solver.dispatch.batch" if tier == "batch" \
+        else "solver.dispatch.fused"
+    with trace.span(name, tier=tier, fused=True, kernel=kernel):
+        yield
+
+
+def note_fused(tier: str) -> None:
+    """Bill one fused eval's dispatch: `nomad.solver.dispatch.fused[.tier]`
+    and, on a card, its one round trip."""
+    metrics.incr("nomad.solver.dispatch.fused")
+    metrics.incr(f"nomad.solver.dispatch.fused.{tier}")
+    if tier != "torch":
+        roundtrip.note("fused")
+
+
+def _fused_call(kernel: str, impl, dev, k_max: int, spread_algorithm: bool,
+                depth_grid, args: tuple):
+    """One fused eval's launches: `args` on `dev`, host scalars as the
+    wrappers take them."""
+    t = on_device(f"fused_{kernel}", args, dev)
+    if kernel == "greedy":
+        return impl(*t[:5], int(t[5]), t[6], int(t[7]), t[8], bool(t[9]),
+                    t[10])
+    (cap_res, used_res, idx, valid, ask, count, feasible, coll, desired, aff,
+     mpn, jitter, jscale, jsamples, cls, dh) = t
+    if aff is None:
+        aff = torch.zeros(idx.shape, dtype=torch.float32, device=dev)
+    return impl(cap_res, used_res, idx, valid, ask, int(count), feasible,
+                coll, int(desired), aff, int(mpn), jitter,
+                float(np.float32(jscale)), float(np.float32(jsamples)), cls,
+                bool(dh), k_max=k_max, spread_algorithm=spread_algorithm,
+                depth_grid=depth_grid)
+
+
+def _fused_chain(kernel: str, tier: str, dev, k_max: int,
+                 spread_algorithm: bool, depth_grid):
+    """The fused dispatch (ref _fused_chain): the eval (cuda_kernels.
+    fused_eval_depth/_greedy on a card, the plain kernels.fused_eval_* on
+    the CPU) and its one host copy, under the span solver.dispatch.fused
+    and the fault sites `solver.dispatch.fused`, `solver.dispatch.<tier>`
+    and, on a card, `device.lost.d<N>`. A classified device error is
+    counted (`nomad.solver.dispatch_errors.fused` besides the tier's), fed
+    to the tier's breaker and raised out of the eval; anything else raises
+    untouched. The reference's re-solve through the classic ladder is not
+    ported: card work never moves to the CPU, and a failing kernel is
+    reported, never papered over."""
+    from . import cuda_kernels, kernels
+    mod = cuda_kernels if tier == "cuda" else kernels
+    impl = mod.fused_eval_depth if kernel == "depth" \
+        else mod.fused_eval_greedy
+
+    def run(*args):
+        try:
+            with _fused_span(tier, kernel):
+                faults.fire("solver.dispatch.fused")
+                faults.fire(f"solver.dispatch.{tier}")
+                if tier == "cuda":
+                    faults.fire(f"device.lost.d{dev.index or 0}")
+                out = cuda_kernels.fused_to_host(*_fused_call(
+                    kernel, impl, dev, k_max, spread_algorithm, depth_grid,
+                    args))
+        except device_error_types() as e:
+            metrics.incr("nomad.solver.dispatch_errors.fused")
+            note_dispatch_failure(tier, e)
+            raise
+        _breaker.record_success(tier)
+        note_fused(tier)
+        return out
+    return run
+
+
+def _fused_lanes_fn(card: bool, k_max: int, spread_algorithm: bool,
+                    depth_grid):
+    """The batch tier's fused window over one twin pair and the stacked
+    lane columns (FUSED_LANE_DTYPES) -> (placed i32[L, B], fit
+    bool[L, B]) on the solve device: one launch of the depth-curve
+    kernel's gather entry over the lanes, the tail and one verdict launch
+    on a card; the plain lane eval on the CPU."""
+    from . import cuda_kernels, kernels
+    impl = cuda_kernels.fused_eval_depth_lanes if card \
+        else kernels.fused_eval_depth_lanes
+
+    def run(cap_res, used_res, idx, valid, ask, counts, feasible, coll,
+            desired, aff, mpn, jitter, jitter_scales, jitter_samples):
+        if aff is None:
+            aff = torch.zeros(idx.shape, dtype=torch.float32,
+                              device=idx.device)
+        return impl(cap_res, used_res, idx, valid, ask, counts, feasible,
+                    coll, desired, aff, mpn, order_jitter=jitter,
+                    jitter_scales=jitter_scales,
+                    jitter_samples=jitter_samples, k_max=k_max,
+                    spread_algorithm=spread_algorithm, depth_grid=depth_grid)
+    return run
+
+
 def record(kernel: str, backend: str) -> None:
     """Emit the per-solve routing metrics
     (`nomad.solver.kernel.<kernel>.<tier>`)."""
@@ -624,14 +813,16 @@ WARMUP_MIN_NODES = 256
 def warmup(n_nodes: int, k_maxes: tuple = (8, 64, 128),
            budget_s: float = 300.0, cfg=None) -> dict:
     """Build and load every kernel the card path uses before the first
-    real eval (ref backend.warmup, without its fused block):
-    called from Server._establish_leadership on promotion (a background
-    thread), so a leader's first eval builds and loads no kernel. One
-    tiny synthetic solve per (kernel, regime) at the cluster's bucket,
-    driven through the real `select()` chains — the depth curve dense and
-    on the sampled grid for each k_max, the greedy pass and the chunked
-    scan — then one two-lane window of the batch tier's lane solve, and
-    one convex eval per spread setting when the config routes to convex.
+    real eval (ref backend.warmup): called from
+    Server._establish_leadership on promotion (a background thread), so a
+    leader's first eval builds and loads no kernel. One tiny synthetic
+    solve per (kernel, regime) at the cluster's bucket, driven through
+    the real `select()` chains — the depth curve dense and on the sampled
+    grid for each k_max, the greedy pass and the chunked scan — then one
+    two-lane window of the batch tier's lane solve, one fused eval per
+    depth regime and the fused greedy eval through `select_fused` when
+    fusion is on (ref warmup's fused block), and one convex eval per
+    spread setting when the config routes to convex.
     Most-valuable-first under `budget_s`. Raises nothing: a failure is
     counted (`nomad.solver.warmup.errors`) and the eval pays the build
     lazily (NOMAD_DEBUG=1 re-raises). With NOMAD_COMPILE_CACHE set the
@@ -697,14 +888,37 @@ def warmup(n_nodes: int, k_maxes: tuple = (8, 64, 128),
             if os.environ.get("NOMAD_DEBUG"):
                 raise
             del e
+    idx = np.arange(bucket, dtype=np.int32)
+    valid = np.ones(bucket, bool)
+    cls = np.zeros(bucket, np.int32)
+    # the fused route (ref warmup's fused block): one synthetic fused eval
+    # per depth regime and the greedy one through the real select_fused
+    # chains, over the synthetic matrices as the twins
+    if fused_enabled(cfg) and time.monotonic() - t0 <= budget_s:
+        head = (cap, used, idx, valid, ask, np.int32(1), feasible)
+        for kernel, kw in plan:
+            if kernel not in ("depth", "greedy"):
+                continue
+            if time.monotonic() - t0 > budget_s:
+                metrics.incr("nomad.solver.warmup.budget_exhausted")
+                break
+            try:
+                _, fn = select_fused(kernel, bucket, **kw)
+                if kernel == "depth":
+                    fn(*head, *depth_args[5:], None, np.bool_(False))
+                else:
+                    fn(*head, np.int32(2 ** 30), None, np.bool_(False), coll)
+                artifacts += 1
+            except Exception as e:  # noqa: BLE001 — warmup never wedges
+                metrics.incr("nomad.solver.warmup.errors")
+                if os.environ.get("NOMAD_DEBUG"):
+                    raise
+                del e
     # the convex solve (ref warmup's convex block): one synthetic eval per
     # spread setting through the real select_convex chain, whenever the
     # config could route evals to the "convex" algorithm
     if convex_enabled(cfg, getattr(cfg, "scheduler_algorithm", "convex")) \
             and time.monotonic() - t0 <= budget_s:
-        idx = np.arange(bucket, dtype=np.int32)
-        valid = np.ones(bucket, bool)
-        cls = np.zeros(bucket, np.int32)
         for spread in (False, True):
             if time.monotonic() - t0 > budget_s:
                 metrics.incr("nomad.solver.warmup.budget_exhausted")

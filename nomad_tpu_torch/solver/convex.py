@@ -45,8 +45,8 @@ import numpy as np
 import torch
 
 from .kernels import (
-    BINPACK_MAX_SCORE, FIT_EPS, _INV_MAX_SCORE, _fma_f32,
-    fill_greedy_binpack, gather_rows, instance_capacity, score_fit,
+    BINPACK_MAX_SCORE, _INV_MAX_SCORE, _fma_f32, fill_greedy_binpack,
+    fused_fit_verdict, gather_rows, instance_capacity, score_fit,
 )
 
 # per-unit curvature of the fragmentation term: small for binpack (the
@@ -209,13 +209,6 @@ def _round_to_budget(x: torch.Tensor, u_int: torch.Tensor,
     return placed
 
 
-def _fit_verdict(cap, used, ask, placed) -> torch.Tensor:
-    """kernels.plan_fit_verdict as the reference's convex program
-    compiles it: `used + k * ask` is one fused multiply-add there."""
-    post = _fma_f32(placed[:, None].to(torch.float32), ask[None, :], used)
-    return torch.all(post <= cap + FIT_EPS, dim=1)
-
-
 def finish(cap, used, ask, feasible, job_collisions, max_per_node, solved,
            fairness_weight, spread_algorithm: bool, greedy=None) -> tuple:
     """Steps 5-6 on the solve's device, no host sync: round the final
@@ -230,7 +223,7 @@ def finish(cap, used, ask, feasible, job_collisions, max_per_node, solved,
     w_f = torch.tensor(np.float32(fairness_weight), dtype=torch.float32,
                        device=x.device)
     placed_cvx = _round_to_budget(x, u_int, budget_int)
-    fit_cvx = _fit_verdict(cap, used, ask, placed_cvx)
+    fit_cvx = fused_fit_verdict(cap, used, ask, placed_cvx)
     placed_greedy = greedy(cap, used, ask, budget_int, feasible,
                            max_per_node)
     obj_cvx, obj_greedy = _objective(
@@ -239,7 +232,8 @@ def finish(cap, used, ask, feasible, job_collisions, max_per_node, solved,
     won = (fit_cvx.all() & (obj_cvx <= obj_greedy + 1e-6)
            & (placed_cvx.sum() >= placed_greedy.sum()))
     placed = torch.where(won, placed_cvx, placed_greedy)
-    return (placed, _fit_verdict(cap, used, ask, placed), iters, gap, won)
+    return (placed, fused_fit_verdict(cap, used, ask, placed), iters, gap,
+            won)
 
 
 def convex_eval(cap_res, used_res, idx, valid, ask, count, feasible,

@@ -69,8 +69,21 @@
 // one lane. The window has only its live lanes: a launch takes any lane
 // count up to MAX_LANES, so nothing is padded to a fixed shape.
 //
+// Gather entry: the whole-eval fused route (the reference's
+// kernels.fused_eval_depth, one XLA program that inlines gather_rows into
+// the solve) reads the state cache's resident twins directly. Lane l's
+// row b is row idx[l, b] of the twins, or a zero row where valid[l, b] is
+// false, exactly the rows kernels.gather_rows would build; the gathered
+// [B, 5] copies are never written to memory. The twins are one pair for
+// every lane (they are not offset by the lane); idx, valid and the
+// lane's other columns are. Only phase 0 reads cap and used, so the
+// entry changes nothing after it, and every output equals the plain
+// entry's on the gathered rows bit for bit. An index outside the twins
+// is clamped to them, as XLA's gather clamps (the placer never passes
+// one).
+//
 // ptxas (CUDA 12.8, sm_90a, -Xptxas -v): 48 registers, 4,488 bytes of
-// shared memory, no spills.
+// shared memory, no spills, for both entries.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -105,8 +118,11 @@ struct LaneScalars {
   float mpn[MAX_LANES];
 };
 
+template <bool GATHER>
 __global__ void __launch_bounds__(THREADS) depth_curve_kernel(
     const float* __restrict__ cap, const float* __restrict__ used,
+    int n_res, const int32_t* __restrict__ idx,
+    const uint8_t* __restrict__ valid,
     const float* __restrict__ ask, const uint8_t* __restrict__ feasible,
     const int32_t* __restrict__ coll, const float* __restrict__ aff,
     int n, const __grid_constant__ LaneScalars lanes, int k_max,
@@ -121,8 +137,13 @@ __global__ void __launch_bounds__(THREADS) depth_curve_kernel(
 
   // the lane's slices (a solo solve is one lane, y = 0)
   const int ly = blockIdx.y;
-  cap += (size_t)ly * n * NUM_XR;
-  used += (size_t)ly * n * NUM_XR;
+  if (GATHER) {
+    idx += (size_t)ly * n;         // the twins are shared by every lane
+    valid += (size_t)ly * n;
+  } else {
+    cap += (size_t)ly * n * NUM_XR;
+    used += (size_t)ly * n * NUM_XR;
+  }
   ask += (size_t)ly * NUM_XR;
   feasible += (size_t)ly * n;
   coll += (size_t)ly * n;
@@ -145,10 +166,15 @@ __global__ void __launch_bounds__(THREADS) depth_curve_kernel(
     float cf = 0.0f, af = 0.0f;
     if (mine && i < n) {
       float c[NUM_XR], u[NUM_XR];
+      // the row: row i of this lane's matrices, or (gather entry) twin
+      // row idx[i], zero where the row is not valid
+      const bool live = !GATHER || valid[i] != 0;
+      const size_t src = GATHER ? (size_t)min(max(idx[i], 0), n_res - 1)
+                                : (size_t)i;
 #pragma unroll
       for (int r = 0; r < NUM_XR; ++r) {
-        c[r] = cap[(size_t)i * NUM_XR + r];
-        u[r] = used[(size_t)i * NUM_XR + r];
+        c[r] = live ? cap[src * NUM_XR + r] : 0.0f;
+        u[r] = live ? used[src * NUM_XR + r] : 0.0f;
       }
       // exact instance capacity: min over asked dims of floor(free / ask)
       float capacity = 1e9f;
@@ -323,19 +349,16 @@ __global__ void __launch_bounds__(THREADS) depth_curve_kernel(
   }
 }
 
-// Launch on `stream`; returns the launch's cudaError_t (0 = success).
-// `n_lanes` solves of `n` rows each, stacked lane-major (cap/used
-// [L, n, 5], ask [L, 5], feasible/coll/aff [L, n]); `desired` and `mpn`
-// host arrays of L scalars; `grid_depths` a host array of `grid_n` depths
-// (grid_n = 0: dense); `out` the int32 [L, 3, n] output buffer.
-extern "C" int depth_curve_launch(
-    const float* cap, const float* used, const float* ask,
-    const uint8_t* feasible, const int32_t* coll, const float* aff, int n,
-    int n_lanes, const float* desired, const float* mpn, int k_max,
-    const float* grid_depths, int grid_n, int spread, int32_t* out,
-    void* stream) {
+template <bool GATHER>
+static int launch(const float* cap, const float* used, int n_res,
+                  const int32_t* idx, const uint8_t* valid, const float* ask,
+                  const uint8_t* feasible, const int32_t* coll,
+                  const float* aff, int n, int n_lanes, const float* desired,
+                  const float* mpn, int k_max, const float* grid_depths,
+                  int grid_n, int spread, int32_t* out, void* stream) {
   if (grid_n < 0 || grid_n > MAX_GRID) return (int)cudaErrorInvalidValue;
   if (n_lanes < 0 || n_lanes > MAX_LANES) return (int)cudaErrorInvalidValue;
+  if (GATHER && n_res <= 0) return (int)cudaErrorInvalidValue;
   if (n <= 0 || n_lanes == 0) return 0;
   DepthGrid grid;
   grid.n = grid_n;
@@ -347,7 +370,39 @@ extern "C" int depth_curve_launch(
     ls.mpn[l] = l < n_lanes ? mpn[l] : 0.0f;
   }
   const dim3 blocks((n + GROUP - 1) / GROUP, n_lanes);
-  depth_curve_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      cap, used, ask, feasible, coll, aff, n, ls, k_max, grid, spread, out);
+  depth_curve_kernel<GATHER><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      cap, used, n_res, idx, valid, ask, feasible, coll, aff, n, ls, k_max,
+      grid, spread, out);
   return (int)cudaGetLastError();
+}
+
+// Launch on `stream`; returns the launch's cudaError_t (0 = success).
+// `n_lanes` solves of `n` rows each, stacked lane-major (cap/used
+// [L, n, 5], ask [L, 5], feasible/coll/aff [L, n]); `desired` and `mpn`
+// host arrays of L scalars; `grid_depths` a host array of `grid_n` depths
+// (grid_n = 0: dense); `out` the int32 [L, 3, n] output buffer.
+extern "C" int depth_curve_launch(
+    const float* cap, const float* used, const float* ask,
+    const uint8_t* feasible, const int32_t* coll, const float* aff, int n,
+    int n_lanes, const float* desired, const float* mpn, int k_max,
+    const float* grid_depths, int grid_n, int spread, int32_t* out,
+    void* stream) {
+  return launch<false>(cap, used, 0, nullptr, nullptr, ask, feasible, coll,
+                       aff, n, n_lanes, desired, mpn, k_max, grid_depths,
+                       grid_n, spread, out, stream);
+}
+
+// The gather entry: as depth_curve_launch, but lane l's rows are rows
+// idx[l, :] of the resident twins cap_res/used_res ([n_res, 5], one pair
+// for every lane), zero where valid[l, :] is 0 (idx and valid [L, n]).
+extern "C" int depth_curve_gather_launch(
+    const float* cap_res, const float* used_res, int n_res,
+    const int32_t* idx, const uint8_t* valid, const float* ask,
+    const uint8_t* feasible, const int32_t* coll, const float* aff, int n,
+    int n_lanes, const float* desired, const float* mpn, int k_max,
+    const float* grid_depths, int grid_n, int spread, int32_t* out,
+    void* stream) {
+  return launch<true>(cap_res, used_res, n_res, idx, valid, ask, feasible,
+                      coll, aff, n, n_lanes, desired, mpn, k_max,
+                      grid_depths, grid_n, spread, out, stream);
 }

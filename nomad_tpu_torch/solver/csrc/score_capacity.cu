@@ -28,6 +28,13 @@
 // operation for operation; build without fast math and without FMA
 // contraction so each rounding matches.
 //
+// Gather entry (greedy only): the whole-eval fused route (the reference's
+// kernels.fused_eval_greedy, one XLA program that inlines gather_rows)
+// reads row idx[i] of the state cache's resident twins, or a zero row
+// where valid[i] is 0 — the rows kernels.gather_rows builds — so the
+// gathered [N, 5] copies are never written. An index outside the twins
+// is clamped to them, as XLA's gather clamps.
+//
 // Output: one int32 [2, n] buffer: row 0 the capacity, row 1 the score or
 // key (float32 bits).
 
@@ -39,19 +46,24 @@
 #define NUM_XR 5
 #define THREADS 128
 
-template <bool GREEDY>
+template <bool GREEDY, bool GATHER>
 __global__ void __launch_bounds__(THREADS) score_capacity_kernel(
     const float* __restrict__ cap, const float* __restrict__ used,
+    int n_res, const int32_t* __restrict__ idx,
+    const uint8_t* __restrict__ valid,
     const float* __restrict__ ask, const uint8_t* __restrict__ feasible,
     int n, int spread, int32_t mpn, int32_t* __restrict__ out) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
   float c[NUM_XR], u[NUM_XR];
+  const bool live = !GATHER || valid[i] != 0;
+  const size_t src = GATHER ? (size_t)min(max(idx[i], 0), n_res - 1)
+                            : (size_t)i;
 #pragma unroll
   for (int r = 0; r < NUM_XR; ++r) {
-    c[r] = cap[(size_t)i * NUM_XR + r];
-    u[r] = used[(size_t)i * NUM_XR + r];
+    c[r] = live ? cap[src * NUM_XR + r] : 0.0f;
+    u[r] = live ? used[src * NUM_XR + r] : 0.0f;
   }
   float capacity = 1e9f;
 #pragma unroll
@@ -91,11 +103,31 @@ extern "C" int score_capacity_launch(
     int max_per_node, int32_t* out, void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + THREADS - 1) / THREADS;
+  cudaStream_t st = (cudaStream_t)stream;
   if (greedy)
-    score_capacity_kernel<true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        cap, used, ask, feasible, n, spread, max_per_node, out);
+    score_capacity_kernel<true, false><<<blocks, THREADS, 0, st>>>(
+        cap, used, 0, nullptr, nullptr, ask, feasible, n, spread,
+        max_per_node, out);
   else
-    score_capacity_kernel<false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        cap, used, ask, feasible, n, spread, max_per_node, out);
+    score_capacity_kernel<false, false><<<blocks, THREADS, 0, st>>>(
+        cap, used, 0, nullptr, nullptr, ask, feasible, n, spread,
+        max_per_node, out);
+  return (int)cudaGetLastError();
+}
+
+// The greedy entry over the resident twins cap_res/used_res ([n_res, 5]):
+// row i is twin row idx[i], zero where valid[i] is 0 (idx, valid [n]).
+extern "C" int score_capacity_gather_launch(
+    const float* cap_res, const float* used_res, int n_res,
+    const int32_t* idx, const uint8_t* valid, const float* ask,
+    const uint8_t* feasible, int n, int spread, int max_per_node,
+    int32_t* out, void* stream) {
+  if (n_res <= 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  const int blocks = (n + THREADS - 1) / THREADS;
+  score_capacity_kernel<true, true>
+      <<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+          cap_res, used_res, n_res, idx, valid, ask, feasible, n, spread,
+          max_per_node, out);
   return (int)cudaGetLastError();
 }

@@ -24,6 +24,21 @@ of nomad_tpu/solver/pallas_kernels.py.
                   convex.py `convex_eval`); `convex_eval_fused` is the
                   whole eval with it and the score/capacity kernel's
                   greedy entry as the baseline
+  depth_curve_gather  the depth-curve kernel's gather entry (csrc/
+                  depth_curve.cu): each lane's rows read through idx from
+                  the state cache's resident twins, never copied out —
+                  the whole-eval fused route's producer (ref kernels.
+                  fused_eval_depth, whose XLA program inlines
+                  gather_rows); solo solves and micro-batch windows
+                  share it
+  score_capacity_gather  the score/capacity kernel's greedy entry
+                  through idx the same way (ref kernels.
+                  fused_eval_greedy)
+  fit_verdict     csrc/fit_verdict.cu, the fused route's plan-fit
+                  verdict through idx (no Pallas counterpart: part of the
+                  reference's fused XLA program); it writes the placement
+                  vector beside the verdict, so the eval's results reach
+                  the host in one copy (fused_to_host)
   chunked_step    csrc/chunked_step.cu, one scan step's score pass: the
                   score the scan kernel shares (csrc/chunked_score.cuh),
                   held bit for bit against the plain step; no placer path
@@ -49,8 +64,9 @@ untouched; a launch that reports a CUDA error raises KernelLaunchError,
 a device error that feeds the backend's breaker before it raises.
 
 Wrappers: `fill_depth_fused`, `fill_greedy_binpack_fused`,
-`place_chunked` and `convex_eval_fused` keep the reference signatures;
-`fill_depth_lanes` takes kernels.fill_depth_lanes's. A wrapper given CPU
+`place_chunked`, `convex_eval_fused`, `fused_eval_depth` and
+`fused_eval_greedy` keep the reference signatures; `fill_depth_lanes`
+and `fused_eval_depth_lanes` take their plain versions'. A wrapper given CPU
 tensors runs the plain version (kernels.py, convex.py), though the
 placer itself routes CPU solves to the torch tier (backend.select);
 given CUDA tensors it checks device, dtype, shape and
@@ -92,18 +108,22 @@ SOURCES = {"depth_curve": "depth_curve.cu",
            "chunked_step": "chunked_step.cu",
            "chunked_scan": "chunked_scan.cu",
            "convex_solve": "convex_solve.cu",
+           "fit_verdict": "fit_verdict.cu",
            "launch_floor": "launch_floor.cu",
            "pow10_check": "pow10_check.cu"}
 # the placement kernels' launch counts (depth_curve counts solo solves,
-# depth_curve_lanes the windows: one entry of depth_curve.cu)
+# depth_curve_lanes the windows: one entry of depth_curve.cu; the fused
+# route's gather entries count apart from the entries they share a
+# kernel with)
 KERNELS = ("depth_curve", "depth_curve_lanes", "score_capacity",
-           "chunked_step", "chunked_scan", "convex_solve")
+           "chunked_step", "chunked_scan", "convex_solve",
+           "depth_curve_gather", "score_capacity_gather", "fit_verdict")
 # the kernels the placer's solves launch: the first one a process finds
 # unbuilt has all of them built at once (one nvcc a source), so a cold
 # server pays the slowest build once, not each build as its solve first
 # needs it, and its data dir then holds them all for a restart
 SOLVE_KERNELS = ("depth_curve", "score_capacity", "chunked_scan",
-                 "convex_solve")
+                 "convex_solve", "fit_verdict")
 MAX_GRID = 32           # csrc/depth_curve.cu DepthGrid capacity
 MAX_LANES = BATCH_LANES  # csrc/depth_curve.cu LaneScalars capacity
 
@@ -119,7 +139,12 @@ _F = ctypes.c_float
 _ARGTYPES = {
     "depth_curve_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P,
                            _I, _I, _P, _P],
+    "depth_curve_gather_launch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
+                                  _I, _P, _P, _I, _P, _I, _I, _P, _P],
     "score_capacity_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "score_capacity_gather_launch": [_P, _P, _I, _P, _P, _P, _P, _I, _I,
+                                     _I, _P, _P],
+    "fit_verdict_launch": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     "chunked_step_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P,
                             _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P,
                             _P],
@@ -310,31 +335,48 @@ def _depth_statics(k_max, depth_grid) -> tuple:
 def _launch_depth_curve(name, lead, cap, used, ask, feasible,
                         job_collisions, desired_counts, affinity_boost,
                         max_per_node, k_max, spread_algorithm,
-                        depth_grid) -> tuple:
+                        depth_grid, gather=None) -> tuple:
     """One launch of the depth-curve kernel on CUDA tensors, counted under
     `name`: `lead` is () for one lane of [N] inputs (cap/used [N, 5], ask
     [5], the rest [N]) and (L,) for L stacked lanes ([L, N, 5], [L, 5],
     [L, N]); desired_counts and max_per_node are one host scalar a lane.
+    With `gather` = (idx, valid) (lead + [N] each) the gather entry runs:
+    cap/used are the resident twins [R, 5], one pair for every lane, and
+    lane l's row b is twin row idx[l, b] (zero where valid is False).
     -> (d_star, k_star, k_cap) of shape lead + [N] (f32, i32, i32), the
     rows of one int32 lead + [3, N] buffer; d_star is -inf where no depth
     fits."""
     dev = cap.device
     if dev.type != "cuda":
         raise ValueError(f"cap: on {dev}, expected a CUDA device")
-    if cap.dim() != len(lead) + 2:
-        raise ValueError(f"cap: shape {tuple(cap.shape)}, expected "
-                         f"{list(lead)} + [nodes, {NUM_XR}]")
-    n_lanes, n = (lead[0] if lead else 1), cap.shape[len(lead)]
+    if gather is None:
+        if cap.dim() != len(lead) + 2:
+            raise ValueError(f"cap: shape {tuple(cap.shape)}, expected "
+                             f"{list(lead)} + [nodes, {NUM_XR}]")
+        n = cap.shape[len(lead)]
+        rows = lead + (n, NUM_XR)
+        mats = ((cap, "cap", torch.float32, rows),
+                (used, "used", torch.float32, rows))
+    else:
+        idx, valid = gather
+        if idx.dim() != len(lead) + 1:
+            raise ValueError(f"idx: shape {tuple(idx.shape)}, expected "
+                             f"{list(lead)} + [rows]")
+        n, n_res = idx.shape[-1], cap.shape[0]
+        twin = (n_res, NUM_XR)
+        mats = ((cap, "cap_res", torch.float32, twin),
+                (used, "used_res", torch.float32, twin),
+                (idx, "idx", torch.int32, lead + (n,)),
+                (valid, "valid", torch.bool, lead + (n,)))
+    n_lanes = lead[0] if lead else 1
     if not 0 < n_lanes <= MAX_LANES:
         raise ValueError(f"{n_lanes} lanes: the kernel takes 1.."
                          f"{MAX_LANES}")
     if len(desired_counts) != n_lanes or len(max_per_node) != n_lanes:
         raise ValueError("desired_counts and max_per_node need one value "
                          "a lane")
-    rows, col = lead + (n, NUM_XR), lead + (n,)
-    for t, what, dtype, shape in (
-            (cap, "cap", torch.float32, rows),
-            (used, "used", torch.float32, rows),
+    col = lead + (n,)
+    for t, what, dtype, shape in mats + (
             (ask, "ask", torch.float32, lead + (NUM_XR,)),
             (feasible, "feasible", torch.bool, col),
             (job_collisions, "job_collisions", torch.int32, col),
@@ -348,11 +390,16 @@ def _launch_depth_curve(name, lead, cap, used, ask, feasible,
         *[float(min(int(m), kernels.MAX_PER_NODE_CAP))
           for m in max_per_node])
     out = torch.empty(lead + (3, n), dtype=torch.int32, device=dev)
-    err = _fn("depth_curve")(
-        cap.data_ptr(), used.data_ptr(), ask.data_ptr(), feasible.data_ptr(),
-        job_collisions.data_ptr(), affinity_boost.data_ptr(), n, n_lanes,
-        ctypes.addressof(desired), ctypes.addressof(mpn), int(k_max), g_ptr,
-        len(grid), int(bool(spread_algorithm)), out.data_ptr(), _stream(dev))
+    tail = (ask.data_ptr(), feasible.data_ptr(), job_collisions.data_ptr(),
+            affinity_boost.data_ptr(), n, n_lanes, ctypes.addressof(desired),
+            ctypes.addressof(mpn), int(k_max), g_ptr, len(grid),
+            int(bool(spread_algorithm)), out.data_ptr(), _stream(dev))
+    if gather is None:
+        err = _fn("depth_curve")(cap.data_ptr(), used.data_ptr(), *tail)
+    else:
+        err = _fn("depth_curve", "gather_launch")(
+            cap.data_ptr(), used.data_ptr(), n_res, idx.data_ptr(),
+            valid.data_ptr(), *tail)
     _launched(name, err)
     d_star, k_star, k_cap = out.unbind(len(lead))
     return d_star.view(torch.float32), k_star, k_cap
@@ -473,6 +520,229 @@ def fill_greedy_binpack_fused(cap, used, ask, count, feasible,
     capacity, key = _launch_score_capacity(cap, used, ask, feasible, False,
                                            True, max_per_node)
     return _greedy_fill(capacity, key, count)
+
+
+# ------------------------------------------------- the whole-eval route
+
+def _check_twins(cap_res, used_res, idx, valid, lead) -> tuple:
+    """Raise unless cap_res/used_res are f32 [R, 5] twins on one CUDA
+    device and idx/valid int32/bool of shape lead + [B] there. -> (the
+    device, R, B)."""
+    dev = cap_res.device
+    if dev.type != "cuda":
+        raise ValueError(f"cap_res: on {dev}, expected a CUDA device")
+    if idx.dim() != len(lead) + 1:
+        raise ValueError(f"idx: shape {tuple(idx.shape)}, expected "
+                         f"{list(lead)} + [rows]")
+    n_res, n = cap_res.shape[0], idx.shape[-1]
+    for t, what, dtype, shape in (
+            (cap_res, "cap_res", torch.float32, (n_res, NUM_XR)),
+            (used_res, "used_res", torch.float32, (n_res, NUM_XR)),
+            (idx, "idx", torch.int32, lead + (n,)),
+            (valid, "valid", torch.bool, lead + (n,))):
+        if not _fits(t, dtype, shape, dev):
+            _check(t, what, dtype, shape, dev)
+    return dev, n_res, n
+
+
+def depth_curve_gather(cap_res, used_res, idx, valid, ask, feasible,
+                       job_collisions, desired_counts, affinity_boost,
+                       max_per_node, k_max: int = 128,
+                       spread_algorithm: bool = False,
+                       depth_grid=None) -> tuple:
+    """(d_star f32[L, B], k_star i32[L, B], k_cap i32[L, B]) — one launch
+    of the depth-curve kernel's gather entry: lane l over rows idx[l] of
+    the resident twins (cap_res/used_res [R, 5]; idx, valid, feasible,
+    job_collisions and affinity_boost [L, B]; ask [L, 5];
+    desired_counts and max_per_node L host scalars). A solo solve is one
+    lane. On CPU tensors: kernels.depth_curve_lanes_ref on the gathered
+    rows (kernels.gather_lanes)."""
+    if cap_res.device.type == "cpu":
+        cap, used = kernels.gather_lanes(cap_res, used_res, idx, valid)
+        return kernels.depth_curve_lanes_ref(
+            cap, used, ask, feasible, job_collisions, desired_counts,
+            affinity_boost, max_per_node, k_max=k_max,
+            spread_algorithm=spread_algorithm, depth_grid=depth_grid)
+    return _launch_depth_curve(
+        "depth_curve_gather", tuple(idx.shape[:1]), cap_res, used_res, ask,
+        feasible, job_collisions, desired_counts, affinity_boost,
+        max_per_node, k_max, spread_algorithm, depth_grid,
+        gather=(idx, valid))
+
+
+def score_capacity_gather(cap_res, used_res, idx, valid, ask, feasible,
+                          max_per_node=kernels.MAX_PER_NODE_CAP) -> tuple:
+    """(capacity clamped to max_per_node i32[B], greedy sort key f32[B])
+    — one launch of the score/capacity kernel's greedy entry over rows idx
+    of the resident twins (idx, valid, feasible [B]; ask [5]). On CPU
+    tensors: kernels._greedy_key of score_capacity_ref on the gathered
+    rows."""
+    if cap_res.device.type == "cpu":
+        cap, used = kernels.gather_rows(cap_res, used_res, idx, valid)
+        return kernels._greedy_key(
+            *kernels.score_capacity_ref(cap, used, ask, feasible),
+            max_per_node)
+    dev, n_res, n = _check_twins(cap_res, used_res, idx, valid, ())
+    for t, what, dtype, shape in ((ask, "ask", torch.float32, (NUM_XR,)),
+                                  (feasible, "feasible", torch.bool, (n,))):
+        if not _fits(t, dtype, shape, dev):
+            _check(t, what, dtype, shape, dev)
+    out = torch.empty((2, n), dtype=torch.int32, device=dev)
+    err = _fn("score_capacity", "gather_launch")(
+        cap_res.data_ptr(), used_res.data_ptr(), n_res, idx.data_ptr(),
+        valid.data_ptr(), ask.data_ptr(), feasible.data_ptr(), n, 0,
+        min(int(max_per_node), kernels.MAX_PER_NODE_CAP), out.data_ptr(),
+        _stream(dev))
+    _launched("score_capacity_gather", err)
+    capacity, key = out.unbind(0)
+    return capacity, key.view(torch.float32)
+
+
+def fit_verdict(cap_res, used_res, idx, valid, ask, placed) -> tuple:
+    """(placed i32, fit bool), both of placed's shape — one launch of the
+    fit-verdict kernel over rows idx of the resident twins: idx, valid
+    and placed [B] with ask [5], or [L, B] with ask [L, 5]. On a card
+    both results are views of one buffer the kernel writes (placed
+    copied beside the verdict), so fused_to_host brings them back in one
+    copy. On CPU tensors: (placed, kernels.fit_verdict_ref)."""
+    if cap_res.device.type == "cpu":
+        return placed, kernels.fit_verdict_ref(cap_res, used_res, idx, valid,
+                                               ask, placed)
+    lead = tuple(idx.shape[:-1])
+    dev, n_res, n = _check_twins(cap_res, used_res, idx, valid, lead)
+    n_lanes = lead[0] if lead else 1
+    if not 0 < n_lanes <= MAX_LANES:
+        raise ValueError(f"{n_lanes} lanes: the kernel takes 1.."
+                         f"{MAX_LANES}")
+    for t, what, dtype, shape in (
+            (ask, "ask", torch.float32, lead + (NUM_XR,)),
+            (placed, "placed", torch.int32, lead + (n,))):
+        if not _fits(t, dtype, shape, dev):
+            _check(t, what, dtype, shape, dev)
+    rows = n_lanes * n
+    buf = torch.empty((5 * rows,), dtype=torch.uint8, device=dev)
+    placed_out = buf[:4 * rows].view(torch.int32).view(lead + (n,))
+    fit = buf[4 * rows:].view(torch.bool).view(lead + (n,))
+    err = _fn("fit_verdict")(
+        cap_res.data_ptr(), used_res.data_ptr(), n_res, idx.data_ptr(),
+        valid.data_ptr(), ask.data_ptr(), placed.data_ptr(), n, n_lanes,
+        placed_out.data_ptr(), fit.data_ptr(), _stream(dev))
+    _launched("fit_verdict", err)
+    return placed_out, fit
+
+
+def fused_to_host(placed, fit) -> tuple:
+    """fit_verdict's (placed, fit) as numpy through ONE device-to-host
+    copy of the buffer they are views of. CPU tensors pass through."""
+    if placed.device.type == "cpu":
+        return placed.numpy(), fit.numpy()
+    storage, rows = placed.untyped_storage(), placed.numel()
+    if storage.nbytes() != 5 * rows or \
+            placed.data_ptr() != storage.data_ptr() or \
+            fit.data_ptr() != storage.data_ptr() + 4 * rows:
+        raise ValueError("placed and fit are not views of fit_verdict's "
+                         "buffer")
+    host = torch.empty(0, dtype=torch.uint8,
+                       device=placed.device).set_(storage).cpu()
+    return (host[:4 * rows].view(torch.int32).view(placed.shape).numpy(),
+            host[4 * rows:].view(torch.bool).view(fit.shape).numpy())
+
+
+def fused_eval_depth(cap_res, used_res, idx, valid, ask, count, feasible,
+                     job_collisions, desired_count, affinity_boost,
+                     max_per_node, order_jitter, jitter_scale,
+                     jitter_samples, class_ids, distinct_hosts,
+                     k_max: int = 128, spread_algorithm: bool = False,
+                     depth_grid=None, n_classes: int = 0) -> tuple:
+    """kernels.fused_eval_depth on the card: the depth-curve kernel's
+    gather entry (one lane), the shared torch order/take tail, the
+    fit-verdict kernel; nothing read back. -> (placed i32[B], fit
+    bool[B]), views of one buffer (fused_to_host). CPU tensors run the
+    plain version. The card's program reduces no explain classes (the
+    placer explains on the host), so `n_classes` must be 0 there."""
+    if cap_res.device.type == "cpu":
+        return kernels.fused_eval_depth(
+            cap_res, used_res, idx, valid, ask, count, feasible,
+            job_collisions, desired_count, affinity_boost, max_per_node,
+            order_jitter, jitter_scale, jitter_samples, class_ids,
+            distinct_hosts, k_max=k_max, spread_algorithm=spread_algorithm,
+            depth_grid=depth_grid, n_classes=n_classes)
+    if n_classes:
+        raise ValueError("the card's fused program reduces no explain "
+                         "classes: the placer explains on the host")
+    del class_ids, distinct_hosts
+    return _fused_depth(cap_res, used_res, idx[None], valid[None], ask[None],
+                        (count,), feasible[None], job_collisions[None],
+                        (desired_count,), affinity_boost[None],
+                        (max_per_node,),
+                        None if order_jitter is None else order_jitter[None],
+                        (jitter_scale,), (jitter_samples,), k_max,
+                        spread_algorithm, depth_grid, solo=True)
+
+
+def fused_eval_depth_lanes(cap_res, used_res, idx, valid, ask, counts,
+                           feasible, job_collisions, desired_counts,
+                           affinity_boost, max_per_node, order_jitter=None,
+                           jitter_scales=None, jitter_samples=None,
+                           k_max: int = 128, spread_algorithm: bool = False,
+                           depth_grid=None) -> tuple:
+    """kernels.fused_eval_depth_lanes on the card: one launch of the
+    gather entry over the window's lanes (one twin pair), the torch tail
+    over [L, B] and one verdict launch. -> (placed i32[L, B], fit
+    bool[L, B]), views of one buffer; lane l equals fused_eval_depth on
+    lane l alone, bit for bit. CPU tensors run the plain version."""
+    if cap_res.device.type == "cpu":
+        return kernels.fused_eval_depth_lanes(
+            cap_res, used_res, idx, valid, ask, counts, feasible,
+            job_collisions, desired_counts, affinity_boost, max_per_node,
+            order_jitter=order_jitter, jitter_scales=jitter_scales,
+            jitter_samples=jitter_samples, k_max=k_max,
+            spread_algorithm=spread_algorithm, depth_grid=depth_grid)
+    return _fused_depth(cap_res, used_res, idx, valid, ask, counts, feasible,
+                        job_collisions, desired_counts, affinity_boost,
+                        max_per_node, order_jitter, jitter_scales,
+                        jitter_samples, k_max, spread_algorithm, depth_grid)
+
+
+def _fused_depth(cap_res, used_res, idx, valid, ask, counts, feasible,
+                 job_collisions, desired_counts, affinity_boost, max_per_node,
+                 order_jitter, jitter_scales, jitter_samples, k_max,
+                 spread_algorithm, depth_grid, solo: bool = False) -> tuple:
+    """The card's fused depth eval over [L, B] lanes; `solo` drops the
+    lane axis of one lane's results."""
+    d_star, k_star, k_cap = depth_curve_gather(
+        cap_res, used_res, idx, valid, ask, feasible, job_collisions,
+        desired_counts, affinity_boost, max_per_node, k_max=k_max,
+        spread_algorithm=spread_algorithm, depth_grid=depth_grid)
+    placed = kernels._depth_order_take(d_star, k_star, k_cap, counts,
+                                       order_jitter, jitter_scales,
+                                       jitter_samples)
+    if solo:
+        return fit_verdict(cap_res, used_res, idx[0], valid[0], ask[0],
+                           placed[0])
+    return fit_verdict(cap_res, used_res, idx, valid, ask, placed)
+
+
+def fused_eval_greedy(cap_res, used_res, idx, valid, ask, count, feasible,
+                      max_per_node, class_ids, distinct_hosts,
+                      job_collisions, n_classes: int = 0) -> tuple:
+    """kernels.fused_eval_greedy on the card: the score/capacity
+    kernel's gather entry, the shared stable sort + cumsum tail, the
+    fit-verdict kernel. -> (placed i32[B], fit bool[B]), views of one
+    buffer. CPU tensors run the plain version; `n_classes` must be 0 on
+    the card."""
+    if cap_res.device.type == "cpu":
+        return kernels.fused_eval_greedy(
+            cap_res, used_res, idx, valid, ask, count, feasible,
+            max_per_node, class_ids, distinct_hosts, job_collisions,
+            n_classes=n_classes)
+    if n_classes:
+        raise ValueError("the card's fused program reduces no explain "
+                         "classes: the placer explains on the host")
+    capacity, key = score_capacity_gather(cap_res, used_res, idx, valid,
+                                          ask, feasible, max_per_node)
+    placed = _greedy_fill(capacity, key, count)
+    return fit_verdict(cap_res, used_res, idx, valid, ask, placed)
 
 
 MAX_STANZAS = 16        # csrc/chunked_score.cuh shared-memory capacity

@@ -3,8 +3,8 @@ BinPackIterator hot loop (ref scheduler/rank.go:193-527) and
 ScoreFitBinPack/Spread (ref nomad/structs/funcs.go:236,263) as dense
 batched tensor programs over the node axis.
 
-Counterpart of nomad_tpu/solver/kernels.py (all but the fused and
-explain entries). Three placement paths and the preemption pass:
+Counterpart of nomad_tpu/solver/kernels.py. Three placement paths, the
+whole-eval programs and the preemption pass:
   * fill-greedy (binpack): exact equivalence to sequential greedy
     placement via one sort + cumsum — the binpack score increases with
     utilization, so greedy fills the currently-best node to capacity
@@ -17,6 +17,10 @@ explain entries). Three placement paths and the preemption pass:
   * fill_depth_lanes: the depth solve over a lane axis, the eval-stream
     micro-batch window (one row a coalesced eval; each row equal to its
     solo fill_depth).
+  * fused_eval_depth / fused_eval_greedy (and fused_eval_depth_lanes for
+    a window): the whole eval on the device — gather from the state
+    cache's resident twins, the depth or greedy solve, the plan-fit
+    verdict (fused_fit_verdict) and optionally the explain reduce.
   * preempt_top_k: victim selection over every candidate node at once.
     It stays plain torch on the card too — one pass of a few dozen
     tensor operations per preemption eval, with no Pallas counterpart
@@ -25,8 +29,10 @@ explain entries). Three placement paths and the preemption pass:
 Each hand kernel in cuda_kernels.py computes what one producer here
 computes: `depth_curve_ref` for the depth-curve kernel (and
 `depth_curve_lanes_ref` for its launch over a window's lanes),
-`score_capacity_ref` for the score/capacity kernel and
-`chunked_step_ref` for the chunked-step kernel. The tails
+`score_capacity_ref` for the score/capacity kernel,
+`chunked_step_ref` for the chunked-step kernel and `fit_verdict_ref` for
+the fit-verdict kernel; the gather entries of the depth-curve and
+score/capacity kernels compute what these do on gather_rows' output. The tails
 (`_depth_order_take`, `_greedy_take`, `_chunked_take` and the scan's
 state update) run as torch ops on whichever device the inputs lie on.
 
@@ -436,15 +442,131 @@ def gather_rows(cap_res: torch.Tensor, used_res: torch.Tensor,
             torch.where(m2, used_res[rows], 0.0))
 
 
+def gather_lanes(cap_res: torch.Tensor, used_res: torch.Tensor,
+                 idx: torch.Tensor, valid: torch.Tensor) -> tuple:
+    """gather_rows over a window's lanes: idx/valid [L, B] -> (cap, used)
+    [L, B, R'], lane l the rows idx[l] of the one twin pair."""
+    rows = [gather_rows(cap_res, used_res, idx[lane], valid[lane])
+            for lane in range(idx.shape[0])]
+    return (torch.stack([r[0] for r in rows]),
+            torch.stack([r[1] for r in rows]))
+
+
 def plan_fit_verdict(cap: torch.Tensor, used: torch.Tensor,
                      ask: torch.Tensor, placed: torch.Tensor
                      ) -> torch.Tensor:
     """The plan-evaluate feasibility verdict at solve-snapshot state:
     bool[N], True where the node still fits its placements post-solve —
     the `used + k·ask <= cap + eps` compare the applier's dense vector
-    pass runs (plan_apply._vector_pass)."""
+    pass runs (plan_apply._vector_pass), rounded as the reference's
+    eager function rounds it (a product, then a sum)."""
     post = used + placed[:, None].to(torch.float32) * ask[None, :]
     return torch.all(post <= cap + FIT_EPS, dim=1)
+
+
+def fused_fit_verdict(cap: torch.Tensor, used: torch.Tensor,
+                      ask: torch.Tensor, placed: torch.Tensor
+                      ) -> torch.Tensor:
+    """plan_fit_verdict as the reference's compiled whole-eval programs
+    (fused and convex) compute it: XLA's CPU backend contracts
+    `used + k * ask` into one fused multiply-add there, so the sum is
+    rounded once (tests/test_torch_fused.py holds a seeded row where the
+    two roundings disagree). Rows are [..., R']: a lane axis may lead."""
+    post = _fma_f32(placed[..., None].to(torch.float32), ask[..., None, :],
+                    used)
+    return torch.all(post <= cap + FIT_EPS, dim=-1)
+
+
+def fit_verdict_ref(cap_res: torch.Tensor, used_res: torch.Tensor,
+                    idx: torch.Tensor, valid: torch.Tensor,
+                    ask: torch.Tensor, placed: torch.Tensor) -> torch.Tensor:
+    """Plain version of the fit-verdict kernel (csrc/fit_verdict.cu):
+    fused_fit_verdict on rows `idx` of the resident twins (gather_rows).
+    idx/valid/placed [B] with ask [R'], or [L, B] with ask [L, R'] for a
+    window's lanes. -> bool of placed's shape."""
+    gather = gather_rows if idx.dim() == 1 else gather_lanes
+    cap, used = gather(cap_res, used_res, idx, valid)
+    return fused_fit_verdict(cap, used, ask, placed)
+
+
+def _fused_explain(cap, used, ask, feasible, job_collisions, placed,
+                   class_ids, distinct_hosts, n_classes: int) -> tuple:
+    """The whole-eval programs' explain tail: explain_reduce as the
+    reference's compiled program rounds it (post-solve usage by one
+    fused multiply-add), split into (counts, dim_exhausted,
+    class_exhausted, class_dh)."""
+    buf = explain_reduce(cap, used, ask, feasible, job_collisions, placed,
+                         class_ids, bool(distinct_hosts),
+                         n_classes=n_classes, contract=True)
+    d = 6 + cap.shape[1]
+    return (buf[:6], buf[6:d], buf[d:d + n_classes],
+            buf[d + n_classes:d + 2 * n_classes])
+
+
+def fused_eval_depth(cap_res, used_res, idx, valid, ask, count, feasible,
+                     job_collisions, desired_count, affinity_boost,
+                     max_per_node, order_jitter, jitter_scale,
+                     jitter_samples, class_ids, distinct_hosts,
+                     k_max: int = 128, spread_algorithm: bool = False,
+                     depth_grid: Optional[tuple] = None,
+                     n_classes: int = 0) -> tuple:
+    """The whole depth eval on the device (ref kernels.fused_eval_depth):
+    gather the eval's rows from the resident twins, the depth solve
+    (fill_depth), the plan-fit verdict (fused_fit_verdict) and, when
+    `n_classes` > 0, the explain reduce. -> (placed i32[B], fit bool[B]
+    [, counts, dim_exh, class_exh, class_dh]). The placer calls it with
+    n_classes 0: it explains on the host (explain.dispatch_reduce)."""
+    cap, used = gather_rows(cap_res, used_res, idx, valid)
+    placed = fill_depth(cap, used, ask, count, feasible, job_collisions,
+                        desired_count, affinity_boost,
+                        max_per_node=max_per_node, k_max=k_max,
+                        spread_algorithm=spread_algorithm,
+                        order_jitter=order_jitter, jitter_scale=jitter_scale,
+                        jitter_samples=jitter_samples, depth_grid=depth_grid)
+    out = (placed, fused_fit_verdict(cap, used, ask, placed))
+    if not n_classes:
+        return out
+    return out + _fused_explain(cap, used, ask, feasible, job_collisions,
+                                placed, class_ids, distinct_hosts, n_classes)
+
+
+def fused_eval_greedy(cap_res, used_res, idx, valid, ask, count, feasible,
+                      max_per_node, class_ids, distinct_hosts,
+                      job_collisions, n_classes: int = 0) -> tuple:
+    """fused_eval_depth's greedy sibling (ref kernels.fused_eval_greedy):
+    gather, fill_greedy_binpack, verdict (+ explain). `job_collisions`
+    feeds only the explain reduce."""
+    cap, used = gather_rows(cap_res, used_res, idx, valid)
+    placed = fill_greedy_binpack(cap, used, ask, count, feasible,
+                                 max_per_node=max_per_node)
+    out = (placed, fused_fit_verdict(cap, used, ask, placed))
+    if not n_classes:
+        return out
+    return out + _fused_explain(cap, used, ask, feasible, job_collisions,
+                                placed, class_ids, distinct_hosts, n_classes)
+
+
+def fused_eval_depth_lanes(cap_res, used_res, idx, valid, ask, counts,
+                           feasible, job_collisions, desired_counts,
+                           affinity_boost, max_per_node, order_jitter=None,
+                           jitter_scales=None, jitter_samples=None,
+                           k_max: int = 128, spread_algorithm: bool = False,
+                           depth_grid: Optional[tuple] = None) -> tuple:
+    """fused_eval_depth over a window's lanes (ref microbatch
+    `_fused_fn`, jit(vmap(fused_eval_depth)) with the twins broadcast):
+    one resident twin pair, the lanes' columns stacked ([L, B] idx,
+    valid, feasible, job_collisions, affinity_boost, order_jitter;
+    ask [L, R']; the scalars L host values). -> (placed i32[L, B],
+    fit bool[L, B]), lane l equal to fused_eval_depth on lane l."""
+    cap, used = gather_lanes(cap_res, used_res, idx, valid)
+    placed = fill_depth_lanes(cap, used, ask, counts, feasible,
+                              job_collisions, desired_counts, affinity_boost,
+                              max_per_node, order_jitter=order_jitter,
+                              jitter_scales=jitter_scales,
+                              jitter_samples=jitter_samples, k_max=k_max,
+                              spread_algorithm=spread_algorithm,
+                              depth_grid=depth_grid)
+    return placed, fused_fit_verdict(cap, used, ask, placed)
 
 
 # ------------------------------------------------------ the chunked scan
@@ -786,8 +908,8 @@ def preempt_top_k(victim_res: torch.Tensor, victim_priority: torch.Tensor,
 def explain_reduce(cap: torch.Tensor, used: torch.Tensor, ask: torch.Tensor,
                    feasible: torch.Tensor, collisions: torch.Tensor,
                    placed: torch.Tensor, class_ids: torch.Tensor,
-                   distinct_hosts: bool, n_classes: int = 2
-                   ) -> torch.Tensor:
+                   distinct_hosts: bool, n_classes: int = 2,
+                   contract: bool = False) -> torch.Tensor:
     """Elimination attribution of one solve (ref kernels._explain_reduce_
     impl), at POST-solve usage used + placed ⊗ ask — the state a host
     iterator-stack re-walk over the same cluster would see:
@@ -811,10 +933,14 @@ def explain_reduce(cap: torch.Tensor, used: torch.Tensor, ask: torch.Tensor,
     (explain.unpack splits it). Pure reduction: never touches the
     placement math. The placer does not run it: every solve reduces on
     the host (explain.dispatch_reduce), which chip_smoke.py's explain
-    phase times against this reduce enqueued behind a card solve."""
+    phase times against this reduce enqueued behind a card solve.
+    `contract` rounds the post-solve usage once (a fused multiply-add),
+    as the reference's compiled whole-eval programs do."""
     dev = cap.device
     placed_i = placed.to(torch.int32)
-    post = used + placed_i[:, None].to(torch.float32) * ask[None, :]
+    k = placed_i[:, None].to(torch.float32)
+    post = _fma_f32(k, ask[None, :], used) if contract \
+        else used + k * ask[None, :]
     feas = feasible.to(torch.bool)
     if distinct_hosts:
         dh = feas & ((collisions + placed_i) > 0)

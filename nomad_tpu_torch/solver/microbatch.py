@@ -9,6 +9,14 @@ depth-curve kernel over its lanes plus the torch tail over [L, N] (cuda_kernels.
 kernels.fill_depth_lanes on the CPU), and each worker gets its own row
 back. Each lane's placements equal that lane's solo solve bit for bit.
 
+Fused windows (`solve_fused`): concurrent fused depth evals whose
+inputs reference the SAME resident twin pair (the state cache's twins
+at one journal version) coalesce into one launch of the depth-curve
+kernel's gather entry over an idx [L, B], then the tail and one verdict
+launch over the lanes (cuda_kernels.fused_eval_depth_lanes); the twins
+are shared, never stacked. Each lane gets its own (placed, fit) back,
+equal to its solo fused solve bit for bit.
+
 Shape discipline:
   * requests group by (array shapes, k_max, spread_algorithm, depth_grid)
     — mixed-shape requests form separate windows;
@@ -34,8 +42,9 @@ work never moves to the CPU:
     count-0 clones of lane 0 because its XLA program has one fixed
     shape, while a launch takes any lane count, so padding lanes would
     only add work.
-  * `solve_fused` and its helpers wait for the fused route (ROADMAP
-    Queue 1 item 4).
+  * the fused window (`solve_fused`, ref `solve_fused`/`_fused_fn`)
+    likewise: a window of one runs the solo fused card solve, and a
+    window's device error is raised to every lane.
 
 Metric and span names are the reference's:
 `nomad.solver.microbatch.{solo,dispatches,size,early_fire}`,
@@ -56,9 +65,16 @@ from .buckets import BATCH_LANES as LANES   # the largest window
 FOLLOWER_TIMEOUT = 120.0    # follower safety valve if a leader dies
 
 
+def _shapes(args) -> tuple:
+    """The queue key's part for a lane's args: each array's shape, None
+    for an absent optional arg (not a scalar's ())."""
+    return tuple(None if a is None else tuple(getattr(a, "shape", ()))
+                 for a in args)
+
+
 class _Request:
     __slots__ = ("args", "event", "out", "err", "ctx", "t0",
-                 "dispatch_ctx")
+                 "dispatch_ctx", "coalesced")
 
     def __init__(self, args: tuple):
         self.args = args
@@ -70,6 +86,7 @@ class _Request:
         self.ctx = trace.current()
         self.t0 = time.perf_counter()
         self.dispatch_ctx = None
+        self.coalesced = False      # rode a window's launch (not solo)
 
 
 class MicroBatcher:
@@ -135,11 +152,31 @@ class MicroBatcher:
         `lanes_fn(*columns)` solves a window's stacked columns (placed
         [L, N] on the solve device); `solo_fn(*args)` is the backend's
         solo chain for this solve."""
-        # None marks an absent optional arg (no affinities, no jitter): it
-        # must not collide with a scalar's () shape
-        key = static_key + tuple(
-            None if a is None else tuple(getattr(a, "shape", ()))
-            for a in args)
+        key = static_key + _shapes(args)
+        return self._submit(key, args, solo_fn, lambda batch: self._run_batch(
+            static_key, lanes_fn, solo_fn, batch), fused=False)
+
+    def solve_fused(self, static_key: tuple, lanes_fn: Callable,
+                    solo_fn: Callable, args: tuple) -> tuple:
+        """One fused depth eval (kernels.fused_eval_depth's positional
+        args, the twins first) -> (placed i32[B], fit bool[B]) on the
+        host. Evals whose args reference the same twin pair coalesce: the
+        window leader stacks the lanes' columns (args[2:14]) and runs
+        `lanes_fn(cap_res, used_res, *columns)` once; a window of one
+        runs `solo_fn(*args)`, the backend's solo fused chain. Twin
+        identity keys the queue, so lanes gathered at different journal
+        versions form separate windows and each lane's bits are its own
+        snapshot's."""
+        key = (static_key, id(args[0]), id(args[1])) + _shapes(args[2:14])
+        return self._submit(key, args, solo_fn, lambda batch: self._run_batch(
+            static_key, lanes_fn, solo_fn, batch, fused=True), fused=True)
+
+    def _submit(self, key: tuple, args: tuple, solo_fn: Callable,
+                run: Callable, fused: bool):
+        """Queue one lane under `key` and wait for its result: with one
+        eval in flight `solo_fn(*args)` at once; else the first lane of a
+        window leads it (`_lead`, then `run(batch)`) and the others
+        wait."""
         solo = False
         with self._lock:
             if self.concurrency() <= 1:
@@ -152,39 +189,8 @@ class MicroBatcher:
         if solo:
             metrics.incr("nomad.solver.microbatch.solo")
             return solo_fn(*args)
-
         if leader:
-            # collect siblings for one window, then drain and launch. The
-            # wait ends EARLY once every known in-flight eval's lane has
-            # arrived (or the lane count is full): sleeping out the window
-            # then would be pure added latency
-            t_wait = time.perf_counter()
-            deadline = time.monotonic() + self.window_s()
-            while True:
-                # sleep BEFORE the first check: even a window of 0 must
-                # yield the GIL once, or released siblings never enqueue
-                time.sleep(min(0.001, max(0.0,
-                                          deadline - time.monotonic())))
-                with self._lock:
-                    arrived = len(self._queues.get(key, ()))
-                    expected = max(self._active_evals, self._broker_hint)
-                if time.monotonic() >= deadline:
-                    break
-                if arrived >= LANES or arrived >= expected:
-                    metrics.incr("nomad.solver.microbatch.early_fire")
-                    break
-            metrics.add_sample("nomad.solver.microbatch.leader_wait",
-                               time.perf_counter() - t_wait)
-            with self._lock:
-                batch = self._queues.pop(key, [])
-            try:
-                self._run_batch(static_key, lanes_fn, solo_fn, batch)
-            except BaseException as e:   # noqa: BLE001 — fan the error out
-                for r in batch:
-                    if r.err is None and r.out is None:
-                        r.err = e
-                        r.event.set()
-                raise
+            self._lead(key, run)
         else:
             req.event.wait(self.window_s() + FOLLOWER_TIMEOUT)
         # per-lane wait span in the EVAL's own trace, linked to the shared
@@ -193,19 +199,56 @@ class MicroBatcher:
             "solver.microbatch.wait", req.ctx, req.t0,
             links=(req.dispatch_ctx,) if req.dispatch_ctx else (),
             status="error" if req.err is not None else "ok",
-            solo=req.dispatch_ctx is None, leader=leader)
+            solo=req.dispatch_ctx is None, leader=leader, fused=fused)
         if req.err is not None:
             raise req.err
         if req.out is None:
             raise RuntimeError("microbatch leader never delivered a result")
-        if req.dispatch_ctx is not None:
+        if fused and req.coalesced:
+            # this eval's fused solve rode the shared window
+            from . import backend
+            backend.note_fused("batch")
+        elif req.dispatch_ctx is not None:
             # this eval touched the card through the shared window
             from . import roundtrip
             roundtrip.note("solve")
         return req.out
 
+    def _lead(self, key: tuple, run: Callable) -> None:
+        """The window leader: collect siblings under `key` for one window,
+        then drain the queue and `run(batch)`; an error reaches every
+        lane. The wait ends EARLY once every known in-flight eval's lane
+        has arrived (or the lane count is full): sleeping out the window
+        then would be pure added latency."""
+        t_wait = time.perf_counter()
+        deadline = time.monotonic() + self.window_s()
+        while True:
+            # sleep BEFORE the first check: even a window of 0 must yield
+            # the GIL once, or released siblings never enqueue
+            time.sleep(min(0.001, max(0.0, deadline - time.monotonic())))
+            with self._lock:
+                arrived = len(self._queues.get(key, ()))
+                expected = max(self._active_evals, self._broker_hint)
+            if time.monotonic() >= deadline:
+                break
+            if arrived >= LANES or arrived >= expected:
+                metrics.incr("nomad.solver.microbatch.early_fire")
+                break
+        metrics.add_sample("nomad.solver.microbatch.leader_wait",
+                           time.perf_counter() - t_wait)
+        with self._lock:
+            batch = self._queues.pop(key, [])
+        try:
+            run(batch)
+        except BaseException as e:   # noqa: BLE001 — fan the error out
+            for r in batch:
+                if r.err is None and r.out is None:
+                    r.err = e
+                    r.event.set()
+            raise
+
     def _run_batch(self, static_key: tuple, lanes_fn, solo_fn,
-                   batch: list[_Request]) -> None:
+                   batch: list[_Request], fused: bool = False) -> None:
         if not batch:
             return
         if len(batch) == 1:
@@ -217,31 +260,43 @@ class MicroBatcher:
         metrics.incr("nomad.solver.microbatch.dispatches")
         metrics.add_sample("nomad.solver.microbatch.size", len(batch))
         for start in range(0, len(batch), LANES):
-            self._dispatch(static_key, lanes_fn, batch[start:start + LANES])
+            self._dispatch(static_key, lanes_fn, batch[start:start + LANES],
+                           fused)
 
     def _dispatch(self, static_key: tuple, lanes_fn,
-                  lanes: list[_Request]) -> None:
+                  lanes: list[_Request], fused: bool = False) -> None:
         """One coalesced window: stack its lanes' columns on the solve
         device, launch once, bring the [L, N] result to the host at the
-        window's one sync, and hand each lane its row.
-        A device error is classified, fed to the breaker and raised; the
-        caller raises it to every lane."""
-        from . import backend, sharding
+        window's one sync, and hand each lane its row (a fused window:
+        its (placed, fit) rows, the twins passed once ahead of the
+        columns). A device error is classified, fed to the breaker and
+        raised; the caller raises it to every lane."""
+        from . import backend, cuda_kernels, sharding
         from .. import faults
         from .tensorize import stack_lanes
-        cols = stack_lanes([r.args for r in lanes],
-                           backend._ARG_DTYPES["depth"])
+        if fused:
+            cols = stack_lanes([r.args[2:14] for r in lanes],
+                               backend.FUSED_LANE_DTYPES)
+        else:
+            cols = stack_lanes([r.args for r in lanes],
+                               backend._ARG_DTYPES["depth"])
         sp = trace.start_span(
             "solver.microbatch.dispatch",
             links=[r.ctx for r in lanes if r.ctx is not None],
-            tier="batch", bucket=len(lanes), lanes=len(lanes))
+            tier="batch", bucket=len(lanes), lanes=len(lanes), fused=fused)
         sctx = sp.ctx()
         for req in lanes:
             req.dispatch_ctx = sctx
         try:
             faults.fire("solver.microbatch.dispatch")
             sharding.fire_device_loss_sites()
-            out = lanes_fn(*cols).cpu()     # the window's one sync
+            # the window's one sync
+            if fused:
+                twins = lanes[0].args[:2]
+                out = tuple(zip(*cuda_kernels.fused_to_host(
+                    *lanes_fn(*twins, *cols))))
+            else:
+                out = lanes_fn(*cols).cpu()
         except backend.device_error_types() as e:
             backend.note_dispatch_failure("batch", e)
             sp.end("error", error=repr(e)[:200])
@@ -250,10 +305,12 @@ class MicroBatcher:
             sp.end("error", error=repr(e)[:200])
             raise
         backend.breaker_record("batch", ok=True)
-        metrics.incr("nomad.solver.dispatch.batch")
+        if not fused:       # a fused lane bills dispatch.fused.batch
+            metrics.incr("nomad.solver.dispatch.batch")
         sp.end("ok")
         for row, req in enumerate(lanes):
             req.out = out[row]
+            req.coalesced = True
             req.event.set()
 
     def reset(self) -> None:
@@ -278,4 +335,5 @@ eval_finished = _batcher.eval_finished
 broker_in_flight = _batcher.broker_in_flight
 concurrency = _batcher.concurrency
 solve = _batcher.solve
+solve_fused = _batcher.solve_fused
 reset = _batcher.reset

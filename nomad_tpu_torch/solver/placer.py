@@ -58,11 +58,20 @@ Convex tier (scheduler_algorithm "convex"): a depth or greedy solve
 first tries `_convex_solve`, the whole eval as one projected-gradient
 solve over the state cache's resident twins (backend.select_convex; on a
 card one launch of csrc/convex_solve.cu), as the reference's placer
-does; it declines to the route above where the reference declines. The
+does; it declines to the routes below where the reference declines. The
 scan and the pipelined lifecycle never take it.
 
-Not ported: the fused route and the preemption scan sharded over a
-device mesh.
+Fused route (on by default; SchedulerConfiguration.solver_fused_enabled,
+NOMAD_SOLVER_FUSED=0/1): a serial depth or greedy solve that convex did
+not take tries `_fused_solve`, the eval's gather, solve and plan-fit
+verdict on the card from the resident twins behind ONE host sync
+(backend.select_fused: the gather entry of the depth-curve or
+score/capacity kernel, the torch tail, csrc/fit_verdict.cu). The verdict
+rides the plan to the applier's fast path (`_stamp_verdict`). The scan
+and the pipelined lifecycle keep the classic route: they gather the
+eval's rows from the resident twins when they dispatch (`_dev_mats`).
+
+Not ported: the preemption scan sharded over a device mesh.
 """
 from __future__ import annotations
 
@@ -553,11 +562,21 @@ class SolverPlacer:
 
     @staticmethod
     def _dev_mats(gt):
-        """The state cache's twins (values identical to gt.cap/gt.used,
-        already on the device) when they live on the solve device — else
-        None, and the solve takes the host copies."""
+        """The eval's rows of the state cache's twins (values identical to
+        gt.cap/gt.used, already on the device) when they live on the solve
+        device — else None, and the solve takes the host copies. Where the
+        cache handed back the resident twins (the fused or convex route
+        was asked for) and the solve takes the classic route, the rows
+        are gathered from them here, once per eval (the same device gather
+        the cache runs otherwise)."""
+        dev = _device.solve_device()
+        if gt.cap_dev is None and gt.resident is not None and \
+                gt.rows is not None and gt.resident[0].device == dev:
+            from . import state_cache
+            gt.cap_dev, gt.used_dev = state_cache.gather_twins(
+                gt.resident, gt.rows, gt.cap.shape[0])
         if gt.cap_dev is None or gt.used_dev is None or \
-                gt.cap_dev.device != _device.solve_device():
+                gt.cap_dev.device != dev:
             return None
         return gt.cap_dev, gt.used_dev
 
@@ -578,12 +597,11 @@ class SolverPlacer:
         if not backend.convex_enabled(
                 cfg, cfg.effective_scheduler_algorithm()):
             return None
+        res = self._resident(prep)
+        if res is None:
+            return None
+        cap_res, used_res, idx, valid = res
         gt = prep.gt
-        if gt.resident is None or gt.rows is None:
-            return None
-        if gt.gen is not None and gt.gen != sharding.generation():
-            return None
-        cap_res, used_res = gt.resident
         bucket = gt.cap.shape[0]
         sel = backend.select_convex(kernel,
                                     spread_algorithm=prep.spread_alg,
@@ -591,10 +609,6 @@ class SolverPlacer:
         if sel is None:
             return None
         tier, run = sel
-        idx = np.zeros(bucket, np.int32)
-        idx[:prep.n] = gt.rows
-        valid = np.zeros(bucket, bool)
-        valid[:prep.n] = True
         aff = (prep.aff if prep.aff is not None
                else np.zeros(bucket, np.float32))
         # per-tenant quota -> a hard budget cap for THIS eval's
@@ -624,10 +638,68 @@ class SolverPlacer:
                      else "nomad.solver.convex.fell_back")
         return placed_h, fit_h, tier
 
+    @staticmethod
+    def _resident(prep):
+        """(cap_res, used_res, idx, valid) for a solve over the state
+        cache's resident twins: the eval's view rows as idx over its
+        bucket, padding rows invalid. None where there are none (cache
+        disabled, unversioned or stale view, in-plan corrections) or they
+        are of another generation."""
+        gt = prep.gt
+        if gt.resident is None or gt.rows is None:
+            return None
+        if gt.gen is not None and gt.gen != sharding.generation():
+            return None
+        bucket = gt.cap.shape[0]
+        idx = np.zeros(bucket, np.int32)
+        idx[:prep.n] = gt.rows
+        valid = np.zeros(bucket, bool)
+        valid[:prep.n] = True
+        return gt.resident + (idx, valid)
+
+    def _fused_solve(self, kernel: str, prep, tg, count: int):
+        """The whole-eval fused route (ref placer._fused_solve): the
+        eval's gather, its depth or greedy solve and the plan-fit verdict
+        on the device from the state cache's resident twins, brought back
+        at ONE host sync (backend.select_fused). -> (placed_h padded,
+        fit_h, tier), or None when the route declines: fusion is off
+        (SchedulerConfiguration.solver_fused_enabled, NOMAD_SOLVER_FUSED),
+        there are no resident twins (cache disabled, unversioned view, a
+        stale view, in-plan corrections), or their generation or device
+        differs from the solve's. Explain stays on the host (the program
+        reduces no classes). A device error raises out of the eval (the
+        chain counts it and feeds the breaker)."""
+        if not backend.fused_enabled(self.ctx.scheduler_config):
+            return None
+        res = self._resident(prep)
+        if res is None:
+            return None
+        cap_res, used_res, idx, valid = res
+        gt = prep.gt
+        sel = backend.select_fused(
+            kernel, gt.cap.shape[0], count=count, k_max=prep.k_max,
+            spread_algorithm=prep.spread_alg,
+            depth_grid=prep.depth_grid if kernel == "depth" else None,
+            twins_device=cap_res.device)
+        if sel is None:
+            return None
+        tier, run = sel
+        # no explain classes: the program's class ids are never read
+        dh = np.bool_(gt.distinct_hosts)
+        if kernel == "depth":
+            args = (cap_res, used_res, idx, valid) + \
+                self._depth_solve_args(prep, tg, count)[2:] + (None, dh)
+        else:
+            args = (cap_res, used_res, idx, valid, gt.ask, np.int32(count),
+                    gt.feasible, np.int32(prep.max_per_node), None, dh,
+                    gt.job_collisions)
+        placed_h, fit_h = run(*args)
+        return placed_h, fit_h, tier
+
     def _stamp_verdict(self, prep, placed: np.ndarray,
                        fit: np.ndarray) -> None:
-        """Attach the convex solve's plan-evaluate verdict to the eval's
-        plan (ref placer._stamp_verdict): per view row, the verified ask
+        """Attach the convex or fused solve's plan-evaluate verdict to the
+        eval's plan (ref placer._stamp_verdict): per view row, the verified ask
         k * ask at the solve's journal version for placed rows whose
         post-solve fit held. The applier takes it as a monotone fast
         path (plan_apply._shape_dense): a True row whose actual ask is
@@ -662,12 +734,14 @@ class SolverPlacer:
 
     def _dispatch(self, prep, tg, count: int) -> np.ndarray:
         """The solve through the backend's dispatch chain: the convex
-        tier where it engages, else select the tier, launch (on the
-        cache's twins where they served the eval), and bring the
-        placement vector back at the one host sync."""
+        tier where it engages, else the fused route, else select the
+        tier, launch (on the cache's twins where they served the eval),
+        and bring the placement vector back at the one host sync."""
         gt = prep.gt
         kernel = "depth" if prep.use_depth else "greedy"
         cvx = self._convex_solve(kernel, prep, count)
+        if cvx is None:
+            cvx = self._fused_solve(kernel, prep, tg, count)
         if cvx is not None:
             placed_h, fit_h, bname = cvx
             backend.record(kernel, bname)

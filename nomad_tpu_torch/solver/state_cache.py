@@ -575,6 +575,7 @@ def cache() -> TensorCache:
 # module-level forwarding API (tensorize and plan_apply import these; one
 # process-wide cache matches the one-leader, one-card reality)
 gather = _cache.gather
+gather_twins = TensorCache._gather_device
 note_commit = _cache.note_commit
 standby_feed = _cache.standby_feed
 reseed = _cache.reseed

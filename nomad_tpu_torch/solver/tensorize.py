@@ -42,12 +42,12 @@ class GroupTensors:
     gen: Optional[int] = None          # mesh generation the twins ride
                                        # (ISSUE 14: placer._dev_mats
                                        # declines stale-generation twins)
-    # the convex route's resident twins (cap_res, used_res), whole and
-    # ungathered, + the view row index per node and the usage-journal
-    # version the twins' bits reflect — the convex solve gathers its
-    # rows behind its own launch and the plan applier's verdict fast
-    # path trusts the version stamp. Dropped (like the dev twins)
-    # whenever the host copies diverge via in-plan corrections.
+    # the fused and convex routes' resident twins (cap_res, used_res),
+    # whole and ungathered, + the view row index per node and the
+    # usage-journal version the twins' bits reflect — those solves
+    # gather their rows behind their own launch and the plan applier's
+    # verdict fast path trusts the version stamp. Dropped (like the dev
+    # twins) whenever the host copies diverge via in-plan corrections.
     resident: object = None
     rows: Optional[np.ndarray] = None  # i64[N] view row per node
     version: int = -1                  # journal version of resident bits
@@ -342,15 +342,18 @@ def _build_dense(ctx, job, tg: TaskGroup, nodes: list[Node], feasible_fn,
     # the state cache serves versioned views: host copies of the SAME bits
     # a fresh view gather yields (the bit-identity contract), plus bucket-
     # padded twins on the solve device for the dispatch. Unversioned views
-    # (plain test fakes) and a disabled cache take the view path. Under
-    # the "convex" algorithm the cache hands back the resident twins
-    # instead (no gather launches): the convex solve gathers the eval's
-    # rows itself, as the reference's does.
+    # (plain test fakes) and a disabled cache take the view path. With the
+    # fused route on (its default) or under the "convex" algorithm the
+    # cache hands back the resident twins instead (no gather launches):
+    # the fused or convex solve gathers the eval's rows behind its own
+    # launch, as the reference's does, and a solve that takes neither
+    # gathers them from the twins when it dispatches (placer._dev_mats).
     cfg = getattr(ctx, "scheduler_config", None)
     cvx = cfg is not None and backend.convex_enabled(
         cfg, cfg.effective_scheduler_algorithm())
     cached = state_cache.gather(view, rows, bucket=node_bucket(n),
-                                tier=backend.tier(), resident=cvx)
+                                tier=backend.tier(),
+                                resident=backend.fused_enabled(cfg) or cvx)
     gen = None
     resident = None
     res_version, res_uid, res_epoch = -1, 0, -1

@@ -191,8 +191,11 @@ def test_cli_commands_match_reference(agents):
 def test_port_agent_solved_on_the_cpu_by_request(agents):
     sides, _ = agents
     counters = sides["port"].get("/v1/metrics")["telemetry"]["counters"]
-    assert counters.get("nomad.solver.dispatch.torch", 0) >= 2
+    # solves on the CPU's plain tier, classic or fused, and none on a card
+    assert counters.get("nomad.solver.dispatch.torch", 0) + counters.get(
+        "nomad.solver.dispatch.fused.torch", 0) >= 2
     assert not counters.get("nomad.solver.dispatch.cuda")
+    assert not counters.get("nomad.solver.dispatch.fused.cuda")
     assert not counters.get("nomad.solver.dispatch_errors")
 
 

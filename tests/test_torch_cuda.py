@@ -736,11 +736,18 @@ def test_raft_cluster_places_on_the_card_and_reseeds_after_a_crash(
             tg.networks = []
             tg.tasks[0].resources.networks = []
             return j
-        cpu0 = metrics.counter("nomad.solver.dispatch.torch")
-        launches0 = cuda_kernels.LAUNCHES["depth_curve"]
+        def cpu_solves():
+            return metrics.counter("nomad.solver.dispatch.torch") + \
+                metrics.counter("nomad.solver.dispatch.fused.torch")
+
+        def depth_launches():       # the classic entry or the fused one
+            return cuda_kernels.LAUNCHES["depth_curve"] + \
+                cuda_kernels.LAUNCHES["depth_curve_gather"]
+        cpu0 = cpu_solves()
+        launches0 = depth_launches()
         leader.job_register(job("card-a", 40))
         assert _raft_placed(leader, "card-a", 40)
-        assert cuda_kernels.LAUNCHES["depth_curve"] > launches0
+        assert depth_launches() > launches0
 
         net.crash(leader.raft_node.node_id)
         rest = [s for s in servers if s is not leader]
@@ -756,9 +763,183 @@ def test_raft_cluster_places_on_the_card_and_reseeds_after_a_crash(
         assert torch.equal(cap_w, cap_f) and torch.equal(used_w, used_f)
         new.job_register(job("card-b", 30))
         assert _raft_placed(new, "card-b", 30)
-        assert metrics.counter("nomad.solver.dispatch.torch") == cpu0
+        assert cpu_solves() == cpu0
     finally:
         for s in servers:
             s.shutdown()
         backend.reset()
         state_cache.reset()
+
+
+# --------------------------------------------------- the whole-eval route
+
+def _resident(dev, n_res=4_000, bucket=4_096, n_live=3_000, seed=21):
+    """A resident twin pair and one eval's shuffled idx/valid into it
+    (rows past n_live invalid), on `dev`."""
+    cap, used, _, _, _, _ = _inputs(dev, n=n_res, seed=seed)
+    rng = np.random.default_rng(seed)
+    idx = np.zeros(bucket, np.int32)
+    idx[:n_live] = rng.permutation(n_res)[:n_live]
+    valid = np.arange(bucket) < n_live
+    _, _, ask, feas, coll, aff = _inputs(dev, n=bucket, seed=seed + 1)
+    feas = feas & torch.from_numpy(valid).to(dev)
+    return (cap, used, torch.from_numpy(idx).to(dev),
+            torch.from_numpy(valid).to(dev), ask, feas, coll, aff)
+
+
+def _bits_equal(a, b) -> bool:
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,spread", [(None, False), (GRID128, False),
+                                         (None, True)],
+                         ids=["dense", "grid", "spread"])
+@pytest.mark.parametrize("n_lanes", [1, 4])
+def test_depth_curve_gather_entry_equals_the_plain_entry(dev, grid, spread,
+                                                         n_lanes):
+    """The gather entry over idx equals the plain entry on gather_rows'
+    rows bit for bit (the same arithmetic on the same rows), and the
+    plain torch version to the kernel's tolerance."""
+    cap_res, used_res, idx, valid, ask, feas, coll, aff = _resident(dev)
+    lanes = [torch.roll(idx, 37 * lane) for lane in range(n_lanes)]
+    idx_l = torch.stack(lanes).contiguous()
+    valid_l = torch.stack([valid] * n_lanes).contiguous()
+    stack = [torch.stack([t] * n_lanes).contiguous()
+             for t in (ask, feas, coll, aff)]
+    desired, mpn = [5_000 + lane for lane in range(n_lanes)], \
+        [2 ** 30, 1, 3, 2 ** 30][:n_lanes]
+    kw = dict(k_max=128, depth_grid=grid, spread_algorithm=spread)
+    before = cuda_kernels.LAUNCHES["depth_curve_gather"]
+    got = cuda_kernels.depth_curve_gather(
+        cap_res, used_res, idx_l, valid_l, stack[0], stack[1], stack[2],
+        desired, stack[3], mpn, **kw)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["depth_curve_gather"] == before + 1
+    cap, used = kernels.gather_lanes(cap_res, used_res, idx_l, valid_l)
+    plain_entry = cuda_kernels.depth_curve_lanes(
+        cap.contiguous(), used.contiguous(), stack[0], stack[1], stack[2],
+        desired, stack[3], mpn, **kw)
+    for g, w in zip(got, plain_entry):
+        assert _bits_equal(g, w)
+    d_p, k_p, c_p = kernels.depth_curve_lanes_ref(
+        cap, used, stack[0], stack[1], stack[2], desired, stack[3], mpn,
+        **kw)
+    assert torch.equal(got[2], c_p)
+    fin = torch.isfinite(d_p)
+    assert torch.equal(torch.isfinite(got[0]), fin)
+    assert float((got[0][fin] - d_p[fin]).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mpn", [2 ** 30, 1])
+def test_score_capacity_gather_entry_equals_the_greedy_entry(dev, mpn):
+    cap_res, used_res, idx, valid, ask, feas, _, _ = _resident(dev)
+    before = cuda_kernels.LAUNCHES["score_capacity_gather"]
+    c_g, key_g = cuda_kernels.score_capacity_gather(
+        cap_res, used_res, idx, valid, ask, feas, mpn)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["score_capacity_gather"] == before + 1
+    cap, used = kernels.gather_rows(cap_res, used_res, idx, valid)
+    c_e, key_e = cuda_kernels._launch_score_capacity(
+        cap.contiguous(), used.contiguous(), ask, feas, False, True, mpn)
+    assert torch.equal(c_g, c_e) and _bits_equal(key_g, key_e)
+    c_p, key_p = kernels._greedy_key(
+        *kernels.score_capacity_ref(cap, used, ask, feas), mpn)
+    assert torch.equal(c_g, c_p)
+    assert float((key_g - key_p).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_lanes", [0, 3])
+def test_fit_verdict_kernel_matches_plain(dev, n_lanes):
+    """Bit for bit, on solved placements and on over-full ones, solo
+    (n_lanes 0) and over lanes; placed comes back beside the verdict in
+    one buffer."""
+    cap_res, used_res, idx, valid, ask, feas, coll, aff = _resident(dev)
+    placed = cuda_kernels.fill_greedy_binpack_fused(
+        *kernels.gather_rows(cap_res, used_res, idx, valid), ask, 4_000,
+        feas)
+    placed = placed + (torch.arange(placed.numel(), device=dev) % 7 == 0
+                       ).to(torch.int32) * 9          # some rows over
+    args = (idx, valid, ask, placed)
+    if n_lanes:
+        args = tuple(torch.stack([a] * n_lanes).contiguous() for a in args)
+    before = cuda_kernels.LAUNCHES["fit_verdict"]
+    p_k, fit_k = cuda_kernels.fit_verdict(cap_res, used_res, *args)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["fit_verdict"] == before + 1
+    fit_p = kernels.fit_verdict_ref(cap_res, used_res, *args)
+    assert torch.equal(fit_k, fit_p) and torch.equal(p_k, args[3])
+    assert 0 < int(fit_p.sum()) < fit_p.numel()
+    host = cuda_kernels.fused_to_host(p_k, fit_k)
+    assert np.array_equal(host[0], args[3].cpu().numpy())
+    assert np.array_equal(host[1], fit_p.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_fit_verdict_kernel_rounds_as_one_fused_multiply_add(dev):
+    """The seeded boundary row of tests/test_torch_fused.py: fits as one
+    fused multiply-add, not as two roundings."""
+    bits = np.array([0x451C3CDA, 0x43A1826D, 0x465CC1F0], np.uint32)
+    u, a, c = bits.view(np.float32)
+    cap = torch.zeros((8, NUM_XR), device=dev)
+    used = torch.zeros_like(cap)
+    cap[:, 1:] = 1e6
+    cap[3, 0], used[3, 0] = float(c), float(u)
+    ask = torch.tensor([float(a), 1, 0, 0, 0], device=dev)
+    placed = torch.zeros(8, dtype=torch.int32, device=dev)
+    placed[3] = 36
+    idx = torch.arange(8, dtype=torch.int32, device=dev)
+    valid = torch.ones(8, dtype=torch.bool, device=dev)
+    _, fit = cuda_kernels.fit_verdict(cap, used, idx, valid, ask, placed)
+    assert bool(fit[3])
+    assert not bool(kernels.plan_fit_verdict(cap, used, ask, placed)[3])
+
+
+@pytest.mark.cuda
+def test_fused_evals_on_the_card_equal_the_classic_route(dev):
+    """The fused depth and greedy evals place what the classic card route
+    places on the gathered rows; a fused window's lanes equal their solo
+    fused evals."""
+    cap_res, used_res, idx, valid, ask, feas, coll, aff = _resident(dev)
+    cap, used = (t.contiguous() for t in kernels.gather_rows(
+        cap_res, used_res, idx, valid))
+    jitter = torch.rand(idx.shape, generator=torch.Generator().manual_seed(
+        3)).to(dev)
+    for count, grid, samples in ((2_000, GRID128, 1.5), (50, None, 0.0)):
+        got, fit = cuda_kernels.fused_eval_depth(
+            cap_res, used_res, idx, valid, ask, count, feas, coll, count,
+            aff, 2 ** 30, jitter, 1.0, samples, None, False, k_max=128,
+            depth_grid=grid)
+        want = cuda_kernels.fill_depth_fused(
+            cap, used, ask, count, feas, coll, count, aff,
+            order_jitter=jitter, jitter_scale=1.0, jitter_samples=samples,
+            k_max=128, depth_grid=grid)
+        assert torch.equal(got, want) and int(got.sum()) == count
+        assert torch.equal(fit, kernels.fused_fit_verdict(cap, used, ask,
+                                                          got))
+    got, fit = cuda_kernels.fused_eval_greedy(
+        cap_res, used_res, idx, valid, ask, 5_000, feas, 2 ** 30, None,
+        False, coll)
+    assert torch.equal(got, cuda_kernels.fill_greedy_binpack_fused(
+        cap, used, ask, 5_000, feas))
+    assert bool(fit[got > 0].all())
+    n_lanes = 3
+    stack = [torch.stack([t] * n_lanes).contiguous()
+             for t in (idx, valid, ask, feas, coll, aff, jitter)]
+    counts = [10, 300, 2_000]
+    placed, fit = cuda_kernels.fused_eval_depth_lanes(
+        cap_res, used_res, stack[0], stack[1], stack[2], counts, stack[3],
+        stack[4], counts, stack[5], [2 ** 30] * n_lanes,
+        order_jitter=stack[6], jitter_scales=[1.0] * n_lanes,
+        jitter_samples=[1.5] * n_lanes, k_max=128, depth_grid=GRID128)
+    for lane, count in enumerate(counts):
+        solo = cuda_kernels.fused_eval_depth(
+            cap_res, used_res, idx, valid, ask, count, feas, coll, count,
+            aff, 2 ** 30, jitter, 1.0, 1.5, None, False, k_max=128,
+            depth_grid=GRID128)
+        assert torch.equal(placed[lane], solo[0])
+        assert torch.equal(fit[lane], solo[1])

@@ -422,8 +422,10 @@ _DEVICE = textwrap.dedent("""
         h.process(lambda s, p: new_scheduler(job.type, s, p), ev)
     except RuntimeError as e:
         print("RAISED", e)
+    # solves served by the CPU's plain tier, classic or fused
     print("PLACED", len(h.state.allocs_by_job("default", job.id)),
-          "TORCH", metrics.counter("nomad.solver.dispatch.torch"))
+          "TORCH", metrics.counter("nomad.solver.dispatch.torch")
+          + metrics.counter("nomad.solver.dispatch.fused.torch"))
 """)
 
 
@@ -488,6 +490,7 @@ def test_agent_without_a_card_or_a_request_places_nothing(tmp_path):
         counters = agent.get("/v1/metrics")["telemetry"]["counters"]
         assert counters.get("nomad.worker.eval_failures", 0) >= 1
         assert not counters.get("nomad.solver.dispatch.torch")
+        assert not counters.get("nomad.solver.dispatch.fused.torch")
         assert agent.get(f"/v1/evaluation/{eval_id}")["Status"] != \
             "complete"
         assert agent.get("/v1/job/nocard/allocations") == []

@@ -255,7 +255,9 @@ def card(monkeypatch):
 
 
 def _cpu_solves() -> float:
-    return metrics.counter("nomad.solver.dispatch.torch")
+    """Solves served by the CPU's plain tier, classic or fused."""
+    return metrics.counter("nomad.solver.dispatch.torch") + \
+        metrics.counter("nomad.solver.dispatch.fused.torch")
 
 
 @pytest.mark.parametrize("times", [1, -1], ids=["once", "always"])
@@ -308,9 +310,10 @@ def test_warmup_drives_every_solve_through_its_chain(request, monkeypatch,
                                                      seam):
     """backend.warmup below the floor only when forced: the depth curve
     dense and on the grid for each k_max, greedy, the chunked scan and a
-    window, each through its chain without an error, and with no config
-    or a "convex" one (the reference's rule) one convex eval per spread
-    setting; =0 disables it."""
+    window, then the fused evals (each depth regime and greedy), each
+    through its chain without an error, and with no config or a "convex"
+    one (the reference's rule) one convex eval per spread setting; =0
+    disables it."""
     if seam == "card":
         request.getfixturevalue("card")
     assert backend.warmup(64)["skipped"]
@@ -318,13 +321,15 @@ def test_warmup_drives_every_solve_through_its_chain(request, monkeypatch,
     errors0 = metrics.counter("nomad.solver.warmup.errors")
     cpu0 = _cpu_solves()
     convex0 = metrics.counter("nomad.solver.dispatch.convex")
+    fused0 = metrics.counter("nomad.solver.dispatch.fused")
     out = backend.warmup(64)
-    assert not out["skipped"] and out["artifacts"] == 11
+    assert not out["skipped"] and out["artifacts"] == 18
+    assert metrics.counter("nomad.solver.dispatch.fused") == fused0 + 7
     assert out["bucket"] == 64
     assert metrics.counter("nomad.solver.dispatch.convex") == convex0 + 2
     batch = port_structs.SchedulerConfiguration(
         scheduler_algorithm="tpu-batch")
-    assert backend.warmup(64, cfg=batch)["artifacts"] == 9
+    assert backend.warmup(64, cfg=batch)["artifacts"] == 16
     assert metrics.counter("nomad.solver.warmup.errors") == errors0
     assert (_cpu_solves() > cpu0) == (seam == "torch")
     monkeypatch.setenv("NOMAD_AOT_WARMUP", "0")
@@ -350,7 +355,7 @@ def test_establish_reseeds_and_warms_when_forced(monkeypatch):
     srv.snapshot_restore(snap)
     srv.start()
     try:
-        _wait(lambda: any("solver warmup compiled 9 artifacts" in m
+        _wait(lambda: any("solver warmup compiled 16 artifacts" in m
                           for m in list(logs)), "the establish warmup")
         assert any("state cache reseeded for 12 nodes" in m for m in logs)
         assert state_cache.cache().stats()["rows"] == 12
