@@ -141,7 +141,10 @@ prints no result):
               K=128 on the 50k eval's fleet, on the grid and under the
               spread algorithm; K2's greedy gather entry placing 1, 2,000
               and 5,000; the fit verdict (csrc/fit_verdict.cu) on the 2k
-              fused eval's placements and on over-full ones. Each
+              fused eval's placements and on over-full ones, over 1, 3
+              and 8 lanes and on a ragged edge, its device ms beside its
+              gather floor (launch_floor.cu's gather entry: the same
+              grid, one dependent gather a row). Each
               bit-equal to its plain version (the gather entries to their
               kernel's plain entry on gather_rows' rows, and to the torch
               versions within K1's and K2's tolerances; the verdict to
@@ -198,12 +201,15 @@ prints no result):
  14. convex   (a) the convex-solve kernel (csrc/convex_solve.cu) against
               its plain version at bench.py `_convex_run`'s cluster
               (10,000 nodes, 16,384 rows, count 3,000, fairness 0.05),
-              binpack and spread, at tolerance 1e-4 and 1e-9, and a
-              128-row case that runs all 200 iterations: the solve bit
-              for bit, the whole eval's placements, fit, convex_won and
-              iterations equal, one launch each of the kernel and K2,
-              0 rows over capacity; device ms, per-call ms, plain ms,
-              bound and dependency floor (`convex <case>` lines). (b)
+              binpack and spread, at tolerance 1e-4 and 1e-9, a 128-row
+              case that runs all 200 iterations, and every other
+              testing.CONVEX_CASES fixture (the 65,536- and 131,072-row
+              buckets, budget 0): the solve bit for bit, the whole
+              eval's placements, fit, convex_won and iterations equal,
+              one launch each of the kernel and K2, 0 rows over
+              capacity; on the timed cases device ms, per-call ms, plain
+              ms, bound and dependency floor, and the one-halving
+              design's reduction count (`convex <case>` lines). (b)
               scheduler_algorithm "convex" set through the operator API
               on a 10,000-node server: a 5,000-task job under convex and
               tpu-batch in turns, register -> commit walls; a convex eval
@@ -262,9 +268,11 @@ prints no result):
               eval (/proc/<pid>/stat); the leader's and a follower's
               snapshots decoded with the port's codec: every job's
               allocs, no alloc id or name twice, 0 usage rows over
-              capacity. (c) kill -9 of the leader: crash -> a survivor
+              capacity. (c) kill -9 of the leader, once every follower
+              is a warm standby: crash -> a survivor
               established, its state cache promoted warm or reseeded, its
-              warmup, a 2,000-task job register -> commit, the new
+              warmup, a 2,000-task job register -> commit with no
+              compile-cache miss on the promoted leader, the new
               leader's snapshot held as in (b); the killed agent
               restarted over its data dir catches up (its alloc count the
               leader's) and loads its kernels (compile-cache hits, no
@@ -552,18 +560,23 @@ def _median_ms(torch, fn, reps=REPS) -> float:
 
 
 def _device_ms(torch, fn, kernel: str, reps=REPS, per_call=1) -> tuple:
-    """(kernel ms, all device ms) per call from a torch.profiler trace of
-    `reps` calls: the named kernel's own device time, and the device time
-    of every kernel the call launches. A call launches the named kernel
-    `per_call` times; a trace that recorded another number of its
-    launches is logged and taken again, and after three such traces the
-    kernel's time is None (the caller times with CUDA events). (None,
-    None) when the profiler records no device activity."""
+    """(kernel ms, all device ms, how) per call from a torch.profiler
+    trace of `reps` calls: the named kernel's own device time, the device
+    time of every kernel the call launches, and how the kernel's was
+    taken. A call launches the named kernel `per_call` times; a trace
+    that recorded another number of its launches is logged and taken
+    again. After three such traces a kernel launched once a call is
+    timed by the mean of the launches its last trace did record, if that
+    is at least half of them: how is then "profiler (n of reps
+    launches)", else "profiler". Else its time and how are None (the
+    caller times with CUDA events). (None, None, None) when the profiler
+    records no device activity."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     total = 0.0
+    mine = n_mine = 0
     for _ in range(3):                  # a trace may miss the kernel
         try:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -572,7 +585,7 @@ def _device_ms(torch, fn, kernel: str, reps=REPS, per_call=1) -> tuple:
                 torch.cuda.synchronize()
         except RuntimeError as e:       # no CUPTI: CUDA events instead
             log(f"profiler unavailable ({e}); timing with CUDA events")
-            return None, None
+            return None, None, None
         mine = total = 0.0
         n_mine = 0
         for e in prof.events():
@@ -585,13 +598,18 @@ def _device_ms(torch, fn, kernel: str, reps=REPS, per_call=1) -> tuple:
                 n_mine += 1
         if not kernel:
             if total > 0:
-                return None, total / reps / 1e3
+                return None, total / reps / 1e3, None
             continue
         if n_mine == reps * per_call:
-            return mine / reps / 1e3, total / reps / 1e3
+            return mine / reps / 1e3, total / reps / 1e3, "profiler"
         log(f"profiler trace recorded {n_mine} launches of {kernel}, "
             f"{reps * per_call} expected; tracing again")
-    return None, (total / reps / 1e3 if total > 0 else None)
+    if per_call == 1 and 2 * n_mine >= reps:
+        log(f"{kernel}: the mean of the {n_mine} launches the last trace "
+            f"recorded")
+        return (mine / n_mine / 1e3, None,
+                f"profiler ({n_mine} of {reps} launches)")
+    return None, (total / reps / 1e3 if total > 0 else None), None
 
 
 def _placements_agree(torch, got, want, producer_differs: bool, what: str):
@@ -843,11 +861,11 @@ def _queued_ms(torch, fn, reps=REPS) -> float:
 
 def _times(torch, kernel: str, run) -> dict:
     """The kernel's device time per launch (the profiler's; queued CUDA
-    events where the profiler does not see the kernel) and the wrapper's
+    events where the profiler does not see the kernel), how it was taken
+    (`timing`: `_device_ms`'s how, or "queued events") and the wrapper's
     per-call time."""
-    ms, _ = _device_ms(torch, run, kernel)
-    out = {"call_ms": _median_ms(torch, run, CALL_REPS),
-           "timing": "profiler"}
+    ms, _, how = _device_ms(torch, run, kernel)
+    out = {"call_ms": _median_ms(torch, run, CALL_REPS), "timing": how}
     if not ms:
         ms, out["timing"] = _queued_ms(torch, run), "queued events"
     out["ms"] = ms
@@ -1069,8 +1087,8 @@ def chunked_phase(np, torch, dev, floor_ms) -> dict:
     run = (lambda: cuda_kernels.place_chunked(*args))
     got = cuda_kernels.chunked_scan(*args)
     steps, selected = int(got[4]), int(got[0].sum())
-    ms, all_ms = _device_ms(torch, run, "chunked_scan_kernel", reps=10)
-    out.update(ms=ms, solve_device_ms=all_ms, steps=steps,
+    ms, all_ms, how = _device_ms(torch, run, "chunked_scan_kernel", reps=10)
+    out.update(ms=ms, solve_device_ms=all_ms, steps=steps, timing=how,
                call_ms=_median_ms(torch, run, CALL_REPS),
                plain_ms=_median_ms(torch, lambda: kernels.place_chunked(
                    *args), SOLVE_REPS),
@@ -1692,7 +1710,7 @@ def explain_phase(np, torch, dev) -> dict:
               for a, b in zip(b_got, b_want)),
           "explain reduce on the card differs from numpy on the rounding "
           "boundary")
-    _, device_ms = _device_ms(torch, run, "")
+    _, device_ms, _ = _device_ms(torch, run, "")
     klist = _kernel_list(torch, run)
     wall_ms = _median_ms(torch, run, CALL_REPS)
     finish = _finish_times(np, torch, inp, placed, cls)
@@ -2216,7 +2234,7 @@ def lanes_phase(np, torch, dev) -> dict:
     def eight_solo():
         for lane in range(BATCH_LANES):
             solo_curve(lane)
-    solo_ms, _ = _device_ms(torch, eight_solo, "depth_curve_kernel",
+    solo_ms, _, _ = _device_ms(torch, eight_solo, "depth_curve_kernel",
                             per_call=BATCH_LANES)
     # the 8 launches' device time together, per call of eight_solo
     out["solo_8_ms"] = solo_ms or _queued_ms(torch, eight_solo)
@@ -2489,9 +2507,41 @@ def fused_kernel_phase(np, torch, dev, floor_ms: float) -> dict:
         log(f"fused fit verdict on {what}: bit-equal to the plain verdict "
             f"({int(f_p.sum())} of {N_BUCKET} rows fit); one host copy")
     check(bool(fit[placed > 0].all()), "fused 2k eval: a placed row unfit")
+    # over a window's lanes and on a ragged edge
+    lanes = {}
+    for n_lanes in (1, 3, 8):
+        cols = [torch.stack([torch.roll(t, 37 * lane)
+                             for lane in range(n_lanes)]).contiguous()
+                for t in (inp["idx"], inp["valid"], over)]
+        ask_l = torch.stack([inp["ask"]] * n_lanes).contiguous()
+        for n in (N_BUCKET, N_BUCKET - 3):
+            args = (cols[0][:, :n].contiguous(), cols[1][:, :n].contiguous(),
+                    ask_l, cols[2][:, :n].contiguous())
+            p_k, f_k = cuda_kernels.fit_verdict(*twins, *args)
+            torch.cuda.synchronize()
+            check(torch.equal(f_k, kernels.fit_verdict_ref(*twins, *args))
+                  and torch.equal(p_k, args[3]),
+                  f"fused fit verdict: {n_lanes} lanes of {n} rows differ "
+                  f"from plain")
+        lanes[n_lanes] = cols, ask_l
+    log(f"fused fit verdict over 1, 3 and 8 lanes, {N_BUCKET} and "
+        f"{N_BUCKET - 3} rows (a ragged edge): bit-equal to the plain "
+        f"verdict")
+    gathered = cuda_kernels.gather_floor(inp["idx"], inp["cap"])
+    torch.cuda.synchronize()
+    check(torch.equal(gathered, inp["cap"][inp["idx"].long(), 0]),
+          "gather floor: the kernel gathered other rows")
     c.update(_times(torch, "fit_verdict_kernel",
                     lambda: cuda_kernels.fit_verdict(*twins, *sel,
                                                      inp["ask"], placed)))
+    c["lanes_ms"] = {
+        n_lanes: _times(torch, "fit_verdict_kernel",
+                        lambda: cuda_kernels.fit_verdict(
+                            *twins, cols[0], cols[1], ask_l, cols[2]))["ms"]
+        for n_lanes, (cols, ask_l) in lanes.items()}
+    c["gather_floor_ms"] = _times(torch, "gather_floor",
+                                  lambda: cuda_kernels.gather_floor(
+                                      inp["idx"], inp["cap"]))["ms"]
     c.update(_plain_times(torch, lambda: kernels.fit_verdict_ref(
         *twins, *sel, inp["ask"], placed)))
     nbytes = _fused_gather_bytes(4 + 4 + 1)
@@ -2499,8 +2549,11 @@ def fused_kernel_phase(np, torch, dev, floor_ms: float) -> dict:
     c["floor_ms"] = floor_ms
     out["fit_verdict"] = c
     log(f"fused fit verdict: kernel {c['ms']} ms device ({c['call_ms']} ms "
-        f"per wrapper call), plain {c['plain_ms']} ms, bound "
-        f"{c['bound_ms']} ms ({c['bound_by']}: {nbytes} B)")
+        f"per wrapper call), over 1/3/8 lanes {json.dumps(c['lanes_ms'])} "
+        f"ms, plain {c['plain_ms']} ms, bound {c['bound_ms']} ms "
+        f"({c['bound_by']}: {nbytes} B); launch floor {floor_ms} ms, gather "
+        f"floor (the same grid, one dependent gather a row) "
+        f"{c['gather_floor_ms']} ms")
 
     # the whole fused evals, one call each: every kernel they run and the
     # call with its one host copy
@@ -3156,12 +3209,15 @@ CONVEX_COUNT = 5_000
 CONVEX_ORDER = ("convex", "tpu-batch", "tpu-batch", "convex")
 CONVEX_TIMED = ("bench_binpack", "bench_spread", "bench_binpack_deep",
                 "bench_spread_deep")
-# float32 operations a row of the convex solve needs (csrc/
-# convex_solve.cu; an add, multiply, divide, floor, min or max is one, a
-# fused multiply-add two, a 10**x one): its inputs once (capacity 20,
-# score 10, cost 2, the sum of u and the start 4, the start's objective 7:
-# 43), then each iteration the gradient step 7, the bracket 4, 50
-# halvings of 4 and the projection 3, the objective 7: 221
+# float32 operations a row of the convex solve needs (the reference's
+# loop; an add, multiply, divide, floor, min or max is one, a fused
+# multiply-add two, a 10**x one): its inputs once (capacity 20, score 10,
+# cost 2, the sum of u and the start 4, the start's objective 7: 43),
+# then each iteration the gradient step 7, the bracket 4, 50 halvings of
+# 4 and the projection 3, the objective 7: 221. The kernel sums the
+# midpoints it does not take as well (7 a round of 3 halvings); the
+# bound counts the loop's work, whatever the kernel computes
+# speculatively, so it reads the same before and after.
 CONVEX_OPS_ROW = 43
 CONVEX_OPS_ROW_ITER = 221
 
@@ -3183,7 +3239,8 @@ def _convex_args(np, torch, dev, name) -> tuple:
     from nomad_tpu_torch.testing import convex_fixture
     cap, used, feas, coll, ask, count, kw = convex_fixture(name)
     b = cap.shape[0]
-    aff = np.zeros(b, np.float32)
+    aff = kw["affinity_boost"]
+    aff = np.zeros(b, np.float32) if aff is None else aff
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -3197,19 +3254,45 @@ def _convex_args(np, torch, dev, name) -> tuple:
     return solve, evals, kw["spread_algorithm"], (cap, used, ask)
 
 
+def _convex_reductions(iters: int, prior: bool = False) -> int:
+    """Cluster reductions of a convex solve of `iters` iterations: csrc/
+    convex_solve.cu's (sum u, the start's objective with the first
+    bracket, then an iteration's 17 rounds of 3 halvings, the last of 2,
+    and one objective-and-bracket reduction), or, with `prior`, the
+    one-halving design it replaced (sum u, the start's objective, then
+    an iteration's bracket, 50 halvings and objective)."""
+    from nomad_tpu_torch.solver import convex
+    if prior:
+        return 2 + iters * (convex.PROJECT_ITERS + 2)
+    return 2 + iters * (-(-convex.PROJECT_ITERS // 3) + 1)
+
+
+def _convex_solves_equal(torch, got, want) -> bool:
+    for g, w in zip(got, want):
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        if not torch.equal(g, w):
+            return False
+    return True
+
+
 def convex_kernel_phase(np, torch, dev, floor_ms) -> dict:
     """(a) The convex-solve kernel against its plain version on the card
-    at bench.py `_convex_run`'s cluster (10,000 nodes, 16,384 rows, count
-    3,000, fairness 0.05), binpack and spread, at tolerance 1e-4 and at
-    1e-9 (the loop runs until the objective stops moving), and a
-    128-row spread case that runs all 200 iterations: iterate, u, cost,
-    budget, iterations and gap bit-equal; the whole eval (kernel, K2's
-    greedy entry, torch tail) placing as the plain eval, with one launch
-    of each kernel and 0 rows over capacity in the host AllocsFit
-    re-walk. Device ms (profiler; queued events beside it), per-call ms,
-    the plain version's ms, the bound and the dependency floor (cluster
-    reductions x one cluster barrier of the solve's shape, from an empty
-    loop of BARRIER_STEPS)."""
+    on every testing.CONVEX_CASES fixture: bench.py `_convex_run`'s
+    cluster (10,000 nodes, 16,384 rows, count 3,000, fairness 0.05),
+    binpack and spread, at tolerance 1e-4 and at 1e-9 (the loop runs
+    until the objective stops moving), a 128-row spread case that runs
+    all 200 iterations, the 65,536-row bucket (rows in shared memory) and
+    the 131,072-row one (global scratch), the fuzzed edge cases (budget 0
+    by count and by capacity among them): iterate, u, cost, budget,
+    iterations and gap bit-equal; the whole eval (kernel, K2's greedy
+    entry, torch tail) placing as the plain eval, with one launch of each
+    kernel and 0 rows over capacity in the host AllocsFit re-walk. On the
+    timed cases: device ms (profiler; queued events beside it), per-call
+    ms, the plain version's ms, the bound and the dependency floor
+    (cluster reductions x one cluster barrier of the solve's shape, from
+    an empty loop of BARRIER_STEPS), beside the one-halving design's
+    reduction count."""
     from nomad_tpu_torch.solver import convex, cuda_kernels
     from nomad_tpu_torch.testing import CONVEX_CASES
     out: dict = {}
@@ -3217,6 +3300,7 @@ def convex_kernel_phase(np, torch, dev, floor_ms) -> dict:
         BARRIER_STEPS, dev, threads=1024), 5) / BARRIER_STEPS
     for name in CONVEX_TIMED + ("small_spread_deep",):
         check(name in CONVEX_CASES, f"no convex fixture {name}")
+    for name in CONVEX_CASES:
         solve, evals, spread, (cap, used, ask) = _convex_args(
             np, torch, dev, name)
 
@@ -3226,11 +3310,8 @@ def convex_kernel_phase(np, torch, dev, floor_ms) -> dict:
             *solve, spread_algorithm=spread)
         torch.cuda.synchronize()
         err = float((got[0] - want[0]).abs().max())
-        for g, w in zip(got, want):
-            if g.dtype == torch.float32:
-                g, w = g.view(torch.int32), w.view(torch.int32)
-            check(torch.equal(g, w),
-                  f"convex {name}: the kernel's solve differs from plain")
+        check(_convex_solves_equal(torch, got, want),
+              f"convex {name}: the kernel's solve differs from plain")
         k0 = dict(cuda_kernels.LAUNCHES)
         card = convex.to_host(cuda_kernels.convex_eval_fused(
             *evals, spread_algorithm=spread))
@@ -3249,11 +3330,21 @@ def convex_kernel_phase(np, torch, dev, floor_ms) -> dict:
         over = int((post > cap + 1e-3).any(axis=1).sum())
         check(over == 0, f"convex {name}: {over} rows over capacity")
         iters = card[2]
-        r = {"iterations": iters, "gap": float(card[3]), "won": card[4],
-             "placed": int(card[0].sum()), "launches_per_eval": per_eval,
-             "violations": over, "max_abs_err": err,
-             "reductions": 2 + iters * (convex.PROJECT_ITERS + 2),
-             "floor_ms": floor_ms, "barrier_ms": barrier_ms}
+        r = {"rows": int(cap.shape[0]), "iterations": iters,
+             "gap": float(card[3]), "won": card[4],
+             "placed": int(card[0].sum()), "budget": int(want[3]),
+             "launches_per_eval": per_eval, "violations": over,
+             "max_abs_err": err}
+        if name not in CONVEX_TIMED + ("small_spread_deep",):
+            log(f"convex {name} ({r['rows']} rows): kernel = plain bit for "
+                f"bit; {iters} iterations, budget {r['budget']}, placed "
+                f"{r['placed']}, won {r['won']}, 0 rows over capacity, "
+                f"launches per eval {json.dumps(per_eval)}")
+            out[name] = r
+            continue
+        r.update(reductions=_convex_reductions(iters),
+                 reductions_prior=_convex_reductions(iters, prior=True),
+                 floor_ms=floor_ms, barrier_ms=barrier_ms)
         r["dependency_floor_ms"] = r["reductions"] * barrier_ms
         r.update(_convex_bound(cap.shape[0], iters))
         if name in CONVEX_TIMED:
@@ -3261,6 +3352,7 @@ def convex_kernel_phase(np, torch, dev, floor_ms) -> dict:
             r["queued_ms"] = _queued_ms(torch, run)
         else:
             r["ms"] = r["queued_ms"] = _queued_ms(torch, run, 3)
+            r["timing"] = "queued events"
         if name == "bench_binpack":
             r["plain_ms"] = _median_ms(torch, lambda: convex.convex_solve_ref(
                 *solve, spread_algorithm=spread), 3)
@@ -3276,12 +3368,14 @@ def convex_kernel_phase(np, torch, dev, floor_ms) -> dict:
             f"iterations, gap {r['gap']}, won {r['won']}, placed "
             f"{r['placed']}, 0 rows over capacity, launches per eval "
             f"{json.dumps(per_eval)}; {r['ms']} ms device per solve "
-            f"(queued {r['queued_ms']}), {r.get('call_ms')} ms per call, "
+            f"(queued {r['queued_ms']}; {r.get('timing')}), "
+            f"{r.get('call_ms')} ms per call, "
             f"plain {r.get('plain_ms')} ms; bound {r['bound_ms']} ms "
             f"({r['bound_by']}: {r['bytes']} B, {r['ops']} ops); "
             f"dependency floor {r['dependency_floor_ms']} ms "
             f"({r['reductions']} cluster reductions x "
-            f"{barrier_ms * 1e3} us barrier)")
+            f"{barrier_ms * 1e3} us barrier; the one-halving design "
+            f"{r['reductions_prior']})")
         out[name] = r
     b = out["bench_binpack"]
     log(f"convex eval on the card (bench_binpack): {b['eval_device_ms']} ms "
@@ -4302,6 +4396,13 @@ def _invalidated(servers) -> int:
                for s in servers if s.alive())
 
 
+def _standby_warmed(agent) -> bool:
+    """The server agent has run its standby warmup (its kernels built
+    or loaded while it followed)."""
+    return bool(agent.get("/v1/metrics")["telemetry"]["gauges"].get(
+        "nomad.standby.warmed"))
+
+
 def _api_job(job) -> dict:
     from nomad_tpu_torch.api_codec import to_api
     return to_api(job)
@@ -4450,13 +4551,22 @@ def _agent_cluster(base: str, env: dict, on_card: bool, n_nodes: int,
               f"agent-real's tasks by client: {on}")
 
         # (c) kill -9 the leader, once it has its kernels (it placed the
-        # jobs above, or warmed: a server that led before the fleet
-        # registered never warms as a standby, ROADMAP Queue 3 item 15)
-        old = _wait(lambda: (lambda s: s if s is not None and (
-            not on_card or sum(_counters(s).get(f"nomad.compile_cache.{k}",
-                                                0)
-                               for k in ("hits", "misses")))
-            else None)(watch.leader()), "a leader that has its kernels")
+        # jobs above, or warmed) and every follower is a warm standby, the
+        # one that led before the fleet registered too (ROADMAP Queue 3
+        # item 15: its promotion built the kernels inside its first eval,
+        # and nvcc then starved the fleet's heartbeats)
+        def _killable():
+            s = watch.leader()
+            if s is None or not on_card:
+                return s
+            built = sum(_counters(s).get(f"nomad.compile_cache.{k}", 0)
+                        for k in ("hits", "misses"))
+            warm = all(_standby_warmed(f) for f in servers if f is not s)
+            return s if built and warm else None
+        t_ready = time.monotonic()
+        old = _wait(_killable, "a leader that has its kernels, and warm "
+                    "standbys", interval=0.5)
+        standby_wait_s = time.monotonic() - t_ready
         old_term = old.get("/v1/operator/debug")["Raft"]["Term"]
         warmups0 = {s.name: s.tail(1 << 22).count("solver warmup")
                     for s in servers}
@@ -4512,8 +4622,13 @@ def _agent_cluster(base: str, env: dict, on_card: bool, n_nodes: int,
                   interval=0.1)
         warm = [line.strip() for line in new.tail(20000).splitlines()
                 if "solver warmup" in line]
+        if on_card:
+            check(first_eval["compile_cache_misses"] == 0,
+                  f"{promoted.name}, a warm standby, ran nvcc in its first "
+                  f"eval as leader: {first_eval}")
         res["failover"] = {
             "killed": old.name, "new_leader": new.name,
+            "standby_wait_s": standby_wait_s,
             "crash_to_established_s": t_new - t_kill,
             "establish_timings": timings,
             "state_cache": cache,
@@ -4525,7 +4640,9 @@ def _agent_cluster(base: str, env: dict, on_card: bool, n_nodes: int,
             "first_eval": first_eval,
             "elections": watch.between(t_kill - t0,
                                        time.monotonic() - t0)}
-        log(f"agent failover: kill -9 {old.name}; crash -> {new.name} "
+        log(f"agent failover: every follower a warm standby "
+            f"{standby_wait_s:.3f} s before the kill; kill -9 {old.name}; "
+            f"crash -> {new.name} "
             f"established {t_new - t_kill:.3f} s (its establish steps "
             f"{timings}); state cache "
             f"{res['failover']['state_cache']} (promoted warm: "
@@ -4544,9 +4661,8 @@ def _agent_cluster(base: str, env: dict, on_card: bool, n_nodes: int,
         if on_card:
             # a follower loads its kernels in its standby warmup, once its
             # store crosses the warmup floor
-            _wait(lambda: old.get("/v1/metrics")["telemetry"]["gauges"].get(
-                "nomad.standby.warmed"), f"{old.name}'s standby warmup",
-                interval=0.1)
+            _wait(lambda: _standby_warmed(old),
+                  f"{old.name}'s standby warmup", interval=0.1)
         rc = _counters(old)
         hits = int(rc.get("nomad.compile_cache.hits", 0))
         misses = int(rc.get("nomad.compile_cache.misses", 0))
@@ -4779,7 +4895,9 @@ def main() -> int:
                   "k512_ms", "depths_evaluated", "score_ms", "steps",
                   "solve_device_ms", "barrier_ms", "dependency_floor_ms",
                   "solo_8_ms", "iterations", "eval_device_ms",
-                  "eval_call_ms", "plain_device_ms", "fused_window_ms"):
+                  "eval_call_ms", "plain_device_ms", "fused_window_ms",
+                  "reductions", "reductions_prior", "gather_floor_ms",
+                  "lanes_ms", "timing"):
             if k in r:
                 row[k] = r[k]
         rows.append(row)

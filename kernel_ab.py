@@ -27,6 +27,17 @@ kernels into its own build/kernels/. For each, one JSON line with:
                          median of 10); a checkout with the whole-scan
                          kernel runs one launch, an older one a step
                          launch and a torch tail a step
+  convex_ms,             the convex-solve kernel's device time per solve on
+  convex_spread_ms       bench.py `_convex_run`'s cluster (16,384 rows,
+                         binpack and spread, tolerance 1e-4: 2 iterations),
+                         each checkout's kernel as its wrapper launches it
+  verdict_ms             the fit-verdict kernel's device time per launch on
+                         the fused route's inputs (chip_smoke.py
+                         `_fused_inputs`: 10,000 live rows of 16,384
+                         through a shuffled idx)
+  timing                 how each *_ms above was taken, where not from a
+                         whole trace: "profiler (n of 30 launches)" or
+                         null (chip_smoke.py `_device_ms`)
 
 then the card's name and power limit. Exits non-zero without a card.
 
@@ -84,11 +95,19 @@ def one(root: str) -> dict:
     def greedy_fill():
         return cuda_kernels.fill_greedy_binpack_fused(*base[:3], 1, base[3])
 
+    timing = {}
+
+    def device_ms(key, fn, kernel):
+        ms, _, how = cs._device_ms(torch, fn, kernel)
+        if how != "profiler":
+            timing[key] = how
+        return ms
+
     out = {"root": root,
-           "k1_ms": cs._device_ms(torch, k1, "depth_curve_kernel")[0],
+           "k1_ms": device_ms("k1_ms", k1, "depth_curve_kernel"),
            "k1_call_ms": cs._median_ms(torch, k1, cs.CALL_REPS),
            "depth_fill_call_ms": cs._median_ms(torch, depth_fill),
-           "k2_ms": cs._device_ms(torch, k2, "score_capacity_kernel")[0],
+           "k2_ms": device_ms("k2_ms", k2, "score_capacity_kernel"),
            "k2_call_ms": cs._median_ms(torch, k2, cs.CALL_REPS),
            "greedy_fill": cs._kernel_list(torch, greedy_fill)}
     out["greedy_fill"]["call_ms"] = cs._median_ms(torch, greedy_fill,
@@ -103,10 +122,24 @@ def one(root: str) -> dict:
     def scan():
         return cuda_kernels.place_chunked(*scan_args)
 
-    out.update(step_ms=cs._device_ms(torch, step, "chunked_step_kernel")[0],
+    out.update(step_ms=device_ms("step_ms", step, "chunked_step_kernel"),
                step_call_ms=cs._median_ms(torch, step, cs.CALL_REPS),
                scan_device_ms=cs._device_ms(torch, scan, "", reps=10)[1],
                scan_call_ms=cs._median_ms(torch, scan, 10))
+    for key, name in (("convex_ms", "bench_binpack"),
+                      ("convex_spread_ms", "bench_spread")):
+        solve, _, spread, _ = cs._convex_args(np, torch, dev, name)
+        out[key] = device_ms(
+            key, lambda: cuda_kernels.convex_solve(
+                *solve, spread_algorithm=spread), "convex_solve")
+    fin = cs._fused_inputs(np, torch, dev)
+    placed = torch.from_numpy(np.random.default_rng(cs.SEED).integers(
+        0, 3, cs.N_BUCKET).astype(np.int32)).to(dev)
+    out["verdict_ms"] = device_ms(
+        "verdict_ms", lambda: cuda_kernels.fit_verdict(
+            fin["cap"], fin["used"], fin["idx"], fin["valid"], fin["ask"],
+            placed), "fit_verdict_kernel")
+    out["timing"] = timing
     return out
 
 

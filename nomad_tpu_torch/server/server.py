@@ -1020,7 +1020,7 @@ class Server:
             return
         while not self._shutdown_ev.wait(2.0):
             if self.is_leader:
-                return          # the leader establish path owns warmup
+                continue        # leading: warm once a follower again
             try:
                 n = self.state.node_count()
                 if n < _warmup_floor():

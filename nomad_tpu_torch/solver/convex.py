@@ -113,11 +113,12 @@ def _objective(x: torch.Tensor, cost: torch.Tensor, curv: float,
     return _fma_f32(half_w, ff, frag)
 
 
-def _projection_bracket(y: torch.Tensor, u: torch.Tensor,
-                        budget: torch.Tensor) -> torch.Tensor:
-    """Project y onto {x : 0 <= x <= u, sum(x) = budget}: x_i =
-    clip(y_i - tau, 0, u_i), tau bisected PROJECT_ITERS times (the sum
-    decreases in tau)."""
+def _bisect(y: torch.Tensor, u: torch.Tensor, budget: torch.Tensor
+            ) -> tuple:
+    """The water-filling threshold's bracket after PROJECT_ITERS
+    halvings, one after the other (the sum decreases in tau) -> (lo, hi,
+    tau = their midpoint). The kernel resolves several halvings a
+    reduction; each of its midpoints is one of these, to the bit."""
     one = torch.tensor(1.0, dtype=torch.float32, device=y.device)
     half = torch.tensor(0.5, dtype=torch.float32, device=y.device)
     zero = torch.zeros((), dtype=torch.float32, device=y.device)
@@ -129,7 +130,15 @@ def _projection_bracket(y: torch.Tensor, u: torch.Tensor,
         too_big = s > budget
         lo = torch.where(too_big, mid, lo)
         hi = torch.where(too_big, hi, mid)
-    tau = half * (lo + hi)
+    return lo, hi, half * (lo + hi)
+
+
+def _projection_bracket(y: torch.Tensor, u: torch.Tensor,
+                        budget: torch.Tensor) -> torch.Tensor:
+    """Project y onto {x : 0 <= x <= u, sum(x) = budget}: x_i =
+    clip(y_i - tau, 0, u_i), tau bisected PROJECT_ITERS times."""
+    tau = _bisect(y, u, budget)[2]
+    zero = torch.zeros((), dtype=torch.float32, device=y.device)
     return torch.minimum(torch.maximum(y - tau, zero), u)
 
 

@@ -19,33 +19,58 @@
 // has no capacity, and the reference's cost keeps the score of every
 // row (those rows still move the projection's bracket).
 //
-// What bounds it on this card: the chain of dependent reductions, not
-// bytes or operations. A solve reads about 0.6 MB once at the 16,384-row
-// bucket and then works from shared memory; each iteration is 52
-// cluster-wide reductions (the bracket, 50 halvings, the objective), each
-// waiting on the one before it, so a solve costs iterations x 52 x (a
-// block reduction and one cluster barrier). The same loop as torch ops
-// from the host would need a host read per halving to test the bracket,
-// or would run every halving of max_iters iterations blind.
+// What bounds it on this card: the chain of dependent cluster-wide
+// reductions, not bytes or operations. A solve reads about 0.6 MB once at
+// the 16,384-row bucket and then works from shared memory on a couple of
+// rows a thread; every halving of the bracket waits on the sum of the one
+// before it. The plain order of that chain (the reference's loop) is an
+// iteration of 52 reductions: the bracket, 50 halvings, the objective.
 //
 // Design: one cluster of 8 CTAs (the portable cluster size) of 1,024
 // threads. Thread t = 1,024 r + threadIdx.x of CTA r owns the rows t,
 // t + 8,192, t + 16,384, ... and keeps them in shared memory (global
-// scratch where a bucket's rows do not fit): the iterate (y in place of
-// x during a step), u, the cost and the collisions. Each reduction adds
-// a thread's rows in order, then halves across the lanes of a warp by
+// scratch where a bucket's rows do not fit): the iterate x, the next
+// gradient step y, u, the cost and the collisions. Each reduction adds a
+// thread's rows in order, then halves across the lanes of a warp by
 // shuffles, across the warps of a block through shared memory, and
-// across the 8 blocks: each block's partial goes to its shared memory,
-// one cluster barrier, and every thread reads the 8 partials through
-// distributed shared memory and combines them in the same fixed order, so
-// every thread of the cluster holds the same sum and takes the same
-// branch. convex.py `tree_sum` is that order. Partials are double-
-// buffered: a block writes slot s again two reductions later, after a
-// barrier that every block reaches only once it has read slot s. The
-// min and max of the bracket are one reduction (max y = -min -y).
-// Where XLA's CPU backend contracts the reference's multiply-adds, this
-// kernel calls __fmaf_rn (the plain version rounds once there too);
-// everything else builds without FMA contraction or fast math.
+// combines the 8 blocks' partials in one fixed order, so every thread of
+// the cluster holds the same sums and takes the same branches.
+// convex.py `tree_sum` is that order. Fewer reductions, each as cheap as
+// the card allows:
+//   * Speculative halvings. A round of LEVELS = 3 levels computes, before
+//     any sum is known, the 7 midpoints of the bisection subtree below
+//     (lo, hi): each is the sequential loop's own 0.5f * (lo + hi) of
+//     operands that are already known. One reduction returns all their
+//     clipped sums (each in its own tree order), and every thread walks
+//     the subtree with the loop's `s > budget` tests to the new
+//     (lo, hi). 50 halvings take 17 reductions (16 rounds of 3, one of
+//     2), to the bit the loop's. 1, 2 and 4 levels measured slower on an
+//     H100 (PERF.md).
+//   * One reduction for an iterate's objective and the next bracket: the
+//     pass that projects y onto x' also sums f(x')'s three terms, takes
+//     the next gradient step y' = x' - step g(x') and its two minima,
+//     min(y' - u) and min(-y'); one reduction sums the first three and
+//     takes the minima of the last two. x' stays in its own field: where
+//     the gap test stops the loop, x', not y', is the result.
+//   * Fewer shuffles a value: a warp reduces its K values by an xor
+//     butterfly that splits them between the two lanes of each pair
+//     (`butterfly`), P/2 + P/4 + ... shuffles a lane for P = K rounded up
+//     to a power of two, not 5 K; the same pairs, so the same bits.
+//   * Pushed partials in place of a cluster barrier: warp 0 of each
+//     block stores its partials into every block's shared memory with
+//     st.async, and each block waits on its own transaction barrier,
+//     then reads a value's 8 partials as two 16-byte loads. A cluster
+//     barrier after which every thread read the partials through
+//     distributed shared memory measured about twice as slow (PERF.md).
+// So a solve of i iterations is 2 + 18 i reductions
+// against the reference loop's order of 2 + 52 i. Partials are
+// double-buffered: a block's slot s is written again two reductions later,
+// after every block has read it (each block sends the next reduction's
+// partials only once its own threads are past the last one's reads). The
+// min and max of the bracket are minima (max y = -min -y). Where XLA's
+// CPU backend contracts the reference's multiply-adds, this kernel calls
+// __fmaf_rn (the plain version rounds once there too); everything else
+// builds without FMA contraction or fast math.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -62,8 +87,10 @@ namespace cg = cooperative_groups;
 #define SPAN (CLUSTER * THREADS)   // rows one pass over the cluster covers
 #define NUM_XR 5
 #define PROJECT_ITERS 50
-#define FIELDS 4                   // iterate, u, cost, collisions
+#define FIELDS 5                   // x, next y, u, cost, collisions
 #define ROWS_SMEM_LIMIT (200 * 1024)
+#define LEVELS 3                   // halvings one reduction resolves
+#define MAX_K ((1 << LEVELS) - 1)  // values one reduction carries
 #define FULL 0xffffffffu
 
 struct ConvexArgs {
@@ -92,86 +119,263 @@ struct ConvexArgs {
   float inv_max_score;   // float32(1 / 18)
 };
 
-struct ReduceShared {
-  float warp_part[WARPS][3];
-  float cta_part[2][3];
+#define ROW_K (MAX_K + 1)            // a warp's partials: 32 bytes
+
+struct __align__(16) ReduceShared {
+  float warp_part[WARPS][ROW_K];
+  float part[2][ROW_K][CLUSTER];     // every block's partials
+  unsigned long long bar[2];         // one transaction barrier a slot
 };
 
-// Reduce K values over the cluster: sums in the fixed order above (MIN
-// false) or minima (MIN true). Every thread calls it; every thread gets
-// the cluster's results in v.
-template <int K, bool MIN>
-__device__ __forceinline__ void cluster_reduce(float (&v)[K],
-                                               ReduceShared& sh,
-                                               cg::cluster_group& cluster,
-                                               int& slot) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float w = __shfl_down_sync(FULL, v[k], o);
-      v[k] = MIN ? fminf(v[k], w) : v[k] + w;
-    }
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) sh.warp_part[warp][k] = v[k];
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      float p = sh.warp_part[lane][k];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const float w = __shfl_down_sync(FULL, p, o);
-        p = MIN ? fminf(p, w) : p + w;
-      }
-      if (lane == 0) sh.cta_part[slot][k] = p;
-    }
-  }
-  cluster.sync();
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float p[CLUSTER];
-#pragma unroll
-    for (int r = 0; r < CLUSTER; ++r)
-      p[r] = *cluster.map_shared_rank(&sh.cta_part[slot][k], r);
-    if (MIN) {
-      float m = p[0];
-#pragma unroll
-      for (int r = 1; r < CLUSTER; ++r) m = fminf(m, p[r]);
-      v[k] = m;
-    } else {
-      const float q0 = p[0] + p[4], q1 = p[1] + p[5];
-      const float q2 = p[2] + p[6], q3 = p[3] + p[7];
-      v[k] = (q0 + q2) + (q1 + q3);
-    }
-  }
-  slot ^= 1;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// f(x) = <cost, x> + (curv / 2)|x|^2 + (w_f / 2)|coll + x|^2 over the
-// cluster's rows, with the reference's two contracted multiply-adds.
-__device__ __forceinline__ float objective(const float* xs, const float* costs,
-                                           const float* colls, int rows,
-                                           int row0, int n, float half_curv,
-                                           float half_w, ReduceShared& sh,
-                                           cg::cluster_group& cluster,
-                                           int& slot) {
-  float acc[3] = {0.0f, 0.0f, 0.0f};
-  for (int k = 0; k < rows; ++k) {
-    if (row0 + k * SPAN >= n) break;
-    const int j = k * THREADS + threadIdx.x;
-    const float x = xs[j];
-    const float t = colls[j] + x;
-    acc[0] += costs[j] * x;
-    acc[1] += x * x;
-    acc[2] += t * t;
+// The shared::cluster address of `addr` (a shared::cta address) in the
+// block of cluster rank `rank`.
+__device__ __forceinline__ uint32_t peer_u32(uint32_t addr, int rank) {
+  uint32_t out;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__host__ __device__ constexpr int pow2_at_least(int k) {
+  return k <= 1 ? 1 : 2 * pow2_at_least((k + 1) / 2);
+}
+
+// A warp's values v[0, K) (P = pow2_at_least(K) slots) reduced over its
+// 32 lanes in tree_sum's pairing, lane l with l + o for o = 16, 8, ...,
+// 1, by xor shuffles that split the values between the two lanes of a
+// pair: each keeps one half of its slots and combines the partner's copy
+// of that half (a + b and fminf are commutative, so either lane's result
+// is the pair's, to the bit). A lane sends P/2 + P/4 + ... values, not
+// 5 K. After the five levels v[0] holds the warp's result of value
+// `base` (the return), on the 32 / P lanes that differ in their low bits.
+// Values at or past K - NMIN are minima, the rest sums.
+template <int K, int NMIN, int P, int C, int O>
+__device__ __forceinline__ int butterfly(float (&v)[P], int lane,
+                                         int base) {
+  if constexpr (O == 0) {
+    return base;
+  } else {
+    const bool upper = (lane & O) != 0;
+    if constexpr (C > 1) {
+      constexpr int H = C / 2;
+      const int kept = base + (upper ? H : 0);
+#pragma unroll
+      for (int i = 0; i < H; ++i) {
+        const float mine = upper ? v[H + i] : v[i];
+        const float got = __shfl_xor_sync(FULL, upper ? v[i] : v[H + i], O);
+        v[i] = kept + i >= K - NMIN ? fminf(mine, got) : mine + got;
+      }
+      return butterfly<K, NMIN, P, H, O / 2>(v, lane, kept);
+    } else {
+      const float got = __shfl_xor_sync(FULL, v[0], O);
+      v[0] = base >= K - NMIN ? fminf(v[0], got) : v[0] + got;
+      return butterfly<K, NMIN, P, 1, O / 2>(v, lane, base);
+    }
   }
-  cluster_reduce<3, false>(acc, sh, cluster, slot);
-  return __fmaf_rn(half_w, acc[2], __fmaf_rn(acc[1], half_curv, acc[0]));
+}
+
+// Reductions over the cluster in tree_sum's order. Every thread calls
+// exchange() with its K values (sums, then NMIN minima); it returns the
+// slot whose partials hold the 8 blocks' results, which sum() and
+// minimum() combine.
+struct Cluster {
+  ReduceShared& sh;
+  cg::cluster_group& cluster;
+  int rank;
+  int slot;
+  unsigned parity;       // the phase bit each slot's barrier waits on
+
+  __device__ void init() {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < 2; ++s)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                     :: "r"(smem_u32(&sh.bar[s])) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    cluster.sync();      // no block pushes before every barrier exists
+  }
+
+  template <int K, int NMIN>
+  __device__ __forceinline__ int exchange(const float (&in)[K]) {
+    static_assert(K <= MAX_K, "a reduction carries at most MAX_K values");
+    constexpr int P = pow2_at_least(K);
+    constexpr int GROUP = 32 / P;            // lanes holding each result
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    float v[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i) v[i] = i < K ? in[i] : 0.0f;
+    int k = butterfly<K, NMIN, P, P, 16>(v, lane, 0);
+    if ((lane & (GROUP - 1)) == 0 && k < K) sh.warp_part[warp][k] = v[0];
+    __syncthreads();
+    const int s = slot;
+    const uint32_t bar = smem_u32(&sh.bar[s]);
+    if (warp == 0) {
+      if constexpr (P >= 4) {
+        const float4* row = reinterpret_cast<const float4*>(
+            sh.warp_part[lane]);
+#pragma unroll
+        for (int q = 0; q < P / 4; ++q) {
+          const float4 t = row[q];
+          v[4 * q] = t.x;
+          v[4 * q + 1] = t.y;
+          v[4 * q + 2] = t.z;
+          v[4 * q + 3] = t.w;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < P; ++i) v[i] = sh.warp_part[lane][i];
+      }
+      k = butterfly<K, NMIN, P, P, 16>(v, lane, 0);
+      // the GROUP lanes holding value k share its 8 stores
+      if (k < K) {
+        const uint32_t dst = smem_u32(&sh.part[s][k][rank]);
+        for (int r = lane & (GROUP - 1); r < CLUSTER; r += GROUP)
+          asm volatile(
+              "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32"
+              " [%0], %1, [%2];"
+              :: "r"(peer_u32(dst, r)), "r"(__float_as_uint(v[0])),
+                 "r"(peer_u32(bar, r)) : "memory");
+      }
+      if (lane == 0)
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+            :: "r"(bar), "r"(CLUSTER * K * 4) : "memory");
+    }
+    const uint32_t want = (parity >> s) & 1u;
+    uint32_t done = 0;
+    while (!done) {
+      asm volatile(
+          "{\n\t.reg .pred p;\n\t"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64"
+          " p, [%1], %2;\n\t"
+          "selp.u32 %0, 1, 0, p;\n\t}"
+          : "=r"(done) : "r"(bar), "r"(want) : "memory");
+    }
+    parity ^= 1u << s;
+    slot ^= 1;
+    return s;
+  }
+
+  // the 8 blocks' partials of value k in slot s
+  __device__ __forceinline__ void partials(int s, int k, float (&p)[CLUSTER]) {
+    const float4 a = *reinterpret_cast<const float4*>(&sh.part[s][k][0]);
+    const float4 b = *reinterpret_cast<const float4*>(&sh.part[s][k][4]);
+    p[0] = a.x, p[1] = a.y, p[2] = a.z, p[3] = a.w;
+    p[4] = b.x, p[5] = b.y, p[6] = b.z, p[7] = b.w;
+  }
+
+  __device__ __forceinline__ float sum(int s, int k) {
+    float p[CLUSTER];
+    partials(s, k, p);
+    const float q0 = p[0] + p[4], q1 = p[1] + p[5];
+    const float q2 = p[2] + p[6], q3 = p[3] + p[7];
+    return (q0 + q2) + (q1 + q3);
+  }
+
+  __device__ __forceinline__ float minimum(int s, int k) {
+    float p[CLUSTER];
+    partials(s, k, p);
+    float m = p[0];
+#pragma unroll
+    for (int r = 1; r < CLUSTER; ++r) m = fminf(m, p[r]);
+    return m;
+  }
+};
+
+// Rows of the thread's slice of the cluster's fields.
+struct Rows {
+  float* xs;
+  float* ys;
+  const float* us;
+  const float* costs;
+  const float* colls;
+  int rows;
+  int row0;
+  int n;
+};
+
+// One round of `DEPTH` halvings of (lo, hi) in one reduction: the
+// subtree's midpoints in heap order (node i's children 2i + 1 below its
+// midpoint, 2i + 2 above it), a clipped sum for each, then the walk.
+template <int DEPTH>
+__device__ __forceinline__ void bisect_round(const Rows& w, Cluster& c,
+                                             float budget, float& lo,
+                                             float& hi) {
+  constexpr int K = (1 << DEPTH) - 1;
+  float mid[K], nlo[K], nhi[K];
+  nlo[0] = lo;
+  nhi[0] = hi;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    mid[i] = 0.5f * (nlo[i] + nhi[i]);
+    if (2 * i + 2 < K) {
+      nlo[2 * i + 1] = nlo[i];
+      nhi[2 * i + 1] = mid[i];
+      nlo[2 * i + 2] = mid[i];
+      nhi[2 * i + 2] = nhi[i];
+    }
+  }
+  float s[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) s[i] = 0.0f;
+  for (int k = 0; k < w.rows; ++k) {
+    if (w.row0 + k * SPAN >= w.n) break;
+    const int j = k * THREADS + threadIdx.x;
+    const float y = w.ys[j], u = w.us[j];
+#pragma unroll
+    for (int i = 0; i < K; ++i) s[i] += fminf(fmaxf(y - mid[i], 0.0f), u);
+  }
+  const int slot = c.exchange<K, 0>(s);
+  int node = 0;
+#pragma unroll
+  for (int l = 0; l < DEPTH; ++l) {
+    const float m = 0.5f * (lo + hi);
+    if (c.sum(slot, node) > budget) {
+      lo = m;
+      node = 2 * node + 2;
+    } else {
+      hi = m;
+      node = 2 * node + 1;
+    }
+  }
+}
+
+// The pass that ends an iterate: x = the projection of y at tau (PROJECT)
+// or u * scale (the start), its objective's three partial sums, the next
+// gradient step and its two minima, in one reduction. -> f(x); m_yu,
+// m_ny: min(y' - u), min(-y').
+template <bool PROJECT>
+__device__ __forceinline__ float iterate_pass(
+    const Rows& w, Cluster& c, float tau_or_scale, float curv,
+    float w_f, float step, float half_curv, float half_w, float& m_yu,
+    float& m_ny) {
+  float v[5] = {0.0f, 0.0f, 0.0f, CUDART_INF_F, CUDART_INF_F};
+  for (int k = 0; k < w.rows; ++k) {
+    if (w.row0 + k * SPAN >= w.n) break;
+    const int j = k * THREADS + threadIdx.x;
+    const float u = w.us[j], cost = w.costs[j], coll = w.colls[j];
+    const float x = PROJECT ? fminf(fmaxf(w.ys[j] - tau_or_scale, 0.0f), u)
+                            : u * tau_or_scale;
+    w.xs[j] = x;
+    const float t = coll + x;
+    v[0] += cost * x;
+    v[1] += x * x;
+    v[2] += t * t;
+    const float g = __fmaf_rn(coll + x, w_f, __fmaf_rn(x, curv, cost));
+    const float y = __fmaf_rn(-step, g, x);
+    w.ys[j] = y;
+    v[3] = fminf(v[3], y - u);
+    v[4] = fminf(v[4], -y);
+  }
+  const int s = c.exchange<5, 2>(v);
+  m_yu = c.minimum(s, 3);
+  m_ny = c.minimum(s, 4);
+  return __fmaf_rn(half_w, c.sum(s, 2), __fmaf_rn(c.sum(s, 1), half_curv,
+                                                  c.sum(s, 0)));
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -188,10 +392,12 @@ __global__ void __launch_bounds__(THREADS, 1)
                     ? rows_smem
                     : a.rows_global + (size_t)rank * FIELDS * rows_c;
   float* xs = base;
-  float* us = base + rows_c;
-  float* costs = base + 2 * rows_c;
-  float* colls = base + 3 * rows_c;
-  int slot = 0;
+  float* ys = base + rows_c;
+  float* us = base + 2 * rows_c;
+  float* costs = base + 3 * rows_c;
+  float* colls = base + 4 * rows_c;
+  Cluster c{sh, cluster, rank, 0, 0u};
+  c.init();
 
   // per node: capacity and cost, as score_capacity.cu computes them
   float ask[NUM_XR];
@@ -202,20 +408,21 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int i = row0 + k * SPAN;
     if (i >= n) break;
     const int j = k * THREADS + threadIdx.x;
-    float c[NUM_XR], u[NUM_XR];
+    float cp[NUM_XR], u[NUM_XR];
 #pragma unroll
     for (int r = 0; r < NUM_XR; ++r) {
-      c[r] = a.cap[(size_t)i * NUM_XR + r];
+      cp[r] = a.cap[(size_t)i * NUM_XR + r];
       u[r] = a.used[(size_t)i * NUM_XR + r];
     }
     float capacity = 1e9f;
 #pragma unroll
     for (int r = 0; r < NUM_XR; ++r)
-      if (ask[r] > 0.0f) capacity = fminf(capacity, floorf((c[r] - u[r]) / ask[r]));
+      if (ask[r] > 0.0f)
+        capacity = fminf(capacity, floorf((cp[r] - u[r]) / ask[r]));
     if (a.feasible[i] == 0) capacity = 0.0f;
     const int32_t cap_i = min((int32_t)fmaxf(capacity, 0.0f), (int32_t)a.mpn);
-    const float safe0 = c[0] > 0.0f ? c[0] : 1.0f;
-    const float safe1 = c[1] > 0.0f ? c[1] : 1.0f;
+    const float safe0 = cp[0] > 0.0f ? cp[0] : 1.0f;
+    const float safe1 = cp[1] > 0.0f ? cp[1] : 1.0f;
     const float fp0 = 1.0f - (u[0] + ask[0]) / safe0;
     const float fp1 = 1.0f - (u[1] + ask[1]) / safe1;
     const float total = pow10_f32(fp0) + pow10_f32(fp1);
@@ -226,59 +433,29 @@ __global__ void __launch_bounds__(THREADS, 1)
     colls[j] = (float)a.coll[i];
     sum_u[0] += (float)cap_i;
   }
-  cluster_reduce<1, false>(sum_u, sh, cluster, slot);
-  float budget = fminf(fminf((float)a.count, a.quota), sum_u[0]);
+  const float total_u = c.sum(c.exchange<1, 0>(sum_u), 0);
+  float budget = fminf(fminf((float)a.count, a.quota), total_u);
   budget = fmaxf(budget, 0.0f);
-  const float scale = budget / fmaxf(sum_u[0], 1.0f);
+  const float scale = budget / fmaxf(total_u, 1.0f);
   const float step = 1.0f / (a.w_f + a.step_c);
   const float half_curv = 0.5f * a.curv;
   const float half_w = a.w_f * 0.5f;
-  for (int k = 0; k < rows; ++k) {
-    if (row0 + k * SPAN >= n) break;
-    const int j = k * THREADS + threadIdx.x;
-    xs[j] = us[j] * scale;
-  }
-  float f_old = objective(xs, costs, colls, rows, row0, n, half_curv, half_w,
-                          sh, cluster, slot);
+  const Rows w{xs, ys, us, costs, colls, rows, row0, n};
 
+  float m_yu, m_ny;
+  float f_old = iterate_pass<false>(w, c, scale, a.curv, a.w_f, step,
+                                    half_curv, half_w, m_yu, m_ny);
   int it = 0;
   float gap = CUDART_INF_F;
   while (it < a.max_iters && gap > a.tol) {
-    // gradient step, y in place of x; the bracket from min(y - u), max y
-    float m[2] = {CUDART_INF_F, CUDART_INF_F};
-    for (int k = 0; k < rows; ++k) {
-      if (row0 + k * SPAN >= n) break;
-      const int j = k * THREADS + threadIdx.x;
-      const float x = xs[j];
-      const float g = __fmaf_rn(colls[j] + x, a.w_f,
-                                __fmaf_rn(x, a.curv, costs[j]));
-      const float y = __fmaf_rn(-step, g, x);
-      xs[j] = y;
-      m[0] = fminf(m[0], y - us[j]);
-      m[1] = fminf(m[1], -y);
-    }
-    cluster_reduce<2, true>(m, sh, cluster, slot);
-    float lo = m[0] - 1.0f, hi = -m[1] + 1.0f;
-    for (int h = 0; h < PROJECT_ITERS; ++h) {
-      const float mid = 0.5f * (lo + hi);
-      float s[1] = {0.0f};
-      for (int k = 0; k < rows; ++k) {
-        if (row0 + k * SPAN >= n) break;
-        const int j = k * THREADS + threadIdx.x;
-        s[0] += fminf(fmaxf(xs[j] - mid, 0.0f), us[j]);
-      }
-      cluster_reduce<1, false>(s, sh, cluster, slot);
-      if (s[0] > budget) lo = mid;
-      else hi = mid;
-    }
+    float lo = m_yu - 1.0f, hi = -m_ny + 1.0f;
+    for (int r = 0; r < PROJECT_ITERS / LEVELS; ++r)
+      bisect_round<LEVELS>(w, c, budget, lo, hi);
+    if constexpr (PROJECT_ITERS % LEVELS != 0)
+      bisect_round<PROJECT_ITERS % LEVELS>(w, c, budget, lo, hi);
     const float tau = 0.5f * (lo + hi);
-    for (int k = 0; k < rows; ++k) {
-      if (row0 + k * SPAN >= n) break;
-      const int j = k * THREADS + threadIdx.x;
-      xs[j] = fminf(fmaxf(xs[j] - tau, 0.0f), us[j]);
-    }
-    const float f_new = objective(xs, costs, colls, rows, row0, n, half_curv,
-                                  half_w, sh, cluster, slot);
+    const float f_new = iterate_pass<true>(w, c, tau, a.curv, a.w_f, step,
+                                           half_curv, half_w, m_yu, m_ny);
     gap = fabsf(f_old - f_new) / (1.0f + fabsf(f_new));
     f_old = f_new;
     ++it;
@@ -297,7 +474,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     a.scalars_out[1] = it;
     a.scalars_out[2] = __float_as_int(gap);
   }
-  // no block may leave while another can still read its partials
+  // no block may leave while another can still read or write its shared
+  // memory
   cluster.sync();
 }
 

@@ -44,7 +44,8 @@ of nomad_tpu/solver/pallas_kernels.py.
                   held bit for bit against the plain step; no placer path
                   launches it
   launch_floor    csrc/launch_floor.cu, an empty kernel: the card's
-                  launch floor, for measurement only
+                  launch floor, and the fit verdict's grid doing only
+                  its dependent gather, for measurement only
   pow10_check     csrc/pow10_check.cu, the exhaustive check of
                   csrc/pow10.cuh, for chip_smoke.py
 
@@ -157,6 +158,7 @@ _ARGTYPES = {
                             _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P],
     "convex_solve_scratch_bytes": [_I],
     "launch_floor_launch": [_P],
+    "launch_floor_gather_launch": [_P, _P, _I, _I, _P, _P],
     "pow10_check_launch": [ctypes.c_uint, ctypes.c_uint, _P, _P],
 }
 
@@ -967,6 +969,23 @@ def launch_floor(dev) -> None:
     if err != 0:
         raise RuntimeError(f"launch_floor kernel launch failed: "
                            f"cudaError_t {err}")
+
+
+def gather_floor(idx, src) -> torch.Tensor:
+    """One launch of the fit verdict's grid doing only its dependent chain
+    (idx [L, n] or [n] int32, then src[idx, 0] of a float32 [n_res, 5]
+    twin, then a store) on src's current stream: the verdict's gather
+    floor, for measurement only; not counted in LAUNCHES. -> the gathered
+    floats, idx's shape."""
+    out = torch.empty(idx.shape, dtype=torch.float32, device=src.device)
+    n_lanes = idx.shape[0] if idx.dim() == 2 else 1
+    err = _fn("launch_floor", "gather_launch")(
+        idx.data_ptr(), src.data_ptr(), idx.shape[-1], n_lanes,
+        out.data_ptr(), _stream(src.device))
+    if err != 0:
+        raise RuntimeError(f"gather_floor kernel launch failed: "
+                           f"cudaError_t {err}")
+    return out
 
 
 def pow10_check(first: int, last: int, dev) -> tuple:

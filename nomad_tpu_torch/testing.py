@@ -425,11 +425,15 @@ def convex_fuzz_cluster(rng, b=128):
 # the convex solve's fixtures for the card tests and chip_smoke.py: the
 # kernel against the plain version. The bench_* cases are the main
 # path's shape (10,000 nodes, 16,384 rows); small_spread_deep runs all
-# 200 iterations (the objective keeps moving by float32 noise)
+# 200 iterations (the objective keeps moving by float32 noise);
+# bucket_65536 is the largest bucket whose rows the kernel keeps in
+# shared memory, bucket_131072 one that takes its global scratch;
+# fuzz_full has no capacity anywhere (sum u = 0: budget 0)
 CONVEX_CASES = ("bench_binpack", "bench_spread", "bench_binpack_deep",
                 "bench_spread_deep", "fuzz_quota", "fuzz_distinct",
                 "fuzz_affinity", "fuzz_zero", "fuzz_above_cap",
-                "homogeneous", "small_spread_deep")
+                "homogeneous", "small_spread_deep", "bucket_65536",
+                "bucket_131072", "fuzz_full")
 
 
 def convex_fixture(name):
@@ -446,6 +450,10 @@ def convex_fixture(name):
         return (*convex_case(), kw)
     if name == "small_spread_deep":
         return (*convex_case(100, 128, count=300), kw)
+    if name == "bucket_65536":
+        return (*convex_case(50_000, 65_536, count=15_000), kw)
+    if name == "bucket_131072":
+        return (*convex_case(100_000, 131_072, count=30_000), kw)
     if name == "homogeneous":
         cap = np.zeros((64, 5), np.float32)
         cap[:] = (4_000.0, 8_192.0, 500_000.0, 12_001.0, 10_000.0)
@@ -462,6 +470,8 @@ def convex_fixture(name):
         kw["quota_budget"] = 5.0
     if name == "fuzz_distinct":
         kw["max_per_node"] = 1
+    if name == "fuzz_full":
+        case[1][:, 0] = case[0][:, 0]
     if name == "fuzz_affinity":
         kw["affinity_boost"] = np.where(
             rng.random(128) < 0.3, rng.uniform(-0.5, 0.5, 128),

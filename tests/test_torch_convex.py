@@ -11,7 +11,10 @@ fit verdicts and convex_won equal; iterations equal at tolerances >=
 1e-6; the objective gap within atol 1e-6 (both sides sum in float32 in
 different orders: XLA's blocked reduction against the kernel's cluster
 tree, so the gap's last bits differ; below float32 noise, at 1e-9, the
-iteration count may differ too, ROADMAP Queue 3).
+iteration count may differ too, ROADMAP Queue 3). The kernel's schedule
+of the bisection (rounds of speculative halvings, one reduction a round)
+is modelled in Python and held to the plain sequential loop's bracket
+bit for bit.
 
 Scheduler level: one eval through the reference's Harness and the
 port's (`use_device("cpu")`), every id from a seeded `os.urandom` so both
@@ -308,6 +311,90 @@ def test_card_fixtures_match_reference(name):
         max_iters=kw["max_iters"], tol=kw["tolerance"],
         mpn=kw["max_per_node"], aff=kw["affinity_boost"])
     _assert_parity(want, got, iterations=kw["tolerance"] >= 1e-6)
+
+
+# ------------------------------- the kernel's halving schedule, modelled
+
+def _rounds_bisect(y, u, budget, levels: int) -> tuple:
+    """csrc/convex_solve.cu's schedule of the bisection in Python: rounds
+    of `levels` halvings (the last takes the remainder of PROJECT_ITERS),
+    each computing the 2^L - 1 midpoints of the subtree below (lo, hi)
+    before any sum is known, summing all of them in one tree_sum call
+    (one cluster reduction), then walking the subtree with the loop's
+    `s > budget` tests. -> (lo, hi, tau)."""
+    half = torch.tensor(0.5, dtype=torch.float32)
+    zero = torch.zeros((), dtype=torch.float32)
+    lo = torch.min(y - u) - torch.tensor(1.0)
+    hi = torch.max(y) + torch.tensor(1.0)
+    done = 0
+    while done < convex.PROJECT_ITERS:
+        depth = min(levels, convex.PROJECT_ITERS - done)
+        k = 2 ** depth - 1
+        nlo, nhi, mid = [lo] + [None] * (k - 1), [hi] + [None] * (k - 1), []
+        for i in range(k):
+            mid.append(half * (nlo[i] + nhi[i]))
+            if 2 * i + 2 < k:
+                nlo[2 * i + 1], nhi[2 * i + 1] = nlo[i], mid[i]
+                nlo[2 * i + 2], nhi[2 * i + 2] = mid[i], nhi[i]
+        sums = convex.tree_sum(torch.stack(
+            [torch.minimum(torch.maximum(y - m, zero), u) for m in mid]))
+        node = 0
+        for _ in range(depth):
+            m = half * (lo + hi)
+            assert m.view(torch.int32) == mid[node].view(torch.int32)
+            if sums[node] > budget:
+                lo, node = m, 2 * node + 2
+            else:
+                hi, node = m, 2 * node + 1
+        done += depth
+    return lo, hi, half * (lo + hi)
+
+
+def _bracket_cases() -> dict:
+    """name -> (y, u, budget) as float32 tensors."""
+    rng = np.random.default_rng(1212)
+    f32 = np.float32
+    cases = {}
+    for i in range(6):
+        b = int(rng.integers(5, 3_000))
+        y = (rng.normal(0, 10 ** rng.uniform(-2, 3), b)).astype(f32)
+        u = rng.integers(0, 6, b).astype(f32)
+        budget = f32(rng.uniform(0, 1) * u.sum())
+        cases[f"seed{i}"] = (y, u, budget)
+    # a plateau: every sum between the outliers is 2, so the budget 2
+    # ties the sum at midpoint after midpoint (s > budget is false)
+    cases["tie"] = (np.array([10, 10, -10], f32), np.ones(3, f32), f32(2))
+    y, u, _ = cases["seed0"]
+    cases["budget_zero"] = (y, u, f32(0))
+    cases["u_zero"] = (y, np.zeros_like(u), f32(0))
+    # the budget is the whole box (sum u), so no sum exceeds it: hi
+    # halves down onto lo = -2 and, some 25 halvings in, their midpoint
+    # rounds to lo itself and the bracket is one float
+    cases["collapse"] = (np.zeros(1, f32), np.ones(1, f32), f32(1))
+    return {k: tuple(torch.from_numpy(np.asarray(a, f32)) for a in v)
+            for k, v in cases.items()}
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3, 4])
+@pytest.mark.parametrize("case", sorted(_bracket_cases()))
+def test_round_schedule_gives_the_sequential_bracket(case, levels):
+    """Rounds of speculative halvings end on the bracket and threshold of
+    the plain loop (convex._bisect), bit for bit. The kernel runs 3
+    levels a round (16 rounds of 3 and one of 2); 1, 2 and 4 are the
+    schedules it was timed at. This holds a model of the schedule; the
+    kernel itself is held to the plain solve bit for bit on the card by
+    tests/test_torch_cuda.py test_convex_solve_kernel_matches_plain."""
+    y, u, budget = _bracket_cases()[case]
+    want = convex._bisect(y, u, budget)
+    got = _rounds_bisect(y, u, budget, levels)
+    for g, w in zip(got, want):
+        assert g.view(torch.int32) == w.view(torch.int32)
+    if case == "collapse":
+        assert want[0] == want[1]
+    if case == "tie":
+        s = convex.tree_sum(torch.minimum(torch.maximum(
+            y - want[2], torch.zeros(())), u))
+        assert s == budget
 
 
 def test_placement_objective_matches_reference():

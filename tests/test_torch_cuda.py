@@ -853,7 +853,7 @@ def test_score_capacity_gather_entry_equals_the_greedy_entry(dev, mpn):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_lanes", [0, 3])
+@pytest.mark.parametrize("n_lanes", [0, 3, 8])
 def test_fit_verdict_kernel_matches_plain(dev, n_lanes):
     """Bit for bit, on solved placements and on over-full ones, solo
     (n_lanes 0) and over lanes; placed comes back beside the verdict in
@@ -877,6 +877,44 @@ def test_fit_verdict_kernel_matches_plain(dev, n_lanes):
     host = cuda_kernels.fused_to_host(p_k, fit_k)
     assert np.array_equal(host[0], args[3].cpu().numpy())
     assert np.array_equal(host[1], fit_p.cpu().numpy())
+
+
+def _one_element_in(t):
+    """A contiguous copy of `t` that starts one element into its buffer
+    (so no longer on a 16-byte boundary)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_lanes", [0, 3, 8])
+@pytest.mark.parametrize("rows", ["ragged", "misaligned"])
+def test_fit_verdict_kernel_matches_plain_on_odd_rows(dev, n_lanes, rows):
+    """Bit for bit where a row count or a buffer is not a round one: n
+    not a multiple of 4 (a ragged last block), and views that start one
+    element into their buffers."""
+    cap_res, used_res, idx, valid, ask, feas, _, _ = _resident(dev)
+    placed = cuda_kernels.fill_greedy_binpack_fused(
+        *kernels.gather_rows(cap_res, used_res, idx, valid), ask, 4_000,
+        feas)
+    placed = placed + (torch.arange(placed.numel(), device=dev) % 7 == 0
+                       ).to(torch.int32) * 9          # some rows over
+    cols = (idx, valid, placed)
+    if n_lanes:
+        cols = tuple(torch.stack([torch.roll(c, 11 * lane)
+                                  for lane in range(n_lanes)]) for c in cols)
+        ask = torch.stack([ask] * n_lanes).contiguous()
+    if rows == "ragged":
+        cols = tuple(c[..., :4_093].contiguous() for c in cols)
+    else:
+        cols = tuple(_one_element_in(c[..., :4_092]) for c in cols)
+    args = (cols[0], cols[1], ask, cols[2])
+    fit_p = kernels.fit_verdict_ref(cap_res, used_res, *args)
+    assert 0 < int(fit_p.sum()) < fit_p.numel()
+    p_k, fit_k = cuda_kernels.fit_verdict(cap_res, used_res, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(fit_k, fit_p) and torch.equal(p_k, args[3])
 
 
 @pytest.mark.cuda

@@ -8,7 +8,8 @@
   * each module it copies verbatim from nomad_tpu is byte-equal to its
     original (the reference is frozen, so drift is a port fault), and
     the adapted copies differ only where they name the port's package
-    (rpc/codec.py's allow-list, server/server.py:57);
+    (rpc/codec.py's allow-list, server/server.py:57) and where
+    server/server.py's standby warmup waits while its server leads;
   * with no card and no use_device("cpu") or NOMAD_SOLVER_DEVICE=cpu,
     the first solve raises, in process and in a spawned agent;
   * agent/http.py differs from the reference only where it names the
@@ -343,6 +344,10 @@ def test_rpc_codec_differs_only_in_its_package_allow_list():
 
 
 def test_server_differs_only_in_its_backend_module_name():
+    """server.py names the port's backend module (:57), and its standby
+    warmup loop waits while its server leads instead of returning
+    (:1023), so a leader that established below the warmup floor warms
+    once it is a follower again (ROADMAP Queue 3 item 15)."""
     ref = (REF / "server/server.py").read_text().splitlines()
     port = (PORT / "server/server.py").read_text().splitlines()
     diff = [(i + 1, a, b) for i, (a, b) in enumerate(zip(ref, port))
@@ -350,7 +355,44 @@ def test_server_differs_only_in_its_backend_module_name():
     assert len(ref) == len(port)
     assert diff == [(57, '    backend = sys.modules.get("nomad_tpu.solver.backend")',
                      '    backend = sys.modules.get('
-                     '"nomad_tpu_torch.solver.backend")')]
+                     '"nomad_tpu_torch.solver.backend")'),
+                    (1023, '                return          # the leader '
+                     'establish path owns warmup',
+                     '                continue        # leading: warm once '
+                     'a follower again')]
+
+
+def test_port_server_warms_as_a_standby_once_it_stops_leading(monkeypatch):
+    """The standby warmup loop outlives its server's reign: nothing is
+    warmed while it leads, and the warmup runs (and the warm-standby
+    gauge is set) once it follows again."""
+    import threading
+    import time as _time
+    from nomad_tpu_torch.metrics import metrics
+    from nomad_tpu_torch.server import Server
+    from nomad_tpu_torch.server import server as server_mod
+    from nomad_tpu_torch.solver import backend
+    calls = []
+    monkeypatch.delenv("NOMAD_STANDBY_WARMUP", raising=False)
+    monkeypatch.setattr(server_mod, "_warmup_floor", lambda: 0)
+    monkeypatch.setattr(backend, "warmup", lambda n, cfg=None: (
+        calls.append(n), {"skipped": True})[1])
+    monkeypatch.setitem(metrics.gauges, "nomad.standby.warmed", 0)
+    srv = Server(num_workers=1, gc_interval=9999)
+    srv.is_leader = True
+    loop = threading.Thread(target=srv._standby_warmup_loop, daemon=True)
+    loop.start()
+    try:
+        _time.sleep(4.5)
+        assert calls == [] and loop.is_alive()
+        srv.is_leader = False
+        loop.join(5.0)
+        assert not loop.is_alive()
+        assert calls == [0]
+        assert metrics.gauges["nomad.standby.warmed"] == 1
+    finally:
+        srv._shutdown_ev.set()
+        loop.join(5.0)
 
 
 def test_http_differs_only_in_its_ui_package():
