@@ -281,6 +281,20 @@ prints no result):
               missed TTL (`nomad.heartbeat.invalidate`, every server). Every child process is
               stopped and every task process reaped in a `finally`
               (`agent ...` lines).
+ 17. analysis (after `main`) the port's static analyzer gate over the
+              tree this script ships (`python -m nomad_tpu_torch.analysis
+              nomad_tpu_torch`, in a process of its own while the evals
+              run): no active finding, no parse error. Then three evals on
+              fresh 10,000-node clusters under torch's sync debug mode
+              ("warn"): the 50k-task eval serial (the fused route), one
+              fused 2,000-task eval, and the 50k eval pipelined (the main
+              path's default). Every synchronizing call the card reports,
+              from any thread (a warnings hook, not catch_warnings), is
+              counted by the innermost nomad_tpu_torch/ file and line; a
+              sync in SYNC001's scope (solver/placer.py,
+              solver/microbatch.py) must fall on a line carrying a
+              `nomadlint: disable=SYNC001` seam marker. The mode is reset
+              to "default" in a `finally` (`analysis ...` lines).
 
 Servers run with their heartbeat TTL set past the run (no clients here)
 and stop in a `finally`. The native stamping extension (native/) is
@@ -1579,6 +1593,202 @@ def main_path_phase(torch) -> dict:
     out["cache"] = stats
     log(f"main: state cache {json.dumps(stats)}; twins equal the "
         f"committed usage")
+    return out
+
+
+SYNC_SCOPE = ("solver/placer.py", "solver/microbatch.py")   # SYNC001's
+ANALYSIS_TIMEOUT_S = 300.0
+
+
+class _SyncRecorder:
+    """Counts the host syncs of the card while it is installed, from
+    every thread: each synchronizing CUDA call torch's sync debug mode
+    reports (a replaced warnings.showwarning, the module-level hook every
+    thread's warnings reach, under an "always" filter for the sync
+    warning), and each explicit wait the mode does not report
+    (torch.cuda.synchronize, Stream.synchronize, Event.synchronize,
+    wrapped). close() restores all of it. A sync is keyed by its
+    innermost nomad_tpu_torch/ frame ("path:line"; with none, the
+    innermost frame's file, line, function and thread), and by the
+    innermost frame in SYNC001's scope that led to it, if any."""
+
+    MESSAGE = r".*synchroniz.*"
+
+    def __init__(self, torch):
+        import collections
+        import threading
+        import warnings
+        self._torch = torch
+        self._warnings = warnings
+        self._lock = threading.Lock()
+        self.sites = collections.Counter()
+        self.callers = collections.Counter()
+        self._pkg = str(ROOT / "nomad_tpu_torch") + os.sep
+        self._show = warnings.showwarning
+        self._filters = list(warnings.filters)
+        warnings.filterwarnings("always", message=self.MESSAGE)
+        warnings.showwarning = self._hook
+        self._waits = [(torch.cuda, "synchronize"),
+                       (torch.cuda.Stream, "synchronize"),
+                       (torch.cuda.Event, "synchronize")]
+        self._saved = [getattr(o, n) for o, n in self._waits]
+        for (owner, name), fn in zip(self._waits, self._saved):
+            setattr(owner, name, self._counted(fn))
+
+    def _counted(self, fn):
+        def wait(*a, **k):
+            self._record(sys._getframe(1))
+            return fn(*a, **k)
+        return wait
+
+    def _hook(self, message, category, filename, lineno, file=None,
+              line=None):
+        if "synchroniz" not in str(message):
+            return self._show(message, category, filename, lineno, file,
+                              line)
+        self._record(sys._getframe(1))
+
+    def _record(self, f) -> None:
+        import threading
+        site, caller, first = None, None, None
+        while f is not None:
+            path = f.f_code.co_filename
+            if path.startswith(self._pkg):
+                rel = path[len(self._pkg):].replace(os.sep, "/")
+                here = f"{rel}:{f.f_lineno}"
+                site = site or here
+                if caller is None and rel in SYNC_SCOPE:
+                    caller = here
+            elif first is None and "warnings" not in os.path.basename(path):
+                tail = os.sep.join(path.split(os.sep)[-2:])
+                first = f"{tail}:{f.f_lineno} ({f.f_code.co_name}, " \
+                    f"thread {threading.current_thread().name})"
+            f = f.f_back
+        site = site or first or "?"
+        with self._lock:
+            self.sites[site] += 1
+            if caller is not None and caller != site:
+                self.callers[caller] += 1
+
+    def take(self) -> tuple:
+        """(sites, callers) counted since the last take, then reset."""
+        with self._lock:
+            out = (dict(self.sites), dict(self.callers))
+            self.sites.clear()
+            self.callers.clear()
+        return out
+
+    def close(self) -> None:
+        for (owner, name), fn in zip(self._waits, self._saved):
+            setattr(owner, name, fn)
+        self._warnings.showwarning = self._show
+        self._warnings.filters[:] = self._filters
+        self._warnings._filters_mutated()
+
+
+def _unmarked_syncs(sites: dict) -> dict:
+    """The sites among `sites` in SYNC001's scope ("path:line") whose line
+    carries no SYNC001 seam marker (the analyzer's own reading of the
+    marker, as its rule applies it)."""
+    from nomad_tpu_torch.analysis.core import SourceModule
+    mods, bad = {}, {}
+    for site, n in sites.items():
+        rel, _, line = site.rpartition(":")
+        if rel not in SYNC_SCOPE:
+            continue
+        if rel not in mods:
+            path = ROOT / "nomad_tpu_torch" / rel
+            mods[rel] = SourceModule(str(path), path.read_text())
+        if not mods[rel].suppressed("SYNC001", int(line)):
+            bad[site] = n
+    return bad
+
+
+def analysis_phase(torch) -> dict:
+    """The port's analyzer gate over this checkout, and the card's own
+    account of every host sync of the 50k eval (serial and pipelined)
+    and of a fused 2k eval, held against SYNC001's seam markers."""
+    from nomad_tpu_torch import mock
+    t_phase = time.perf_counter()
+    gate = subprocess.Popen(
+        [sys.executable, "-m", "nomad_tpu_torch.analysis", "--json",
+         "nomad_tpu_torch"], cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    out = {"evals": {}}
+    try:
+        runs = (("serial", False, (("big", BIG_COUNT), ("mid", MID_COUNT))),
+                ("pipelined", True, (("big", BIG_COUNT),)))
+        for mode, pipelined, jobs in runs:
+            fsm, planner = _cluster(N_LIVE, seed=42,
+                                    plan_pipeline_enabled=pipelined)
+            with _applier(planner):
+                for job_id, count in jobs:
+                    job = _mk_batch_job(mock, f"sync-{mode}-{job_id}",
+                                        count)
+                    torch.cuda.synchronize()
+                    # the recorder spans the eval alone: switching the mode
+                    # can itself sync once in a process
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        rec = _SyncRecorder(torch)
+                        t0 = time.perf_counter()
+                        try:
+                            r = _run_eval(fsm, planner, job,
+                                          f"sync-{mode}-{job_id}")
+                        finally:
+                            rec.close()
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                    sites, callers = rec.take()
+                    placed = len(fsm.state.allocs_by_job("default",
+                                                         job.id))
+                    check(placed == count and r.status == "complete",
+                          f"sync audit {mode} {job_id}: {placed}/{count} "
+                          f"committed, eval {r.status}")
+                    name = f"{mode} {job_id}"
+                    inside = {k: v for k, v in sites.items()
+                              if k.rpartition(":")[0] in SYNC_SCOPE}
+                    outside = {k: v for k, v in sites.items()
+                               if k not in inside}
+                    out["evals"][name] = {
+                        "count": count, "syncs": sum(sites.values()),
+                        "wall_s": time.perf_counter() - t0,
+                        "in_scope": inside, "outside_scope": outside,
+                        "reached_from_scope": callers,
+                        "unmarked": _unmarked_syncs({**sites, **callers})}
+                    e = out["evals"][name]
+                    log(f"analysis syncs {name} ({count} tasks, "
+                        f"{e['wall_s']} s under the audit): "
+                        f"{e['syncs']} syncs; in SYNC001's scope "
+                        f"{json.dumps(inside)}; outside it "
+                        f"{json.dumps(outside)}, reached from the scope "
+                        f"at {json.dumps(callers)}")
+    finally:
+        try:
+            stdout, stderr = gate.communicate(timeout=ANALYSIS_TIMEOUT_S)
+        finally:
+            if gate.poll() is None:
+                gate.kill()
+                gate.wait()
+    findings = json.loads(stdout or "[]")
+    out["gate"] = {"rc": gate.returncode, "findings": len(findings),
+                   "parse_errors": stderr.strip().splitlines()}
+    log(f"analysis gate: python -m nomad_tpu_torch.analysis "
+        f"nomad_tpu_torch exited {gate.returncode}, {len(findings)} "
+        f"active findings, parse errors {out['gate']['parse_errors']}")
+    for f in findings[:20]:
+        log(f"  {f['path']}:{f['line']}: {f['rule']} {f['message'][:160]}")
+    check(gate.returncode == 0 and not findings and not stderr.strip(),
+          "the analyzer gate failed over the shipped tree")
+    unmarked = {k: v for e in out["evals"].values()
+                for k, v in e["unmarked"].items()}
+    check(not unmarked, f"syncs in (or reached from) SYNC001's scope on "
+          f"lines without a seam marker: {unmarked}")
+    check(all(e["syncs"] >= 1 for e in out["evals"].values()),
+          "an eval recorded no sync: the audit saw nothing")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"analysis phase: {out['seconds']:.1f} s; every sync in "
+        f"SYNC001's scope on a marked seam")
     return out
 
 
@@ -4805,6 +5015,7 @@ def main() -> int:
     res.update(chunked_phase(np, torch, dev, res["depth_curve"]["floor_ms"]))
     ex = explain_phase(np, torch, dev)
     main = main_path_phase(torch)
+    analysis = analysis_phase(torch)
     service = service_phase(np, torch)
     compare = compare_phase(torch)
     prof = profile_phase(torch)
@@ -4913,7 +5124,7 @@ def main() -> int:
                                for k, r in cvx.items()},
                     "convex_server": cvx_server, "raft": raft,
                     "fused": {"kernels": fused_k, "pairs": fused},
-                    "agent": agent,
+                    "agent": agent, "analysis": analysis,
                     "native_stamping": native_loaded,
                     "greedy_fill": res["greedy_fill"], "pow10": pow10,
                     "card": card,

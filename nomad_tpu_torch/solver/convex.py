@@ -44,6 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import device_program
 from .kernels import (
     BINPACK_MAX_SCORE, _INV_MAX_SCORE, _fma_f32, fill_greedy_binpack,
     fused_fit_verdict, gather_rows, instance_capacity, score_fit,
@@ -87,11 +88,13 @@ def tree_sum(v: torch.Tensor) -> torch.Tensor:
         v = torch.nn.functional.pad(v, (0, pad))
     rows = v.reshape(*v.shape[:-1], -1, SUM_THREADS)
     acc = rows[..., 0, :]
+    # the kernel's summation order, not an iteration: a tree whose depth
+    # the shapes fix, queued with no host sync — nomadlint: disable=CVX001
     for r in range(1, rows.shape[-2]):
         acc = acc + rows[..., r, :]
     t = acc.reshape(*acc.shape[:-1], SUM_CTAS, SUM_WARPS, 32)
-    for dim in (-1, -2, -3):
-        while t.shape[dim] > 1:
+    for dim in (-1, -2, -3):  # the same tree — nomadlint: disable=CVX001
+        while t.shape[dim] > 1:  # nomadlint: disable=CVX001 — the same tree
             h = t.shape[dim] // 2
             t = t.narrow(dim, 0, h) + t.narrow(dim, h, h)
     return t.reshape(v.shape[:-1])
@@ -124,6 +127,8 @@ def _bisect(y: torch.Tensor, u: torch.Tensor, budget: torch.Tensor
     zero = torch.zeros((), dtype=torch.float32, device=y.device)
     lo = torch.min(y - u) - one
     hi = torch.max(y) + one
+    # the plain version's bisection (convex_solve_ref, on the CPU): the
+    # card resolves it inside the kernel — nomadlint: disable=CVX001
     for _ in range(PROJECT_ITERS):
         mid = half * (lo + hi)
         s = tree_sum(torch.minimum(torch.maximum(y - mid, zero), u))
@@ -186,6 +191,9 @@ def convex_solve_ref(cap, used, ask, feasible, job_collisions,
     tol = float(np.float32(tolerance))
     it, gap = 0, float("inf")
     one = torch.tensor(1.0, **f32)
+    # the plain version's iteration: never on the card path, where the
+    # solve is one launch of csrc/convex_solve.cu
+    # nomadlint: disable=CVX001 — the kernel's plain version on the CPU
     while it < int(max_iters) and gap > tol:
         g = _fma_f32(coll + x, w_f, _fma_f32(x, curv_t, cost))
         x2 = _projection_bracket(_fma_f32(-step, g, x), u, budget)
@@ -218,6 +226,7 @@ def _round_to_budget(x: torch.Tensor, u_int: torch.Tensor,
     return placed
 
 
+@device_program
 def finish(cap, used, ask, feasible, job_collisions, max_per_node, solved,
            fairness_weight, spread_algorithm: bool, greedy=None) -> tuple:
     """Steps 5-6 on the solve's device, no host sync: round the final
@@ -245,6 +254,7 @@ def finish(cap, used, ask, feasible, job_collisions, max_per_node, solved,
             won)
 
 
+@device_program
 def convex_eval(cap_res, used_res, idx, valid, ask, count, feasible,
                 max_per_node, affinity_boost, job_collisions, class_ids,
                 distinct_hosts, max_iters, tolerance, fairness_weight,

@@ -96,6 +96,7 @@ import torch
 from ..metrics import metrics
 from . import convex, kernels
 from .buckets import BATCH_LANES
+from .device import device_program
 from .kernels import NUM_XR, _greedy_fill
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
@@ -207,6 +208,9 @@ def build(names=None) -> float:
     for name, out in todo:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        # the memoized loader's build step (_fn): nvcc runs only for a
+        # library missing from BUILD_DIR, whose name hashes its source,
+        # headers and flags — nomadlint: disable=JIT002
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -304,6 +308,8 @@ def _launched(name: str, err: int) -> None:
             f"{name} kernel launch failed: cudaError_t {err}", err)
     with _launch_lock:
         LAUNCHES[name] += 1
+    # a kernel's name: one of the fixed SOURCES (its LAUNCHES key), not a
+    # cluster entity — nomadlint: disable=OBS001
     metrics.incr(f"nomad.solver.kernel_launches.{name}")
 
 
@@ -650,6 +656,7 @@ def fused_to_host(placed, fit) -> tuple:
             host[4 * rows:].view(torch.bool).view(fit.shape).numpy())
 
 
+@device_program
 def fused_eval_depth(cap_res, used_res, idx, valid, ask, count, feasible,
                      job_collisions, desired_count, affinity_boost,
                      max_per_node, order_jitter, jitter_scale,
@@ -682,6 +689,7 @@ def fused_eval_depth(cap_res, used_res, idx, valid, ask, count, feasible,
                         spread_algorithm, depth_grid, solo=True)
 
 
+@device_program
 def fused_eval_depth_lanes(cap_res, used_res, idx, valid, ask, counts,
                            feasible, job_collisions, desired_counts,
                            affinity_boost, max_per_node, order_jitter=None,
@@ -706,6 +714,7 @@ def fused_eval_depth_lanes(cap_res, used_res, idx, valid, ask, counts,
                         jitter_samples, k_max, spread_algorithm, depth_grid)
 
 
+@device_program
 def _fused_depth(cap_res, used_res, idx, valid, ask, counts, feasible,
                  job_collisions, desired_counts, affinity_boost, max_per_node,
                  order_jitter, jitter_scales, jitter_samples, k_max,
@@ -725,6 +734,7 @@ def _fused_depth(cap_res, used_res, idx, valid, ask, counts, feasible,
     return fit_verdict(cap_res, used_res, idx, valid, ask, placed)
 
 
+@device_program
 def fused_eval_greedy(cap_res, used_res, idx, valid, ask, count, feasible,
                       max_per_node, class_ids, distinct_hosts,
                       job_collisions, n_classes: int = 0) -> tuple:
@@ -930,6 +940,7 @@ def convex_solve(cap, used, ask, feasible, job_collisions, affinity_boost,
             scalars[2:3].view(torch.float32).reshape(()))
 
 
+@device_program
 def convex_eval_fused(cap_res, used_res, idx, valid, ask, count, feasible,
                       max_per_node, affinity_boost, job_collisions,
                       class_ids, distinct_hosts, max_iters, tolerance,

@@ -47,6 +47,15 @@ def use_device(dev) -> torch.device:
     return prev
 
 
+def device_program(fn):
+    """Names `fn` a device program: it queues its work on the solve
+    device's stream and returns results still there, with no host sync;
+    its caller brings them back at one copy (cuda_kernels.fused_to_host,
+    convex.to_host). A no-op when the program runs; the analyzer's JIT001
+    holds the body to it (nomad_tpu_torch/analysis/rules_jit.py)."""
+    return fn
+
+
 def solve_device() -> torch.device:
     """The device solves run on. Raises when it is a card and none is
     present."""

@@ -62,6 +62,7 @@ import torch
 from ..state.usage_index import (       # noqa: F401  (re-exported)
     NUM_XR, XR_CPU, XR_DISK, XR_MBITS, XR_MEM, XR_PORTS,
 )
+from .device import device_program
 
 BINPACK_MAX_SCORE = 18.0
 MAX_PER_NODE_CAP = 2 ** 30
@@ -503,6 +504,7 @@ def _fused_explain(cap, used, ask, feasible, job_collisions, placed,
             buf[d + n_classes:d + 2 * n_classes])
 
 
+@device_program
 def fused_eval_depth(cap_res, used_res, idx, valid, ask, count, feasible,
                      job_collisions, desired_count, affinity_boost,
                      max_per_node, order_jitter, jitter_scale,
@@ -530,6 +532,7 @@ def fused_eval_depth(cap_res, used_res, idx, valid, ask, count, feasible,
                                 placed, class_ids, distinct_hosts, n_classes)
 
 
+@device_program
 def fused_eval_greedy(cap_res, used_res, idx, valid, ask, count, feasible,
                       max_per_node, class_ids, distinct_hosts,
                       job_collisions, n_classes: int = 0) -> tuple:
@@ -546,6 +549,7 @@ def fused_eval_greedy(cap_res, used_res, idx, valid, ask, count, feasible,
                                 placed, class_ids, distinct_hosts, n_classes)
 
 
+@device_program
 def fused_eval_depth_lanes(cap_res, used_res, idx, valid, ask, counts,
                            feasible, job_collisions, desired_counts,
                            affinity_boost, max_per_node, order_jitter=None,

@@ -136,6 +136,7 @@ class MicroBatcher:
         """The eval broker's outstanding (dequeued, unacked) eval count,
         pushed on every dequeue/ack/nack. An int store is atomic under the
         GIL; no lock on the broker's hot path."""
+        # nomadlint: disable=LOCK001 — deliberate GIL-atomic store (above)
         self._broker_hint = max(0, int(n))
 
     def concurrency(self) -> int:
@@ -293,9 +294,11 @@ class MicroBatcher:
             # the window's one sync
             if fused:
                 twins = lanes[0].args[:2]
+                # nomadlint: disable=SYNC001 — the fused window's one sync
                 out = tuple(zip(*cuda_kernels.fused_to_host(
                     *lanes_fn(*twins, *cols))))
             else:
+                # nomadlint: disable=SYNC001 — the window's one sync
                 out = lanes_fn(*cols).cpu()
         except backend.device_error_types() as e:
             backend.note_dispatch_failure("batch", e)

@@ -135,6 +135,8 @@ class _Chunk:
     def numpy(self) -> np.ndarray:
         """The placement vector, waiting for this chunk's copy only."""
         if self.event is not None:
+            # the pipelined chunk seam, waiting for this chunk's copy
+            # alone — nomadlint: disable=SYNC001
             self.event.synchronize()
         return self.host.numpy()
 
@@ -623,6 +625,10 @@ class SolverPlacer:
             budget = float(max(0, quota - ns_used))
         else:
             budget = float(2 ** 30)
+        # THE single sync of the convex eval: the chain's one copy to the
+        # host (convex.to_host) brings placement, verdict, iteration count,
+        # gap and the won flag back together
+        # nomadlint: disable=SYNC001 — the designated single-sync seam
         placed_h, fit_h, iters, gap, won = run(
             cap_res, used_res, idx, valid, gt.ask, np.int32(count),
             gt.feasible, np.int32(prep.max_per_node), aff,
@@ -693,6 +699,9 @@ class SolverPlacer:
             args = (cap_res, used_res, idx, valid, gt.ask, np.int32(count),
                     gt.feasible, np.int32(prep.max_per_node), None, dh,
                     gt.job_collisions)
+        # THE single sync of the fused eval: the chain's one copy to the
+        # host (cuda_kernels.fused_to_host) brings placement and verdict
+        # nomadlint: disable=SYNC001 — the designated single-sync seam
         placed_h, fit_h = run(*args)
         return placed_h, fit_h, tier
 
@@ -766,6 +775,7 @@ class SolverPlacer:
             metrics.incr("nomad.solver.state_cache.twin_dispatches")
             args = dev + args[2:]
         # the single device-to-host sync of the solve, inside the chain
+        # nomadlint: disable=SYNC001 — the designated single-sync seam
         return fn(*args).numpy()
 
     def _scan_dispatch(self, prep, tg, count: int) -> np.ndarray:
@@ -800,14 +810,17 @@ class SolverPlacer:
                  *args[4:8], sp_counts, *args[9:14], d_rem, placed,
                  np.int32(prep.max_per_node))
             if left <= cover:   # one solve covers the rest of the ask
-                return chunked_fn(
-                    *a, finish=lambda out: out[0].cpu()).numpy()
+                # nomadlint: disable=SYNC001 — the scan's single-sync seam
+                return chunked_fn(*a, finish=lambda out: out[0].cpu().numpy())
             # a refill: only the placement total reaches the host
             (placed, used, sp_counts, d_rem), total = chunked_fn(
+                # the refill's total: one sync per extra solve of an ask
+                # past one solve's cover — nomadlint: disable=SYNC001
                 *a, finish=lambda out: (out, int(out[0].sum())))
             left = int(count) - total
             if left <= 0 or total == last_total:
                 # done, or capacity exhausted
+                # nomadlint: disable=SYNC001 — the scan's single-sync seam
                 return placed.cpu().numpy()
             last_total = total
 
@@ -992,6 +1005,7 @@ class SolverPlacer:
             with metrics.measure("nomad.solver.solve"):
                 try:
                     # the pipeline's designed per-chunk sync point
+                    # nomadlint: disable=SYNC001 — chunk seam
                     placed_pad = chunk.numpy()
                 except backend.device_error_types() as e:
                     backend.note_dispatch_failure(bname, e)
@@ -1272,6 +1286,7 @@ class SolverPlacer:
         reference shards the candidate axis over a device mesh at pod
         scale, which the port does not have."""
         _, fn = backend.select("preempt")
+        # nomadlint: disable=SYNC001 — preemption sync seam
         return fn(victim_res, victim_prio, ask, free,
                   np.int32(job_prio)).numpy()
 
@@ -1413,6 +1428,8 @@ class SolverPlacer:
         for task in tg.tasks:
             if not skel.task_is_sequential(task.name):
                 continue            # shared CoW row already seeded
+            # genuinely per-alloc: the assigned ports/devices/cores below
+            # differ per instance — nomadlint: disable=PERF001
             tr = AllocatedTaskResources(
                 cpu_shares=task.resources.cpu,
                 memory_mb=task.resources.memory_mb)
@@ -1521,6 +1538,7 @@ class SolverPlacer:
             # the stack's ranked task_resources genuinely vary per option
             # (penalized nodes, assigned ports) so the wrapper is
             # per-alloc; the disk-only shared row is pooled
+            # nomadlint: disable=PERF001 — wrapper differs per alloc
             resources = AllocatedResources(
                 tasks=dict(option.task_resources),
                 shared=option.alloc_resources or

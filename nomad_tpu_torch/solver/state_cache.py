@@ -212,13 +212,16 @@ class TensorCache:
 
     # ------------------------------------------------------------ internals
 
-    def _miss(self, *kinds: str) -> None:
+    def _miss_locked(self, *kinds: str) -> None:
+        """Count a miss (and its kinds); the caller holds self._lock."""
         self._misses += 1
         metrics.incr("nomad.solver.state_cache.misses")
         for kind in kinds:
             metrics.incr(f"nomad.solver.state_cache.{kind}")
 
-    def _hit(self, ring: bool = False) -> None:
+    def _hit_locked(self, ring: bool = False) -> None:
+        """Count a hit (a ring hit when `ring`); the caller holds
+        self._lock."""
         self._hits += 1
         metrics.incr("nomad.solver.state_cache.hits")
         if ring:
@@ -247,7 +250,7 @@ class TensorCache:
             k -= 1
         self._seq = floor + k
         self._seed_device_locked()
-        self._miss("reseeds")
+        self._miss_locked("reseeds")
 
     def _seed_device_locked(self) -> None:
         """The twins, from the host mirrors: one copy each to the solve
@@ -391,7 +394,7 @@ class TensorCache:
             if view.uid == self._uid and view.epoch < self._epoch:
                 # a snapshot from BEFORE a node-set change: never roll the
                 # shared cache backward for it — the view is the source
-                self._miss("stale")
+                self._miss_locked("stale")
                 src_cap, src_used = view.cap, view.used
             else:
                 seeded = False
@@ -404,7 +407,7 @@ class TensorCache:
                     seeded = True
                 if view.version >= self.version:
                     if not seeded:  # a reseed already counted its miss
-                        self._hit()
+                        self._hit_locked()
                     src_cap, src_used = self.cap, self.used
                     if resident and self.cap is not None:
                         # twin updates are functional: these references
@@ -418,12 +421,12 @@ class TensorCache:
                 else:
                     for gen in self._ring:
                         if gen.lo <= view.version < gen.hi:
-                            self._hit(ring=True)
+                            self._hit_locked(ring=True)
                             src_cap, src_used = self.cap, gen.used
                             break
                     else:
                         # older than every generation: view is the source
-                        self._miss("stale")
+                        self._miss_locked("stale")
                         src_cap, src_used = view.cap, view.used
         # attribute the cache outcome onto the in-flight solve span: src
         # arrays being the view's == a miss served from the fallback path

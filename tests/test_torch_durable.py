@@ -21,9 +21,9 @@ holds the reference's to:
     bit for bit, to a fresh reseed's (tests/test_failover.py's
     `test_follower_standby_twin_feeds_and_promotes_warm`).
 """
+import io
 import os
 import pickle
-import pickletools
 import time
 import types
 
@@ -321,32 +321,31 @@ def test_midfile_corruption_quarantines_and_recovers(tmp_path):
 
 # ----------------------------------------------- the WAL names modules
 
+class _ModuleRecorder(pickle.Unpickler):
+    """An unpickler that records the module of every class it loads
+    before it loads it."""
+
+    def __init__(self, blob: bytes, found: set):
+        super().__init__(io.BytesIO(blob))
+        self.found = found
+
+    def find_class(self, module, name):
+        self.found.add(module)
+        return super().find_class(module, name)
+
+
 def _pickle_modules(blob: bytes) -> set:
-    """Module names a pickle imports (GLOBAL and STACK_GLOBAL opcodes;
-    STACK_GLOBAL's module is the string pushed or fetched just before
-    its name)."""
-    mods, strings, memo = set(), [], {}
-    for op, arg, _ in pickletools.genops(blob):
-        if op.name == "GLOBAL":
-            mods.add(arg.split(" ")[0])
-        elif op.name in ("SHORT_BINUNICODE", "BINUNICODE", "UNICODE",
-                         "BINUNICODE8"):
-            strings.append(arg)
-        elif op.name == "MEMOIZE":
-            memo[len(memo)] = strings[-1] if strings else None
-        elif op.name in ("BINGET", "LONG_BINGET", "GET"):
-            strings.append(memo.get(arg))
-        elif op.name == "STACK_GLOBAL":
-            mods.add(strings[-2])
-        if op.name not in ("MEMOIZE", "SHORT_BINUNICODE", "BINUNICODE",
-                           "UNICODE", "BINUNICODE8", "BINGET",
-                           "LONG_BINGET", "GET", "STACK_GLOBAL"):
-            strings.append(None)
-    return mods
+    """Module names a pickle imports, read by loading it."""
+    found = set()
+    _ModuleRecorder(blob, found).load()
+    return found
 
 
 def _wal_blobs(durable, root) -> list:
-    """The pickles of every WAL frame, snapshot and meta envelope."""
+    """The pickles of every WAL frame, snapshot and meta envelope, and
+    the store pickle a snapshot carries as bytes under "data" (after a
+    compaction that leaves the log empty, only the snapshot names the
+    store's classes)."""
     out = []
     for name in sorted(os.listdir(root)):
         raw = open(os.path.join(root, name), "rb").read()
@@ -360,6 +359,8 @@ def _wal_blobs(durable, root) -> list:
         elif len(raw) >= durable._ENV_HDR.size:
             _, ln = durable._ENV_HDR.unpack_from(raw, 0)
             out.append(raw[durable._ENV_HDR.size:durable._ENV_HDR.size + ln])
+            if name.startswith("snapshot-"):
+                out.append(pickle.loads(out[-1])["data"])
     return out
 
 

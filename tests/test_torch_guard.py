@@ -14,9 +14,14 @@
     the first solve raises, in process and in a spawned agent;
   * agent/http.py differs from the reference only where it names the
     port's UI package (:1370), and server/worker.py only where its loop
-    waits on a disabled broker instead of spinning.
+    waits on a disabled broker instead of spinning;
+  * the analyzer's framework-neutral rule modules are byte copies, and
+    its adapted modules (the framework, the CLI, the rules that name the
+    package or its rule table) differ from the reference only at the
+    pinned lines (ANALYSIS_ADAPTED).
 """
 import ast
+import difflib
 import os
 import subprocess
 import sys
@@ -49,7 +54,10 @@ VERBATIM = (
      "rpc/virtual.py", "server/durable.py", "server/raft.py",
      "server/gossip.py", "cli.py", "ui/__init__.py", "ui/index.html",
      "agent/__init__.py", "agent/agent.py", "agent/config_file.py",
-     "agent/monitor.py"]
+     "agent/monitor.py", "analysis/rules_lint.py", "analysis/rules_dur.py",
+     "analysis/rules_lead.py", "analysis/rules_lock.py",
+     "analysis/rules_perf.py", "analysis/rules_queue.py",
+     "analysis/rules_read.py", "analysis/rules_rpc.py"]
     + sorted(f"api/{p.name}" for p in (REF / "api").glob("*.py"))
     + sorted(f"client/{p.name}" for p in (REF / "client").glob("*.py"))
     + sorted(f"jobspec/{p.name}" for p in (REF / "jobspec").glob("*.py"))
@@ -68,6 +76,150 @@ WORKER_WAIT = [
     "                with broker._lock:",
     "                    if not broker._enabled and not self._stop.is_set():",
     "                        broker._cond.wait(DEQUEUE_TIMEOUT)"]
+
+
+# the analyzer's adapted modules: (first reference line, reference lines
+# replaced, the port's lines in their place) for each block that differs
+# — the package's name, its rule table and fixture file, and the
+# docstrings that describe them
+ANALYSIS_ADAPTED = {
+    'analysis/__init__.py': [
+        (1, 2, [
+            '"""nomadlint for the PyTorch/CUDA package: AST-based static analysis',
+            '(host-sync and kernel-build discipline, lock discipline, determinism,',
+            'exception hygiene). Run it locally with',
+        ]),
+        (4, 1, [
+            '    python -m nomad_tpu_torch.analysis [--json] [paths...]',
+        ]),
+        (6, 1, [
+            'and see analysis/RULES.md for the rule catalog and the',
+        ]),
+        (16, 3, [
+            '    rules_lint, rules_lock, rules_lockorder, rules_obs, rules_perf,',
+            '    rules_queue, rules_read, rules_registry, rules_rpc, rules_sync,',
+        ]),
+    ],
+    'analysis/__main__.py': [
+        (1, 1, [
+            '"""CLI entry point:',
+            '`python -m nomad_tpu_torch.analysis [--json] [paths...]`.',
+        ]),
+        (5, 3, [
+            'tests/test_torch_analysis.py enforces in tier-1. `--changed` is the',
+            'edit-loop fast path (git-dirty files, per-file rules only); `--graph`',
+            'dumps the whole-program ProjectIndex for debugging rule resolution.',
+        ]),
+        (59, 1, [
+            '        prog="python -m nomad_tpu_torch.analysis",',
+        ]),
+        (62, 1, [
+            '    ap.add_argument("paths", nargs="*", default=["nomad_tpu_torch"],',
+        ]),
+        (64, 1, [
+            '                         "(default: nomad_tpu_torch)")',
+        ]),
+    ],
+    'analysis/core.py': [
+        (1, 1, [
+            '"""nomadlint core: the framework behind `python -m nomad_tpu_torch.analysis`.',
+        ]),
+        (3, 7, [
+            "The PyTorch/CUDA package's own copy of the analyzer. The bug classes that",
+            "bite it are the reference package's, in torch's idiom: host syncs on the",
+            "solver's per-eval path and inside device programs, kernel libraries",
+            'rebuilt or reloaded per call, unlocked mutation of lock-owning classes,',
+            'unseeded randomness on scheduler decision paths, silently swallowed',
+            'daemon exceptions — all statically detectable from the AST, so tier-1',
+            'runs this analyzer over `nomad_tpu_torch/` (tests/test_torch_analysis.py).',
+        ]),
+        (208, 2, [
+            '        ("nomad_tpu_torch/server/raft.py" -> "nomad_tpu_torch.server.raft")',
+            '        — the namespace the ProjectIndex files this module\'s defs under."""',
+        ]),
+        (253, 1, [
+            '        # while `cd nomad_tpu_torch/solver && nomadlint placer.py` still does',
+        ]),
+        (423, 1, [
+            '        # nothing (the CLI default "nomad_tpu_torch" exists only at repo root)',
+        ]),
+    ],
+    'analysis/project.py': [
+        (23, 3, [
+            '    (docs/FAULT_INJECTION.md site catalog, the analysis/RULES.md rule',
+            '    table, tests/test_torch_analysis.py text), found by walking up from',
+            '    the scan roots. No docs found => drift rules stay quiet, so fixture',
+        ]),
+        (136, 0, [
+            "# the port's rule table and fixture file, relative to the root that",
+            '# holds docs/FAULT_INJECTION.md',
+            'RULES_DOC = ("nomad_tpu_torch", "analysis", "RULES.md")',
+            'FIXTURES = ("tests", "test_torch_analysis.py")',
+            '',
+            '',
+        ]),
+        (150, 0, [
+            '        """The first ancestor of a scan root holding the fault catalog',
+            "        (docs/FAULT_INJECTION.md, which the port's sites share with the",
+            "        reference) or the port's rule table (RULES_DOC): both tables and",
+            '        the fixture file (FIXTURES) are read under it."""',
+        ]),
+        (156, 3, [
+            '                fault = os.path.join(cur, "docs", "FAULT_INJECTION.md")',
+            '                rules = os.path.join(cur, *RULES_DOC)',
+        ]),
+        (165, 1, [
+            '                    tl = os.path.join(cur, *FIXTURES)',
+        ]),
+        (362, 1, [
+            '        "nomad_tpu_torch.solver.sharding._launch_lock")."""',
+        ]),
+    ],
+    'analysis/rules_det.py': [
+        (10, 1, [
+            'Flagged inside `nomad_tpu_torch/scheduler/` and `nomad_tpu_torch/solver/`:',
+        ]),
+        (93, 1, [
+            '    The versioned tensor cache (nomad_tpu_torch/solver/state_cache.py) and the',
+        ]),
+    ],
+    'analysis/rules_exc.py': [
+        (7, 1, [
+            '(`nomad_tpu_torch.metrics.record_swallowed_error`), so operators see a',
+        ]),
+    ],
+    'analysis/rules_lockorder.py': [
+        (57, 1, [
+            '    """Shorten `nomad_tpu_torch.server.eval_broker.EvalBroker._lock` to',
+        ]),
+    ],
+    'analysis/rules_obs.py': [
+        (14, 1, [
+            "     ATTRIBUTES (nomad_tpu_torch/obs), which are bounded by the trace store's",
+        ]),
+        (57, 2, [
+            '            d.startswith("nomad_tpu_torch.metrics") or \\',
+            '            d.startswith("nomad_tpu_torch.obs"):',
+        ]),
+        (140, 1, [
+            '            f"attribute (nomad_tpu_torch/obs), or allowlist a provably "',
+        ]),
+    ],
+    'analysis/rules_registry.py': [
+        (5, 5, [
+            'rule ids vs the analysis/RULES.md table (and their',
+            'tests/test_torch_analysis.py fixtures), and SchedulerConfiguration fields',
+            'vs their docstring/validate() coverage. Every one of them has drifted',
+            'silently at least once ("the table forgot the new row"). These rules',
+            'end the class mechanically.',
+        ]),
+        (78, 3, [
+            '    short = ("registered rule without analysis/RULES.md row or "',
+            '             "test_torch_analysis fixture; SchedulerConfiguration field "',
+            '             "without docstring/validate coverage")',
+        ]),
+    ],
+}
 
 
 _EVAL = textwrap.dedent("""
@@ -332,6 +484,19 @@ def test_verbatim_copy_is_byte_equal(rel):
     if rel in ADAPTED:
         want = ADAPTED[rel](want)
     assert (PORT / rel).read_bytes() == want, rel
+
+
+def _changed_blocks(rel: str) -> list:
+    ref = (REF / rel).read_text().splitlines()
+    port = (PORT / rel).read_text().splitlines()
+    sm = difflib.SequenceMatcher(a=ref, b=port, autojunk=False)
+    return [(i1 + 1, i2 - i1, port[j1:j2])
+            for tag, i1, i2, j1, j2 in sm.get_opcodes() if tag != "equal"]
+
+
+@pytest.mark.parametrize("rel", sorted(ANALYSIS_ADAPTED))
+def test_analyzer_copy_differs_only_at_its_pinned_lines(rel):
+    assert _changed_blocks(rel) == ANALYSIS_ADAPTED[rel]
 
 
 def test_rpc_codec_differs_only_in_its_package_allow_list():
