@@ -295,6 +295,30 @@ prints no result):
               solver/microbatch.py) must fall on a line carrying a
               `nomadlint: disable=SYNC001` seam marker. The mode is reset
               to "default" in a `finally` (`analysis ...` lines).
+ 18. mesh     (last) the device mesh (solver/sharding.py) on 4
+              virtual shards of the card (`device.use_devices(["cuda:0"]
+              * 4)`; restored in a `finally`). (1) Each shard's K1, K2,
+              their gather entries and fit_verdict against their plain
+              versions on the shard's block, then every sharded solve on
+              the 50k eval's inputs (greedy 5,000, depth 50,000, fused
+              depth 2,000, fused greedy 1, preemption over 4,096
+              candidates) bit-equal to the solo solve, with one launch of
+              its kernel a shard (counts zeroed just before each solve,
+              read just after) and both walls. (2) Pod scale: 100,000
+              pinned-id nodes, one 200,000-task eval (eval id pod-eval)
+              solo and sharded on identical clusters, placements equal node
+              for node, the sharded leg's syncs under the debug mode (none
+              unmarked), then one 1,000,000-task eval committed whole on
+              the mesh. (3) Elasticity: SHARD_MIN_NODES 8,192, 16 x 1,000
+              tasks with pinned eval ids on a server over the 10,000-node
+              fleet; undisturbed, then shards d2 and d1 lost at staggered
+              dispatch seams (one worker: placements equal the undisturbed
+              run's; then 4 workers): one generation bump a loss,
+              quarantine [1, 2], 2 shards, replays, evacuation seconds, 0
+              evals lost; then every shard lost: the next eval raises and
+              commits nothing. (4) With several cards, (1) over the real
+              cards; else one line saying the mesh ran on virtual shards
+              (`mesh ...` lines; no multi-card figure).
 
 Servers run with their heartbeat TTL set past the run (no clients here)
 and stop in a `finally`. The native stamping extension (native/) is
@@ -4970,6 +4994,529 @@ def agent_phase(torch, card: str, n_nodes: int = 10_000,
     return {"dev": dev, **cluster}
 
 
+# --------------------------------------------------------------- the mesh
+
+MESH_SHARDS = 4         # virtual shards of the one card
+POD_NODES, POD_DIFF_TASKS, POD_TASKS = 100_000, 200_000, 1_000_000
+PREEMPT_CANDIDATES, PREEMPT_VICTIMS = 4_096, 8
+CHAOS_FLOOR = 8_192     # SHARD_MIN_NODES for the elasticity leg (bench.py's)
+CHAOS_KILLS = (2, 1)    # shards lost, in this order, at staggered dispatches
+# the fire of each shard's site that raises: d2 at its 5th (on one worker
+# the third eval's solve, replayed on the survivors), d1 at its 9th (a
+# twin advance, replayed on the evacuated twins)
+CHAOS_AFTER = (5, 9)
+MESH_COUNTERS = {"sharded": "nomad.solver.dispatch.sharded",
+                 "fused_sharded": "nomad.solver.dispatch.fused.sharded",
+                 "solo": "nomad.solver.dispatch.cuda",
+                 "fused_solo": "nomad.solver.dispatch.fused.cuda",
+                 "cpu": "nomad.solver.dispatch.torch",
+                 "dispatch_errors": "nomad.solver.dispatch_errors",
+                 "replays": "nomad.mesh.replays",
+                 "rebuilds": "nomad.mesh.rebuilds",
+                 "evacuations": "nomad.solver.state_cache.evacuations"}
+
+
+def _mesh_world(devs) -> None:
+    """Install the shard list `devs` (None: the visible cards) and drop
+    every mesh-keyed state: the quarantine, the generation, chains, the
+    state cache, faults."""
+    from nomad_tpu_torch import faults
+    from nomad_tpu_torch.solver import (backend, device, microbatch,
+                                        sharding, state_cache)
+    device.use_devices(devs)
+    faults.clear()
+    sharding.reset()
+    backend.reset()
+    state_cache.reset()
+    microbatch.reset()
+
+
+def _mesh_counts() -> dict:
+    from nomad_tpu_torch.metrics import metrics
+    return {k: metrics.counter(v) for k, v in MESH_COUNTERS.items()}
+
+
+def _delta(before: dict) -> dict:
+    now = _mesh_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def _k1_vs_plain(torch, kernels, got, want, dens_fn, what) -> tuple:
+    """K1's (d_star, k_star, k_cap) against the plain version's on the
+    same block: k_cap exact, the no-fit rows alike, d_star to ATOL, k_star
+    exact but on near ties. -> (max abs err, near-tie rows)."""
+    d_k, k_k, c_k = got
+    d_p, k_p, c_p = want
+    check(torch.equal(c_k, c_p), f"{what}: k_cap differs")
+    fin = torch.isfinite(d_p)
+    check(torch.equal(torch.isfinite(d_k), fin),
+          f"{what}: rows with no fitting depth differ")
+    err = float((d_k[fin] - d_p[fin]).abs().max()) if fin.any() else 0.0
+    check(err <= ATOL, f"{what}: d_star max abs err {err}")
+    bad = torch.nonzero((k_k != k_p) & fin).flatten()
+    if len(bad):
+        top2 = torch.topk(dens_fn()[bad], 2, dim=1).values
+        gap = (top2[:, 0] - top2[:, 1]).abs()
+        check(bool((gap <= NEAR_TIE).all()),
+              f"{what}: k_star differs on {len(bad)} rows, not near ties")
+    return err, int(len(bad))
+
+
+def _shard_kernels_vs_plain(np, torch, m, inp, on_card: bool) -> dict:
+    """Each shard's launch of K1, K2, their gather entries and the
+    verdict against its plain version on that shard's block (the twins'
+    block, and the eval rows the shard owns)."""
+    from nomad_tpu_torch.solver import cuda_kernels, kernels, sharding
+    out = {"max_abs_err": 0.0, "near_tie_rows": 0}
+    caps = sharding.node_blocks(inp["cap"], m)
+    useds = sharding.node_blocks(inp["used"], m)
+    feas = sharding.node_blocks(inp["feasible"], m)
+    colls = sharding.node_blocks(inp["coll"], m)
+    affs = sharding.node_blocks(inp["aff"], m)
+    rows = int(caps[0].shape[0])
+    idx, valid = inp["idx"], inp["valid"]
+    for s, d in enumerate(m.devices):
+        what = f"mesh shard d{d.id}"
+        block = (caps[s], useds[s], inp["ask"], feas[s], colls[s], BIG_COUNT,
+                 affs[s])
+        kw = dict(k_max=128)
+        err, ties = _k1_vs_plain(
+            torch, kernels, cuda_kernels.depth_curve(*block, **kw),
+            kernels.depth_curve_ref(*block, **kw),
+            lambda: kernels.depth_density(*block, **kw)[0], f"{what} K1")
+        c_k, key_k = cuda_kernels.score_capacity_greedy(
+            caps[s], useds[s], inp["ask"], feas[s])
+        c_p, key_p = kernels._greedy_key(*kernels.score_capacity_ref(
+            caps[s], useds[s], inp["ask"], feas[s]), 2 ** 30)
+        check(torch.equal(c_k, c_p), f"{what} K2: capacity differs")
+        err2 = float((key_k - key_p).abs().max())
+        check(err2 <= ATOL, f"{what} K2: key max abs err {err2}")
+        own = (idx // rows) == s
+        idx_s = torch.where(own, idx - s * rows, 0).to(torch.int32)
+        valid_s = valid & own
+        g = (caps[s], useds[s], idx_s[None], valid_s[None], inp["ask"][None],
+             inp["feasible"][None], inp["coll"][None], (BIG_COUNT,),
+             inp["aff"][None], (2 ** 30,))
+        gk = cuda_kernels.depth_curve_gather(*g, k_max=128)
+        cap_g, used_g = kernels.gather_lanes(caps[s], useds[s], g[2], g[3])
+        gp = kernels.depth_curve_lanes_ref(cap_g, used_g, *g[4:], k_max=128)
+        err3, ties3 = _k1_vs_plain(
+            torch, kernels, tuple(x[0] for x in gk), tuple(x[0] for x in gp),
+            lambda: kernels.depth_density(
+                cap_g[0], used_g[0], inp["ask"], inp["feasible"],
+                inp["coll"], BIG_COUNT, inp["aff"], k_max=128)[0],
+            f"{what} K1 gather")
+        ck, kk = cuda_kernels.score_capacity_gather(
+            caps[s], useds[s], idx_s, valid_s, inp["ask"], inp["feasible"])
+        cp, kp = kernels._greedy_key(*kernels.score_capacity_ref(
+            cap_g[0], used_g[0], inp["ask"], inp["feasible"]), 2 ** 30)
+        check(torch.equal(ck, cp), f"{what} K2 gather: capacity differs")
+        err4 = float((kk - kp).abs().max())
+        check(err4 <= ATOL, f"{what} K2 gather: key max abs err {err4}")
+        placed = torch.where(valid_s, 1 + (torch.arange(
+            idx.shape[0], device=idx.device) % 3), 0).to(torch.int32)
+        _, fit_k = cuda_kernels.fit_verdict(caps[s], useds[s], idx_s,
+                                            valid_s, inp["ask"], placed)
+        fit_p = kernels.fit_verdict_ref(caps[s], useds[s], idx_s, valid_s,
+                                        inp["ask"], placed)
+        check(torch.equal(fit_k, fit_p), f"{what} fit_verdict differs")
+        out["max_abs_err"] = max(out["max_abs_err"], err, err2, err3, err4)
+        out["near_tie_rows"] += ties + ties3
+        log(f"{what}: K1, K2, K1 gather, K2 gather and fit_verdict against "
+            f"their plain versions on the shard's block ({rows} twin rows, "
+            f"{int(valid_s.sum())} eval rows owned): max abs err "
+            f"{max(err, err2, err3, err4):.3g}, near-tie rows {ties + ties3}"
+            f", verdict equal")
+    return out
+
+
+def _mesh_solves(np, torch, m, inp, on_card: bool, what: str) -> dict:
+    """Every sharded solve on the 50k eval's inputs against the solo solve
+    on the same inputs, bit for bit; each sharded solve's launches (S a
+    kernel) and its wall (CUDA-event medians, as _median_ms)."""
+    from nomad_tpu_torch.solver import cuda_kernels, kernels, sharding
+    cap, used, ask = inp["cap"], inp["used"], inp["ask"]
+    feas, coll, aff, jit = (inp["feasible"], inp["coll"], inp["aff"],
+                            inp["jitter"])
+    idx, valid = inp["idx"], inp["valid"]
+    twins = (sharding.put_node_sharded(cap, m),
+             sharding.put_node_sharded(used, m))
+    rng = np.random.default_rng(SEED + 7)
+    c, v = PREEMPT_CANDIDATES, PREEMPT_VICTIMS
+    vr = rng.uniform(10, 3_000, size=(c, v, 5)).astype(np.float32)
+    vp = rng.integers(10, 60, size=(c, v)).astype(np.int32)
+    fr = rng.uniform(0, 2_000, size=(c, 5)).astype(np.float32)
+    p_ask = np.array([2_000, 4_096, 300, 0, 0], np.float32)
+    depth = (cap, used, ask, BIG_COUNT, feas, coll, BIG_COUNT, aff, 2 ** 30,
+             jit, 1.0, 0.0)
+    cls = torch.zeros_like(coll)
+    fused_d = (idx, valid, ask, MID_COUNT, feas, coll, MID_COUNT, aff,
+               2 ** 30, jit, 1.5, 0.0, cls, False)
+    fused_g = (idx, valid, ask, 1, feas, 2 ** 30, cls, False, coll)
+    cases = {
+        "greedy": (
+            lambda: sharding.sharded_fill_greedy(m)(cap, used, ask, 5_000,
+                                                    feas, 2 ** 30),
+            lambda: cuda_kernels.fill_greedy_binpack_fused(
+                cap, used, ask, 5_000, feas),
+            {"score_capacity": m.size}),
+        "depth": (
+            lambda: sharding.sharded_fill_depth(m, 128)(*depth),
+            lambda: cuda_kernels.fill_depth_fused(
+                *depth[:8], max_per_node=2 ** 30, order_jitter=jit,
+                jitter_scale=1.0, jitter_samples=0.0, k_max=128),
+            {"depth_curve": m.size}),
+        "fused depth": (
+            lambda: sharding.sharded_fused(m, "depth", k_max=128)(
+                *twins, *fused_d),
+            lambda: cuda_kernels.fused_eval_depth(cap, used, *fused_d,
+                                                  k_max=128),
+            {"depth_curve_gather": m.size, "fit_verdict": m.size}),
+        "fused greedy": (
+            lambda: sharding.sharded_fused(m, "greedy")(*twins, *fused_g),
+            lambda: cuda_kernels.fused_eval_greedy(cap, used, *fused_g),
+            {"score_capacity_gather": m.size, "fit_verdict": m.size}),
+        "preempt": (
+            lambda: sharding.sharded_preempt_top_k(m)(vr, vp, p_ask, fr, 70),
+            lambda: kernels.preempt_top_k(
+                *(torch.from_numpy(a).to(m.lead) for a in (vr, vp, p_ask,
+                                                           fr)), 70),
+            {}),
+    }
+    out = {}
+    for name, (sharded, solo, want_launches) in cases.items():
+        if on_card:
+            torch.cuda.synchronize()
+        cuda_kernels.reset_launches()
+        got = sharded()
+        if on_card:
+            torch.cuda.synchronize()
+        launches = {k: n for k, n in cuda_kernels.LAUNCHES.items() if n}
+        ref = solo()
+        got_t = got if isinstance(got, tuple) else (got,)
+        ref_t = ref if isinstance(ref, tuple) else (ref,)
+        for g, r in zip(got_t, ref_t):
+            check(g.dtype == r.dtype and g.cpu().numpy().tobytes() ==
+                  r.cpu().numpy().tobytes(),
+                  f"{what} {name}: the sharded solve differs from the solo "
+                  f"solve")
+        if on_card:
+            check(launches == want_launches,
+                  f"{what} {name}: launches {launches}, expected "
+                  f"{want_launches}")
+        r = {"launches": launches,
+             "placed": int(got_t[0].sum()) if name != "preempt"
+             else int(got_t[0].sum()),
+             "sharded_ms": _median_ms(torch, sharded) if on_card else None,
+             "solo_ms": _median_ms(torch, solo) if on_card else None}
+        out[name] = r
+        log(f"{what} {name}: sharded over {m.size} shards equals the solo "
+            f"solve bit for bit; launches {json.dumps(launches)} (one a "
+            f"shard); wall {r['sharded_ms']} ms sharded vs {r['solo_ms']} "
+            f"ms solo (one call, CUDA events; virtual shards share one "
+            f"card)" if on_card else
+            f"{what} {name}: sharded equals solo bit for bit")
+    return out
+
+
+def _pod_leg(torch, card_mesh, sharded: bool, count: int, on_card: bool,
+             n_nodes: int, audit: bool = False) -> dict:
+    """One pod-scale leg: a fresh cluster of `n_nodes` pinned-id nodes,
+    one `count`-task eval (eval id "pod-eval"), on the 4-shard mesh or
+    solo. -> the placement map, walls, counters (and the syncs)."""
+    from nomad_tpu_torch import mock
+    _mesh_world(card_mesh if sharded else card_mesh[:1])
+    t0 = time.perf_counter()
+    fsm, planner = _cluster(n_nodes, seed=31, pin="pod-")
+    seed_s = time.perf_counter() - t0
+    job = _mk_batch_job(mock, "pod-diff", count)
+    before = _mesh_counts()
+    rec = None
+    with _applier(planner):
+        if audit and on_card:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            rec = _SyncRecorder(torch)
+        try:
+            r = _drive(torch, fsm, planner, job, "pod-eval",
+                       healthy=on_card)
+        finally:
+            if rec is not None:
+                rec.close()
+                torch.cuda.set_sync_debug_mode("default")
+    d = _delta(before)
+    placed = {}
+    for a in fsm.state.allocs_by_job("default", job.id):
+        placed[a.node_id] = placed.get(a.node_id, 0) + 1
+    out = {"seed_s": seed_s, "wall_s": r["wall_s"], "counts": d,
+           "layers_s": r["layers_s"], "launches": {
+               k: n for k, n in r["launches"].items() if n},
+           "placed": placed, "fsm": (fsm, planner)}
+    if rec is not None:
+        sites, callers = rec.take()
+        out["syncs"] = {"total": sum(sites.values()), "sites": sites,
+                        "reached_from_scope": callers,
+                        "unmarked": _unmarked_syncs({**sites, **callers})}
+    return out
+
+
+def _pod_phase(np, torch, card_mesh, on_card: bool, n_nodes: int,
+               diff_tasks: int, tasks: int) -> dict:
+    """The reference's pod-scale lineage cut to one card: the sharded and
+    the solo leg of one `diff_tasks` eval on identical clusters place node
+    for node alike; then one `tasks` eval commits whole on the mesh."""
+    from nomad_tpu_torch import mock
+    solo = _pod_leg(torch, card_mesh, False, diff_tasks, on_card, n_nodes)
+    del solo["fsm"]
+    shard = _pod_leg(torch, card_mesh, True, diff_tasks, on_card, n_nodes,
+                     audit=True)
+    check(shard["placed"] == solo["placed"],
+          f"pod: the sharded and the solo leg place differently "
+          f"({sum(shard['placed'].values())} vs "
+          f"{sum(solo['placed'].values())} instances)")
+    check(shard["counts"]["sharded"] >= 1 and shard["counts"]["solo"] == 0
+          and solo["counts"]["sharded"] == 0,
+          f"pod: tiers {shard['counts']} / {solo['counts']}")
+    check(not on_card or shard["counts"]["cpu"] == solo["counts"]["cpu"]
+          == 0, "pod: a solve ran on the CPU")
+    if on_card:
+        check(not shard["syncs"]["unmarked"],
+              f"pod: syncs on unmarked lines {shard['syncs']['unmarked']}")
+    log(f"mesh pod: {n_nodes} nodes, one {diff_tasks}-task eval (id "
+        f"pod-eval): sharded leg {shard['wall_s']:.3f} s "
+        f"(nomad.solver.dispatch.sharded {shard['counts']['sharded']}, "
+        f"launches {json.dumps(shard['launches'])}), solo leg "
+        f"{solo['wall_s']:.3f} s (launches {json.dumps(solo['launches'])}); "
+        f"placements equal node for node on {len(shard['placed'])} nodes; "
+        f"cluster builds {shard['seed_s']:.1f} s / {solo['seed_s']:.1f} s "
+        f"(walls on {MESH_SHARDS} virtual shards of one card, not a "
+        f"multi-card figure)")
+    if "syncs" in shard:
+        s = shard["syncs"]
+        log(f"mesh pod syncs (sharded {diff_tasks}-task eval): {s['total']} "
+            f"syncs at {json.dumps(s['sites'])}, reached from SYNC001's "
+            f"scope at {json.dumps(s['reached_from_scope'])}; unmarked "
+            f"{s['unmarked']}")
+    fsm, planner = shard.pop("fsm")
+    job = _mk_batch_job(mock, "pod-batch", tasks)
+    before = _mesh_counts()
+    with _applier(planner):
+        r = _drive(torch, fsm, planner, job, "pod-eval-1m",
+                   healthy=on_card)
+    big = {"wall_s": r["wall_s"], "committed": r["committed"],
+           "counts": _delta(before), "layers_s": r["layers_s"],
+           "launches": {k: n for k, n in r["launches"].items() if n}}
+    check(big["committed"] == tasks and big["counts"]["sharded"] >= 1,
+          f"pod: the {tasks}-task eval committed {big['committed']} "
+          f"(sharded dispatches {big['counts']['sharded']})")
+    log(f"mesh pod headline: one {tasks}-task eval on {n_nodes} nodes "
+        f"through scheduler -> applier -> FSM commit on the {MESH_SHARDS}-"
+        f"shard mesh: {big['committed']} committed in {big['wall_s']:.3f} s "
+        f"(nomad.solver.dispatch.sharded {big['counts']['sharded']}, "
+        f"launches {json.dumps(big['launches'])}, layers "
+        f"{json.dumps({k: round(v, 4) for k, v in big['layers_s'].items()})})")
+    del fsm, planner, r
+    import gc
+    t_gc = time.perf_counter()
+    gc.collect()        # the clusters' allocations, freed here at once
+    log(f"mesh pod: the pod clusters collected in "
+        f"{time.perf_counter() - t_gc:.2f} s")
+    for leg in (shard, solo):
+        leg["placed_nodes"] = len(leg.pop("placed"))
+    return {"diff": {"sharded": shard, "solo": solo}, "headline": big}
+
+
+def _chaos_run(np, torch, snapshot, card_mesh, workers: int, kill: bool,
+               n_jobs: int, count: int, floor: int) -> dict:
+    """One elasticity leg: a fresh server over the fleet's snapshot on the
+    4-shard mesh (SHARD_MIN_NODES at CHAOS_FLOOR), `n_jobs` jobs of
+    `count` tasks with pinned eval ids registered at once; with `kill`,
+    CHAOS_KILLS lost at staggered dispatches."""
+    from nomad_tpu_torch import faults, mock
+    from nomad_tpu_torch.metrics import metrics
+    from nomad_tpu_torch.solver import backend, buckets, sharding
+    _mesh_world(card_mesh)
+    prev_floor = backend.SHARD_MIN_NODES
+    backend.SHARD_MIN_NODES = floor
+    srv = _server(workers, snapshot=snapshot)
+    try:
+        jobs = [_mk_batch_job(mock, f"chaos-{j}", count)
+                for j in range(n_jobs)]
+        ev_skip = metrics.sample_count("nomad.mesh.evacuation")
+        before = _mesh_counts()
+        if kill:
+            faults.install({f"device.lost.d{d}": {"mode": "after", "n": n,
+                                                  "times": 1}
+                            for d, n in zip(CHAOS_KILLS, CHAOS_AFTER)})
+        t0 = time.perf_counter()
+        for j, job in enumerate(jobs):
+            _register_pinned(srv, job, f"chaos-eval-{j}")
+        t1 = _wait_evals(srv, [f"chaos-eval-{j}" for j in range(n_jobs)])
+        fired = {d: faults.fired(f"device.lost.d{d}") for d in CHAOS_KILLS}
+        faults.clear()
+        _check_committed(srv, {j.id: count for j in jobs})
+        placed = {}
+        for job in jobs:
+            m = {}
+            for a in srv.state.allocs_by_job("default", job.id):
+                m[a.node_id] = m.get(a.node_id, 0) + 1
+            placed[job.id] = m
+        n_ev = metrics.sample_count("nomad.mesh.evacuation") - ev_skip
+        evac = metrics.samples["nomad.mesh.evacuation"].raw_window(ev_skip) \
+            if n_ev > 0 else []
+        snap = sharding.snapshot()
+        r = {"workers": workers, "on_card": snap.mesh.lead.type == "cuda",
+             "killed": sorted(d for d, n in fired.items()
+                                                  if n) if kill else [],
+             "fired": fired, "wall_s": t1 - t0, "counts": _delta(before),
+             "generation": sharding.generation(),
+             "quarantined": sorted(sharding.quarantined()),
+             "shards_left": snap.shards,
+             "bucket_10k": buckets.node_bucket(srv.state.node_count()),
+             "evacuation_s": [round(x, 4) for x in evac],
+             "evals_lost": sum(1 for j in range(n_jobs)
+                               if srv.state.eval_by_id(
+                                   f"chaos-eval-{j}").status != "complete"),
+             "placed": placed}
+    finally:
+        _shutdown(srv)
+        backend.SHARD_MIN_NODES = prev_floor
+    return r
+
+
+def _chaos_phase(np, torch, snapshot, card_mesh, n_jobs: int,
+                 count: int, floor: int) -> dict:
+    """The reference's device-chaos shape cut to 4 shards: the same
+    pinned stream undisturbed and with d2 then d1 lost (one worker, so
+    both runs place in one order), then the stream on STREAM_WORKERS
+    concurrent workers with the same kills."""
+    calm = _chaos_run(np, torch, snapshot, card_mesh, 1, False, n_jobs, count,
+                      floor)
+    hit = _chaos_run(np, torch, snapshot, card_mesh, 1, True, n_jobs, count,
+                     floor)
+    busy = _chaos_run(np, torch, snapshot, card_mesh, STREAM_WORKERS, True,
+                      n_jobs, count, floor)
+    for r in (hit, busy):
+        check(r["evals_lost"] == 0, f"chaos: {r['evals_lost']} evals lost")
+        check(r["quarantined"] == sorted(CHAOS_KILLS) and
+              r["generation"] == len(CHAOS_KILLS) and
+              r["counts"]["rebuilds"] == len(CHAOS_KILLS),
+              f"chaos: generation {r['generation']}, quarantine "
+              f"{r['quarantined']}, rebuilds {r['counts']['rebuilds']}")
+        check(r["shards_left"] == MESH_SHARDS - len(CHAOS_KILLS) and
+              r["bucket_10k"] % r["shards_left"] == 0,
+              f"chaos: {r['shards_left']} shards, bucket {r['bucket_10k']}")
+        check(r["counts"]["replays"] >= 1 and r["counts"]["evacuations"] >= 1,
+              f"chaos: replays {r['counts']['replays']}, evacuations "
+              f"{r['counts']['evacuations']}")
+        check(r["counts"]["cpu"] == 0 or not r["on_card"],
+              "chaos: a solve ran on the CPU")
+    check(calm["counts"]["rebuilds"] == 0 and calm["generation"] == 0,
+          "chaos: the undisturbed run rebuilt")
+    check(hit["placed"] == calm["placed"],
+          "chaos: placements differ from the undisturbed run")
+    for name, r in (("undisturbed", calm), ("lost d2 then d1", hit),
+                    (f"{STREAM_WORKERS} workers, lost d2 then d1", busy)):
+        log(f"mesh chaos {name}: {n_jobs} x {count}-task evals, "
+            f"{r['workers']} worker(s), {r['wall_s']:.3f} s; generation "
+            f"{r['generation']}, quarantine {r['quarantined']}, "
+            f"{r['shards_left']} shards left, bucket of the fleet "
+            f"{r['bucket_10k']}; replays {r['counts']['replays']}, "
+            f"evacuations {r['counts']['evacuations']} "
+            f"({r['evacuation_s']} s), evals lost {r['evals_lost']}, "
+            f"dispatches {json.dumps({k: r['counts'][k] for k in ('sharded', 'fused_sharded', 'solo', 'fused_solo', 'cpu')})}")
+    log("mesh chaos: the one-worker stream that lost d2 and d1 placed "
+        "exactly as the undisturbed one, job for job, node for node")
+    for r in (calm, hit, busy):
+        r["placed"] = {k: len(v) for k, v in r["placed"].items()}
+    return {"undisturbed": calm, "lost": hit, "concurrent": busy}
+
+
+def _all_lost_phase(torch, card_mesh) -> dict:
+    """Lose the last shards: the next eval raises and commits nothing,
+    and no solve runs on the CPU."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.solver import backend, sharding
+    _mesh_world(card_mesh)
+    fsm, planner = _cluster(64, seed=5)
+    sharding.rebuild("test", lost_device_ids=CHAOS_KILLS)
+    before = _mesh_counts()
+    sharding.rebuild("test", lost_device_ids=[
+        i for i in range(MESH_SHARDS) if i not in CHAOS_KILLS])
+    check(sharding.lost(), "mesh: shards left after losing every one")
+    job = _mk_batch_job(mock, "lost-all", 16)
+    raised = None
+    try:
+        _run_eval(fsm, planner, job, "lost-all-eval")
+    except sharding.MeshLostError as e:
+        raised = str(e)
+    try:
+        backend.select("depth", N_BUCKET)
+    except sharding.MeshLostError as e:
+        raised = raised or str(e)
+    committed = len(fsm.state.allocs_by_job("default", job.id))
+    d = _delta(before)
+    check(raised is not None and committed == 0 and d["cpu"] == 0 and
+          d["sharded"] == d["solo"] == 0,
+          f"mesh all lost: raised {raised!r}, committed {committed}, "
+          f"counts {d}")
+    log(f"mesh all lost: quarantine {sorted(sharding.quarantined())}; the "
+        f"next eval raised ({raised[:90]}...), committed {committed}, CPU "
+        f"solves {d['cpu']}")
+    return {"raised": raised, "committed": committed}
+
+
+def mesh_phase(np, torch, card: str, nodes_snapshot: bytes,
+               pod_nodes: int = POD_NODES, diff_tasks: int = POD_DIFF_TASKS,
+               tasks: int = POD_TASKS, chaos_jobs: int = STREAM_JOBS,
+               chaos_count: int = STREAM_COUNT, chaos_floor: int = CHAOS_FLOOR,
+               on_card: bool = True) -> dict:
+    """The device mesh (solver/sharding.py) on the card: 4 virtual shards
+    of cuda:0 (`device.use_devices`), every per-shard kernel launch and
+    every merge on the H100. (1) Each shard's kernels against their plain
+    versions, and every sharded solve against the solo solve on the 50k
+    eval's inputs, bit for bit, S launches a kernel a solve. (2) Pod
+    scale. (3) Elasticity. (4) The real cards, if several."""
+    from nomad_tpu_torch.solver import device, sharding
+    t_phase = time.perf_counter()
+    dev = torch.device(card)
+    card_mesh = [card] * MESH_SHARDS
+    out = {}
+    try:
+        _mesh_world(card_mesh)
+        m = sharding.mesh()
+        check(m is not None and m.size == MESH_SHARDS,
+              f"mesh: {m} over {card_mesh}")
+        inp = _fused_inputs(np, torch, dev)
+        out["shards"] = _shard_kernels_vs_plain(np, torch, m, inp, on_card)
+        out["solves"] = _mesh_solves(np, torch, m, inp, on_card,
+                                     f"mesh {MESH_SHARDS} virtual shards")
+        t = time.perf_counter()
+        out["pod"] = _pod_phase(np, torch, card_mesh, on_card, pod_nodes,
+                                diff_tasks, tasks)
+        out["pod"]["seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["chaos"] = _chaos_phase(np, torch, nodes_snapshot, card_mesh,
+                                    chaos_jobs, chaos_count, chaos_floor)
+        out["chaos"]["seconds"] = time.perf_counter() - t
+        out["all_lost"] = _all_lost_phase(torch, card_mesh)
+        n = torch.cuda.device_count() if on_card else 1
+        if n > 1:
+            cards = [f"cuda:{i}" for i in range(n)]
+            _mesh_world(cards)
+            out["cards"] = _mesh_solves(np, torch, sharding.mesh(), inp,
+                                        on_card, f"mesh {n} cards")
+        else:
+            log("mesh: one card visible — the mesh ran on virtual shards of "
+                "one card; its walls are no multi-card figure")
+    finally:
+        _mesh_world(None)
+        device.use_devices(None)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"mesh phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5044,6 +5591,9 @@ def main() -> int:
     t_agent = time.perf_counter()
     agent = agent_phase(torch, card)
     log(f"agent phase: {time.perf_counter() - t_agent:.1f} s")
+    # last: its 100,000-node clusters and 1.2M allocations are freed at
+    # its end, and no later phase shares the process with their garbage
+    mesh = mesh_phase(np, torch, DEVICE, nodes)
 
     meta = {
         "depth_curve": ("nomad_tpu_torch/solver/csrc/depth_curve.cu",
@@ -5124,7 +5674,7 @@ def main() -> int:
                                for k, r in cvx.items()},
                     "convex_server": cvx_server, "raft": raft,
                     "fused": {"kernels": fused_k, "pairs": fused},
-                    "agent": agent, "analysis": analysis,
+                    "agent": agent, "analysis": analysis, "mesh": mesh,
                     "native_stamping": native_loaded,
                     "greedy_fill": res["greedy_fill"], "pow10": pow10,
                     "card": card,

@@ -14,8 +14,9 @@ from .core import (                                    # noqa: F401
 from .project import ProjectIndex                          # noqa: F401
 from . import (                                            # noqa: F401
     rules_cvx, rules_det, rules_dur, rules_exc, rules_jit, rules_lead,
-    rules_lint, rules_lock, rules_lockorder, rules_obs, rules_perf,
-    rules_queue, rules_read, rules_registry, rules_rpc, rules_sync,
+    rules_lint, rules_lock, rules_lockorder, rules_mesh, rules_obs,
+    rules_perf, rules_queue, rules_read, rules_registry, rules_rpc,
+    rules_shard, rules_sync,
 )
 
 __all__ = ["Baseline", "Finding", "ProjectIndex", "ProjectRule", "Rule",

@@ -13,8 +13,9 @@ Three families, all bounded-cardinality:
     a miss when nvcc has to build it (the built libraries are the port's
     compiled artifacts; runtime.enable_compile_cache points them at a
     durable directory);
-  * the mesh layout, from solver/sharding.describe() (one card: one
-    shard, no mesh).
+  * the mesh layout, from solver/sharding.mesh(): its shard count, the
+    shards' ids and devices (virtual shards repeat a device), or one
+    unsharded device.
 
 Best-effort and exception-proof: telemetry never takes down a scheduler.
 A process that has not touched the card lists no device rows (reading
@@ -68,8 +69,15 @@ def _device_rows() -> list[dict]:
 def _mesh_layout() -> dict:
     try:
         from ..solver import sharding
-        shards = sharding.describe()["Shards"]
-        return {"sharded": shards > 1, "devices": shards}
+        m = sharding.mesh()
+        if m is None:
+            return {"sharded": False, "devices": 1}
+        return {"sharded": True,
+                "axis_names": [sharding.NODE_AXIS],
+                "shape": {sharding.NODE_AXIS: m.size},
+                "devices": m.size,
+                "device_ids": list(m.ids),
+                "torch_devices": [str(d.device) for d in m.devices]}
     except Exception:       # noqa: BLE001
         return {"sharded": False, "devices": 0}
 

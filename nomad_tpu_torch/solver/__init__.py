@@ -11,9 +11,12 @@ plan lifecycle.
 Eval micro-batching (microbatch.py) coalesces concurrent evals' small
 depth solves into one lane-batched launch; the copied server's hooks
 (eval broker, overload controller, plan applier) reach it lazily and
-find it. `sharding.py` is the single-card part of the reference's
-(snapshot, generation, describe). `backend.warmup` builds every kernel
-at leadership establishment.
+find it. `sharding.py` is the device mesh: the node axis split over the
+shards of `device.devices()`, the greedy, depth, fused and preemption
+solves run per shard with their tails on the mesh's first device, the
+state cache's per-shard twins, and the elastic rebuild (quarantine,
+evacuate, replay). `backend.warmup` builds every kernel at leadership
+establishment.
 
 The convex tier (convex.py; scheduler_algorithm "convex") solves a
 depth or greedy eval as one projected-gradient program over the state
@@ -26,9 +29,8 @@ the gather entry of the depth-curve or score/capacity kernel, the torch
 tail and csrc/fit_verdict.cu; the verdict rides the plan to the
 applier's fast path.
 
-Not ported yet: the sharded solves (`make_mesh`,
-`sharded_fill_greedy`) and the reference's host floor and pipeline
-degrade path (card work never moves to the CPU). The copied
+Not ported, by rule: the reference's host floor and pipeline degrade
+path (card work never moves to the CPU). The copied
 plan applier's `state_cache` hooks find this package's cache: the
 evaluate pass gathers from it and every commit feeds it.
 """
@@ -45,3 +47,4 @@ from .tensorize import (  # noqa: F401
     node_capacity_row,
 )
 from .placer import SolverPlacer  # noqa: F401
+from .sharding import sharded_fill_greedy  # noqa: F401

@@ -13,6 +13,16 @@ Every solve the placer issues routes through `select(kernel, n_padded,
          siblings and solves with them as one lane-batched launch
          (cuda_kernels.fill_depth_lanes; kernels.fill_depth_lanes on the
          CPU). A window of one runs the solo chain above.
+  sharded  the node axis split over the device mesh (sharding.py): a
+         greedy or depth solve whose bucket is at least SHARD_MIN_NODES
+         and divides by the mesh's shard count runs K2 or K1 on each
+         shard's row block and its tail once on the mesh's first device
+         (sharding.sharded_fill_greedy / sharded_fill_depth); the fused
+         route's program likewise over the state cache's sharded twins
+         (sharding.sharded_fused). `NOMAD_SOLVER_BACKEND=sharded` forces
+         it on any dividing bucket, any other value keeps every solve
+         solo. The chunked scan, the convex solve and windows stay solo
+         on the mesh's first device.
 
 The returned callable has ONE normalized positional signature per kernel,
 so the placer's call sites are backend-oblivious. It takes the placer's
@@ -29,9 +39,9 @@ twins, a pipelined chunk's fed-forward usage) and host scalars:
               -> (placed, used, sp_counts, dp_remaining)
   preempt: fn(victim_res, victim_prio, ask, free, job_prio) -> bool[C, V]
 
-Dispatch chain (the reference's `LADDER`, one card, no lower rung):
-every selection is a per-call chain of ONE rung, `cuda` on a card and
-`torch` when the caller asked for the CPU. Card work never moves to the
+Dispatch chain (the reference's `LADDER`, no lower rung): every
+selection is a per-call chain of ONE rung, `cuda` on a card, `torch`
+when the caller asked for the CPU, `sharded` on the mesh. Card work never moves to the
 CPU: the reference's host floor is not ported, and the plain versions
 never run on a card. A classified device error (`device_error_types`: an
 injected fault, a kernel launch error, a CUDA runtime error, out of
@@ -66,6 +76,16 @@ a card, kernels.fused_eval_* on the CPU). Its chain has one rung too; a
 device error also counts `nomad.solver.dispatch_errors.fused` and is
 raised out of the eval, where the reference re-solves through the
 classic ladder.
+
+Elastic mesh: a device LOSS on the sharded rung (an attributable
+`device.lost.d<N>` or CUDA error) quarantines the shard and rebuilds the
+mesh at a new generation (sharding.rebuild: chains dropped, twins
+evacuated), then the chain re-selects at the new generation and replays
+the identical host inputs (`host_args`, or the call's own arrays) on the
+survivors, at most sharding.MAX_REPLAYS times (`nomad.mesh.replays`):
+on the survivor mesh, or solo on its first device where the old bucket
+no longer divides. Never on the CPU: when every shard is lost, `tier()`
+raises (sharding.MeshLostError). Chains are keyed on the generation.
 
 `warmup` (from the server's leadership establishment) drives one
 synthetic solve of every kernel the card path uses through `select`,
@@ -110,6 +130,12 @@ BREAKER_WINDOW_S = float(os.environ.get("NOMAD_BREAKER_WINDOW_S", "30"))
 # never engages unless this is raised. Read at call time (tests patch
 # it; chip_smoke.py's stream phase raises it for its on runs).
 BATCH_MAX_COUNT = 0
+
+# The sharded tier's bucket floor: the reference's value
+# (nomad_tpu/solver/backend.py:97), NOT measured on cards — no box with
+# several cards exists here to set it. Read at call time (tests and
+# chip_smoke.py lower it).
+SHARD_MIN_NODES = 32768
 
 _cache: dict = {}
 _dispatch_ctx = threading.local()
@@ -160,8 +186,47 @@ def reset() -> None:
 
 def tier() -> str:
     """The kind of device solves run on now: "cuda" on a card, "torch" on
-    the CPU. Raises like device.solve_device() when the card is missing."""
+    the CPU. Raises like device.solve_device() when the card is missing,
+    and sharding.MeshLostError when every shard of the device set is
+    quarantined."""
+    from . import sharding
+    if sharding.lost():
+        raise sharding.MeshLostError(
+            "every shard of the solver's device set is lost (quarantined "
+            f"{sorted(sharding.quarantined())}): nothing solves until the "
+            "mesh is reset")
     return "cuda" if _device.solve_device().type == "cuda" else "torch"
+
+
+def _snap(mesh_snap=None):
+    """The caller's MeshSnapshot, or a fresh one when it predates the
+    current generation (never build a chain against a dead mesh)."""
+    from . import sharding
+    if mesh_snap is not None and mesh_snap.generation == \
+            sharding.generation():
+        return mesh_snap
+    return sharding.snapshot()
+
+
+def gather_tier(n_padded: int) -> str:
+    """The tier a solve at bucket `n_padded` would take, as the state
+    cache's gather routes by it: "sharded" where the mesh takes the
+    bucket, else tier()."""
+    solo = tier()
+    return "sharded" if sharded_on(n_padded, _snap()) else solo
+
+
+def sharded_on(n_padded: int, snap) -> bool:
+    """Does a solve at bucket `n_padded` take the sharded tier under
+    `snap`? More than one shard, a bucket that divides over them, and the
+    bucket at least SHARD_MIN_NODES (NOMAD_SOLVER_BACKEND=sharded skips
+    the floor; any other value keeps the solve solo)."""
+    if snap.mesh is None or n_padded <= 0 or n_padded % snap.shards:
+        return False
+    forced = os.environ.get("NOMAD_SOLVER_BACKEND", "")
+    if forced:
+        return forced == "sharded"
+    return n_padded >= SHARD_MIN_NODES
 
 
 # ------------------------------------------------------ device errors
@@ -213,26 +278,67 @@ def classify_device_error(exc: BaseException) -> str:
     return "transient"
 
 
-def note_dispatch_failure(tier: str, exc: BaseException) -> None:
-    """One dispatch seam's device error, before the seam raises it: count
-    it, note it on the solve span, classify it and feed the breaker.
-    Device loss opens the tier at once and drops the state cache's twins,
-    so no later gather indexes buffers of a dead context. One card: there
-    is no mesh to rebuild and nothing to replay the inputs on, as the
-    reference does (that waits for the multi-device port)."""
+def _lost_device_ids(exc: BaseException) -> tuple:
+    did = getattr(exc, "device_id", None)
+    return (int(did),) if isinstance(did, int) and did >= 0 else ()
+
+
+def note_dispatch_failure(tier: str, exc: BaseException,
+                          generation: int = None) -> bool:
+    """One dispatch seam's device error: count it, note it on the solve
+    span, classify it and feed the breaker. Device loss opens the tier at
+    once. With one device there is no mesh: the state cache's twins are
+    dropped (no later gather indexes buffers of a dead context) and
+    nothing replays. With a device set of several shards the lost shard
+    (the error's `device_id`) is quarantined and the mesh rebuilt
+    (sharding.rebuild, which evacuates the twins). Returns True when the
+    caller should REPLAY its identical inputs at the new generation: the
+    generation moved past the one the dispatch rode (`generation`; at
+    most one replay a bump, callers cap cascades at
+    sharding.MAX_REPLAYS)."""
     from ..obs import trace
+    from . import sharding
     metrics.incr("nomad.solver.dispatch_errors")
     metrics.incr(f"nomad.solver.dispatch_errors.{tier}")
     trace.annotate_list("dispatch_errors", tier)
     kind = classify_device_error(exc)
     if kind != "device_loss":
         _breaker.record_failure(tier)
-        return
+        return False
     metrics.incr("nomad.solver.device_loss")
     metrics.incr(f"nomad.solver.device_loss.{tier}")
-    _breaker.record_failure(tier, device_loss=True)
-    from . import state_cache
-    state_cache.cache().drop_twins()
+    if len(sharding.all_shards()) <= 1:
+        _breaker.record_failure(tier, device_loss=True)
+        from . import state_cache
+        state_cache.cache().drop_twins()
+        return False
+    lost = _lost_device_ids(exc)
+    metrics.incr("nomad.mesh.device_loss")
+    metrics.incr(f"nomad.mesh.device_loss.{tier}")
+    stale = generation is not None \
+        and sharding.generation() > generation \
+        and not (set(lost) - sharding.quarantined())
+    if not stale:
+        # open NOW: concurrent dispatches must not storm the dead shard
+        # before the rebuild lands (the rebuild resets the tier)
+        _breaker.record_failure(tier, device_loss=True)
+    new_gen = sharding.rebuild("device_loss", lost,
+                               observed_generation=generation)
+    return generation is None or new_gen > generation
+
+
+def on_mesh_rebuild(gen: int, quarantined_new: bool = True) -> None:
+    """sharding.rebuild()'s hook: drop every chain built against the old
+    mesh (the cache keys on the generation too; this frees them). When
+    the rebuild quarantined a new shard, the device tiers' breakers start
+    clean: their failures blame a shard the new generation no longer
+    holds. An unattributable loss rebuilds the same set, and the breaker
+    stays open."""
+    del gen
+    _cache.clear()
+    if quarantined_new:
+        for t in ("sharded", "batch", "cuda"):
+            _breaker.reset_tier(t)
 
 
 class TierBreaker:
@@ -260,6 +366,14 @@ class TierBreaker:
     def reset(self) -> None:
         with self._lock:
             self._tiers.clear()
+
+    def reset_tier(self, tier: str) -> None:
+        """Forget one tier's failures (a mesh rebuild quarantined the
+        shard they blamed)."""
+        with self._lock:
+            if self._tiers.pop(tier, None) is not None:
+                metrics.set_gauge(
+                    f"nomad.solver.tier_breaker_state.{tier}", 0)
 
     def state(self, tier: str) -> str:
         with self._lock:
@@ -341,24 +455,27 @@ def to_host(out):
     return out
 
 
-def _chain(kernel: str, tier: str, fn, loss_site: str):
+def _chain(kernel: str, tier: str, fn, dev):
     """The per-call dispatch of `fn` on `tier`. A classified device error
     (at the launch, or at the host copy that ends a non-async call) is
     noted (note_dispatch_failure) and raised; any other error raises
-    untouched and feeds nothing. `loss_site` is the card's
-    `device.lost.d<N>` fault site, fired on the cuda rung."""
+    untouched and feeds nothing. On the cuda rung the card's
+    `device.lost.d<N>` fault site fires (sharding.solo_loss_site)."""
 
-    def run(*args, finish=None):
+    def run(*args, finish=None, host_args=None):
         """`finish(out)`: the caller's end of a non-async call, the host
         copy of what it needs (a scan refill reads one scalar); the plain
-        host copy of every output by default."""
+        host copy of every output by default. `host_args` (the sharded
+        rung's replay inputs) is not read on a solo rung."""
+        del host_args
         async_mode = getattr(_dispatch_ctx, "on", False)
         from ..obs import trace
+        from . import sharding
         try:
             with trace.span(f"solver.dispatch.{tier}"):
                 faults.fire(f"solver.dispatch.{tier}")
                 if tier == "cuda":
-                    faults.fire(loss_site)
+                    faults.fire(sharding.solo_loss_site(dev))
                 out = fn(*args)
                 if not async_mode:
                     out = finish(out) if finish is not None \
@@ -505,26 +622,34 @@ def _lanes_fn(card: bool, k_max: int, spread_algorithm: bool, depth_grid):
 
 def select(kernel: str, n_padded: int = 0, *, count=None, k_max: int = 128,
            spread_algorithm: bool = False, depth_grid=None,
-           max_steps: int = 256):
+           max_steps: int = 256, mesh_snap=None):
     """-> (tier, chain) for `kernel` in {greedy, depth, chunked, preempt}.
     The tier follows the solve device (device.solve_device(), which
     raises when it is a card and none is present): "cuda" on a card,
     "torch" on the CPU — or "batch" for a depth solve of `count` (the
     instances asked) that may coalesce with concurrent evals
-    (_batch_eligible). Every card solve runs on the card: no small-count
-    host pick (the reference's thresholds were set on a TPU) and no host
-    floor. `n_padded` keeps the reference's signature."""
+    (_batch_eligible), or "sharded" for a greedy or depth solve at a
+    bucket `n_padded` the mesh takes (sharded_on, under `mesh_snap`, the
+    placer's snapshot: its bucket and this choice describe one device
+    set). Every card solve runs on the card: no small-count host pick
+    (the reference's thresholds were set on a TPU) and no host floor."""
     dev = _device.solve_device()
     tier_name = tier()
+    batch = _batch_eligible(kernel, count)
+    if kernel in ("greedy", "depth") and not batch:
+        snap = _snap(mesh_snap)
+        if sharded_on(n_padded, snap):
+            return select_sharded(kernel, snap, k_max=k_max,
+                                  spread_algorithm=spread_algorithm,
+                                  depth_grid=depth_grid)
     key = (kernel, tier_name, str(dev), k_max, spread_algorithm, depth_grid,
            max_steps)
     solo = _cache.get(key)
     if solo is None:
         fn = _build(kernel, tier_name, dev, k_max, max_steps,
                     spread_algorithm, depth_grid)
-        solo = _cache[key] = (tier_name, _chain(
-            kernel, tier_name, fn, f"device.lost.d{dev.index or 0}"))
-    if not _batch_eligible(kernel, count):
+        solo = _cache[key] = (tier_name, _chain(kernel, tier_name, fn, dev))
+    if not batch:
         return solo
     bkey = ("batch",) + key
     batched = _cache.get(bkey)
@@ -535,10 +660,114 @@ def select(kernel: str, n_padded: int = 0, *, count=None, k_max: int = 128,
         skey = (kernel, k_max, spread_algorithm, depth_grid)
         solo_fn = solo[1]
 
-        def run_batched(*args):
+        def run_batched(*args, host_args=None):
+            del host_args       # a window replays its own stacked inputs
             return microbatch.solve(skey, lanes, solo_fn, args)
         batched = _cache[bkey] = ("batch", run_batched)
     return batched
+
+
+# ----------------------------------------------------------------- sharded
+
+def select_sharded(kernel: str, snap, *, k_max: int = 128,
+                   spread_algorithm: bool = False, depth_grid=None):
+    """-> ("sharded", chain) for `kernel` in {greedy, depth, preempt} on
+    `snap`'s mesh, cached per generation."""
+    key = ("sharded", kernel, snap.generation, k_max, spread_algorithm,
+           depth_grid)
+    cached = _cache.get(key)
+    if cached is None:
+        cached = _cache[key] = ("sharded", _sharded_chain(
+            kernel, snap, k_max, spread_algorithm, depth_grid))
+    return cached
+
+
+def select_preempt(shard: bool, mesh_snap=None):
+    """-> (tier, chain) for the batched preemption scan: its candidate
+    axis sharded when `shard` (the placer's PREEMPT_SHARD_MIN) and the
+    mesh has more than one shard, unless NOMAD_SOLVER_BACKEND forces a
+    solo tier; else the solo chain."""
+    tier()
+    snap = _snap(mesh_snap)
+    forced = os.environ.get("NOMAD_SOLVER_BACKEND", "")
+    if shard and snap.mesh is not None and forced in ("", "sharded"):
+        return select_sharded("preempt", snap)
+    return select("preempt")
+
+
+def _replay(kernel: str, args: tuple, finish, k_max: int,
+            spread_algorithm: bool, depth_grid, err: BaseException):
+    """Re-run a sharded dispatch that lost a shard: a fresh selection at
+    the new generation (the survivor mesh, or solo on its first device
+    where the old bucket no longer divides) on the identical inputs,
+    counted in `nomad.mesh.replays`. A cascade replays once a bump, at
+    most sharding.MAX_REPLAYS deep; past that the loss raises."""
+    from ..obs import trace
+    from . import sharding
+    depth = getattr(_dispatch_ctx, "replay_depth", 0)
+    if depth >= sharding.MAX_REPLAYS:
+        raise err
+    metrics.incr("nomad.mesh.replays")
+    trace.annotate_list("dispatch_errors", "sharded:replay")
+    _dispatch_ctx.replay_depth = depth + 1
+    try:
+        if kernel == "preempt":
+            _, fn = select_preempt(True)
+        else:
+            _, fn = select(kernel, int(args[0].shape[0]), k_max=k_max,
+                           spread_algorithm=spread_algorithm,
+                           depth_grid=depth_grid)
+        return fn(*args, finish=finish)
+    finally:
+        _dispatch_ctx.replay_depth = depth
+
+
+def _sharded_chain(kernel: str, snap, k_max: int, spread_algorithm: bool,
+                   depth_grid):
+    """The sharded rung for `kernel` on `snap`'s mesh: the sharded solve
+    (sharding.sharded_fill_greedy / _fill_depth / _preempt_top_k) under
+    the span solver.dispatch.sharded and the fault sites
+    `solver.dispatch.sharded` and `device.lost.d<N>` for each shard. A
+    device loss rebuilds the mesh and replays (_replay) from `host_args`
+    (the caller's uncommitted host arrays, when it passed twins) or the
+    call's own arguments; any other device error is noted and raised."""
+    from . import sharding
+    m, gen = snap.mesh, snap.generation
+    if kernel == "greedy":
+        fn = sharding.sharded_fill_greedy(m)
+    elif kernel == "depth":
+        fn = sharding.sharded_fill_depth(m, k_max, spread_algorithm,
+                                         depth_grid)
+    elif kernel == "preempt":
+        fn = sharding.sharded_preempt_top_k(m)
+    else:
+        raise ValueError(f"no sharded {kernel!r} (greedy, depth, preempt)")
+
+    def run(*args, finish=None, host_args=None):
+        async_mode = getattr(_dispatch_ctx, "on", False)
+        from ..obs import trace
+        try:
+            with trace.span("solver.dispatch.sharded", shards=m.size,
+                            generation=gen):
+                faults.fire("solver.dispatch.sharded")
+                sharding.fire_device_loss_sites(m)
+                out = fn(*args)
+                if not async_mode:
+                    out = finish(out) if finish is not None \
+                        else to_host(out)
+        except device_error_types() as e:
+            if note_dispatch_failure("sharded", e, generation=gen):
+                return _replay(kernel,
+                               host_args if host_args is not None else args,
+                               finish, k_max, spread_algorithm, depth_grid,
+                               e)
+            raise
+        if not async_mode:
+            _breaker.record_success("sharded")
+        roundtrip.note("preempt" if kernel == "preempt" else "solve")
+        metrics.incr("nomad.solver.dispatch.sharded")
+        return out
+    return run
 
 
 # ------------------------------------------------------------------ convex
@@ -587,10 +816,11 @@ def _fire_convex_sites(tier: str, dev) -> None:
     """The convex dispatch's fault sites: `solver.dispatch.convex`, the
     tier's own `solver.dispatch.<tier>` and, on a card, its
     `device.lost.d<N>`."""
+    from . import sharding
     faults.fire("solver.dispatch.convex")
     faults.fire(f"solver.dispatch.{tier}")
     if tier == "cuda":
-        faults.fire(f"device.lost.d{dev.index or 0}")
+        faults.fire(sharding.solo_loss_site(dev))
 
 
 def _convex_chain(kernel: str, tier: str, dev, spread_algorithm: bool):
@@ -643,7 +873,8 @@ def fused_enabled(cfg=None) -> bool:
 
 def select_fused(kernel: str, n_padded: int = 0, *, count=None,
                  k_max: int = 128, spread_algorithm: bool = False,
-                 depth_grid=None, twins_device=None):
+                 depth_grid=None, twins_device=None,
+                 sharded_twins: bool = False, mesh_snap=None):
     """-> (tier, run) for the whole-eval fused program of a `kernel`
     ("depth" or "greedy") eval, or None where the route declines: another
     kernel, or resident twins on another device than the solves (ref
@@ -659,11 +890,29 @@ def select_fused(kernel: str, n_padded: int = 0, *, count=None,
     positional args — the twins, idx, valid, ask, count, ... — and returns
     (placed i32[B], fit bool[B]) on the host through ONE copy
     (cuda_kernels.fused_to_host): the eval's one sync. The placer
-    explains on the host, so the program reduces no explain classes."""
+    explains on the host, so the program reduces no explain classes.
+
+    On the mesh (sharded_on at `n_padded` under `mesh_snap`) the tier is
+    "sharded": sharding.sharded_fused over the state cache's sharded
+    twins. Sharded twins feed the sharded tier alone and solo twins the
+    solo tiers (`sharded_twins` says which the eval holds); a mismatch
+    declines, and the classic route serves the eval."""
     if kernel not in ("depth", "greedy"):
         return None
     dev = _device.solve_device()
     tier_name = tier()
+    snap = _snap(mesh_snap)
+    sharded = sharded_on(n_padded, snap)
+    if sharded != bool(sharded_twins):
+        return None
+    if sharded:
+        key = ("fused", kernel, "sharded", snap.generation, k_max,
+               spread_algorithm, depth_grid)
+        cached = _cache.get(key)
+        if cached is None:
+            cached = _cache[key] = ("sharded", _fused_sharded_chain(
+                kernel, snap, k_max, spread_algorithm, depth_grid))
+        return cached
     if twins_device is not None and torch.device(twins_device) != dev:
         return None
     key = ("fused", kernel, tier_name, str(dev), k_max, spread_algorithm,
@@ -683,7 +932,8 @@ def select_fused(kernel: str, n_padded: int = 0, *, count=None,
         skey = ("fused", kernel, k_max, spread_algorithm, depth_grid)
         solo_fn = solo[1]
 
-        def run_batched(*args):
+        def run_batched(*args, host_args=None):
+            del host_args       # a window replays its own stacked inputs
             # a window's faults and errors are the micro-batcher's; a
             # window of one runs the solo chain, with its own sites
             with _fused_span("batch", kernel):
@@ -743,18 +993,19 @@ def _fused_chain(kernel: str, tier: str, dev, k_max: int,
     untouched. The reference's re-solve through the classic ladder is not
     ported: card work never moves to the CPU, and a failing kernel is
     reported, never papered over."""
-    from . import cuda_kernels, kernels
+    from . import cuda_kernels, kernels, sharding
     mod = cuda_kernels if tier == "cuda" else kernels
     impl = mod.fused_eval_depth if kernel == "depth" \
         else mod.fused_eval_greedy
 
-    def run(*args):
+    def run(*args, host_args=None):
+        del host_args           # one rung, no replay
         try:
             with _fused_span(tier, kernel):
                 faults.fire("solver.dispatch.fused")
                 faults.fire(f"solver.dispatch.{tier}")
                 if tier == "cuda":
-                    faults.fire(f"device.lost.d{dev.index or 0}")
+                    faults.fire(sharding.solo_loss_site(dev))
                 out = cuda_kernels.fused_to_host(*_fused_call(
                     kernel, impl, dev, k_max, spread_algorithm, depth_grid,
                     args))
@@ -764,6 +1015,47 @@ def _fused_chain(kernel: str, tier: str, dev, k_max: int,
             raise
         _breaker.record_success(tier)
         note_fused(tier)
+        return out
+    return run
+
+
+def _fused_sharded_chain(kernel: str, snap, k_max: int,
+                         spread_algorithm: bool, depth_grid):
+    """The fused dispatch on the mesh: sharding.sharded_fused over the
+    sharded twins and its one host copy, under the span
+    solver.dispatch.fused and the sites `solver.dispatch.fused`,
+    `solver.dispatch.sharded` and `device.lost.d<N>` for each shard. A
+    device loss rebuilds the mesh and replays the eval through the
+    classic chain at the new generation from `host_args` (the eval's
+    uncommitted host rows: the twins it held may be of the dead mesh),
+    which returns no verdict (None), as the reference's classic replay
+    does; without `host_args` the loss raises."""
+    from . import cuda_kernels, sharding
+    m, gen = snap.mesh, snap.generation
+    fn = sharding.sharded_fused(m, kernel=kernel, k_max=k_max,
+                                spread_algorithm=spread_algorithm,
+                                depth_grid=depth_grid)
+
+    def run(*args, host_args=None):
+        try:
+            with _fused_span("sharded", kernel):
+                faults.fire("solver.dispatch.fused")
+                faults.fire("solver.dispatch.sharded")
+                sharding.fire_device_loss_sites(m)
+                out = cuda_kernels.fused_to_host(*fn(*args))
+        except device_error_types() as e:
+            metrics.incr("nomad.solver.dispatch_errors.fused")
+            if note_dispatch_failure("sharded", e, generation=gen) and \
+                    host_args is not None:
+                metrics.incr("nomad.mesh.replays")
+                _, classic = select(kernel, int(host_args[0].shape[0]),
+                                    k_max=k_max,
+                                    spread_algorithm=spread_algorithm,
+                                    depth_grid=depth_grid)
+                return classic(*host_args).numpy(), None
+            raise
+        _breaker.record_success("sharded")
+        note_fused("sharded")
         return out
     return run
 
@@ -813,8 +1105,8 @@ WARMUP_MIN_NODES = 256
 def warmup(n_nodes: int, k_maxes: tuple = (8, 64, 128),
            budget_s: float = 300.0, cfg=None) -> dict:
     """Build and load every kernel the card path uses before the first
-    real eval (ref backend.warmup): called from
-    Server._establish_leadership on promotion (a background thread), so a
+    real eval (ref backend.warmup; on a mesh, its sharded chains): called
+    from Server._establish_leadership on promotion (a background thread), so a
     leader's first eval builds and loads no kernel. One tiny synthetic
     solve per (kernel, regime) at the cluster's bucket, driven through
     the real `select()` chains — the depth curve dense and on the sampled
@@ -895,7 +1187,16 @@ def warmup(n_nodes: int, k_maxes: tuple = (8, 64, 128),
     # per depth regime and the greedy one through the real select_fused
     # chains, over the synthetic matrices as the twins
     if fused_enabled(cfg) and time.monotonic() - t0 <= budget_s:
-        head = (cap, used, idx, valid, ask, np.int32(1), feasible)
+        from . import sharding
+        snap = sharding.snapshot()
+        shard = sharded_on(bucket, snap)
+        twins = (cap, used)
+        if shard:
+            # the sharded route's twins, as the state cache seeds them
+            twins = tuple(sharding.put_node_sharded(t, snap.mesh,
+                                                    torch.float32)
+                          for t in (cap, used))
+        head = twins + (idx, valid, ask, np.int32(1), feasible)
         for kernel, kw in plan:
             if kernel not in ("depth", "greedy"):
                 continue
@@ -903,7 +1204,11 @@ def warmup(n_nodes: int, k_maxes: tuple = (8, 64, 128),
                 metrics.incr("nomad.solver.warmup.budget_exhausted")
                 break
             try:
-                _, fn = select_fused(kernel, bucket, **kw)
+                sel = select_fused(kernel, bucket, sharded_twins=shard,
+                                   **kw)
+                if sel is None:
+                    continue
+                _, fn = sel
                 if kernel == "depth":
                     fn(*head, *depth_args[5:], None, np.bool_(False))
                 else:

@@ -517,6 +517,20 @@ def score_capacity_fused(cap, used, ask, feasible, spread: bool = False):
                                   kernels.MAX_PER_NODE_CAP)
 
 
+def score_capacity_greedy(cap, used, ask, feasible,
+                          max_per_node=kernels.MAX_PER_NODE_CAP) -> tuple:
+    """(capacity clamped to max_per_node i32[N], greedy sort key f32[N])
+    — one launch of the score/capacity kernel's greedy entry on CUDA
+    tensors; kernels._greedy_key of score_capacity_ref on CPU tensors.
+    Row-local: a sharded solve runs it on each shard's block."""
+    if cap.device.type == "cpu":
+        return kernels._greedy_key(
+            *kernels.score_capacity_ref(cap, used, ask, feasible),
+            max_per_node)
+    return _launch_score_capacity(cap, used, ask, feasible, False, True,
+                                  max_per_node)
+
+
 def fill_greedy_binpack_fused(cap, used, ask, count, feasible,
                               max_per_node=kernels.MAX_PER_NODE_CAP):
     """kernels.fill_greedy_binpack with the score/capacity kernel's
@@ -525,9 +539,8 @@ def fill_greedy_binpack_fused(cap, used, ask, count, feasible,
     if cap.device.type == "cpu":
         return kernels.fill_greedy_binpack(cap, used, ask, count, feasible,
                                            max_per_node=max_per_node)
-    capacity, key = _launch_score_capacity(cap, used, ask, feasible, False,
-                                           True, max_per_node)
-    return _greedy_fill(capacity, key, count)
+    return _greedy_fill(*score_capacity_greedy(cap, used, ask, feasible,
+                                               max_per_node), count)
 
 
 # ------------------------------------------------- the whole-eval route

@@ -7,6 +7,16 @@ started by another (an agent, the node simulator) is asked through the
 environment: `NOMAD_SOLVER_DEVICE=cpu` (or `cuda:N`), read once at import.
 With no card present and no such request, the first solve raises: the
 solver never carries on on the CPU by itself.
+
+`devices()` is the device set the solver's mesh may span (sharding.py):
+every visible card, or the one CPU device when the CPU was asked for.
+`use_devices(list)` installs an explicit shard list instead, in which a
+torch device may repeat — virtual shards, `["cpu"] * 8` in the tests,
+`["cuda:0"] * 4` in chip_smoke.py — so a mesh of S shards runs on a box
+with fewer cards. Entry i is shard i (the `d<i>` of the
+`device.lost.d<i>` fault sites and of the quarantine). The server never
+calls it; it is the counterpart of the reference's forced host-device
+count, set by a call instead of an environment variable.
 """
 from __future__ import annotations
 
@@ -45,6 +55,34 @@ def use_device(dev) -> torch.device:
     prev = _device
     _device = torch.device(dev)
     return prev
+
+
+_devices: "list[torch.device] | None" = None
+
+
+def use_devices(devs) -> "list[torch.device] | None":
+    """Install an explicit shard list (torch devices or their names; an
+    entry may repeat), or None to go back to the visible devices.
+    Returns the previous list. Tests and chip_smoke.py only."""
+    global _devices
+    prev = _devices
+    _devices = None if devs is None else [torch.device(d) for d in devs]
+    return prev
+
+
+def devices() -> list:
+    """The device set the mesh may span, one entry a shard: the list
+    `use_devices` installed, else every visible card (`cuda:0` ..
+    `cuda:N-1`) when the solve device is a card, else the solve device
+    alone. Nothing here checks that a card is present: solve_device
+    does."""
+    if _devices is not None:
+        return list(_devices)
+    dev = _device
+    if dev.type == "cuda" and torch.cuda.is_available():
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
 
 
 def device_program(fn):

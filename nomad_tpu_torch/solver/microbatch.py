@@ -36,8 +36,13 @@ work never moves to the CPU:
     `nomad.solver.microbatch.solo`, as the reference counts it;
   * a device error in a window is classified (backend.note_dispatch_
     failure, tier "batch"), fed to the breaker and raised to EVERY lane
-    of the window: there is no per-lane host fan-out and no mesh replay
-    (one card).
+    of the window: there is no per-lane host fan-out. A device LOSS that
+    rebuilds the mesh replays the identical window at the new generation
+    (at most sharding.MAX_REPLAYS times, `nomad.mesh.replays`), as the
+    reference replays it.
+  * on a mesh, windows run solo on its first device (the reference
+    shards the lane axis over the mesh, `lane_sharding`: ROADMAP Queue
+    1): a window fires only the lead shard's `device.lost.d<N>` site.
   * a window is not padded to LANES rows: the reference pads with
     count-0 clones of lane 0 because its XLA program has one fixed
     shape, while a launch takes any lane count, so padding lanes would
@@ -288,25 +293,36 @@ class MicroBatcher:
         sctx = sp.ctx()
         for req in lanes:
             req.dispatch_ctx = sctx
-        try:
-            faults.fire("solver.microbatch.dispatch")
-            sharding.fire_device_loss_sites()
-            # the window's one sync
-            if fused:
-                twins = lanes[0].args[:2]
-                # nomadlint: disable=SYNC001 — the fused window's one sync
-                out = tuple(zip(*cuda_kernels.fused_to_host(
-                    *lanes_fn(*twins, *cols))))
-            else:
-                # nomadlint: disable=SYNC001 — the window's one sync
-                out = lanes_fn(*cols).cpu()
-        except backend.device_error_types() as e:
-            backend.note_dispatch_failure("batch", e)
-            sp.end("error", error=repr(e)[:200])
-            raise
-        except BaseException as e:      # noqa: BLE001 — bugs raise as is
-            sp.end("error", error=repr(e)[:200])
-            raise
+        replays = 0
+        while True:
+            gen = sharding.generation()
+            try:
+                faults.fire("solver.microbatch.dispatch")
+                sharding.fire_device_loss_sites(lead_only=True)
+                # the window's one sync
+                if fused:
+                    twins = lanes[0].args[:2]
+                    # nomadlint: disable=SYNC001 — the fused window's sync
+                    out = tuple(zip(*cuda_kernels.fused_to_host(
+                        *lanes_fn(*twins, *cols))))
+                else:
+                    # nomadlint: disable=SYNC001 — the window's one sync
+                    out = lanes_fn(*cols).cpu()
+                break
+            except backend.device_error_types() as e:
+                # a device LOSS that rebuilt the mesh replays the identical
+                # window at the new generation; anything else raises to
+                # every lane
+                if backend.note_dispatch_failure("batch", e, generation=gen) \
+                        and replays < sharding.MAX_REPLAYS:
+                    replays += 1
+                    metrics.incr("nomad.mesh.replays")
+                    continue
+                sp.end("error", error=repr(e)[:200])
+                raise
+            except BaseException as e:  # noqa: BLE001 — bugs raise as is
+                sp.end("error", error=repr(e)[:200])
+                raise
         backend.breaker_record("batch", ok=True)
         if not fused:       # a fused lane bills dispatch.fused.batch
             metrics.incr("nomad.solver.dispatch.batch")
@@ -315,6 +331,13 @@ class MicroBatcher:
             req.out = out[row]
             req.coalesced = True
             req.event.set()
+
+    def on_mesh_rebuild(self, gen: int) -> None:
+        """sharding.rebuild()'s hook, in the reference's order. The port's
+        batcher holds no mesh-keyed state (its windows run on the mesh's
+        first device, stacked afresh per window), so nothing is dropped;
+        a window in flight during the rebuild replays in `_dispatch`."""
+        del gen
 
     def reset(self) -> None:
         """Tests: drop queues and in-flight hints."""
@@ -339,4 +362,5 @@ broker_in_flight = _batcher.broker_in_flight
 concurrency = _batcher.concurrency
 solve = _batcher.solve
 solve_fused = _batcher.solve_fused
+on_mesh_rebuild = _batcher.on_mesh_rebuild
 reset = _batcher.reset

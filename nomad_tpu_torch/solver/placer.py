@@ -71,10 +71,18 @@ rides the plan to the applier's fast path (`_stamp_verdict`). The scan
 and the pipelined lifecycle keep the classic route: they gather the
 eval's rows from the resident twins when they dispatch (`_dev_mats`).
 
-Not ported: the preemption scan sharded over a device mesh.
+On the device mesh (sharding.py) one MeshSnapshot, taken where the
+node axis is padded, pins the bucket and every selection of the eval to
+one device set (`prep.snap`): a greedy or depth solve at a bucket the
+mesh takes runs on the sharded tier, the fused route over the state
+cache's sharded twins, and the batched preemption scan shards its
+candidate axis from PREEMPT_SHARD_MIN candidates. Each still ends at the
+eval's one host copy. The scan, the convex solve and micro-batch windows
+run solo on the mesh's first device.
 """
 from __future__ import annotations
 
+import functools
 import os
 import time
 
@@ -95,6 +103,10 @@ from .buckets import node_bucket, pow2
 from .tensorize import (
     build_group_tensors, _lower_affinities, _lower_distinct, _lower_spreads,
 )
+
+# candidate-node axes at least this long shard their preemption victim
+# scan over the mesh (ref placer.py:61; sharding.sharded_preempt_top_k)
+PREEMPT_SHARD_MIN = 1024
 
 
 class PipelineChunkError(RuntimeError):
@@ -155,7 +167,7 @@ class _SolvePrep:
     __slots__ = ("gt", "n", "count", "use_scan", "use_depth", "k_max",
                  "sp", "dp", "aff", "max_per_node", "spread_alg",
                  "depth_grid", "jitter", "bias_g", "m", "distincts",
-                 "ex", "ex_ids", "ex_ncls")
+                 "ex", "ex_ids", "ex_ncls", "snap")
 
 
 class SolverPlacer:
@@ -401,9 +413,13 @@ class SolverPlacer:
 
         # pad the node axis to the shared pow2 bucket (buckets.node_bucket)
         # so the kernels see one shape per bucket, not one per cluster
-        # size; padding rows are infeasible and can never be chosen
+        # size; padding rows are infeasible and can never be chosen. ONE
+        # MeshSnapshot pins the shard count here and every selection of
+        # this eval below: a rebuild in the middle of the eval cannot
+        # split the bucket from the launch layout
+        snap = sharding.snapshot()
         n = gt.cap.shape[0]
-        padded = node_bucket(n)
+        padded = node_bucket(n, shards=snap.shards)
         if padded != n:
             pad = padded - n
             gt.cap = np.pad(gt.cap, ((0, pad), (0, 0)))
@@ -419,6 +435,7 @@ class SolverPlacer:
             if aff is not None:
                 aff = np.pad(aff, (0, pad))
         prep = _SolvePrep()
+        prep.snap = snap
         prep.gt = gt
         prep.n = n
         prep.count = count
@@ -563,23 +580,33 @@ class SolverPlacer:
         explain_mod.note(rec)
 
     @staticmethod
-    def _dev_mats(gt):
+    def _dev_mats(gt, bname: str = ""):
         """The eval's rows of the state cache's twins (values identical to
-        gt.cap/gt.used, already on the device) when they live on the solve
-        device — else None, and the solve takes the host copies. Where the
+        gt.cap/gt.used, already on the device) for a solve on tier
+        `bname` — else None, and the solve takes the host copies. Where the
         cache handed back the resident twins (the fused or convex route
         was asked for) and the solve takes the classic route, the rows
         are gathered from them here, once per eval (the same device gather
-        the cache runs otherwise)."""
+        the cache runs otherwise). Twins of an older mesh generation are
+        declined (their buffers may be of the dead mesh). Rows gathered
+        from sharded twins stay row blocks for the sharded tier and meet
+        on the mesh's first device for a solo one; solo twins serve a solo
+        tier on the solve device and the sharded tier, which splits
+        them."""
+        if gt.gen is not None and gt.gen != sharding.generation():
+            return None
         dev = _device.solve_device()
         if gt.cap_dev is None and gt.resident is not None and \
                 gt.rows is not None and gt.resident[0].device == dev:
             from . import state_cache
             gt.cap_dev, gt.used_dev = state_cache.gather_twins(
-                gt.resident, gt.rows, gt.cap.shape[0])
+                gt.resident, gt.rows, gt.cap.shape[0], gen=gt.gen)
         if gt.cap_dev is None or gt.used_dev is None or \
-                gt.cap_dev.device != dev:
+                gt.cap_dev.device != dev or \
+                gt.cap_dev.shape[0] != gt.cap.shape[0]:
             return None
+        if sharding.is_node_sharded(gt.cap_dev) and bname != "sharded":
+            return gt.cap_dev.lead(), gt.used_dev.lead()
         return gt.cap_dev, gt.used_dev
 
     def _convex_solve(self, kernel: str, prep, count: int):
@@ -603,6 +630,10 @@ class SolverPlacer:
         if res is None:
             return None
         cap_res, used_res, idx, valid = res
+        if sharding.is_node_sharded(cap_res):
+            # the convex solve runs solo on the mesh's first device: the
+            # sharded twins meet there whole (ROADMAP Queue 1)
+            cap_res, used_res = cap_res.lead(), used_res.lead()
         gt = prep.gt
         bucket = gt.cap.shape[0]
         sel = backend.select_convex(kernel,
@@ -686,23 +717,29 @@ class SolverPlacer:
             kernel, gt.cap.shape[0], count=count, k_max=prep.k_max,
             spread_algorithm=prep.spread_alg,
             depth_grid=prep.depth_grid if kernel == "depth" else None,
-            twins_device=cap_res.device)
+            twins_device=cap_res.device,
+            sharded_twins=sharding.is_node_sharded(cap_res),
+            mesh_snap=prep.snap)
         if sel is None:
             return None
         tier, run = sel
         # no explain classes: the program's class ids are never read
         dh = np.bool_(gt.distinct_hosts)
         if kernel == "depth":
-            args = (cap_res, used_res, idx, valid) + \
-                self._depth_solve_args(prep, tg, count)[2:] + (None, dh)
+            host = self._depth_solve_args(prep, tg, count)
+            args = (cap_res, used_res, idx, valid) + host[2:] + (None, dh)
         else:
+            host = (gt.cap, gt.used, gt.ask, np.int32(count), gt.feasible,
+                    np.int32(prep.max_per_node))
             args = (cap_res, used_res, idx, valid, gt.ask, np.int32(count),
                     gt.feasible, np.int32(prep.max_per_node), None, dh,
                     gt.job_collisions)
         # THE single sync of the fused eval: the chain's one copy to the
-        # host (cuda_kernels.fused_to_host) brings placement and verdict
+        # host (cuda_kernels.fused_to_host) brings placement and verdict;
+        # `host` is the classic route's inputs for a replay after a lost
+        # shard (no verdict then: fit_h None)
         # nomadlint: disable=SYNC001 — the designated single-sync seam
-        placed_h, fit_h = run(*args)
+        placed_h, fit_h = run(*args, host_args=host)
         return placed_h, fit_h, tier
 
     def _stamp_verdict(self, prep, placed: np.ndarray,
@@ -762,17 +799,21 @@ class SolverPlacer:
             bname, fn = backend.select(
                 "depth", gt.cap.shape[0], count=count, k_max=prep.k_max,
                 spread_algorithm=prep.spread_alg,
-                depth_grid=prep.depth_grid)
+                depth_grid=prep.depth_grid, mesh_snap=prep.snap)
             backend.record("depth", bname)
             args = self._depth_solve_args(prep, tg, count)
         else:
-            bname, fn = backend.select("greedy", gt.cap.shape[0])
+            bname, fn = backend.select("greedy", gt.cap.shape[0],
+                                       mesh_snap=prep.snap)
             backend.record("greedy", bname)
             args = (gt.cap, gt.used, gt.ask, np.int32(count), gt.feasible,
                     np.int32(prep.max_per_node))
-        dev = self._dev_mats(gt)
+        dev = self._dev_mats(gt, bname)
         if dev is not None:
             metrics.incr("nomad.solver.state_cache.twin_dispatches")
+            # a sharded rung that loses a shard replays the host arrays,
+            # never the twins (they may be of the lost mesh)
+            fn = functools.partial(fn, host_args=args)
             args = dev + args[2:]
         # the single device-to-host sync of the solve, inside the chain
         # nomadlint: disable=SYNC001 — the designated single-sync seam
@@ -790,13 +831,13 @@ class SolverPlacer:
         cover = max_steps * min(gt.cap.shape[0], 256)
         bname, chunked_fn = backend.select(
             "chunked", gt.cap.shape[0], max_steps=max_steps,
-            spread_algorithm=prep.spread_alg)
+            spread_algorithm=prep.spread_alg, mesh_snap=prep.snap)
         backend.record("chunked", bname)
         args = (gt.cap, gt.used, gt.ask, 0, gt.feasible, gt.job_collisions,
                 np.int32(tg.count), sp.ids, sp.counts, sp.desired, sp.mode,
                 sp.weights, prep.aff, dp.ids, dp.remaining,
                 np.zeros((gt.cap.shape[0],), np.int32))
-        dev = self._dev_mats(gt)
+        dev = self._dev_mats(gt, bname)
         if dev is not None:
             args = dev + args[2:]
             metrics.incr("nomad.solver.state_cache.twin_dispatches")
@@ -951,7 +992,7 @@ class SolverPlacer:
             bname, depth_fn = backend.select(
                 "depth", prep.gt.cap.shape[0], k_max=prep.k_max,
                 spread_algorithm=prep.spread_alg,
-                depth_grid=prep.depth_grid)
+                depth_grid=prep.depth_grid, mesh_snap=prep.snap)
             backend.record("depth", bname)
             base = count // n_chunks
             chunk_counts = [base + (1 if i < count % n_chunks else 0)
@@ -961,6 +1002,9 @@ class SolverPlacer:
             # they served the eval): chunk dispatches then copy nothing
             # and never wait for the chunks queued before them
             args = self._depth_solve_args(prep, tg, count)
+            # the chunks feed usage forward as one tensor on the solve
+            # device (the mesh's first): rows of sharded twins meet there,
+            # and each sharded chunk splits them over the shards again
             dev = self._dev_mats(prep.gt)
             if dev is not None:
                 args = dev + args[2:]
@@ -1279,13 +1323,16 @@ class SolverPlacer:
     def _preempt_masks(victim_res, victim_prio, ask, free,
                        job_prio) -> np.ndarray:
         """Victim-mask solve over all candidate nodes -> bool[C, V]: one
-        kernels.preempt_top_k pass through the backend's ladder (on the
-        card, the host floor from the same numpy inputs on a device
-        error), brought to the host at preemption's own sync (the masks
-        gate an exact host verify; nothing overlaps them). One card: the
-        reference shards the candidate axis over a device mesh at pod
-        scale, which the port does not have."""
-        _, fn = backend.select("preempt")
+        kernels.preempt_top_k pass through the backend's dispatch chain,
+        brought to the host at preemption's own sync (the masks gate an
+        exact host verify; nothing overlaps them). A device error raises
+        out of the eval (one rung, backend.py). From PREEMPT_SHARD_MIN
+        candidates on a mesh the candidate axis shards over it
+        (sharding.sharded_preempt_top_k: each shard scans its own
+        candidates), and a lost shard replays the identical scan on the
+        survivors."""
+        _, fn = backend.select_preempt(
+            victim_res.shape[0] >= PREEMPT_SHARD_MIN)
         # nomadlint: disable=SYNC001 — preemption sync seam
         return fn(victim_res, victim_prio, ask, free,
                   np.int32(job_prio)).numpy()

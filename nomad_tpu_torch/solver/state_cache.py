@@ -57,8 +57,22 @@ the host copies. One while advancing the twins at a commit drops them
 instead (the host mirrors have already advanced, and the commit must
 not fail); the next gather seeds them again on the card.
 
-Not ported: the device mesh (sharded twins, evacuation on device loss,
-generation bumps). One card has one generation, `GENERATION`.
+On the device mesh (sharding.py) the twins are PER-SHARD: one logical
+[B, R'] pair whose row blocks live on their shards
+(sharding.NodeSharded), seeded sharded only where the sharded tier can
+consume the bucket (backend.sharded_on: B at least SHARD_MIN_NODES, or
+NOMAD_SOLVER_BACKEND=sharded) — below it solo twins on the solve device.
+An advance routes each touched row to its owning shard and scatter-SETs
+it there, a gather runs per shard, both under sharding's launch lock;
+the host mirrors stay the source of bit identity. Each result carries
+the twins with their `sharded` flag and the mesh generation they ride
+(`gen`), captured under the lock, so a reader never holds a pair half of
+the old layout and half of the new. A device LOSS on the sharded twins
+(a scatter, a gather) rebuilds the mesh (backend.note_dispatch_failure
+-> sharding.rebuild), whose last step is `evacuate`: the twins re-seed
+over the survivors from the host mirrors at the new bucket, the journal
+cursor kept, and the eval that hit the loss is served from its host
+copies.
 
 NOMAD_STATE_CACHE=0 disables the cache entirely (ops escape hatch; the
 differential tests also use it to produce the oracle path).
@@ -67,6 +81,7 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -80,8 +95,6 @@ from .buckets import node_bucket
 # concurrent scheduler workers can each land one commit between a
 # sibling's snapshot and its gather
 RING = 16
-# the mesh generation every twin rides: one card, no mesh rebuilds
-GENERATION = 0
 
 
 def _device_errors() -> tuple:
@@ -128,7 +141,9 @@ class GatherResult:
     corrections in place); cap_dev/used_dev — when the current twins
     served the request — are bucket-padded tensors on the solve device
     ready for dispatch (padding rows zero, exactly like the host np.pad
-    path). `gen` is the generation the twins were seeded at."""
+    path), on the mesh a sharding.NodeSharded pair in eval order. `gen`
+    is the mesh generation the twins were seeded at: the placer declines
+    twins of an older one."""
 
     __slots__ = ("cap", "used", "cap_dev", "used_dev", "gen", "resident",
                  "version", "uid", "epoch")
@@ -165,9 +180,11 @@ class TensorCache:
         self.elig: Optional[np.ndarray] = None
         self._ring: list[_Generation] = []
         self._bucket = 0                # twin row count (node_bucket)
-        self._cap_dev: Optional[torch.Tensor] = None
-        self._used_dev: Optional[torch.Tensor] = None
+        self._cap_dev = None            # a tensor, or a NodeSharded
+        self._used_dev = None
         self._dev: Optional[torch.device] = None    # where the twins live
+        self._sharded = False           # twins partitioned over the mesh
+        self._gen = -1                  # mesh generation the twins ride
         self._hits = 0
         self._misses = 0
 
@@ -188,6 +205,8 @@ class TensorCache:
             self._bucket = 0
             self._cap_dev = self._used_dev = None
             self._dev = None
+            self._sharded = False
+            self._gen = -1
             self._hits = self._misses = 0
 
     def stats(self) -> dict:
@@ -196,8 +215,8 @@ class TensorCache:
                     "version": self.version, "seq": self._seq,
                     "rows": 0 if self.cap is None else int(self.cap.shape[0]),
                     "generations": len(self._ring),
-                    "mesh_generation": GENERATION,
-                    "twins_sharded": False,
+                    "mesh_generation": self._gen,
+                    "twins_sharded": self._sharded,
                     "twins_device": (None if self._used_dev is None
                                      else str(self._dev)),
                     "hits": self._hits, "misses": self._misses,
@@ -254,25 +273,43 @@ class TensorCache:
 
     def _seed_device_locked(self) -> None:
         """The twins, from the host mirrors: one copy each to the solve
-        device. No twins when the solve device is a card that is not
-        there (device.solve_device raises); the solve reports that."""
+        device, or row blocks over the mesh when the sharded tier takes
+        the bucket (module doc). No twins when the solve device is a card
+        that is not there (device.solve_device raises) or every shard is
+        lost; the solve reports that."""
+        from . import backend, sharding
         self._cap_dev = self._used_dev = None
         self._dev = None
+        self._sharded = False
         try:
             dev = _device.solve_device()
         except RuntimeError:
             return
+        if sharding.lost():
+            return
+        snap = sharding.snapshot()
+        self._gen = snap.generation
         n = self.cap.shape[0]
-        self._bucket = node_bucket(n)
+        self._bucket = node_bucket(n, shards=snap.shards)
         pad = ((0, self._bucket - n), (0, 0))
+        shard = backend.sharded_on(self._bucket, snap)
         try:
-            cap_dev = _upload(np.pad(self.cap, pad), dev)
-            used_dev = _upload(np.pad(self.used, pad), dev)
+            if shard:
+                with sharding.launch_lock():
+                    cap_dev = sharding.put_node_sharded(
+                        np.pad(self.cap, pad), snap.mesh)
+                    used_dev = sharding.put_node_sharded(
+                        np.pad(self.used, pad), snap.mesh)
+                dev = snap.mesh.lead
+            else:
+                cap_dev = _upload(np.pad(self.cap, pad), dev)
+                used_dev = _upload(np.pad(self.used, pad), dev)
         except _device_errors() as e:
             _note_device_failure(e, dev)
             raise
         self._cap_dev, self._used_dev = cap_dev, used_dev
         self._dev = dev
+        self._sharded = shard
         metrics.incr("nomad.solver.state_cache.twin_seeds")
 
     def drop_twins(self) -> None:
@@ -281,6 +318,56 @@ class TensorCache:
         with self._lock:
             self._cap_dev = self._used_dev = None
             self._dev = None
+            self._sharded = False
+
+    def evacuate(self, reason: str = "") -> dict:
+        """The mesh rebuild's last step (sharding.rebuild): move the twins
+        onto the CURRENT generation. (1) A salvage read of the old twins
+        under the launch lock, reported as `salvaged` (still readable and
+        equal to the mirror) and never trusted over the host mirrors,
+        which are the bit-identity source; a loss caught in the middle of
+        an advance leaves the old twins one scatter behind, legitimately.
+        (2) Re-seed from the mirrors on the new mesh (`_seed_device_locked`
+        re-reads the survivor count's bucket and the sharded tier's
+        floor). (3) The journal cursor, `version` and the ring are kept,
+        so later advances continue the same delta stream."""
+        if not self.enabled():
+            return {"skipped": True}
+        from . import sharding
+        t0 = time.monotonic()
+        with self._lock:
+            old_used = self._used_dev
+            if self.cap is None:
+                self._cap_dev = self._used_dev = None
+                self._dev = None
+                self._sharded = False
+                return {"skipped": True}
+            salvaged = False
+            if old_used is not None:
+                try:
+                    # stop-the-world behind the launch lock: an
+                    # evacuation is rare, and its salvage must not race
+                    # a sibling's launch on the dying mesh
+                    # nomadlint: disable=LOCK003 — rare, bounded salvage
+                    with sharding.launch_lock():
+                        got = sharding.to_host(old_used)
+                    n = self.used.shape[0]
+                    salvaged = got[:n].tobytes() == self.used.tobytes()
+                except Exception:   # noqa: BLE001 — dead buffers; the
+                    pass            # host mirror holds the same bits
+            try:
+                self._seed_device_locked()
+            except _device_errors():
+                self._cap_dev = self._used_dev = None
+                self._dev = None
+                self._sharded = False
+            rows = int(self.cap.shape[0])
+        seconds = time.monotonic() - t0
+        metrics.incr("nomad.solver.state_cache.evacuations")
+        metrics.set_gauge("nomad.mesh.evacuation_seconds", round(seconds, 4))
+        metrics.add_sample("nomad.mesh.evacuation", seconds)
+        return {"skipped": False, "seconds": seconds, "reason": reason,
+                "salvaged": salvaged, "rows": rows}
 
     def _advance_locked(self, target_version: int, log) -> bool:
         """Replay journal entries with version <= target_version from the
@@ -344,10 +431,13 @@ class TensorCache:
         scatter-SET into a new tensor (out of place — see the module
         doc). Setting final values, not adding deltas, keeps the twin's
         bits equal to the host mirror whatever the order of duplicate
-        rows."""
+        rows. Sharded twins: each row to its owning shard's block."""
         if self._used_dev is None:
             return
         uniq = np.unique(rows)
+        if self._sharded:
+            self._scatter_sharded_locked(uniq, used)
+            return
         try:
             idx = _upload(uniq, self._dev)
             vals = _upload(used[uniq], self._dev)
@@ -358,6 +448,51 @@ class TensorCache:
             self._cap_dev = self._used_dev = None
             self._dev = None
             _note_device_failure(e, dev)
+
+    def _scatter_sharded_locked(self, uniq: np.ndarray,
+                                used: np.ndarray) -> None:
+        """The sharded twin's advance: the touched rows grouped by owning
+        shard, each group scatter-set into a new block on its shard (the
+        untouched blocks are shared), under the launch lock behind the
+        shards' `device.lost.d<N>` sites. A device loss rebuilds the mesh,
+        whose evacuation re-seeds the twins from the mirror BEFORE this
+        advance (the caller replaces the mirror after), so the advance is
+        replayed on the new twins (`nomad.mesh.replays`) — at most
+        sharding.MAX_REPLAYS times — and the twins stay equal to the
+        mirror."""
+        from . import backend, sharding
+        for _ in range(sharding.MAX_REPLAYS + 1):
+            twin = self._used_dev
+            if twin is None or not self._sharded:
+                if twin is not None:        # evacuated to solo twins
+                    self._scatter_device_locked(uniq, used)
+                return
+            try:
+                with sharding.launch_lock():
+                    sharding.fire_device_loss_sites(twin.mesh)
+                    r = twin.rows
+                    blocks = list(twin.blocks)
+                    for s in np.unique(uniq // r):
+                        mine = uniq[uniq // r == s]
+                        blk = blocks[s]
+                        idx = _upload(mine - s * r, blk.device)
+                        vals = _upload(used[mine], blk.device)
+                        blocks[s] = blk.index_copy(0, idx, vals)
+                    self._used_dev = sharding.NodeSharded(blocks, twin.mesh)
+                return
+            except _device_errors() as e:
+                if not backend.note_dispatch_failure(
+                        "sharded", e, generation=self._gen):
+                    self._cap_dev = self._used_dev = None
+                    self._dev = None
+                    self._sharded = False
+                    return
+                # the identical advance, replayed at the new generation
+                metrics.incr("nomad.mesh.replays")
+        # a loss on every retry: drop the twins; the host mirror serves
+        self._cap_dev = self._used_dev = None
+        self._dev = None
+        self._sharded = False
 
     # -------------------------------------------------------------- reading
 
@@ -373,16 +508,19 @@ class TensorCache:
 
         With `bucket` > 0 the current twins' rows are gathered on their
         device too, padded to `bucket` rows, when `tier` (the backend
-        tier the caller resolved, "cuda" or "torch") solves on the
-        device the twins live on. The twins move to the solve device
-        first if they are elsewhere.
+        tier the caller resolved, "cuda", "torch" or "sharded") consumes
+        what the twins are: sharded twins feed the sharded tier alone,
+        solo twins the solo tier on their device. The solo twins move to
+        the solve device first if they are elsewhere. A device loss in a
+        sharded gather rebuilds the mesh and the eval is served from its
+        host copies (no device pair).
 
         `resident=True` (the reference's `fused` flag, which its convex
         route sets) instead hands back the whole current twins with the
         journal version their bits reflect (`resident`, `version`, `uid`,
         `epoch`), gathering nothing: the convex solve gathers the eval's
-        rows behind its own launch. No tier check there; the convex
-        selector compares the twins' device with the solve device."""
+        rows behind its own launch. No tier check there; the fused and
+        convex selectors route by the twins' device and shardedness."""
         if view.uid == 0 or view.delta_log is None or not self.enabled():
             return None
         # the lock covers only version bookkeeping + the journal replay;
@@ -411,11 +549,12 @@ class TensorCache:
                     src_cap, src_used = self.cap, self.used
                     if resident and self.cap is not None:
                         # twin updates are functional: these references
-                        # keep exactly this version's bits
+                        # keep exactly this version's bits; the sharded
+                        # flag and the generation travel with them
                         pair = self._device_pair_locked("")
                         if pair is not None:
-                            res = (pair, self.version, self._uid,
-                                   self._epoch)
+                            res = (pair[:2], self.version, self._uid,
+                                   self._epoch, pair[3])
                     elif bucket and self.cap is not None:
                         dev = self._device_pair_locked(tier)
                 else:
@@ -434,40 +573,50 @@ class TensorCache:
         trace.annotate(cache="miss" if src_cap is view.cap else "hit")
         out = GatherResult(src_cap[rows], src_used[rows])
         if dev is not None:
-            out.gen = GENERATION
-            out.cap_dev, out.used_dev = self._gather_device(dev, rows,
-                                                            bucket)
+            out.gen = dev[3]
+            out.cap_dev, out.used_dev = self._gather_device(
+                dev[:2], rows, bucket, gen=dev[3])
         if res is not None:
-            out.resident, out.version, out.uid, out.epoch = res
-            out.gen = GENERATION
+            out.resident, out.version, out.uid, out.epoch, out.gen = res
         return out
 
     def _device_pair_locked(self, tier: str) -> Optional[tuple]:
-        """(cap twin, used twin) for a device gather by `tier`, moved to
-        the solve device first if they live elsewhere; None when there
-        are no twins or the tier solves on another kind of device."""
+        """(cap twin, used twin, sharded, generation) for a device gather
+        by `tier`, re-seeded first where the solo twins live elsewhere or
+        the twins are of an older mesh generation; None when there are no
+        twins or `tier` consumes another kind (sharded twins feed the
+        sharded tier alone, solo twins a solo tier on their device)."""
+        from . import sharding
         try:
             want = _device.solve_device()
         except RuntimeError:
             return None         # no card: the solve reports it
-        if self._used_dev is None or self._dev != want:
+        if self._used_dev is None or self._gen != sharding.generation() or \
+                (not self._sharded and self._dev != want):
             self._seed_device_locked()
             if self._used_dev is None:
                 return None
-        if tier and (tier == "cuda") != (self._dev.type == "cuda"):
+        if tier and (tier == "sharded") != self._sharded:
             return None
-        return self._cap_dev, self._used_dev
+        if tier and not self._sharded and \
+                (tier == "cuda") != (self._dev.type == "cuda"):
+            return None
+        return self._cap_dev, self._used_dev, self._sharded, self._gen
 
     @staticmethod
-    def _gather_device(dev: tuple, rows: np.ndarray, bucket: int):
+    def _gather_device(dev: tuple, rows: np.ndarray, bucket: int,
+                       gen: int = None):
         """The eval's rows of each twin, in eval order, into a zeroed
-        `bucket`-row tensor: one indexing op per twin."""
+        `bucket`-row tensor: one indexing op per twin. Sharded twins
+        gather per shard (_gather_sharded)."""
         from .. import faults
-        from . import roundtrip
+        from . import roundtrip, sharding
         cap_dev, used_dev = dev
+        if isinstance(cap_dev, sharding.NodeSharded):
+            return _gather_sharded(cap_dev, used_dev, rows, bucket, gen)
         try:
             if cap_dev.device.type == "cuda":
-                faults.fire(f"device.lost.d{cap_dev.device.index or 0}")
+                faults.fire(sharding.solo_loss_site(cap_dev.device))
             roundtrip.note("gather")
             n = len(rows)
             idx = _upload(np.asarray(rows, np.int64), cap_dev.device)
@@ -566,6 +715,46 @@ class TensorCache:
         except Exception as e:  # noqa: BLE001 — feed is best-effort
             from ..metrics import record_swallowed_error
             record_swallowed_error("state_cache.note_commit", e)
+
+
+def _gather_sharded(cap_twin, used_twin, rows: np.ndarray, bucket: int,
+                    gen: int = None) -> tuple:
+    """The eval's rows of the sharded twins, in eval order: each shard
+    gathers the rows it owns from its own block, the rows meet on the
+    mesh's first device into a zeroed `bucket`-row tensor (padding rows
+    zero, as the host np.pad path pads), and go back out as row blocks of
+    the eval's order (sharding.NodeSharded; a plain tensor on the lead
+    where `bucket` does not split over the shards). Under the launch
+    lock, behind the shards' `device.lost.d<N>` sites. A device loss
+    rebuilds the mesh (backend.note_dispatch_failure) and returns
+    (None, None): the eval is served from its host copies."""
+    from . import backend, roundtrip, sharding
+    m = cap_twin.mesh
+    gen = sharding.generation() if gen is None else gen
+    try:
+        with sharding.launch_lock():
+            sharding.fire_device_loss_sites(m)
+            roundtrip.note("gather")
+            lead = m.lead
+            r = cap_twin.rows
+            rows = np.asarray(rows, np.int64)
+            out = []
+            for twin in (cap_twin, used_twin):
+                buf = torch.zeros((bucket, twin.shape[1]), dtype=twin.dtype,
+                                  device=lead)
+                for s in np.unique(rows // r):
+                    pos = np.flatnonzero(rows // r == s)
+                    blk = twin.blocks[s]
+                    got = blk.index_select(
+                        0, _upload(rows[pos] - s * r, blk.device))
+                    buf.index_copy_(0, _upload(pos, lead),
+                                    got.to(lead, non_blocking=True))
+                out.append(sharding.put_node_sharded(buf, m)
+                           if bucket % m.size == 0 else buf)
+            return tuple(out)
+    except _device_errors() as e:
+        backend.note_dispatch_failure("sharded", e, generation=gen)
+        return None, None
 
 
 _cache = TensorCache()

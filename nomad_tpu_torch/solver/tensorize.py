@@ -351,8 +351,9 @@ def _build_dense(ctx, job, tg: TaskGroup, nodes: list[Node], feasible_fn,
     cfg = getattr(ctx, "scheduler_config", None)
     cvx = cfg is not None and backend.convex_enabled(
         cfg, cfg.effective_scheduler_algorithm())
-    cached = state_cache.gather(view, rows, bucket=node_bucket(n),
-                                tier=backend.tier(),
+    bucket = node_bucket(n)
+    cached = state_cache.gather(view, rows, bucket=bucket,
+                                tier=backend.gather_tier(bucket),
                                 resident=backend.fused_enabled(cfg) or cvx)
     gen = None
     resident = None

@@ -5,13 +5,13 @@
     sources, and the sources inline in its tests of those rules), at the
     same paths: the same (rule, line, col) lists and the same messages
     once the package names are swapped;
-  * the torch rules SYNC001, JIT001, JIT002 and CVX001 fire on their bad
-    fixtures, stay quiet on the good ones and honour inline markers, and
-    SYNC001 fires once a seam marker is taken out of a copy of the
-    port's placer;
+  * the torch rules SYNC001, JIT001, JIT002, CVX001 and SHARD001 fire on
+    their bad fixtures, stay quiet on the good ones and honour inline
+    markers, and SYNC001 fires once a seam marker is taken out of a copy
+    of the port's placer; MESH001 (copied) fires on the port's own
+    sharded wrappers' names too;
   * the gate: `python -m nomad_tpu_torch.analysis nomad_tpu_torch`
-    exits 0 within 30 s; --list-rules names every reference rule id but
-    SHARD001 and MESH001;
+    exits 0 within 30 s; --list-rules names every reference rule id;
   * REG002 reads the port's rule table: a copy of RULES.md with a row
     taken out makes it fire; every baseline entry carries a reason.
 """
@@ -37,11 +37,12 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO_ROOT, "nomad_tpu_torch")
 
 # the rules the port copies from the reference (the framework-neutral
-# ones); SYNC001, JIT001, JIT002 and CVX001 are the port's own
+# ones); SYNC001, JIT001, JIT002, CVX001 and SHARD001 are the port's own
 COPIED = ("LOCK001", "LOCK002", "LOCK003", "DET001", "DET002", "EXC001",
           "LEAD001", "PERF001", "QUEUE001", "OBS001", "OBS002", "DUR001",
-          "DUR002", "READ001", "RPC001", "LINT000", "REG001", "REG002")
-TORCH = ("SYNC001", "JIT001", "JIT002", "CVX001")
+          "DUR002", "READ001", "RPC001", "LINT000", "REG001", "REG002",
+          "MESH001")
+TORCH = ("SYNC001", "JIT001", "JIT002", "CVX001", "SHARD001")
 
 # tests/test_lint.py's module-level fixtures of the copied rules
 REF_CONSTANTS = ("LOCK001_BAD", "DET001_BAD", "DET002_BAD", "EXC001_BAD",
@@ -49,7 +50,8 @@ REF_CONSTANTS = ("LOCK001_BAD", "DET001_BAD", "DET002_BAD", "EXC001_BAD",
                  "DUR001_APPEND_BAD", "DUR001_REPLACE_BAD",
                  "DUR002_APPEND_IN_LOOP_BAD", "DUR002_FSYNC_IN_LOOP_BAD",
                  "READ001_BAD", "RPC001_HOT", "RPC001_SLEEP",
-                 "LOCK002_CYCLE", "LOCK003_BAD")
+                 "LOCK002_CYCLE", "LOCK003_BAD", "MESH001_SHAPE_KEY_BAD",
+                 "MESH001_EXCEPT_BAD")
 
 # every directory and file scope a copied rule patrols
 DIFF_PATHS = ("x.py", "pkg/scheduler/x.py", "pkg/solver/x.py",
@@ -437,6 +439,136 @@ def test_convex_module_keeps_its_loops_marked():
 
 # ------------------------------------------------------- the gate, REG002
 
+# ----------------------------------------------------------------- SHARD001
+
+SHARD001_MOVE_BAD = """
+import torch
+from . import sharding
+
+def solve_on_mesh(cap, used_dev, ask, dev):
+    m = sharding.mesh()
+    whole = cap.to(dev)
+    rows = used_dev.cuda()
+    asked = torch.as_tensor(cap, device=dev)
+    up = _upload(used_dev, dev)
+    return m, whole, rows, asked, up, ask.to(dev)
+"""
+
+
+def test_shard001_fires_on_whole_matrix_moves_in_mesh_code():
+    out = findings(SHARD001_MOVE_BAD, path="solver/placer.py")
+    assert [f.rule for f in out] == ["SHARD001"] * 4
+    assert {f.line for f in out} == {7, 8, 9, 10}
+    assert "put_node_sharded" in out[0].message
+
+
+def test_shard001_quiet_off_the_mesh_with_lead_and_in_owner_files():
+    # a function that never handles the mesh moves matrices freely (the
+    # solo tiers' upload)
+    solo = SHARD001_MOVE_BAD.replace("    m = sharding.mesh()\n", "") \
+        .replace("return m, ", "return ")
+    assert rule_ids(solo, path="solver/backend.py") == []
+    # the visible meeting on the first shard is the blessed form
+    lead = """
+    from . import sharding
+
+    def convex_on_mesh(cap_res, used_res):
+        if sharding.is_node_sharded(cap_res):
+            cap_res, used_res = cap_res.lead(), used_res.lead()
+        return cap_res, used_res
+    """
+    assert rule_ids(lead, path="solver/placer.py") == []
+    # sharding.py and state_cache.py own placement decisions
+    assert rule_ids(SHARD001_MOVE_BAD, path="solver/sharding.py") == []
+    assert rule_ids(SHARD001_MOVE_BAD,
+                    path="nomad_tpu_torch/solver/state_cache.py") == []
+
+
+SHARD001_LAYOUT_BAD = """
+from .sharding import NODE, REP, LEAD, sharded_program
+
+def build(m):
+    @sharded_program(m, ins=(NODE, NODE, REP), out=LEAD)
+    def two(cap, used):
+        return cap
+
+    @sharded_program(m, ins=(NODE,), out=(LEAD, LEAD))
+    def one(score):
+        return score, score, score
+
+    @sharded_program(m, out=LEAD)
+    def bare(cap):
+        return cap
+
+    @sharded_program(m, ins=(NODE, REP), out=(LEAD, LEAD))
+    def good(cap, ask):
+        return cap, ask
+    return two, one, bare, good
+"""
+
+
+def test_shard001_layout_arity_fires_everywhere():
+    for path in ("solver/sharding.py", "solver/placer.py", "x.py"):
+        out = findings(SHARD001_LAYOUT_BAD, path=path)
+        assert [(f.rule, f.line) for f in out] == [
+            ("SHARD001", 5), ("SHARD001", 9), ("SHARD001", 13)], path
+    msgs = [f.message for f in findings(SHARD001_LAYOUT_BAD)]
+    assert "ins has 3 layouts but `two` takes 2" in msgs[0]
+    assert "out has 2 layouts but `one` returns a 3-tuple" in msgs[1]
+    assert "declares no `ins`" in msgs[2]
+
+
+def test_shard001_inline_suppression():
+    src = SHARD001_MOVE_BAD.replace(
+        "    whole = cap.to(dev)\n",
+        "    # nomadlint: disable=SHARD001 — a one-shard debug copy\n"
+        "    whole = cap.to(dev)\n")
+    assert rule_ids(src, path="solver/placer.py") == ["SHARD001"] * 3
+
+
+def test_shard001_holds_the_ports_sharded_programs():
+    """Every sharded program of the port declares its layouts, and a copy
+    of sharding.py with one layout taken out fires."""
+    path = os.path.join(PORT, "solver", "sharding.py")
+    with open(path, encoding="utf-8") as fh:
+        text = fh.read()
+    assert text.count("@sharded_program(") == 7
+    assert rule_ids(text, path="solver/sharding.py") == []
+    broken = text.replace("ins=(NODE, NODE, REP, REP, NODE, REP), out=LEAD",
+                          "ins=(NODE, NODE, REP, REP, NODE), out=LEAD", 1)
+    assert broken != text
+    assert rule_ids(broken, path="solver/sharding.py") == ["SHARD001"]
+
+
+# ------------------------------------------------------------------ MESH001
+
+MESH001_PORT_EXCEPT_BAD = """
+from . import backend, sharding
+
+def solve(args):
+    try:
+        return sharding.sharded_fill_depth(sharding.mesh())(*args)
+    except Exception:
+        return None
+
+def solve_classified(args):
+    try:
+        return sharding.sharded_fill_greedy(sharding.mesh())(*args)
+    except Exception as e:
+        backend.note_dispatch_failure("sharded", e)
+        raise
+"""
+
+
+def test_mesh001_fires_on_the_ports_sharded_wrappers():
+    """The copied MESH001 reads the port's names: a broad except around
+    the port's sharded solve that never classifies fires; one that feeds
+    note_dispatch_failure does not; outside solver/ nothing fires."""
+    out = findings(MESH001_PORT_EXCEPT_BAD, path="solver/backend.py")
+    assert [(f.rule, f.line) for f in out] == [("MESH001", 7)]
+    assert rule_ids(MESH001_PORT_EXCEPT_BAD, path="server/x.py") == []
+
+
 def test_nomadlint_gate_whole_port():
     """The acceptance gate: `python -m nomad_tpu_torch.analysis
     nomad_tpu_torch` exits 0 on the shipped tree within 30 s."""
@@ -451,11 +583,14 @@ def test_nomadlint_gate_whole_port():
 
 
 def test_list_rules_names_every_reference_rule_but_the_mesh_ones():
+    """Every reference rule id, the mesh's SHARD001 and MESH001 included
+    since the port has a mesh (the name is kept from before it did)."""
     from nomad_tpu.analysis import all_rules as ref_rules
     buf = io.StringIO()
     assert lint_main(["--list-rules"], out=buf) == 0
     listed = {ln.split()[0] for ln in buf.getvalue().splitlines()}
-    want = {r.id for r in ref_rules()} - {"SHARD001", "MESH001"}
+    want = {r.id for r in ref_rules()}
+    assert {"SHARD001", "MESH001"} <= listed
     assert listed == want == {r.id for r in all_rules()}
     assert set(COPIED) | set(TORCH) == want
 

@@ -981,3 +981,129 @@ def test_fused_evals_on_the_card_equal_the_classic_route(dev):
             depth_grid=GRID128)
         assert torch.equal(placed[lane], solo[0])
         assert torch.equal(fit[lane], solo[1])
+
+
+# ------------------------------------------------------------- the mesh
+
+@pytest.fixture
+def card_mesh(dev):
+    """4 virtual shards of the card (device.use_devices), every
+    mesh-keyed state dropped before and after."""
+    from nomad_tpu_torch import faults
+    from nomad_tpu_torch.solver import (backend, device, microbatch,
+                                        sharding, state_cache)
+
+    def world(devs):
+        device.use_devices(devs)
+        faults.clear()
+        sharding.reset()
+        backend.reset()
+        state_cache.reset()
+        microbatch.reset()
+
+    world([str(dev)] * 4)
+    yield sharding.mesh()
+    world(None)
+
+
+def _bytes(t) -> bytes:
+    return t.cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [None, GRID128], ids=["dense", "grid"])
+def test_sharded_solves_equal_the_solo_solves_on_the_card(dev, card_mesh,
+                                                          grid):
+    """Greedy and depth sharded over 4 virtual shards of the card: one
+    launch of the kernel a shard, placements equal to the solo solve."""
+    from nomad_tpu_torch.solver import sharding
+    m = card_mesh
+    cap, used, ask, feas, coll, aff = _inputs(dev, n=4_096)
+    jit = torch.rand(4_096, generator=torch.Generator().manual_seed(5)).to(dev)
+    cuda_kernels.reset_launches()
+    got = sharding.sharded_fill_depth(m, 128, False, grid)(
+        cap, used, ask, 3_000, feas, coll, 3_000, aff, 2 ** 30, jit, 1.5,
+        0.4 if grid else 0.0)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["depth_curve"] == 4
+    want = cuda_kernels.fill_depth_fused(
+        cap, used, ask, 3_000, feas, coll, 3_000, aff, order_jitter=jit,
+        jitter_scale=1.5, jitter_samples=0.4 if grid else 0.0, k_max=128,
+        depth_grid=grid)
+    assert _bytes(got) == _bytes(want)
+    cuda_kernels.reset_launches()
+    got = sharding.sharded_fill_greedy(m)(cap, used, ask, 2_000, feas, 2)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["score_capacity"] == 4
+    want = cuda_kernels.fill_greedy_binpack_fused(cap, used, ask, 2_000,
+                                                  feas, max_per_node=2)
+    assert _bytes(got) == _bytes(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["depth", "greedy"])
+def test_sharded_fused_program_equals_the_solo_program_on_the_card(
+        dev, card_mesh, kernel):
+    """The fused program over sharded twins: each shard's gather entry
+    and verdict over the rows it owns; placed and fit equal the solo
+    program's, and fused_to_host takes them in one copy."""
+    from nomad_tpu_torch.solver import sharding
+    m = card_mesh
+    cap, used, ask, feas, coll, aff = _inputs(dev, n=4_096)
+    rng = np.random.default_rng(8)
+    idx_np = np.zeros(2_048, np.int32)
+    idx_np[:1_500] = rng.permutation(4_096)[:1_500]
+    idx = torch.from_numpy(idx_np).to(dev)
+    valid = torch.arange(2_048, device=dev) < 1_500
+    f = torch.from_numpy(rng.random(2_048) > 0.1).to(dev) & valid
+    c = coll[:2_048].contiguous()
+    a = aff[:2_048].contiguous()
+    twins = (sharding.put_node_sharded(cap, m),
+             sharding.put_node_sharded(used, m))
+    cls = torch.zeros_like(c)
+    cuda_kernels.reset_launches()
+    if kernel == "depth":
+        args = (idx, valid, ask, 900, f, c, 900, a, 2 ** 30, None, 0.5, 0.0,
+                cls, False)
+        got = sharding.sharded_fused(m, "depth", k_max=128)(*twins, *args)
+        want = cuda_kernels.fused_eval_depth(cap, used, *args, k_max=128)
+        entry = "depth_curve_gather"
+    else:
+        args = (idx, valid, ask, 1, f, 2 ** 30, cls, False, c)
+        got = sharding.sharded_fused(m, "greedy")(*twins, *args)
+        want = cuda_kernels.fused_eval_greedy(cap, used, *args)
+        entry = "score_capacity_gather"
+    torch.cuda.synchronize()
+    placed, fit = cuda_kernels.fused_to_host(*got)
+    w_placed, w_fit = cuda_kernels.fused_to_host(*want)
+    assert placed.tobytes() == w_placed.tobytes()
+    assert fit.tobytes() == w_fit.tobytes()
+    assert cuda_kernels.LAUNCHES[entry] == 5        # 4 shards + the solo
+    assert cuda_kernels.LAUNCHES["fit_verdict"] == 5
+
+
+@pytest.mark.cuda
+def test_sharded_depth_replays_a_lost_shard_on_the_card(dev, card_mesh):
+    """A lost shard on the card: quarantined, the mesh rebuilt over 3,
+    the solve replayed with the same placements."""
+    from nomad_tpu_torch import faults
+    from nomad_tpu_torch.solver import backend, sharding
+    cap, used, ask, feas, coll, aff = _inputs(dev, n=4_096)
+    args = tuple(t.cpu().numpy() for t in (cap, used, ask)) + (
+        np.int32(2_000), feas.cpu().numpy(), coll.cpu().numpy(),
+        np.int32(2_000), aff.cpu().numpy(), np.int32(2 ** 30), None,
+        np.float32(0.5), np.float32(0.0))
+    backend.SHARD_MIN_NODES, floor = 1_024, backend.SHARD_MIN_NODES
+    try:
+        name, fn = backend.select("depth", 4_096, k_max=128)
+        assert name == "sharded"
+        want = fn(*args).numpy()
+        faults.install({"device.lost.d2": {"mode": "after", "n": 1,
+                                           "times": 1}})
+        got = backend.select("depth", 4_096, k_max=128)[1](*args).numpy()
+    finally:
+        faults.clear()
+        backend.SHARD_MIN_NODES = floor
+    assert got.tobytes() == want.tobytes()
+    assert sharding.quarantined() == frozenset({2})
+    assert sharding.mesh().size == 3

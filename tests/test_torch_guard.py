@@ -57,7 +57,8 @@ VERBATIM = (
      "agent/monitor.py", "analysis/rules_lint.py", "analysis/rules_dur.py",
      "analysis/rules_lead.py", "analysis/rules_lock.py",
      "analysis/rules_perf.py", "analysis/rules_queue.py",
-     "analysis/rules_read.py", "analysis/rules_rpc.py"]
+     "analysis/rules_read.py", "analysis/rules_rpc.py",
+     "analysis/rules_mesh.py"]
     + sorted(f"api/{p.name}" for p in (REF / "api").glob("*.py"))
     + sorted(f"client/{p.name}" for p in (REF / "client").glob("*.py"))
     + sorted(f"jobspec/{p.name}" for p in (REF / "jobspec").glob("*.py"))
@@ -94,10 +95,6 @@ ANALYSIS_ADAPTED = {
         ]),
         (6, 1, [
             'and see analysis/RULES.md for the rule catalog and the',
-        ]),
-        (16, 3, [
-            '    rules_lint, rules_lock, rules_lockorder, rules_obs, rules_perf,',
-            '    rules_queue, rules_read, rules_registry, rules_rpc, rules_sync,',
         ]),
     ],
     'analysis/__main__.py': [
