@@ -597,7 +597,8 @@ def _median_ms(torch, fn, reps=REPS) -> float:
     return statistics.median(times)
 
 
-def _device_ms(torch, fn, kernel: str, reps=REPS, per_call=1) -> tuple:
+def _device_ms(torch, fn, kernel: str, reps=REPS, per_call=1,
+               scale_missing=False) -> tuple:
     """(kernel ms, all device ms, how) per call from a torch.profiler
     trace of `reps` calls: the named kernel's own device time, the device
     time of every kernel the call launches, and how the kernel's was
@@ -606,9 +607,11 @@ def _device_ms(torch, fn, kernel: str, reps=REPS, per_call=1) -> tuple:
     again. After three such traces a kernel launched once a call is
     timed by the mean of the launches its last trace did record, if that
     is at least half of them: how is then "profiler (n of reps
-    launches)", else "profiler". Else its time and how are None (the
-    caller times with CUDA events). (None, None, None) when the profiler
-    records no device activity."""
+    launches)", else "profiler". With `scale_missing`, a kernel launched
+    many times a call (a sharded solve's queued launches) is timed the
+    same way: the mean launch the last trace recorded times `per_call`.
+    Else its time and how are None (the caller times with CUDA events).
+    (None, None, None) when the profiler records no device activity."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -642,11 +645,11 @@ def _device_ms(torch, fn, kernel: str, reps=REPS, per_call=1) -> tuple:
             return mine / reps / 1e3, total / reps / 1e3, "profiler"
         log(f"profiler trace recorded {n_mine} launches of {kernel}, "
             f"{reps * per_call} expected; tracing again")
-    if per_call == 1 and 2 * n_mine >= reps:
+    if (per_call == 1 or scale_missing) and 2 * n_mine >= reps * per_call:
         log(f"{kernel}: the mean of the {n_mine} launches the last trace "
             f"recorded")
-        return (mine / n_mine / 1e3, None,
-                f"profiler ({n_mine} of {reps} launches)")
+        return (mine / n_mine * per_call / 1e3, None,
+                f"profiler ({n_mine} of {reps * per_call} launches)")
     return None, (total / reps / 1e3 if total > 0 else None), None
 
 
@@ -3315,7 +3318,9 @@ def _rejection_run(np, torch, snapshot, algorithm: str) -> dict:
     which nothing in the run releases (the reference has no periodic
     unblock of such evals). So each job is held to: every instance
     committed, or the eval failed on plan conflicts with a blocked eval
-    holding the rest; and no node over capacity. The instances left
+    holding the rest; never more than its count, each name once; no
+    eval taken back by the broker's nack timeout from the worker still
+    scheduling it; and no node over capacity. The instances left
     unplaced are counted and reported."""
     from nomad_tpu_torch import mock
     srv = _server(REJECT_WORKERS, snapshot=snapshot,
@@ -3328,6 +3333,14 @@ def _rejection_run(np, torch, snapshot, algorithm: str) -> dict:
         records.append((plan, result))
         return result
     srv.planner.submit_plan = recorded
+    timed_out = []
+    sweep = srv.eval_broker.check_nack_timeouts
+
+    def swept():
+        out = sweep()
+        timed_out.extend(out)
+        return out
+    srv.eval_broker.check_nack_timeouts = swept
     try:
         jobs = [_mk_batch_job(mock, f"rej-{algorithm}-{j}", REJECT_COUNT,
                               cpu=400, mem=700) for j in range(REJECT_JOBS)]
@@ -3337,9 +3350,13 @@ def _rejection_run(np, torch, snapshot, algorithm: str) -> dict:
                          done=("complete", "failed"))
         placed, failed = {}, 0
         for job, eval_id in zip(jobs, ids):
-            placed[job.id] = sum(
-                1 for a in srv.state.allocs_by_job("default", job.id)
-                if a.desired_status == "run")
+            names = [a.name for a in srv.state.allocs_by_job("default",
+                                                             job.id)
+                     if a.desired_status == "run"]
+            placed[job.id] = len(names)
+            check(len(set(names)) == len(names) <= REJECT_COUNT,
+                  f"{job.id}: {len(names)} allocations for a count of "
+                  f"{REJECT_COUNT}, {len(set(names))} names")
             if placed[job.id] == REJECT_COUNT:
                 continue
             ev = srv.state.eval_by_id(eval_id)
@@ -3354,6 +3371,8 @@ def _rejection_run(np, torch, snapshot, algorithm: str) -> dict:
         view = srv.state.usage.view()
         over = int((view.used > view.cap + 1e-3).any(axis=1).sum())
         check(over == 0, f"{over} usage rows over capacity")
+        check(not timed_out, f"evals taken back by the nack timeout "
+              f"mid-schedule: {timed_out}")
     finally:
         _shutdown(srv)
     rn = tn = ra = ta = 0
@@ -3369,7 +3388,7 @@ def _rejection_run(np, torch, snapshot, algorithm: str) -> dict:
             "node_rejection_rate": rn / tn if tn else 0.0,
             "alloc_rejection_rate": ra / ta if ta else 0.0,
             "rejected_nodes": rn, "plan_nodes": tn, "wall_s": t1 - t0,
-            "failed_evals": failed,
+            "failed_evals": failed, "nack_timeouts": len(timed_out),
             "unplaced": REJECT_JOBS * REJECT_COUNT - sum(placed.values())}
 
 
@@ -3386,7 +3405,8 @@ def rejection_phase(np, torch, card: str) -> dict:
         log(f"rejections {algorithm}: {REJECT_JOBS} x {REJECT_COUNT} tasks "
             f"on {REJECT_NODES} nodes, {REJECT_WORKERS} workers: "
             f"{r['failed_evals']} evals failed on plan conflicts, "
-            f"{r['unplaced']} instances left to their blocked evals; "
+            f"{r['unplaced']} instances left to their blocked evals, "
+            f"{r['nack_timeouts']} nack timeouts; "
             f"{r['plans']} plans, node rejection rate "
             f"{r['node_rejection_rate']:.5f} ({r['rejected_nodes']}/"
             f"{r['plan_nodes']}), alloc rejection rate "
@@ -4998,6 +5018,9 @@ def agent_phase(torch, card: str, n_nodes: int = 10_000,
 
 MESH_SHARDS = 4         # virtual shards of the one card
 POD_NODES, POD_DIFF_TASKS, POD_TASKS = 100_000, 200_000, 1_000_000
+POD_RACKS = 100         # the pod cluster's racks (the web job spreads on)
+POD_CONVEX_COUNT = 6_000    # below plan_pipeline_min_count: one solve
+MESH_LANES, MESH_EVAL_GROUPS = 8, 2
 PREEMPT_CANDIDATES, PREEMPT_VICTIMS = 4_096, 8
 CHAOS_FLOOR = 8_192     # SHARD_MIN_NODES for the elasticity leg (bench.py's)
 CHAOS_KILLS = (2, 1)    # shards lost, in this order, at staggered dispatches
@@ -5219,15 +5242,325 @@ def _mesh_solves(np, torch, m, inp, on_card: bool, what: str) -> dict:
     return out
 
 
+def _shard_scan_blocks(torch, m, args):
+    """The scan's positional args (place_chunked's) as cuda_kernels.
+    chunked_shard's per-shard lists on `m`, placed_init zeros."""
+    from nomad_tpu_torch.solver import sharding
+    n = m.size
+
+    def blk(x, axis=0):
+        return list(sharding.node_blocks(x, m, axis=axis))
+    placed = torch.zeros(int(args[0].shape[0]), dtype=torch.int32,
+                         device=args[0].device)
+    return (blk(args[0]), blk(args[1]), [args[2]] * n, args[3], blk(args[4]),
+            blk(args[5]), args[6], blk(args[7], 1), [args[8]] * n,
+            [args[9]] * n, [args[10]] * n, [args[11]] * n, blk(args[12]),
+            blk(args[13], 1), [args[14]] * n, blk(placed))
+
+
+def _timed_once(torch, fn) -> tuple:
+    """(fn's result, its wall in ms, the card synchronized on both sides):
+    the plain versions' time, too slow to repeat."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _mesh_scan(np, torch, m, dev, floor_ms, on_card) -> dict:
+    """The sharded scan on the web inputs (_scan_inputs: 16,384 rows,
+    WEB_COUNT instances, 250 steps): the kernel (csrc/chunked_shard.cu,
+    one launch a shard a step) against its plain version on the same
+    blocks, each shard's rows and tables bit for bit; the sharded program
+    against the solo scan kernel, all four outputs bit for bit; the
+    launches (max_steps + 1 a shard) and how many exited early; device
+    ms per solve, wall per call, the plain version's one call, the solo
+    scan's, the bound and the floors."""
+    from nomad_tpu_torch.solver import cuda_kernels, kernels, sharding
+    args, _ = _scan_inputs(np, torch, dev)
+    blocks = _shard_scan_blocks(torch, m, args)
+    cuda_kernels.reset_launches()
+    got = cuda_kernels.chunked_shard(*blocks)
+    if on_card:
+        torch.cuda.synchronize()
+    launches = cuda_kernels.LAUNCHES["chunked_shard"]
+    want, plain_ms = _timed_once(
+        torch, lambda: kernels.chunked_shard_ref(*blocks)) if on_card \
+        else (kernels.chunked_shard_ref(*blocks), None)
+    for s in range(m.size):
+        check(_bit_equal([got[0][s], got[1][s], got[2][s], got[3][s]],
+                         [want[0][s], want[1][s], want[2][s], want[3][s]]),
+              f"mesh chunked_shard: shard {s} differs from the plain "
+              f"version")
+    state = got[4].cpu()
+    steps, early = int(state[0, 2]), int(state[:, 5].sum())
+    check(steps == want[4] and bool((state[:, 2] == steps).all()),
+          f"mesh chunked_shard: steps {state[:, 2].tolist()}, plain "
+          f"{want[4]}")
+    fn = sharding.sharded_place_chunked(m)
+    sh = fn(*args, None, 2 ** 30)
+    solo = cuda_kernels.place_chunked(*args)
+    check(_bit_equal([sh[0].cpu(), sh[1].cpu(), sh[2], sh[3]],
+                     [solo[0], solo[1], solo[2], solo[3]]),
+          "mesh sharded scan: differs from the solo scan kernel")
+    check(not on_card or (launches == 257 * m.size and early ==
+                          (256 - steps) * m.size),
+          f"mesh chunked_shard: {launches} launches, {early} early exits "
+          f"for {steps} steps on {m.size} shards")
+    out = {"launches_per_solve": launches, "early_exits": early,
+           "steps": steps, "shards": m.size, "max_abs_err": 0.0,
+           "plain_ms": plain_ms, "floor_ms": floor_ms,
+           "placed": int(solo[0].sum())}
+    if on_card:
+        run = (lambda: cuda_kernels.chunked_shard(*blocks))
+        ms, all_ms, how = _device_ms(torch, run, "chunked_shard_kernel",
+                                     reps=5, per_call=launches,
+                                     scale_missing=True)
+        if not ms:
+            ms, how = _queued_ms(torch, run, 5), "queued events"
+        out.update(ms=ms, solve_device_ms=all_ms, timing=how,
+                   call_ms=_median_ms(torch, lambda: fn(*args, None,
+                                                        2 ** 30), 10),
+                   solo_ms=_median_ms(torch,
+                                      lambda: cuda_kernels.place_chunked(
+                                          *args), 10),
+                   dependency_floor_ms=steps * floor_ms,
+                   serial_floor_ms=(steps + 1) * m.size * floor_ms)
+        out.update(_scan_bound(args, steps, out["placed"]))
+    log(f"mesh chunked_shard ({m.size} virtual shards, {N_BUCKET} rows, "
+        f"{WEB_COUNT} asked, {steps} steps): each shard's rows and tables "
+        f"bit-equal to the plain version; the sharded scan bit-equal to "
+        f"the solo scan kernel on all four outputs; {launches} launches "
+        f"({m.size} x 257, {early} exited early); "
+        + (f"{out['ms']} ms device per solve ({out['timing']}), "
+           f"{out['call_ms']} ms per call, solo scan {out['solo_ms']} ms, "
+           f"plain {plain_ms} ms (one call); bound {out['bound_ms']} ms "
+           f"({out['bound_by']}), floor {steps} x {floor_ms} ms = "
+           f"{out['dependency_floor_ms']} ms (one card, shards serial: "
+           f"{out['serial_floor_ms']} ms)" if on_card else "on the CPU"))
+    return out
+
+
+def _mesh_convex(np, torch, m, dev, floor_ms, on_card) -> dict:
+    """The sharded convex solve on testing.convex_fixture("bench_binpack")
+    (10,000 nodes, 16,384 rows): the kernel (csrc/convex_shard.cu, one
+    launch a shard a round) against its plain version, bit for bit (the
+    iterate, u and cost of every shard, budget, iterations, gap); the
+    sharded eval over node-sharded twins placing as the solo convex eval;
+    the rounds and the waits; device ms per solve, wall per call, the
+    plain version's one call, the bound and the floor."""
+    from nomad_tpu_torch.solver import convex, cuda_kernels, sharding
+    solve, evals, spread, (cap, used, ask) = _convex_args(
+        np, torch, dev, "bench_binpack")
+
+    def blk(x):
+        return list(sharding.node_blocks(x, m))
+    sargs = (blk(solve[0]), blk(solve[1]), [solve[2]] * m.size,
+             blk(solve[3]), blk(solve[4]), blk(solve[5])) + solve[6:]
+    cuda_kernels.reset_launches()
+    got = cuda_kernels.convex_solve_sharded(*sargs, spread_algorithm=spread)
+    if on_card:
+        torch.cuda.synchronize()
+    launches = cuda_kernels.LAUNCHES["convex_shard"]
+    waits = cuda_kernels.WAITS["convex_shard"]
+    want, plain_ms = _timed_once(torch, lambda: convex.convex_solve_sharded_ref(
+        *sargs, spread_algorithm=spread)) if on_card else (
+        convex.convex_solve_sharded_ref(*sargs, spread_algorithm=spread),
+        None)
+    for s in range(m.size):
+        check(_convex_solves_equal(torch, [got[i][s] for i in range(3)],
+                                   [want[i][s] for i in range(3)]),
+              f"mesh convex_shard: shard {s} differs from the plain version")
+    check(_convex_solves_equal(torch, got[3:], want[3:]),
+          f"mesh convex_shard: scalars {[float(x) for x in got[3:]]} vs "
+          f"{[float(x) for x in want[3:]]}")
+    iters = int(got[4])
+    rounds = 3 + 18 * iters
+    twins = tuple(sharding.put_node_sharded(t, m) for t in evals[:2])
+    prog = sharding.sharded_convex(m, spread_algorithm=spread)
+    placed, fit, _, _, won = prog(*twins, *evals[2:])
+    solo = convex.to_host(cuda_kernels.convex_eval_fused(
+        *evals, spread_algorithm=spread))
+    check(np.array_equal(placed.cpu().numpy(), solo[0]) and
+          np.array_equal(fit.cpu().numpy(), solo[1]) and bool(won) == solo[4],
+          "mesh sharded convex: placements differ from the solo eval")
+    check(not on_card or (launches == cuda_kernels.CONVEX_FIRST_BLOCK
+                          * m.size and waits == 1),
+          f"mesh convex_shard: {launches} launches, {waits} waits")
+    out = {"launches_per_solve": launches, "waits": waits,
+           "iterations": iters, "rounds": rounds, "shards": m.size,
+           "max_abs_err": 0.0, "plain_ms": plain_ms, "floor_ms": floor_ms,
+           "placed": int(solo[0].sum())}
+    if on_card:
+        run = (lambda: cuda_kernels.convex_solve_sharded(
+            *sargs, spread_algorithm=spread))
+        ms, all_ms, how = _device_ms(torch, run, "convex_shard_kernel",
+                                     reps=10, per_call=launches,
+                                     scale_missing=True)
+        if not ms:
+            ms, how = _queued_ms(torch, run, 10), "queued events"
+        out.update(ms=ms, solve_device_ms=all_ms, timing=how,
+                   call_ms=_median_ms(torch, run, 30),
+                   solo_ms=_median_ms(torch, lambda: cuda_kernels.convex_solve(
+                       *solve, spread_algorithm=spread), 30),
+                   dependency_floor_ms=rounds * floor_ms,
+                   serial_floor_ms=rounds * m.size * floor_ms)
+        out.update(_convex_bound(cap.shape[0], iters))
+    log(f"mesh convex_shard ({m.size} virtual shards, {cap.shape[0]} rows, "
+        f"{iters} iterations): each shard's iterate, u and cost and the "
+        f"scalars bit-equal to the plain version; the sharded eval places "
+        f"as the solo eval ({out['placed']} placed); {launches} launches "
+        f"({rounds} rounds of {m.size} do the work, the rest of the block "
+        f"exits early), {waits} wait(s); "
+        + (f"{out['ms']} ms device per solve ({out['timing']}), "
+           f"{out['call_ms']} ms per call, solo solve {out['solo_ms']} ms, "
+           f"plain {plain_ms} ms (one call); bound {out['bound_ms']} ms "
+           f"({out['bound_by']}), floor {rounds} x {floor_ms} ms = "
+           f"{out['dependency_floor_ms']} ms" if on_card else "on the CPU"))
+    return out
+
+
+def _mesh_windows(np, torch, m, dev, on_card) -> dict:
+    """An 8-lane classic window and an 8-lane fused depth window over
+    node-sharded twins, and the eval-batched greedy over 2 groups x 2
+    shards, on the 50k eval's fleet: each lane (eval) equal to its solo
+    solve, with one K1 (or gather-entry) launch and one verdict launch a
+    shard a window, and one K2 launch an (eval, shard)."""
+    from nomad_tpu_torch.solver import (backend, cuda_kernels, kernels,
+                                        sharding)
+    from nomad_tpu_torch.solver.tensorize import stack_lanes
+    inp = _fused_inputs(np, torch, dev)
+    rng = np.random.default_rng(SEED + 9)
+    counts = [int(c) for c in rng.integers(50, 2_000, MESH_LANES)]
+    lanes = [(inp["cap"], inp["used"], inp["ask"], np.int32(c),
+              inp["feasible"], inp["coll"], np.int32(c), inp["aff"],
+              np.int32(2 ** 30), inp["jitter"], np.float32(1.0),
+              np.float32(0.0)) for c in counts]
+    per = MESH_LANES // m.size
+    parts = [stack_lanes(lanes[s * per:(s + 1) * per],
+                         backend._ARG_DTYPES["depth"], dev=d.device)
+             for s, d in enumerate(m.devices)]
+    lanes_fn = backend._lanes_fn(on_card, 128, False, None)
+    cuda_kernels.reset_launches()
+    got = sharding.split_lanes(m, lanes_fn, parts)
+    classic = {k: n for k, n in cuda_kernels.LAUNCHES.items() if n}
+    for lane, g in zip(lanes, got):
+        want = cuda_kernels.fill_depth_fused(
+            *lane[:8], max_per_node=2 ** 30, order_jitter=lane[9],
+            jitter_scale=1.0, jitter_samples=0.0, k_max=128)
+        check(_bit_equal([g], [want]), "mesh classic window: a lane "
+              "differs from its solo solve")
+    check(not on_card or classic == {"depth_curve_lanes": m.size},
+          f"mesh classic window: launches {classic}")
+    twins = (sharding.put_node_sharded(inp["cap"], m),
+             sharding.put_node_sharded(inp["used"], m))
+    f_lanes = []
+    for i, c in enumerate(counts):
+        perm = np.random.default_rng(SEED + 20 + i).permutation(N_LIVE)
+        idx = np.zeros(N_BUCKET, np.int32)
+        idx[:N_LIVE] = perm
+        f_lanes.append((torch.from_numpy(idx).to(dev), inp["valid"],
+                        inp["ask"], np.int32(c), inp["feasible"],
+                        inp["coll"], np.int32(c), inp["aff"],
+                        np.int32(2 ** 30), inp["jitter"], np.float32(1.5),
+                        np.float32(0.0)))
+    cols = stack_lanes(f_lanes, backend.FUSED_LANE_DTYPES)
+    cuda_kernels.reset_launches()
+    placed, fit = sharding.sharded_fused_lanes(128)(*twins, *cols)
+    fused = {k: n for k, n in cuda_kernels.LAUNCHES.items() if n}
+    for i, lane in enumerate(f_lanes):
+        w_p, w_f = cuda_kernels.fused_eval_depth(
+            inp["cap"], inp["used"], *lane[:3], int(lane[3]), lane[4],
+            lane[5], int(lane[6]), lane[7], 2 ** 30, lane[9], 1.5, 0.0,
+            None, False, k_max=128)
+        check(_bit_equal([placed[i], fit[i]], [w_p, w_f]),
+              f"mesh fused window: lane {i} differs from its solo eval")
+    check(not on_card or fused == {"depth_curve_gather": m.size,
+                                   "fit_verdict": m.size},
+          f"mesh fused window: launches {fused}")
+    n_evals = 2 * MESH_EVAL_GROUPS
+    ecap = torch.stack([inp["cap"]] * n_evals)
+    eused = torch.stack([inp["used"] * (1.0 - 0.1 * e)
+                         for e in range(n_evals)]).floor()
+    eask = torch.stack([inp["ask"] * (1 + e) for e in range(n_evals)])
+    ecounts = np.array([1, 700, 2_500, 9_000][:n_evals], np.int32)
+    efeas = torch.stack([inp["feasible"]] * n_evals)
+    cuda_kernels.reset_launches()
+    eb = sharding.sharded_eval_batch_fill_greedy(m, MESH_EVAL_GROUPS)(
+        ecap, eused, eask, ecounts, efeas)
+    batched = {k: n for k, n in cuda_kernels.LAUNCHES.items() if n}
+    for e in range(n_evals):
+        want = cuda_kernels.fill_greedy_binpack_fused(
+            ecap[e], eused[e], eask[e], int(ecounts[e]), efeas[e])
+        check(_bit_equal([eb[e]], [want]),
+              f"mesh eval-batched greedy: eval {e} differs from its solo "
+              f"greedy")
+    check(not on_card or batched == {"score_capacity": n_evals * m.size
+                                     // MESH_EVAL_GROUPS},
+          f"mesh eval-batched greedy: launches {batched}")
+    log(f"mesh windows ({m.size} virtual shards): an {MESH_LANES}-lane "
+        f"classic window split {per} lanes a shard, every lane equal to "
+        f"its solo solve, launches {json.dumps(classic)}; an "
+        f"{MESH_LANES}-lane fused depth window over node-sharded twins, "
+        f"every lane (placed, verdict) equal to its solo fused eval, "
+        f"launches {json.dumps(fused)}; the eval-batched greedy, {n_evals} "
+        f"evals over {MESH_EVAL_GROUPS} groups of "
+        f"{m.size // MESH_EVAL_GROUPS} shards, each equal to its solo "
+        f"greedy, launches {json.dumps(batched)}")
+    return {"classic": classic, "fused": fused, "eval_batched": batched,
+            "lanes": MESH_LANES}
+
+
+def _by_node(s, job_id) -> dict:
+    placed: dict = {}
+    for a in s.allocs_by_job("default", job_id):
+        placed[a.node_id] = placed.get(a.node_id, 0) + 1
+    return placed
+
+
+def _pod_slice_evals(torch, fsm, planner, on_card: bool) -> dict:
+    """On a pod leg's cluster, after its diff eval: the web-shaped spread
+    service job (WEB_COUNT instances, datacenters targeted 50/30/20, racks
+    even: the scan path) and a POD_CONVEX_COUNT-task batch job under the
+    convex algorithm. -> each eval's placement map, wall, layer times and
+    launches."""
+    from nomad_tpu_torch import mock, structs
+    from nomad_tpu_torch.structs import SchedulerConfiguration
+    s = fsm.state
+    out = {}
+    web = _drive(torch, fsm, planner, _mk_service_job(
+        mock, structs, "pod-web", WEB_COUNT, 250, 512, "web",
+        priority=SERVICE_PRIORITY), "pod-web-eval", healthy=on_card)
+    s.set_scheduler_config(s.latest_index() + 1, SchedulerConfiguration(
+        scheduler_algorithm="convex"))
+    try:
+        cvx = _drive(torch, fsm, planner, _mk_batch_job(
+            mock, "pod-convex", POD_CONVEX_COUNT), "pod-convex-eval",
+            healthy=on_card)
+    finally:
+        s.set_scheduler_config(s.latest_index() + 1, SchedulerConfiguration(
+            scheduler_algorithm="tpu-batch"))
+    for name, r, job_id in (("web", web, "pod-web"),
+                            ("convex", cvx, "pod-convex")):
+        out[name] = {"wall_s": r["wall_s"], "layers_s": r["layers_s"],
+                     "launches": {k: n for k, n in r["launches"].items()
+                                  if n},
+                     "placed": _by_node(s, job_id)}
+    return out
+
+
 def _pod_leg(torch, card_mesh, sharded: bool, count: int, on_card: bool,
              n_nodes: int, audit: bool = False) -> dict:
-    """One pod-scale leg: a fresh cluster of `n_nodes` pinned-id nodes,
-    one `count`-task eval (eval id "pod-eval"), on the 4-shard mesh or
-    solo. -> the placement map, walls, counters (and the syncs)."""
+    """One pod-scale leg: a fresh cluster of `n_nodes` pinned-id nodes in
+    three datacenters and POD_RACKS racks, one `count`-task eval (eval id
+    "pod-eval"), then the web spread job and the convex job on the same
+    cluster (_pod_slice_evals), on the 4-shard mesh or solo. -> the
+    placement maps, walls, counters (and the syncs)."""
     from nomad_tpu_torch import mock
     _mesh_world(card_mesh if sharded else card_mesh[:1])
     t0 = time.perf_counter()
-    fsm, planner = _cluster(n_nodes, seed=31, pin="pod-")
+    fsm, planner = _cluster(n_nodes, seed=31, pin="pod-", racks=POD_RACKS)
     seed_s = time.perf_counter() - t0
     job = _mk_batch_job(mock, "pod-diff", count)
     before = _mesh_counts()
@@ -5244,14 +5577,13 @@ def _pod_leg(torch, card_mesh, sharded: bool, count: int, on_card: bool,
             if rec is not None:
                 rec.close()
                 torch.cuda.set_sync_debug_mode("default")
-    d = _delta(before)
-    placed = {}
-    for a in fsm.state.allocs_by_job("default", job.id):
-        placed[a.node_id] = placed.get(a.node_id, 0) + 1
+        d = _delta(before)
+        slice_evals = _pod_slice_evals(torch, fsm, planner, on_card)
     out = {"seed_s": seed_s, "wall_s": r["wall_s"], "counts": d,
            "layers_s": r["layers_s"], "launches": {
                k: n for k, n in r["launches"].items() if n},
-           "placed": placed, "fsm": (fsm, planner)}
+           "placed": _by_node(fsm.state, job.id), "fsm": (fsm, planner),
+           "slice": slice_evals}
     if rec is not None:
         sites, callers = rec.take()
         out["syncs"] = {"total": sum(sites.values()), "sites": sites,
@@ -5274,6 +5606,26 @@ def _pod_phase(np, torch, card_mesh, on_card: bool, n_nodes: int,
           f"pod: the sharded and the solo leg place differently "
           f"({sum(shard['placed'].values())} vs "
           f"{sum(solo['placed'].values())} instances)")
+    kernels = {"web": ("chunked_shard", "chunked_scan"),
+               "convex": ("convex_shard", "convex_solve")}
+    for name, (mesh_k, solo_k) in kernels.items():
+        a, b = shard["slice"][name], solo["slice"][name]
+        check(a["placed"] == b["placed"],
+              f"pod {name}: the sharded and the solo leg place differently")
+        check(not on_card or (a["launches"].get(mesh_k, 0) > 0 and
+                              mesh_k not in b["launches"] and
+                              a["launches"].get(solo_k, 0) == 0 and
+                              b["launches"].get(solo_k, 0) > 0),
+              f"pod {name}: launches sharded {a['launches']}, solo "
+              f"{b['launches']}")
+        log(f"mesh pod {name}: {sum(a['placed'].values())} instances on "
+            f"{len(a['placed'])} nodes, sharded and solo node for node "
+            f"alike; sharded wall {a['wall_s']:.3f} s (launches "
+            f"{json.dumps(a['launches'])}, layers "
+            f"{json.dumps({k: round(v, 4) for k, v in a['layers_s'].items()})}"
+            f"), solo {b['wall_s']:.3f} s (launches "
+            f"{json.dumps(b['launches'])}, layers "
+            f"{json.dumps({k: round(v, 4) for k, v in b['layers_s'].items()})})")
     check(shard["counts"]["sharded"] >= 1 and shard["counts"]["solo"] == 0
           and solo["counts"]["sharded"] == 0,
           f"pod: tiers {shard['counts']} / {solo['counts']}")
@@ -5323,22 +5675,42 @@ def _pod_phase(np, torch, card_mesh, on_card: bool, n_nodes: int,
         f"{time.perf_counter() - t_gc:.2f} s")
     for leg in (shard, solo):
         leg["placed_nodes"] = len(leg.pop("placed"))
+        for r in leg["slice"].values():
+            r["placed_nodes"] = len(r.pop("placed"))
     return {"diff": {"sharded": shard, "solo": solo}, "headline": big}
 
 
 def _chaos_run(np, torch, snapshot, card_mesh, workers: int, kill: bool,
-               n_jobs: int, count: int, floor: int) -> dict:
+               n_jobs: int, count: int, floor: int,
+               batching: bool = False) -> dict:
     """One elasticity leg: a fresh server over the fleet's snapshot on the
     4-shard mesh (SHARD_MIN_NODES at CHAOS_FLOOR), `n_jobs` jobs of
     `count` tasks with pinned eval ids registered at once; with `kill`,
-    CHAOS_KILLS lost at staggered dispatches."""
+    CHAOS_KILLS lost at staggered dispatches. With `batching`, the fused
+    route off, backend.BATCH_MAX_COUNT at `count` and a 200 ms window:
+    concurrent evals coalesce into classic windows, split over the shards
+    where their lanes divide (the splits counted)."""
     from nomad_tpu_torch import faults, mock
     from nomad_tpu_torch.metrics import metrics
     from nomad_tpu_torch.solver import backend, buckets, sharding
     _mesh_world(card_mesh)
-    prev_floor = backend.SHARD_MIN_NODES
+    prev_floor, prev_batch = backend.SHARD_MIN_NODES, backend.BATCH_MAX_COUNT
     backend.SHARD_MIN_NODES = floor
-    srv = _server(workers, snapshot=snapshot)
+    split = sharding.split_lanes
+    splits: list = []
+    if batching:
+        backend.BATCH_MAX_COUNT = count
+
+        def counted(m, lanes_fn, parts):
+            splits.append(m.size)
+            return split(m, lanes_fn, parts)
+        sharding.split_lanes = counted
+    # a window waits for every eval in flight (it fires early once they
+    # are in): its lanes then divide over the shards more often
+    srv = _server(workers, snapshot=snapshot,
+                  **({"solver_fused_enabled": False,
+                      "eval_batch_window_ms": 200.0} if batching else {}))
+    w0 = metrics.counter("nomad.solver.microbatch.dispatches")
     try:
         jobs = [_mk_batch_job(mock, f"chaos-{j}", count)
                 for j in range(n_jobs)]
@@ -5377,10 +5749,16 @@ def _chaos_run(np, torch, snapshot, card_mesh, workers: int, kill: bool,
              "evals_lost": sum(1 for j in range(n_jobs)
                                if srv.state.eval_by_id(
                                    f"chaos-eval-{j}").status != "complete"),
-             "placed": placed}
+             "placed": placed,
+             "windows": metrics.counter(
+                 "nomad.solver.microbatch.dispatches") - w0,
+             "split_windows": len(splits), "split_shards": sorted(
+                 set(splits))}
     finally:
         _shutdown(srv)
         backend.SHARD_MIN_NODES = prev_floor
+        backend.BATCH_MAX_COUNT = prev_batch
+        sharding.split_lanes = split
     return r
 
 
@@ -5396,7 +5774,13 @@ def _chaos_phase(np, torch, snapshot, card_mesh, n_jobs: int,
                      floor)
     busy = _chaos_run(np, torch, snapshot, card_mesh, STREAM_WORKERS, True,
                       n_jobs, count, floor)
-    for r in (hit, busy):
+    # micro-batching on: windows split their lanes over the shards
+    batched = _chaos_run(np, torch, snapshot, card_mesh, STREAM_WORKERS,
+                         True, n_jobs, count, floor, batching=True)
+    check(batched["windows"] >= 1 and batched["split_windows"] >= 1,
+          f"chaos batched: {batched['windows']} windows, "
+          f"{batched['split_windows']} split over the shards")
+    for r in (hit, busy, batched):
         check(r["evals_lost"] == 0, f"chaos: {r['evals_lost']} evals lost")
         check(r["quarantined"] == sorted(CHAOS_KILLS) and
               r["generation"] == len(CHAOS_KILLS) and
@@ -5416,7 +5800,9 @@ def _chaos_phase(np, torch, snapshot, card_mesh, n_jobs: int,
     check(hit["placed"] == calm["placed"],
           "chaos: placements differ from the undisturbed run")
     for name, r in (("undisturbed", calm), ("lost d2 then d1", hit),
-                    (f"{STREAM_WORKERS} workers, lost d2 then d1", busy)):
+                    (f"{STREAM_WORKERS} workers, lost d2 then d1", busy),
+                    (f"{STREAM_WORKERS} workers batching, lost d2 then d1",
+                     batched)):
         log(f"mesh chaos {name}: {n_jobs} x {count}-task evals, "
             f"{r['workers']} worker(s), {r['wall_s']:.3f} s; generation "
             f"{r['generation']}, quarantine {r['quarantined']}, "
@@ -5424,12 +5810,15 @@ def _chaos_phase(np, torch, snapshot, card_mesh, n_jobs: int,
             f"{r['bucket_10k']}; replays {r['counts']['replays']}, "
             f"evacuations {r['counts']['evacuations']} "
             f"({r['evacuation_s']} s), evals lost {r['evals_lost']}, "
-            f"dispatches {json.dumps({k: r['counts'][k] for k in ('sharded', 'fused_sharded', 'solo', 'fused_solo', 'cpu')})}")
+            f"dispatches {json.dumps({k: r['counts'][k] for k in ('sharded', 'fused_sharded', 'solo', 'fused_solo', 'cpu')})}"
+            f"; windows {r['windows']}, split over the shards "
+            f"{r['split_windows']} (shard counts {r['split_shards']})")
     log("mesh chaos: the one-worker stream that lost d2 and d1 placed "
         "exactly as the undisturbed one, job for job, node for node")
-    for r in (calm, hit, busy):
+    for r in (calm, hit, busy, batched):
         r["placed"] = {k: len(v) for k, v in r["placed"].items()}
-    return {"undisturbed": calm, "lost": hit, "concurrent": busy}
+    return {"undisturbed": calm, "lost": hit, "concurrent": busy,
+            "batched": batched}
 
 
 def _all_lost_phase(torch, card_mesh) -> dict:
@@ -5470,13 +5859,17 @@ def mesh_phase(np, torch, card: str, nodes_snapshot: bytes,
                pod_nodes: int = POD_NODES, diff_tasks: int = POD_DIFF_TASKS,
                tasks: int = POD_TASKS, chaos_jobs: int = STREAM_JOBS,
                chaos_count: int = STREAM_COUNT, chaos_floor: int = CHAOS_FLOOR,
-               on_card: bool = True) -> dict:
+               on_card: bool = True, floor_ms: float = 0.0) -> dict:
     """The device mesh (solver/sharding.py) on the card: 4 virtual shards
     of cuda:0 (`device.use_devices`), every per-shard kernel launch and
     every merge on the H100. (1) Each shard's kernels against their plain
     versions, and every sharded solve against the solo solve on the 50k
-    eval's inputs, bit for bit, S launches a kernel a solve. (2) Pod
-    scale. (3) Elasticity. (4) The real cards, if several."""
+    eval's inputs, bit for bit, S launches a kernel a solve; the sharded
+    scan and convex kernels against their plain versions and the solo
+    solves, split windows and the eval-batched greedy against their solo
+    solves. (2) Pod scale, the scan's and convex's legs on the same
+    clusters. (3) Elasticity, a batching leg among them. (4) The real
+    cards, if several."""
     from nomad_tpu_torch.solver import device, sharding
     t_phase = time.perf_counter()
     dev = torch.device(card)
@@ -5491,6 +5884,13 @@ def mesh_phase(np, torch, card: str, nodes_snapshot: bytes,
         out["shards"] = _shard_kernels_vs_plain(np, torch, m, inp, on_card)
         out["solves"] = _mesh_solves(np, torch, m, inp, on_card,
                                      f"mesh {MESH_SHARDS} virtual shards")
+        t = time.perf_counter()
+        out["chunked_shard"] = _mesh_scan(np, torch, m, dev, floor_ms,
+                                          on_card)
+        out["convex_shard"] = _mesh_convex(np, torch, m, dev, floor_ms,
+                                           on_card)
+        out["windows"] = _mesh_windows(np, torch, m, dev, on_card)
+        out["slice_kernels_s"] = time.perf_counter() - t
         t = time.perf_counter()
         out["pod"] = _pod_phase(np, torch, card_mesh, on_card, pod_nodes,
                                 diff_tasks, tasks)
@@ -5593,7 +5993,8 @@ def main() -> int:
     log(f"agent phase: {time.perf_counter() - t_agent:.1f} s")
     # last: its 100,000-node clusters and 1.2M allocations are freed at
     # its end, and no later phase shares the process with their garbage
-    mesh = mesh_phase(np, torch, DEVICE, nodes)
+    mesh = mesh_phase(np, torch, DEVICE, nodes,
+                      floor_ms=res["depth_curve"]["floor_ms"])
 
     meta = {
         "depth_curve": ("nomad_tpu_torch/solver/csrc/depth_curve.cu",
@@ -5624,6 +6025,14 @@ def main() -> int:
             "nomad_tpu/solver/pallas_kernels.py:31"),
         "fit_verdict": ("nomad_tpu_torch/solver/csrc/fit_verdict.cu",
                         "nomad_tpu/solver/kernels.py:439"),
+        # no Pallas kernel: place_chunked's lax.scan under the node-axis
+        # sharding of sharded_place_chunked (one XLA program)
+        "chunked_shard": ("nomad_tpu_torch/solver/csrc/chunked_shard.cu",
+                          "nomad_tpu/solver/sharding.py:442"),
+        # no Pallas kernel: convex_eval's lax.while_loop under the
+        # node-axis sharding of sharded_convex (one XLA program)
+        "convex_shard": ("nomad_tpu_torch/solver/csrc/convex_shard.cu",
+                         "nomad_tpu/solver/sharding.py:546"),
     }
     # each kernel's launches on the path that runs it: the scan's two on
     # the service path (the step kernel no longer runs there)
@@ -5639,6 +6048,15 @@ def main() -> int:
     # (the main path's count-1 eval takes the fused route)
     launches["score_capacity"] = fused["launches"]["score_capacity"]
     res["convex_solve"] = cvx["bench_binpack"]
+    # the mesh's two kernels: their launches on the mesh phase's pod
+    # legs (the spread job's sharded scan, the convex job's sharded solve)
+    pod = mesh["pod"]["diff"]["sharded"]["slice"]
+    launches["chunked_shard"] = pod["web"]["launches"].get("chunked_shard",
+                                                           0)
+    launches["convex_shard"] = pod["convex"]["launches"].get("convex_shard",
+                                                             0)
+    res["chunked_shard"] = mesh["chunked_shard"]
+    res["convex_shard"] = mesh["convex_shard"]
     rows = []
     for name, (src, rep) in meta.items():
         r = res[name]
@@ -5658,7 +6076,9 @@ def main() -> int:
                   "solo_8_ms", "iterations", "eval_device_ms",
                   "eval_call_ms", "plain_device_ms", "fused_window_ms",
                   "reductions", "reductions_prior", "gather_floor_ms",
-                  "lanes_ms", "timing"):
+                  "lanes_ms", "timing", "serial_floor_ms",
+                  "launches_per_solve", "early_exits", "waits", "rounds",
+                  "solo_ms", "shards"):
             if k in r:
                 row[k] = r[k]
         rows.append(row)

@@ -14,7 +14,10 @@ function "just to peek" at a device value waits for the stream and
 re-splits the eval into extra host<->card round trips.
 
 Scope: `/solver/placer.py` and `/solver/microbatch.py` — the two modules
-whose function bodies run once per eval (or per coalesced window). A
+whose function bodies run once per eval (or per coalesced window) — and
+`/solver/cuda_kernels.py`, the kernel wrappers those solves call: its
+host reads are seams too (the fused route's one copy, and the sharded
+convex solve's one wait a block of rounds, `convex_solve_sharded`). A
 value is a tensor when the function can show it: a `torch.*` call (less
 torch's host-side helpers), a call into `kernels`/`cuda_kernels`, a
 parameter annotated `torch.Tensor`, a name bound to any of those, or an
@@ -26,8 +29,9 @@ type stay quiet; the card run (chip_smoke.py's analysis phase, torch's
 sync debug mode) reports every sync the card really makes by line, and
 fails on one in this scope that carries no marker. Every legitimate
 seam — the placer's single copy to the host, the pipelined chunk
-collector, the preemption verdict, the micro-batcher's coalesced window
-— carries `# nomadlint: disable=SYNC001 — <why>` (analysis/RULES.md).
+collector, the preemption verdict, the micro-batcher's coalesced window,
+the fused route's copy, the sharded convex solve's waits — carries
+`# nomadlint: disable=SYNC001 — <why>` (analysis/RULES.md).
 """
 from __future__ import annotations
 
@@ -241,7 +245,8 @@ class SingleSyncSeam(Rule):
              "/ .to(\"cpu\") / .synchronize() / np.asarray or float() of a "
              "tensor) on the placer/micro-batcher hot path outside the "
              "designated single-sync seam — extra host<->card round trips")
-    path_markers = ("/solver/placer.py", "/solver/microbatch.py")
+    path_markers = ("/solver/placer.py", "/solver/microbatch.py",
+                    "/solver/cuda_kernels.py")
 
     def check(self, mod: SourceModule) -> list:
         out = []

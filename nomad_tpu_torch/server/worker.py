@@ -23,6 +23,13 @@ from .plan_apply import Planner
 DEQUEUE_TIMEOUT = 0.5
 
 
+class EvalNotHeld(RuntimeError):
+    """The worker's eval is no longer outstanding under its token: the
+    broker took it back (a flush at a leadership change, a nack timeout)
+    and may have handed it to another worker, so this worker's plans and
+    eval writes are refused."""
+
+
 class Worker:
     def __init__(self, server, worker_id: int = 0):
         self.server = server
@@ -104,6 +111,15 @@ class Worker:
                     record_swallowed_error("worker.expire", e)
                 continue
             t_inv = time.perf_counter()
+            # the broker keeps the eval while its scheduler runs: in
+            # process a worker stops only with its server, so the nack
+            # timer would only ever race a live one (a host binpack of
+            # thousands of instances outlasts it under a busy interpreter)
+            broker = self.server.eval_broker
+            with broker._lock:
+                rec = broker._unack.get(ev.id)
+                if rec is not None and rec["token"] == token:
+                    rec["deadline"] = float("inf")
             try:
                 with trace.use(ctx), \
                         trace.span("worker.invoke", worker=self.id,
@@ -159,15 +175,31 @@ class Worker:
 
     # ------------------------------------------------- Planner interface
 
+    def _hold(self) -> None:
+        """Refuse a write for an eval this worker no longer holds (ref
+        plan_endpoint.go Submit and eval_endpoint.go Update/Create check
+        the eval's token): an eval the broker took back is placed by
+        another worker, and both plans would commit."""
+        if self._eval is None or not self._eval_token:
+            return
+        if self.server.eval_broker.outstanding(self._eval.id) != \
+                self._eval_token:
+            raise EvalNotHeld(f"eval {self._eval.id[:8]} is no longer "
+                              f"held by worker-{self.id}")
+
     def submit_plan(self, plan: Plan) -> Optional[PlanResult]:
         """ref worker.go:585 SubmitPlan"""
         plan.eval_token = self._eval_token
         plan.snapshot_index = max(plan.snapshot_index,
                                   self._snapshot.latest_index()
                                   if self._snapshot else 0)
+        self._hold()
         with metrics.measure("nomad.worker.submit_plan"), \
                 trace.span("plan.submit"):
-            result = self.server.planner.submit_plan(plan)
+            # wait for the applier's answer (ref: no deadline): a plan
+            # given up on while still queued commits later, under a retry
+            # that places the same instances again
+            result = self.server.planner.submit_plan(plan, timeout=None)
         if result is None:
             return None
         # state refresh hint after rejections (ref worker.go shouldResubmit)
@@ -194,17 +226,20 @@ class Worker:
         plan.snapshot_index = max(plan.snapshot_index,
                                   self._snapshot.latest_index()
                                   if self._snapshot else 0)
+        self._hold()
         metrics.incr("nomad.worker.submit_plan_async")
         return self.server.planner.submit_plan_async(plan)
 
     def update_eval(self, ev: Evaluation) -> None:
         """ref worker.go:640 UpdateEval"""
+        self._hold()
         ev = ev.copy()
         ev.modify_time_unix = time.time()
         self.server.raft.apply(EVAL_UPDATE, {"evals": [ev]})
 
     def create_eval(self, ev: Evaluation) -> None:
         """ref worker.go:665 CreateEval"""
+        self._hold()
         ev = ev.copy()
         ev.create_time_unix = ev.modify_time_unix = time.time()
         self.server.raft.apply(EVAL_UPDATE, {"evals": [ev]})

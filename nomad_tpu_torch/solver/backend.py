@@ -14,15 +14,17 @@ Every solve the placer issues routes through `select(kernel, n_padded,
          (cuda_kernels.fill_depth_lanes; kernels.fill_depth_lanes on the
          CPU). A window of one runs the solo chain above.
   sharded  the node axis split over the device mesh (sharding.py): a
-         greedy or depth solve whose bucket is at least SHARD_MIN_NODES
-         and divides by the mesh's shard count runs K2 or K1 on each
-         shard's row block and its tail once on the mesh's first device
-         (sharding.sharded_fill_greedy / sharded_fill_depth); the fused
-         route's program likewise over the state cache's sharded twins
-         (sharding.sharded_fused). `NOMAD_SOLVER_BACKEND=sharded` forces
-         it on any dividing bucket, any other value keeps every solve
-         solo. The chunked scan, the convex solve and windows stay solo
-         on the mesh's first device.
+         greedy, depth or chunked solve whose bucket is at least
+         SHARD_MIN_NODES and divides by the mesh's shard count runs K2 or
+         K1 on each shard's row block and its tail once on the mesh's
+         first device (sharding.sharded_fill_greedy / sharded_fill_depth),
+         or the scan's step kernel a shard a step
+         (sharding.sharded_place_chunked); the fused route's program and
+         the convex solve likewise over the state cache's sharded twins
+         (sharding.sharded_fused, sharding.sharded_convex).
+         `NOMAD_SOLVER_BACKEND=sharded` forces it on any dividing bucket,
+         any other value keeps every solve solo. A window (the batch
+         tier) splits its lanes over the mesh where they divide.
 
 The returned callable has ONE normalized positional signature per kernel,
 so the placer's call sites are backend-oblivious. It takes the placer's
@@ -58,10 +60,11 @@ ride the same catch, so the error path is provable without a sick card.
 
 The convex tier (`select_convex`, under scheduler_algorithm "convex")
 has a chain of one rung too: the whole eval (cuda_kernels.
-convex_eval_fused on a card, convex.convex_eval on the CPU) and its one
-host copy; a device error also counts `nomad.solver.dispatch_errors
-.convex`. The reference's demotion from convex to the classic ladder is
-not ported, by the rule above.
+convex_eval_fused on a card, convex.convex_eval on the CPU; on the mesh
+sharding.sharded_convex) and its one host copy; a device error also
+counts `nomad.solver.dispatch_errors.convex`. The reference's demotion
+from convex to the classic ladder is not ported, by the rule above; a
+lost shard replays the convex eval itself on the survivors.
 
 The batch tier has no chain of its own: the micro-batcher classifies a
 window's device error (`nomad.solver.dispatch_errors.batch`), feeds the
@@ -446,10 +449,13 @@ def async_dispatch():
 
 
 def to_host(out):
-    """A chain result (a tensor or a tuple of them) on the host: the
-    solve's sync. Numpy arrays pass through."""
+    """A chain result (a tensor, a sharding.NodeSharded, or a tuple of
+    them) on the host: the solve's sync. Numpy arrays pass through."""
+    from . import sharding
     if isinstance(out, torch.Tensor):
         return out.cpu()
+    if isinstance(out, sharding.NodeSharded):
+        return torch.from_numpy(sharding.to_host(out))
     if isinstance(out, tuple):
         return tuple(to_host(o) for o in out)
     return out
@@ -495,7 +501,12 @@ def _chain(kernel: str, tier: str, fn, dev):
 
 def _tensor(x, dev, dtype):
     """numpy array (or tensor) -> contiguous tensor on `dev`. A numpy
-    array goes to a card through pinned memory without blocking."""
+    array goes to a card through pinned memory without blocking. A
+    sharding.NodeSharded (a sharded solve's carried state, replayed solo
+    on the survivors' first device after a rebuild) meets there whole."""
+    from . import sharding
+    if isinstance(x, sharding.NodeSharded):
+        x = x.lead()
     if isinstance(x, torch.Tensor):
         return x.to(device=dev, dtype=dtype).contiguous()
     x = torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
@@ -628,20 +639,20 @@ def select(kernel: str, n_padded: int = 0, *, count=None, k_max: int = 128,
     raises when it is a card and none is present): "cuda" on a card,
     "torch" on the CPU — or "batch" for a depth solve of `count` (the
     instances asked) that may coalesce with concurrent evals
-    (_batch_eligible), or "sharded" for a greedy or depth solve at a
-    bucket `n_padded` the mesh takes (sharded_on, under `mesh_snap`, the
+    (_batch_eligible), or "sharded" for a greedy, depth or chunked solve
+    at a bucket `n_padded` the mesh takes (sharded_on, under `mesh_snap`, the
     placer's snapshot: its bucket and this choice describe one device
     set). Every card solve runs on the card: no small-count host pick
     (the reference's thresholds were set on a TPU) and no host floor."""
     dev = _device.solve_device()
     tier_name = tier()
     batch = _batch_eligible(kernel, count)
-    if kernel in ("greedy", "depth") and not batch:
+    if kernel in ("greedy", "depth", "chunked") and not batch:
         snap = _snap(mesh_snap)
         if sharded_on(n_padded, snap):
             return select_sharded(kernel, snap, k_max=k_max,
                                   spread_algorithm=spread_algorithm,
-                                  depth_grid=depth_grid)
+                                  depth_grid=depth_grid, max_steps=max_steps)
     key = (kernel, tier_name, str(dev), k_max, spread_algorithm, depth_grid,
            max_steps)
     solo = _cache.get(key)
@@ -670,15 +681,16 @@ def select(kernel: str, n_padded: int = 0, *, count=None, k_max: int = 128,
 # ----------------------------------------------------------------- sharded
 
 def select_sharded(kernel: str, snap, *, k_max: int = 128,
-                   spread_algorithm: bool = False, depth_grid=None):
-    """-> ("sharded", chain) for `kernel` in {greedy, depth, preempt} on
-    `snap`'s mesh, cached per generation."""
+                   spread_algorithm: bool = False, depth_grid=None,
+                   max_steps: int = 256):
+    """-> ("sharded", chain) for `kernel` in {greedy, depth, chunked,
+    preempt} on `snap`'s mesh, cached per generation."""
     key = ("sharded", kernel, snap.generation, k_max, spread_algorithm,
-           depth_grid)
+           depth_grid, max_steps)
     cached = _cache.get(key)
     if cached is None:
         cached = _cache[key] = ("sharded", _sharded_chain(
-            kernel, snap, k_max, spread_algorithm, depth_grid))
+            kernel, snap, k_max, spread_algorithm, depth_grid, max_steps))
     return cached
 
 
@@ -696,7 +708,8 @@ def select_preempt(shard: bool, mesh_snap=None):
 
 
 def _replay(kernel: str, args: tuple, finish, k_max: int,
-            spread_algorithm: bool, depth_grid, err: BaseException):
+            spread_algorithm: bool, depth_grid, err: BaseException,
+            max_steps: int = 256):
     """Re-run a sharded dispatch that lost a shard: a fresh selection at
     the new generation (the survivor mesh, or solo on its first device
     where the old bucket no longer divides) on the identical inputs,
@@ -716,16 +729,17 @@ def _replay(kernel: str, args: tuple, finish, k_max: int,
         else:
             _, fn = select(kernel, int(args[0].shape[0]), k_max=k_max,
                            spread_algorithm=spread_algorithm,
-                           depth_grid=depth_grid)
+                           depth_grid=depth_grid, max_steps=max_steps)
         return fn(*args, finish=finish)
     finally:
         _dispatch_ctx.replay_depth = depth
 
 
 def _sharded_chain(kernel: str, snap, k_max: int, spread_algorithm: bool,
-                   depth_grid):
+                   depth_grid, max_steps: int = 256):
     """The sharded rung for `kernel` on `snap`'s mesh: the sharded solve
-    (sharding.sharded_fill_greedy / _fill_depth / _preempt_top_k) under
+    (sharding.sharded_fill_greedy / _fill_depth / _place_chunked /
+    _preempt_top_k) under
     the span solver.dispatch.sharded and the fault sites
     `solver.dispatch.sharded` and `device.lost.d<N>` for each shard. A
     device loss rebuilds the mesh and replays (_replay) from `host_args`
@@ -738,10 +752,13 @@ def _sharded_chain(kernel: str, snap, k_max: int, spread_algorithm: bool,
     elif kernel == "depth":
         fn = sharding.sharded_fill_depth(m, k_max, spread_algorithm,
                                          depth_grid)
+    elif kernel == "chunked":
+        fn = sharding.sharded_place_chunked(m, max_steps, spread_algorithm)
     elif kernel == "preempt":
         fn = sharding.sharded_preempt_top_k(m)
     else:
-        raise ValueError(f"no sharded {kernel!r} (greedy, depth, preempt)")
+        raise ValueError(f"no sharded {kernel!r} (greedy, depth, chunked, "
+                         f"preempt)")
 
     def run(*args, finish=None, host_args=None):
         async_mode = getattr(_dispatch_ctx, "on", False)
@@ -760,7 +777,7 @@ def _sharded_chain(kernel: str, snap, k_max: int, spread_algorithm: bool,
                 return _replay(kernel,
                                host_args if host_args is not None else args,
                                finish, k_max, spread_algorithm, depth_grid,
-                               e)
+                               e, max_steps)
             raise
         if not async_mode:
             _breaker.record_success("sharded")
@@ -787,21 +804,42 @@ def convex_enabled(cfg=None, algorithm=None) -> bool:
     return bool(getattr(cfg, "solver_convex_enabled", True))
 
 
-def select_convex(kernel: str, *, spread_algorithm: bool = False,
-                  twins_device=None):
+def select_convex(kernel: str, n_padded: int = 0, *,
+                  spread_algorithm: bool = False, twins_device=None,
+                  sharded_twins: bool = False, mesh_snap=None):
     """-> (tier, run) for the convex solve of a `kernel` ("depth" or
     "greedy") eval, or None when the convex route declines: the resident
-    twins live on another device than the solves (ref select_convex's
-    twin/tier mismatch). The reference also declines its host tier and
-    remaps its pallas and batch tiers to the XLA program; the port has
-    one tier a solve device, so on a card every depth and greedy eval
-    takes the convex route.
+    twins live on another device than the solves, or are of the other
+    kind than the tier (ref select_convex's twin/tier mismatch). The
+    reference also declines its host tier and remaps its pallas and batch
+    tiers to the XLA program; the port has one tier a solve device, so on
+    a card every depth and greedy eval takes the convex route.
 
-    `run(*convex_args)` takes convex.convex_eval's positional args (the
-    twins, idx, valid, ask, count, ...) and returns its outputs on the
-    host through ONE copy (convex.to_host)."""
+    On the mesh (sharded_on at `n_padded` under `mesh_snap`) the tier is
+    "sharded": sharding.sharded_convex over the state cache's sharded
+    twins (`sharded_twins` says the eval holds them; solo twins there
+    decline, as sharded twins decline a solo tier).
+
+    `run(*convex_args, host_args=None)` takes convex.convex_eval's
+    positional args (the twins, idx, valid, ask, count, ...) and returns
+    its outputs on the host through ONE copy (convex.to_host); on the
+    sharded tier `host_args` (the same args with the eval's host rows as
+    the twins) replays the eval after a lost shard."""
     dev = _device.solve_device()
     tier_name = tier()
+    snap = _snap(mesh_snap)
+    if sharded_on(n_padded, snap):
+        if twins_device is not None and not sharded_twins:
+            return None
+        key = ("convex", kernel, "sharded", snap.generation,
+               spread_algorithm)
+        cached = _cache.get(key)
+        if cached is None:
+            cached = _cache[key] = ("sharded", _convex_sharded_chain(
+                kernel, snap, spread_algorithm))
+        return cached
+    if sharded_twins:
+        return None
     if twins_device is not None and torch.device(twins_device) != dev:
         return None
     key = ("convex", kernel, tier_name, str(dev), spread_algorithm)
@@ -810,6 +848,59 @@ def select_convex(kernel: str, *, spread_algorithm: bool = False,
         cached = _cache[key] = (tier_name, _convex_chain(
             kernel, tier_name, dev, spread_algorithm))
     return cached
+
+
+def _convex_sharded_chain(kernel: str, snap, spread_algorithm: bool):
+    """The convex dispatch on the mesh: sharding.sharded_convex over the
+    sharded twins and its one host copy, under the span
+    solver.dispatch.convex and the sites `solver.dispatch.convex`,
+    `solver.dispatch.sharded` and `device.lost.d<N>` for each shard. A
+    device loss rebuilds the mesh and replays the eval at the new
+    generation from `host_args` (counted in `nomad.mesh.replays`, at most
+    sharding.MAX_REPLAYS deep): on the survivors, or solo on their first
+    device; without `host_args`, or past the cap, the loss raises. Any
+    other device error is counted (`dispatch_errors.convex` besides the
+    tier's) and raised."""
+    from . import convex, sharding
+    m, gen = snap.mesh, snap.generation
+    fn = sharding.sharded_convex(m, spread_algorithm=spread_algorithm)
+
+    def run(*args, host_args=None):
+        from ..obs import trace
+        try:
+            with trace.span("solver.dispatch.convex", tier="sharded",
+                            convex=True, kernel=kernel, shards=m.size,
+                            generation=gen):
+                faults.fire("solver.dispatch.convex")
+                faults.fire("solver.dispatch.sharded")
+                sharding.fire_device_loss_sites(m)
+                placed, fit, iters, gap, won = fn(*args)
+                host = convex.to_host((sharding.at_lead(placed),
+                                       sharding.at_lead(fit), iters, gap,
+                                       won))
+        except device_error_types() as e:
+            metrics.incr("nomad.solver.dispatch_errors.convex")
+            depth = getattr(_dispatch_ctx, "replay_depth", 0)
+            if note_dispatch_failure("sharded", e, generation=gen) and \
+                    host_args is not None and \
+                    depth < sharding.MAX_REPLAYS:
+                metrics.incr("nomad.mesh.replays")
+                trace.annotate_list("dispatch_errors", "sharded:replay")
+                bucket = int(host_args[0].shape[0])
+                sel = select_convex(kernel, bucket,
+                                    spread_algorithm=spread_algorithm)
+                _dispatch_ctx.replay_depth = depth + 1
+                try:
+                    return sel[1](*host_args, host_args=host_args)
+                finally:
+                    _dispatch_ctx.replay_depth = depth
+            raise
+        _breaker.record_success("sharded")
+        metrics.incr("nomad.solver.dispatch.convex")
+        metrics.incr("nomad.solver.dispatch.convex.sharded")
+        roundtrip.note("convex")
+        return host
+    return run
 
 
 def _fire_convex_sites(tier: str, dev) -> None:
@@ -835,7 +926,8 @@ def _convex_chain(kernel: str, tier: str, dev, spread_algorithm: bool):
     impl = (cuda_kernels.convex_eval_fused if tier == "cuda"
             else convex.convex_eval)
 
-    def run(*args):
+    def run(*args, host_args=None):
+        del host_args           # one rung, no replay
         from ..obs import trace
         try:
             with trace.span("solver.dispatch.convex", tier=tier,
@@ -894,9 +986,12 @@ def select_fused(kernel: str, n_padded: int = 0, *, count=None,
 
     On the mesh (sharded_on at `n_padded` under `mesh_snap`) the tier is
     "sharded": sharding.sharded_fused over the state cache's sharded
-    twins. Sharded twins feed the sharded tier alone and solo twins the
-    solo tiers (`sharded_twins` says which the eval holds); a mismatch
-    declines, and the classic route serves the eval."""
+    twins; a depth eval that may coalesce takes the "batch" tier there
+    too, its window each shard's gather entry over the lanes' rows it
+    owns (sharding.sharded_fused_lanes). Sharded twins feed the sharded
+    tiers alone and solo twins the solo tiers (`sharded_twins` says which
+    the eval holds); a mismatch declines, and the classic route serves
+    the eval."""
     if kernel not in ("depth", "greedy"):
         return None
     dev = _device.solve_device()
@@ -908,27 +1003,31 @@ def select_fused(kernel: str, n_padded: int = 0, *, count=None,
     if sharded:
         key = ("fused", kernel, "sharded", snap.generation, k_max,
                spread_algorithm, depth_grid)
-        cached = _cache.get(key)
-        if cached is None:
-            cached = _cache[key] = ("sharded", _fused_sharded_chain(
+        solo = _cache.get(key)
+        if solo is None:
+            solo = _cache[key] = ("sharded", _fused_sharded_chain(
                 kernel, snap, k_max, spread_algorithm, depth_grid))
-        return cached
-    if twins_device is not None and torch.device(twins_device) != dev:
-        return None
-    key = ("fused", kernel, tier_name, str(dev), k_max, spread_algorithm,
-           depth_grid)
-    solo = _cache.get(key)
-    if solo is None:
-        solo = _cache[key] = (tier_name, _fused_chain(
-            kernel, tier_name, dev, k_max, spread_algorithm, depth_grid))
+    else:
+        if twins_device is not None and torch.device(twins_device) != dev:
+            return None
+        key = ("fused", kernel, tier_name, str(dev), k_max,
+               spread_algorithm, depth_grid)
+        solo = _cache.get(key)
+        if solo is None:
+            solo = _cache[key] = (tier_name, _fused_chain(
+                kernel, tier_name, dev, k_max, spread_algorithm, depth_grid))
     if not _batch_eligible(kernel, count):
         return solo
     bkey = ("batch",) + key
     batched = _cache.get(bkey)
     if batched is None:
-        from . import microbatch
-        lanes = _fused_lanes_fn(tier_name == "cuda", k_max, spread_algorithm,
-                                depth_grid)
+        from . import microbatch, sharding
+        # a window over sharded twins: each shard's gather entry over the
+        # lanes' rows it owns (sharding.sharded_fused_lanes)
+        lanes = sharding.sharded_fused_lanes(
+            k_max, spread_algorithm, depth_grid) if sharded else \
+            _fused_lanes_fn(tier_name == "cuda", k_max, spread_algorithm,
+                            depth_grid)
         skey = ("fused", kernel, k_max, spread_algorithm, depth_grid)
         solo_fn = solo[1]
 
@@ -1224,15 +1323,26 @@ def warmup(n_nodes: int, k_maxes: tuple = (8, 64, 128),
     # config could route evals to the "convex" algorithm
     if convex_enabled(cfg, getattr(cfg, "scheduler_algorithm", "convex")) \
             and time.monotonic() - t0 <= budget_s:
+        from . import sharding
+        snap = sharding.snapshot()
+        shard = sharded_on(bucket, snap)
+        twins = (cap, used)
+        if shard:
+            # the sharded solve's twins, as the state cache seeds them
+            twins = tuple(sharding.put_node_sharded(t, snap.mesh,
+                                                    torch.float32)
+                          for t in (cap, used))
         for spread in (False, True):
             if time.monotonic() - t0 > budget_s:
                 metrics.incr("nomad.solver.warmup.budget_exhausted")
                 break
             try:
-                sel = select_convex("greedy", spread_algorithm=spread)
+                sel = select_convex("greedy", bucket,
+                                    spread_algorithm=spread,
+                                    sharded_twins=shard, mesh_snap=snap)
                 if sel is None:
                     continue
-                sel[1](cap, used, idx, valid, ask, np.int32(1), feasible,
+                sel[1](*twins, idx, valid, ask, np.int32(1), feasible,
                        np.int32(2 ** 30), np.zeros(bucket, np.float32),
                        coll, cls, np.bool_(False), np.int32(200),
                        np.float32(1e-4), np.float32(0.05),

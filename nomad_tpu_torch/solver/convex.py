@@ -46,8 +46,9 @@ import torch
 
 from .device import device_program
 from .kernels import (
-    BINPACK_MAX_SCORE, _INV_MAX_SCORE, _fma_f32, fill_greedy_binpack,
-    fused_fit_verdict, gather_rows, instance_capacity, score_fit,
+    BINPACK_MAX_SCORE, _INV_MAX_SCORE, _fma_f32, _greedy_fill, _greedy_key,
+    fill_greedy_binpack, fused_fit_verdict, gather_rows, instance_capacity,
+    score_capacity_ref, score_fit,
 )
 
 # per-unit curvature of the fragmentation term: small for binpack (the
@@ -98,6 +99,45 @@ def tree_sum(v: torch.Tensor) -> torch.Tensor:
             h = t.shape[dim] // 2
             t = t.narrow(dim, 0, h) + t.narrow(dim, h, h)
     return t.reshape(v.shape[:-1])
+
+
+def _combine_shards(parts: list) -> torch.Tensor:
+    """S shard partial sums (tensors of one shape on one device) in the
+    sharded order: pairwise halving in shard order (shard s + S/2 into s,
+    then + S/4, ...) where S is a power of two, else left to right."""
+    parts = list(parts)
+    if len(parts) & (len(parts) - 1) == 0:
+        # the sharded order's fixed tree over S partials, no host sync
+        # nomadlint: disable=CVX001 — the kernel's summation order
+        while len(parts) > 1:
+            h = len(parts) // 2
+            parts = [parts[i] + parts[i + h] for i in range(h)]
+        return parts[0]
+    acc = parts[0]
+    for p in parts[1:]:  # nomadlint: disable=CVX001 — the same fixed order
+        acc = acc + p
+    return acc
+
+
+def sharded_tree_sum(v: torch.Tensor, shards: int) -> torch.Tensor:
+    """The float32 sum over the last axis of `v` in the sharded convex
+    kernel's order (csrc/convex_shard.cu) -> v.shape[:-1]: the axis split
+    into `shards` blocks in order, each block summed in tree_sum's order
+    (its own tree, padded with zeros to SUM_THREADS), then the block
+    partials combined by _combine_shards. The order the sharded solve
+    holds itself to; on one shard it is tree_sum."""
+    if v.shape[-1] % shards:
+        raise ValueError(f"{v.shape[-1]} rows do not split over {shards} "
+                         f"shards")
+    part = tree_sum(v.reshape(*v.shape[:-1], shards, -1))
+    return _combine_shards(part.unbind(-1))
+
+
+def _block_sum(blocks: list, lead) -> torch.Tensor:
+    """sharded_tree_sum of the vector whose shard blocks are `blocks` (on
+    their shards' devices): each block's tree where it lies, the partials
+    combined on `lead`."""
+    return _combine_shards([tree_sum(b).to(lead) for b in blocks])
 
 
 def _objective(x: torch.Tensor, cost: torch.Tensor, curv: float,
@@ -207,6 +247,98 @@ def convex_solve_ref(cap, used, ask, feasible, job_collisions,
             torch.tensor(gap, **f32))
 
 
+def _on(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return t.to(like.device, non_blocking=True)
+
+
+def _block_objective(xs: list, costs: list, curv: float, colls: list,
+                     fairness_weight: torch.Tensor, lead) -> torch.Tensor:
+    """_objective over the node axis split into shard blocks, every sum in
+    the sharded order (_block_sum); leading axes of the blocks are
+    independent placements."""
+    f32 = dict(dtype=torch.float32, device=lead)
+    terms = [torch.stack((c * x, x * x, (k + x) * (k + x)))
+             for x, c, k in zip(xs, costs, colls)]
+    cx, xx, ff = _block_sum(terms, lead).unbind(0)
+    frag = _fma_f32(xx, torch.tensor(np.float32(0.5) * np.float32(curv),
+                                     **f32), cx)
+    half_w = fairness_weight * torch.tensor(0.5, **f32)
+    return _fma_f32(half_w, ff, frag)
+
+
+def convex_solve_sharded_ref(caps, useds, asks, feasibles, collisions,
+                             affinities, count, max_per_node, max_iters,
+                             tolerance, fairness_weight, quota_budget,
+                             spread_algorithm: bool = False) -> tuple:
+    """Plain version of the sharded convex-solve kernel (csrc/
+    convex_shard.cu): convex_solve_ref over the node axis split into S
+    row blocks, every argument a list of S per-shard values (cap/used
+    [R, R'], feasible/collisions/affinity [R]; ask each shard's copy).
+    Every node-axis sum takes the sharded order (sharded_tree_sum: each
+    block's own tree, then the S partials); minima and the per-row
+    arithmetic are convex_solve_ref's. The scalars live on the first
+    shard's device. -> (x blocks, u_int blocks, cost blocks, budget_int,
+    iterations, gap)."""
+    lead = caps[0].device
+    f32 = dict(dtype=torch.float32, device=lead)
+    ins = [convex_inputs(c, u, a, f, k, g, max_per_node, spread_algorithm)
+           for c, u, a, f, k, g in zip(caps, useds, asks, feasibles,
+                                       collisions, affinities)]
+    u_int = [i[0] for i in ins]
+    cost = [i[1] for i in ins]
+    coll = [i[2] for i in ins]
+    u = [ui.to(torch.float32) for ui in u_int]
+    curv = curvature(spread_algorithm)
+    w_f = torch.tensor(np.float32(fairness_weight), **f32)
+    sum_u = _block_sum(u, lead)
+    budget = torch.minimum(torch.minimum(
+        torch.tensor(np.float32(np.int32(count)), **f32),
+        torch.tensor(np.float32(quota_budget), **f32)), sum_u)
+    budget = torch.clamp(budget, min=0.0)
+    budget_int = budget.to(torch.int32)
+    step = torch.tensor(1.0, **f32) / (
+        w_f + torch.tensor(step_offset(spread_algorithm), **f32))
+    curv_t = torch.tensor(curv, **f32)
+    scale = budget / torch.clamp(sum_u, min=1.0)
+    x = [us * _on(scale, us) for us in u]
+    tol = float(np.float32(tolerance))
+    it, gap = 0, float("inf")
+    one = torch.tensor(1.0, **f32)
+    half = torch.tensor(0.5, **f32)
+    zero = torch.zeros((), **f32)
+    # the plain version's iteration: on the card each round is a launch a
+    # shard of csrc/convex_shard.cu — nomadlint: disable=CVX001
+    while it < int(max_iters) and gap > tol:
+        y = [_fma_f32(-_on(step, xs), _fma_f32(k + xs, _on(w_f, xs),
+                                               _fma_f32(xs, _on(curv_t, xs),
+                                                        c)), xs)
+             for xs, k, c in zip(x, coll, cost)]
+        lo = torch.stack([(ys - us).min().to(lead)
+                          for ys, us in zip(y, u)]).min() - one
+        hi = torch.stack([ys.max().to(lead) for ys in y]).max() + one
+        # the plain version's bisection — nomadlint: disable=CVX001
+        for _ in range(PROJECT_ITERS):
+            mid = half * (lo + hi)
+            s = _block_sum([torch.minimum(torch.maximum(
+                ys - _on(mid, ys), _on(zero, ys)), us)
+                for ys, us in zip(y, u)], lead)
+            too_big = s > budget
+            lo = torch.where(too_big, mid, lo)
+            hi = torch.where(too_big, hi, mid)
+        tau = half * (lo + hi)
+        x2 = [torch.minimum(torch.maximum(ys - _on(tau, ys), _on(zero, ys)),
+                            us) for ys, us in zip(y, u)]
+        f_old, f_new = _block_objective(
+            [torch.stack((a, b)) for a, b in zip(x, x2)], cost, curv, coll,
+            w_f, lead).unbind(0)
+        gap = float(torch.abs(f_old - f_new) / (one + torch.abs(f_new)))
+        x = x2
+        it += 1
+    return (x, u_int, cost, budget_int,
+            torch.tensor(it, dtype=torch.int32, device=lead),
+            torch.tensor(gap, **f32))
+
+
 def _round_to_budget(x: torch.Tensor, u_int: torch.Tensor,
                      budget_int: torch.Tensor) -> torch.Tensor:
     """Fractional iterate -> integral placement: floor, then the rest of
@@ -280,6 +412,78 @@ def convex_eval(cap_res, used_res, idx, valid, ask, count, feasible,
                    spread_algorithm=spread_algorithm)
     return finish(cap, used, ask, feasible, job_collisions, max_per_node,
                   solved, fairness_weight, spread_algorithm, greedy=greedy)
+
+
+@device_program
+def finish_sharded(caps, useds, asks, feasibles, collisions, max_per_node,
+                   solved, fairness_weight, spread_algorithm: bool,
+                   greedy_key=None) -> tuple:
+    """finish over shard blocks: the rounding and the greedy baseline's
+    merge (the stable sort and prefix sums over the whole bucket) on the
+    first shard's device, the verdicts and the greedy's per-row keys on
+    each shard (`greedy_key`, score_capacity_greedy's signature: (capacity
+    clamped, key) of a block; the plain one by default), the objectives in
+    the sharded order. No host sync. -> (placed blocks, fit blocks,
+    iterations, objective_gap, convex_won)."""
+    x, u_int, cost, budget_int, iters, gap = solved
+    lead = caps[0].device
+    if greedy_key is None:
+        def greedy_key(cap, used, ask, feasible, mpn):
+            return _greedy_key(*score_capacity_ref(cap, used, ask, feasible),
+                               mpn)
+    rows = int(caps[0].shape[0])
+    coll = [c.to(torch.float32) for c in collisions]
+    w_f = torch.tensor(np.float32(fairness_weight), dtype=torch.float32,
+                       device=lead)
+
+    def blocks(v):
+        return [v[s * rows:(s + 1) * rows].to(c.device, non_blocking=True)
+                for s, c in enumerate(caps)]
+
+    def whole(vs):
+        return torch.cat([v.to(lead, non_blocking=True) for v in vs])
+
+    placed_cvx = _round_to_budget(whole(x), whole(u_int), budget_int)
+    pc = blocks(placed_cvx)
+    fit_cvx = torch.stack([fused_fit_verdict(c, u, a, p).all().to(lead)
+                           for c, u, a, p in zip(caps, useds, asks, pc)])
+    keys = [greedy_key(c, u, a, f, max_per_node)
+            for c, u, a, f in zip(caps, useds, asks, feasibles)]
+    placed_greedy = _greedy_fill(whole([k[0] for k in keys]),
+                                 whole([k[1] for k in keys]), budget_int)
+    pg = blocks(placed_greedy)
+    obj_cvx, obj_greedy = _block_objective(
+        [torch.stack((a, b)).to(torch.float32) for a, b in zip(pc, pg)],
+        cost, curvature(spread_algorithm), coll, w_f, lead).unbind(0)
+    won = (fit_cvx.all() & (obj_cvx <= obj_greedy + 1e-6)
+           & (placed_cvx.sum() >= placed_greedy.sum()))
+    placed = blocks(torch.where(won, placed_cvx, placed_greedy))
+    fit = [fused_fit_verdict(c, u, a, p)
+           for c, u, a, p in zip(caps, useds, asks, placed)]
+    return placed, fit, iters, gap, won
+
+
+@device_program
+def convex_eval_sharded(caps, useds, asks, count, feasibles, max_per_node,
+                        affinities, collisions, max_iters, tolerance,
+                        fairness_weight, quota_budget,
+                        spread_algorithm: bool = False, solve=None,
+                        greedy_key=None) -> tuple:
+    """The convex eval over the eval's rows split into shard blocks
+    (sharding.sharded_convex gathers them from the sharded twins): the
+    sharded solve (`solve`, convex_solve_sharded_ref's signature; the
+    plain version by default), then finish_sharded. Its placements equal
+    convex_eval's on the whole bucket wherever the two sum orders lead
+    the iteration to the same rounding. -> (placed blocks, fit blocks,
+    iterations, objective_gap, convex_won)."""
+    solve = convex_solve_sharded_ref if solve is None else solve
+    solved = solve(caps, useds, asks, feasibles, collisions, affinities,
+                   count, max_per_node, max_iters, tolerance,
+                   fairness_weight, quota_budget,
+                   spread_algorithm=spread_algorithm)
+    return finish_sharded(caps, useds, asks, feasibles, collisions,
+                          max_per_node, solved, fairness_weight,
+                          spread_algorithm, greedy_key=greedy_key)
 
 
 def to_host(out: tuple) -> tuple:

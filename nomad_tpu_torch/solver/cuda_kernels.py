@@ -39,6 +39,15 @@ of nomad_tpu/solver/pallas_kernels.py.
                   reference's fused XLA program); it writes the placement
                   vector beside the verdict, so the eval's results reach
                   the host in one copy (fused_to_host)
+  chunked_shard   csrc/chunked_shard.cu, the scan with its node axis
+                  sharded (the reference's sharded_place_chunked): one
+                  launch a shard a step, max_steps + 1 a shard queued by
+                  one launcher call, each shard ranking every shard's
+                  offers itself
+  convex_shard    csrc/convex_shard.cu, the convex solve with its node
+                  axis sharded (the reference's sharded_convex): one
+                  launch a shard a reduction round, queued in blocks of
+                  rounds with one wait a block (convex_solve_sharded)
   chunked_step    csrc/chunked_step.cu, one scan step's score pass: the
                   score the scan kernel shares (csrc/chunked_score.cuh),
                   held bit for bit against the plain step; no placer path
@@ -110,6 +119,8 @@ SOURCES = {"depth_curve": "depth_curve.cu",
            "chunked_step": "chunked_step.cu",
            "chunked_scan": "chunked_scan.cu",
            "convex_solve": "convex_solve.cu",
+           "chunked_shard": "chunked_shard.cu",
+           "convex_shard": "convex_shard.cu",
            "fit_verdict": "fit_verdict.cu",
            "launch_floor": "launch_floor.cu",
            "pow10_check": "pow10_check.cu"}
@@ -119,17 +130,23 @@ SOURCES = {"depth_curve": "depth_curve.cu",
 # kernel with)
 KERNELS = ("depth_curve", "depth_curve_lanes", "score_capacity",
            "chunked_step", "chunked_scan", "convex_solve",
-           "depth_curve_gather", "score_capacity_gather", "fit_verdict")
-# the kernels the placer's solves launch: the first one a process finds
-# unbuilt has all of them built at once (one nvcc a source), so a cold
-# server pays the slowest build once, not each build as its solve first
-# needs it, and its data dir then holds them all for a restart
+           "depth_curve_gather", "score_capacity_gather", "fit_verdict",
+           "chunked_shard", "convex_shard")
+# the kernels the placer's solves launch on one card: the first one a
+# process finds unbuilt has all of them built at once (one nvcc a
+# source), so a cold server pays the slowest build once, not each build
+# as its solve first needs it, and its data dir then holds them all for
+# a restart. The mesh's two kernels build at their first use (a mesh
+# server's warmup drives both): a server on one card never launches
+# them, and their nvcc would compete with its start
 SOLVE_KERNELS = ("depth_curve", "score_capacity", "chunked_scan",
                  "convex_solve", "fit_verdict")
 MAX_GRID = 32           # csrc/depth_curve.cu DepthGrid capacity
 MAX_LANES = BATCH_LANES  # csrc/depth_curve.cu LaneScalars capacity
 
 LAUNCHES = {name: 0 for name in KERNELS}
+# host waits a sharded convex solve made (one a block of rounds)
+WAITS = {"convex_shard": 0}
 BUILD_LOG: dict = {}    # name -> nvcc output (registers, spills)
 _fns: dict = {}         # (name, symbol) -> the library's function
 _build_lock = threading.Lock()
@@ -158,6 +175,14 @@ _ARGTYPES = {
     "convex_solve_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                             _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P],
     "convex_solve_scratch_bytes": [_I],
+    "chunked_shard_launch": [_P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _P],
+    "chunked_shard_scratch_bytes": [_I, _I, _I, _I, _I, _I],
+    "chunked_shard_cand_bytes": [_I, _I, _I],
+    "convex_shard_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
+                            _F, _F, _I, _I, _P],
+    "convex_shard_scratch_bytes": [_I],
+    "convex_shard_done_offset": [],
     "launch_floor_launch": [_P],
     "launch_floor_gather_launch": [_P, _P, _I, _I, _P, _P],
     "pow10_check_launch": [ctypes.c_uint, ctypes.c_uint, _P, _P],
@@ -168,6 +193,8 @@ def reset_launches() -> None:
     with _launch_lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+        for name in WAITS:
+            WAITS[name] = 0
 
 
 class KernelBuildError(RuntimeError):
@@ -245,7 +272,8 @@ def _fn(name: str, symbol: str = "launch"):
                 build(SOLVE_KERNELS if name in SOLVE_KERNELS else [name])
             fn = getattr(ctypes.CDLL(str(path)), f"{name}_{symbol}")
             fn.argtypes = _ARGTYPES[f"{name}_{symbol}"]
-            fn.restype = (ctypes.c_longlong if symbol == "scratch_bytes"
+            fn.restype = (ctypes.c_longlong
+                          if symbol.endswith(("_bytes", "_offset"))
                           else ctypes.c_int)
             _fns[(name, symbol)] = fn
     return fn
@@ -302,15 +330,17 @@ class KernelLaunchError(RuntimeError):
         self.code = code
 
 
-def _launched(name: str, err: int) -> None:
+def _launched(name: str, err: int, n: int = 1) -> None:
+    """Count `n` launches of kernel `name` (a sharded solve's launcher
+    queues many in one call), or raise the launch's error."""
     if err != 0:
         raise KernelLaunchError(
             f"{name} kernel launch failed: cudaError_t {err}", err)
     with _launch_lock:
-        LAUNCHES[name] += 1
+        LAUNCHES[name] += n
     # a kernel's name: one of the fixed SOURCES (its LAUNCHES key), not a
     # cluster entity — nomadlint: disable=OBS001
-    metrics.incr(f"nomad.solver.kernel_launches.{name}")
+    metrics.incr(f"nomad.solver.kernel_launches.{name}", n)
 
 
 def _stream(dev) -> int:
@@ -656,6 +686,7 @@ def fused_to_host(placed, fit) -> tuple:
     """fit_verdict's (placed, fit) as numpy through ONE device-to-host
     copy of the buffer they are views of. CPU tensors pass through."""
     if placed.device.type == "cpu":
+        # CPU tensors: no copy — nomadlint: disable=SYNC001
         return placed.numpy(), fit.numpy()
     storage, rows = placed.untyped_storage(), placed.numel()
     if storage.nbytes() != 5 * rows or \
@@ -663,8 +694,11 @@ def fused_to_host(placed, fit) -> tuple:
             fit.data_ptr() != storage.data_ptr() + 4 * rows:
         raise ValueError("placed and fit are not views of fit_verdict's "
                          "buffer")
-    host = torch.empty(0, dtype=torch.uint8,
-                       device=placed.device).set_(storage).cpu()
+    buf = torch.empty(0, dtype=torch.uint8,
+                      device=placed.device).set_(storage)
+    # the fused route's ONE copy to the host: the seam the placer's fused
+    # solve and the fused window reach — nomadlint: disable=SYNC001
+    host = buf.cpu()
     return (host[:4 * rows].view(torch.int32).view(placed.shape).numpy(),
             host[4 * rows:].view(torch.bool).view(fit.shape).numpy())
 
@@ -973,6 +1007,222 @@ def convex_eval_fused(cap_res, used_res, idx, valid, ask, count, feasible,
         solve=convex_solve, greedy=fill_greedy_binpack_fused)
 
 
+# ------------------------------------------------- the sharded solves
+
+SHARD_PTRS = {"chunked_shard": 19, "convex_shard": 13}   # csrc enums' NPTR
+MAX_SHARDS = 16         # csrc/chunked_shard.cu, csrc/convex_shard.cu
+
+
+def _shard_layout(name: str, caps) -> tuple:
+    """(ctypes pointer table [S][NPTR], the shards' device ordinals, one
+    device for all) for a sharded launcher, after checking the shard
+    count."""
+    n_shards = len(caps)
+    if not 1 <= n_shards <= MAX_SHARDS:
+        raise ValueError(f"{n_shards} shards: the kernel takes 1.."
+                         f"{MAX_SHARDS}")
+    devs = [c.device for c in caps]
+    ptrs = (ctypes.c_ulonglong * (n_shards * SHARD_PTRS[name]))()
+    ordinals = (ctypes.c_int * n_shards)(*[d.index or 0 for d in devs])
+    return ptrs, ordinals, all(d == devs[0] for d in devs)
+
+
+def _set_ptrs(ptrs, name: str, shard: int, values) -> None:
+    base = shard * SHARD_PTRS[name]
+    for i, v in enumerate(values):
+        ptrs[base + i] = v if isinstance(v, int) else v.data_ptr()
+
+
+def chunked_shard(caps, useds, asks, count, feasibles, collisions,
+                  desired_count, spread_ids, spread_counts, spread_desired,
+                  spread_modes, spread_weights, affinities, distinct_ids,
+                  distinct_remaining, placed,
+                  max_per_node=kernels.MAX_PER_NODE_CAP, max_steps: int = 256,
+                  spread_algorithm: bool = False) -> tuple:
+    """The sharded scan: kernels.chunked_shard_ref's per-shard lists in
+    and out, one launcher call queueing max_steps + 1 launches of the
+    sharded step kernel a shard (csrc/chunked_shard.cu) on CUDA tensors,
+    no host wait; the plain version on CPU tensors. -> (placed blocks,
+    used blocks, spread_counts per shard, distinct_remaining per shard,
+    state int32 [S, 8] on the first shard's device: column 2 the steps
+    run, column 5 the launches that exited early; read it only to
+    measure)."""
+    if caps[0].device.type == "cpu":
+        out = kernels.chunked_shard_ref(
+            caps, useds, asks, count, feasibles, collisions, desired_count,
+            spread_ids, spread_counts, spread_desired, spread_modes,
+            spread_weights, affinities, distinct_ids, distinct_remaining,
+            placed, max_per_node=max_per_node, max_steps=max_steps,
+            spread_algorithm=spread_algorithm)
+        state = torch.zeros((len(caps), 8), dtype=torch.int32)
+        state[:, 2] = out[4]
+        return out[:4] + (state,)
+    ptrs, ordinals, shared = _shard_layout("chunked_shard", caps)
+    n_shards = len(caps)
+    n = int(caps[0].shape[0])
+    n_s, n_p = spread_counts[0].shape
+    n_d, n_dp = distinct_remaining[0].shape
+    if not 0 < n_s <= MAX_STANZAS or not 0 < n_d <= MAX_STANZAS:
+        raise ValueError(f"{n_s} spread and {n_d} distinct stanzas: the "
+                         f"kernel takes 1..{MAX_STANZAS} of each")
+    count, max_steps = int(count), int(max_steps)
+    if max_steps < 1:
+        raise ValueError(f"max_steps {max_steps}: the scan takes >= 1")
+    chunk = min(max((count + max_steps - 1) // max_steps, 1),
+                min(n * n_shards, MAX_CHUNK))
+    nbytes = int(_fn("chunked_shard", "scratch_bytes")(n, n_s, n_p, n_d,
+                                                         n_dp, chunk))
+    cbytes = int(_fn("chunked_shard", "cand_bytes")(n_shards, chunk,
+                                                      n_s + n_d))
+    cand = None
+    placed_out, used_out, sp_out, dp_out, scratch = [], [], [], [], []
+    for s in range(n_shards):
+        dev = caps[s].device
+        _check_rows(caps[s], useds[s], asks[s], feasibles[s],
+                    (collisions[s], "job_collisions", torch.int32),
+                    (affinities[s], "affinity_boost", torch.float32),
+                    (placed[s], "placed", torch.int32))
+        for t, what, dtype, shape in (
+                (spread_ids[s], "spread_ids", torch.int32, (n_s, n)),
+                (spread_counts[s], "spread_counts", torch.int32, (n_s, n_p)),
+                (spread_desired[s], "spread_desired", torch.float32,
+                 (n_s, n_p)),
+                (spread_modes[s], "spread_mode", torch.int32, (n_s,)),
+                (spread_weights[s], "spread_weights", torch.float32, (n_s,)),
+                (distinct_ids[s], "distinct_ids", torch.int32, (n_d, n)),
+                (distinct_remaining[s], "distinct_remaining", torch.int32,
+                 (n_d, n_dp))):
+            if not _fits(t, dtype, shape, dev):
+                _check(t, what, dtype, shape, dev)
+        placed_out.append(placed[s].clone())
+        used_out.append(useds[s].clone())
+        sp_out.append(torch.empty_like(spread_counts[s]))
+        dp_out.append(torch.empty_like(distinct_remaining[s]))
+        scratch.append(torch.empty((nbytes,), dtype=torch.uint8, device=dev))
+        if cand is None or not shared:
+            cand = torch.empty((cbytes,), dtype=torch.uint8, device=dev)
+        _set_ptrs(ptrs, "chunked_shard", s, (
+            caps[s], used_out[s], asks[s], feasibles[s], collisions[s],
+            placed_out[s], spread_ids[s], spread_counts[s],
+            spread_desired[s], spread_modes[s], spread_weights[s],
+            affinities[s], distinct_ids[s], distinct_remaining[s], sp_out[s],
+            dp_out[s], scratch[s], cand, _stream(dev)))
+    launches = ctypes.c_int(0)
+    err = _fn("chunked_shard")(
+        ptrs, ordinals, n_shards, n,
+        min(int(max_per_node), kernels.MAX_PER_NODE_CAP),
+        float(max(int(desired_count), 1)), int(bool(spread_algorithm)), n_s,
+        n_p, n_d, n_dp, count, chunk, max_steps, ctypes.byref(launches))
+    _launched("chunked_shard", err, launches.value)
+    lead = caps[0].device
+    state = torch.stack([sc[:32].view(torch.int32).to(lead, non_blocking=True)
+                         for sc in scratch])
+    return placed_out, used_out, sp_out, dp_out, state
+
+
+# the sharded convex solve's rounds are queued in blocks, each ending in
+# one wait on the done flag: the first block covers a solve of two
+# iterations (3 + 18 x 2 launches a shard: the bench fixture's), each later
+# block twice the one before
+CONVEX_FIRST_BLOCK = 3 + 18 * 2
+
+
+def convex_solve_sharded(caps, useds, asks, feasibles, collisions,
+                         affinities, count, max_per_node, max_iters,
+                         tolerance, fairness_weight, quota_budget,
+                         spread_algorithm: bool = False) -> tuple:
+    """The sharded convex solve (convex.convex_solve_sharded_ref's
+    per-shard lists and returns): on CUDA tensors, rounds of the sharded
+    solve kernel (csrc/convex_shard.cu) queued in blocks of
+    CONVEX_FIRST_BLOCK, then twice as many, and so on, each block ending
+    in ONE wait on the lead shard's done flag (a solve of i iterations
+    takes 3 + 18 i rounds: one wait up to 2 iterations, 2 up to 5, 3 up to
+    12, ...); the plain version on CPU tensors. `WAITS` counts the waits.
+    -> (x blocks, u_int blocks, cost blocks, budget_int, iterations, gap),
+    the scalars on the first shard's device."""
+    if caps[0].device.type == "cpu":
+        return convex.convex_solve_sharded_ref(
+            caps, useds, asks, feasibles, collisions, affinities, count,
+            max_per_node, max_iters, tolerance, fairness_weight,
+            quota_budget, spread_algorithm=spread_algorithm)
+    ptrs, ordinals, shared = _shard_layout("convex_shard", caps)
+    n_shards = len(caps)
+    n = int(caps[0].shape[0])
+    nbytes = int(_fn("convex_shard", "scratch_bytes")(n))
+    done_at = int(_fn("convex_shard", "done_offset")())
+    slots = None
+    xs, us, costs, scalars, scratch = [], [], [], [], []
+    for s in range(n_shards):
+        dev = caps[s].device
+        _check_rows(caps[s], useds[s], asks[s], feasibles[s],
+                    (collisions[s], "job_collisions", torch.int32),
+                    (affinities[s], "affinity_boost", torch.float32))
+        xs.append(torch.empty((n,), dtype=torch.float32, device=dev))
+        costs.append(torch.empty((n,), dtype=torch.float32, device=dev))
+        us.append(torch.empty((n,), dtype=torch.int32, device=dev))
+        scalars.append(torch.empty((4,), dtype=torch.int32, device=dev))
+        sc = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+        sc[:64].zero_()
+        scratch.append(sc)
+        if slots is None or not shared:
+            slots = torch.empty((2 * n_shards * 8,), dtype=torch.float32,
+                                device=dev)
+        _set_ptrs(ptrs, "convex_shard", s, (
+            caps[s], useds[s], asks[s], feasibles[s], collisions[s],
+            affinities[s], scratch[s], slots, xs[s], us[s], costs[s],
+            scalars[s], _stream(dev)))
+    lead = caps[0].device
+    done_h = torch.empty((1,), dtype=torch.int32, pin_memory=True)
+    rounds, block = 0, CONVEX_FIRST_BLOCK
+    last = 3 + 18 * max(int(max_iters), 0)
+    while True:
+        launches = ctypes.c_int(0)
+        err = _fn("convex_shard")(
+            ptrs, ordinals, n_shards, n,
+            min(int(max_per_node), kernels.MAX_PER_NODE_CAP), int(count),
+            int(max_iters), int(bool(spread_algorithm)), float(tolerance),
+            float(fairness_weight), float(quota_budget),
+            convex.curvature(spread_algorithm),
+            convex.step_offset(spread_algorithm), kernels._INV_MAX_SCORE,
+            rounds, block, ctypes.byref(launches))
+        _launched("convex_shard", err, launches.value)
+        rounds += block
+        done_h.copy_(scratch[0][done_at:done_at + 4].view(torch.int32),
+                     non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(lead))
+        # one wait a block of rounds: the sharded convex solve's loop
+        # test, counted in WAITS — nomadlint: disable=SYNC001
+        ev.synchronize()
+        with _launch_lock:
+            WAITS["convex_shard"] += 1
+        # pinned host memory, read after the wait — nomadlint: disable=SYNC001
+        if int(done_h[0]):
+            break
+        if rounds >= last:
+            raise RuntimeError(f"the sharded convex solve ran {rounds} "
+                               f"rounds without finishing")
+        block *= 2
+    return (xs, us, costs, scalars[0][0], scalars[0][1],
+            scalars[0][2:3].view(torch.float32).reshape(()))
+
+
+@device_program
+def convex_eval_sharded_fused(caps, useds, asks, count, feasibles,
+                              max_per_node, affinities, collisions,
+                              max_iters, tolerance, fairness_weight,
+                              quota_budget,
+                              spread_algorithm: bool = False) -> tuple:
+    """convex.convex_eval_sharded with the sharded convex kernel as its
+    solve and the score/capacity kernel's greedy entry (one launch a
+    shard) as its baseline's keys; CPU tensors run the plain eval."""
+    return convex.convex_eval_sharded(
+        caps, useds, asks, count, feasibles, max_per_node, affinities,
+        collisions, max_iters, tolerance, fairness_weight, quota_budget,
+        spread_algorithm=spread_algorithm, solve=convex_solve_sharded,
+        greedy_key=score_capacity_greedy)
+
+
 def cluster_barrier(steps: int, dev, threads: int = 512) -> None:
     """One launch of `steps` cluster barriers on 8 CTAs of `threads`
     threads (the scan kernel's 512, the convex solve's 1,024) on `dev`'s
@@ -1022,4 +1272,5 @@ def pow10_check(first: int, last: int, dev) -> tuple:
     if err != 0:
         raise RuntimeError(f"pow10_check kernel launch failed: "
                            f"cudaError_t {err}")
+    # a measurement's read, off the solve path — nomadlint: disable=SYNC001
     return tuple(int(c) for c in counts.tolist())

@@ -698,20 +698,22 @@ def chunked_step_ref(cap, used, ask, feasible, job_collisions, placed,
                        -math.inf)
 
 
-def chunked_key(score: torch.Tensor) -> torch.Tensor:
+def chunked_key(score: torch.Tensor, offset: int = 0) -> torch.Tensor:
     """The scan's selection key, int64[N], unique per node: the
     order-preserving bits of the float32 score in the high word (-0.0
-    read as +0.0, which the sort takes as equal), ~index in the low word.
-    Keys descending are scores descending, then node index ascending:
-    the order of a stable descending sort, and lax.top_k's. csrc/
-    chunked_scan.cu selects by the same key (as uint64, its high word
-    offset by 2**31). A score is never NaN (chunked_step_ref divides only
-    by values >= 1 or > 0)."""
+    read as +0.0, which the sort takes as equal), ~index in the low word
+    (the index is `offset` + the row: a shard's block keys its rows by
+    their place in the whole bucket). Keys descending are scores
+    descending, then node index ascending: the order of a stable
+    descending sort, and lax.top_k's. csrc/chunked_scan.cu and
+    csrc/chunked_shard.cu select by the same key (as uint64, its high
+    word offset by 2**31). A score is never NaN (chunked_step_ref divides
+    only by values >= 1 or > 0)."""
     s = torch.where(score == 0.0, 0.0, score)
     bits = s.view(torch.int32).to(torch.int64)
     hi = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
     idx = torch.arange(score.shape[0], dtype=torch.int64,
-                       device=score.device)
+                       device=score.device) + int(offset)
     return hi * 2 ** 32 + (2 ** 32 - 1 - idx)
 
 
@@ -814,6 +816,94 @@ def place_chunked(cap, used, ask, count, feasible, job_collisions,
         spread_mode, spread_weights, affinity_boost, distinct_ids,
         distinct_remaining, max_per_node, max_steps, spread_algorithm,
         placed_init)
+
+
+def chunked_shard_ref(caps, useds, asks, count, feasibles, collisions,
+                      desired_count, spread_ids, spread_counts,
+                      spread_desired, spread_modes, spread_weights,
+                      affinities, distinct_ids, distinct_remaining, placed,
+                      max_per_node=MAX_PER_NODE_CAP, max_steps: int = 256,
+                      spread_algorithm: bool = False) -> tuple:
+    """Plain version of the sharded scan kernel (csrc/chunked_shard.cu):
+    place_chunked with the node axis split into S row blocks of R rows,
+    every argument a list of S per-shard values (the node-axis ones shard
+    s's block: cap/used [R, R'], feasible/collisions/affinity/placed [R],
+    spread_ids/distinct_ids [stanzas, R]; the others each shard's copy).
+    Each step every shard scores its block against its own copy of the
+    spread counts and distinct quotas (chunked_step_ref) and offers its
+    first take = min(chunk, remaining) rows by chunked_key over the bucket
+    (offset s R); the step's winners are the first take of the S offers
+    by key, and every shard applies them to its copy of the tables and to
+    its own rows. It stops where the scan kernel stops (remaining 0, a
+    step that selects nothing, max_steps). -> (placed blocks, used blocks,
+    spread_counts per shard, distinct_remaining per shard, steps run),
+    equal bit for bit to place_chunked over the whole bucket (the tables
+    equal on every shard)."""
+    n_shards = len(caps)
+    rows = int(caps[0].shape[0])
+    count = int(count)
+    k = min(rows * n_shards, 256)
+    chunk = min(max((count + max_steps - 1) // max_steps, 1), k)
+    mpn = min(int(max_per_node), MAX_PER_NODE_CAP)
+    desired = int(desired_count)
+    pcounts = list(spread_counts)
+    drem = list(distinct_remaining)
+    n_s, n_props = pcounts[0].shape
+    n_d, n_dvals = drem[0].shape
+    d_active = [dr[:, 0] >= 0 for dr in drem]
+    used = list(useds)
+    placed = list(placed)
+    remaining, steps = count, 0
+    # the plain version's step loop over the shards: the card queues the
+    # same steps as launches — nomadlint: disable=CVX001
+    for t in range(max_steps):
+        take = min(remaining, chunk)
+        if take <= 0:
+            break
+        offers = []             # (key, shard, row) of every shard's offer
+        for s in range(n_shards):
+            score = chunked_step_ref(
+                caps[s], used[s], asks[s], feasibles[s], collisions[s],
+                placed[s], mpn, desired, spread_ids[s], pcounts[s],
+                spread_desired[s], spread_modes[s], spread_weights[s],
+                affinities[s], distinct_ids[s], drem[s], d_active[s],
+                spread_algorithm)
+            fin = torch.isfinite(score)
+            key = chunked_key(score, offset=s * rows)
+            key = torch.where(fin, key, torch.iinfo(torch.int64).min)
+            n_offer = min(int(fin.sum()), take)
+            top = torch.topk(key, n_offer).indices
+            offers += [(int(key[j]), s, int(j)) for j in top]
+        offers.sort(reverse=True)
+        winners = offers[:take]
+        n_sel = len(winners)
+        sp_add = torch.zeros((n_s, n_props), dtype=torch.int32)
+        dp_sub = torch.zeros((n_d, n_dvals), dtype=torch.int32)
+        for _, s, j in winners:
+            for v in range(n_s):
+                sid = int(spread_ids[s][v, j])
+                if sid >= 0:
+                    sp_add[v, min(sid, n_props - 1)] += 1
+            for v in range(n_d):
+                did = int(distinct_ids[s][v, j])
+                if did >= 0:
+                    dp_sub[v, min(did, n_dvals - 1)] += 1
+        for s in range(n_shards):
+            add = torch.zeros((rows,), dtype=torch.int32,
+                              device=caps[s].device)
+            own = [j for _, r, j in winners if r == s]
+            if own:
+                add[torch.tensor(own, device=add.device)] = 1
+            used[s] = used[s] + add[:, None].to(torch.float32) * \
+                asks[s][None, :]
+            placed[s] = placed[s] + add
+            pcounts[s] = pcounts[s] + sp_add.to(pcounts[s].device)
+            drem[s] = drem[s] - dp_sub.to(drem[s].device)
+        remaining -= n_sel
+        steps = t + 1
+        if n_sel == 0:
+            break
+    return placed, used, pcounts, drem, steps
 
 
 # ------------------------------------------------------------ preemption

@@ -40,9 +40,17 @@ work never moves to the CPU:
     rebuilds the mesh replays the identical window at the new generation
     (at most sharding.MAX_REPLAYS times, `nomad.mesh.replays`), as the
     reference replays it.
-  * on a mesh, windows run solo on its first device (the reference
-    shards the lane axis over the mesh, `lane_sharding`: ROADMAP Queue
-    1): a window fires only the lead shard's `device.lost.d<N>` site.
+  * on a mesh, a classic window whose lane count divides over the
+    shards splits its lanes over them (`sharding.lane_sharding`, the
+    reference's lane axis over the mesh): shard s gets the stacked
+    columns of lanes [s L/S, (s + 1) L/S) and solves them with ONE launch
+    of the depth-curve kernel and the tail, and the rows meet on the
+    mesh's first device (`sharding.split_lanes`). Any other lane count
+    runs solo on the first device, as the reference's `lane_sharding`
+    returns None. A fused window over node-sharded twins runs each
+    shard's gather entry over the lanes' rows it owns
+    (`sharding.sharded_fused_lanes`). Such windows fire every shard's
+    `device.lost.d<N>` site, a solo one only the first shard's.
   * a window is not padded to LANES rows: the reference pads with
     count-0 clones of lane 0 because its XLA program has one fixed
     shape, while a launch takes any lane count, so padding lanes would
@@ -283,9 +291,8 @@ class MicroBatcher:
         if fused:
             cols = stack_lanes([r.args[2:14] for r in lanes],
                                backend.FUSED_LANE_DTYPES)
-        else:
-            cols = stack_lanes([r.args for r in lanes],
-                               backend._ARG_DTYPES["depth"])
+            twins = lanes[0].args[:2]
+            over_shards = sharding.is_node_sharded(twins[0])
         sp = trace.start_span(
             "solver.microbatch.dispatch",
             links=[r.ctx for r in lanes if r.ctx is not None],
@@ -296,18 +303,33 @@ class MicroBatcher:
         replays = 0
         while True:
             gen = sharding.generation()
+            # a classic window's lanes split over the mesh of this attempt
+            # (a replay's: the survivors) where they divide over it
+            split = None if fused else sharding.lane_sharding(len(lanes))
             try:
                 faults.fire("solver.microbatch.dispatch")
-                sharding.fire_device_loss_sites(lead_only=True)
+                if split is not None or (fused and over_shards):
+                    sharding.fire_device_loss_sites(split)
+                else:
+                    sharding.fire_device_loss_sites(lead_only=True)
                 # the window's one sync
                 if fused:
-                    twins = lanes[0].args[:2]
                     # nomadlint: disable=SYNC001 — the fused window's sync
                     out = tuple(zip(*cuda_kernels.fused_to_host(
                         *lanes_fn(*twins, *cols))))
-                else:
+                elif split is None:
+                    cols = stack_lanes([r.args for r in lanes],
+                                       backend._ARG_DTYPES["depth"])
                     # nomadlint: disable=SYNC001 — the window's one sync
                     out = lanes_fn(*cols).cpu()
+                else:
+                    k = len(lanes) // split.size
+                    parts = [stack_lanes(
+                        [r.args for r in lanes[s * k:(s + 1) * k]],
+                        backend._ARG_DTYPES["depth"], dev=d.device)
+                        for s, d in enumerate(split.devices)]
+                    # nomadlint: disable=SYNC001 — the window's one sync
+                    out = sharding.split_lanes(split, lanes_fn, parts).cpu()
                 break
             except backend.device_error_types() as e:
                 # a device LOSS that rebuilt the mesh replays the identical
@@ -334,9 +356,10 @@ class MicroBatcher:
 
     def on_mesh_rebuild(self, gen: int) -> None:
         """sharding.rebuild()'s hook, in the reference's order. The port's
-        batcher holds no mesh-keyed state (its windows run on the mesh's
-        first device, stacked afresh per window), so nothing is dropped;
-        a window in flight during the rebuild replays in `_dispatch`."""
+        batcher holds no mesh-keyed state (a window reads the mesh and
+        stacks its columns afresh at each attempt), so nothing is
+        dropped; a window in flight during the rebuild replays in
+        `_dispatch` on the survivors."""
         del gen
 
     def reset(self) -> None:

@@ -589,10 +589,11 @@ class SolverPlacer:
         are gathered from them here, once per eval (the same device gather
         the cache runs otherwise). Twins of an older mesh generation are
         declined (their buffers may be of the dead mesh). Rows gathered
-        from sharded twins stay row blocks for the sharded tier and meet
-        on the mesh's first device for a solo one; solo twins serve a solo
-        tier on the solve device and the sharded tier, which splits
-        them."""
+        from sharded twins stay row blocks for the sharded tier alone: a
+        solo tier (a window, the pipelined chunks' fed-forward usage)
+        takes the host copies, so no whole row set is assembled from the
+        shards; solo twins serve a solo tier on the solve device and the
+        sharded tier, which splits them."""
         if gt.gen is not None and gt.gen != sharding.generation():
             return None
         dev = _device.solve_device()
@@ -606,7 +607,7 @@ class SolverPlacer:
                 gt.cap_dev.shape[0] != gt.cap.shape[0]:
             return None
         if sharding.is_node_sharded(gt.cap_dev) and bname != "sharded":
-            return gt.cap_dev.lead(), gt.used_dev.lead()
+            return None
         return gt.cap_dev, gt.used_dev
 
     def _convex_solve(self, kernel: str, prep, count: int):
@@ -630,15 +631,15 @@ class SolverPlacer:
         if res is None:
             return None
         cap_res, used_res, idx, valid = res
-        if sharding.is_node_sharded(cap_res):
-            # the convex solve runs solo on the mesh's first device: the
-            # sharded twins meet there whole (ROADMAP Queue 1)
-            cap_res, used_res = cap_res.lead(), used_res.lead()
         gt = prep.gt
         bucket = gt.cap.shape[0]
-        sel = backend.select_convex(kernel,
-                                    spread_algorithm=prep.spread_alg,
-                                    twins_device=cap_res.device)
+        # sharded twins feed the sharded convex solve in place
+        # (sharding.sharded_convex), solo twins the solo one
+        sel = backend.select_convex(
+            kernel, bucket, spread_algorithm=prep.spread_alg,
+            twins_device=cap_res.device,
+            sharded_twins=sharding.is_node_sharded(cap_res),
+            mesh_snap=prep.snap)
         if sel is None:
             return None
         tier, run = sel
@@ -656,19 +657,24 @@ class SolverPlacer:
             budget = float(max(0, quota - ns_used))
         else:
             budget = float(2 ** 30)
+        rest = (gt.ask, np.int32(count), gt.feasible,
+                np.int32(prep.max_per_node), aff, gt.job_collisions,
+                np.zeros(bucket, np.int32), np.bool_(gt.distinct_hosts),
+                np.int32(getattr(cfg, "solver_convex_max_iters", 200)),
+                np.float32(getattr(cfg, "solver_convex_tolerance", 1e-4)),
+                np.float32(getattr(cfg, "solver_convex_fairness_weight",
+                                   0.05)),
+                np.float32(budget))
+        # a sharded solve that loses a shard replays the eval's host rows
+        # as the twins (idx the identity), never the twins it held
+        host = (gt.cap, gt.used, np.arange(bucket, dtype=np.int32),
+                valid) + rest
         # THE single sync of the convex eval: the chain's one copy to the
         # host (convex.to_host) brings placement, verdict, iteration count,
         # gap and the won flag back together
         # nomadlint: disable=SYNC001 — the designated single-sync seam
         placed_h, fit_h, iters, gap, won = run(
-            cap_res, used_res, idx, valid, gt.ask, np.int32(count),
-            gt.feasible, np.int32(prep.max_per_node), aff,
-            gt.job_collisions, np.zeros(bucket, np.int32),
-            np.bool_(gt.distinct_hosts),
-            np.int32(getattr(cfg, "solver_convex_max_iters", 200)),
-            np.float32(getattr(cfg, "solver_convex_tolerance", 1e-4)),
-            np.float32(getattr(cfg, "solver_convex_fairness_weight", 0.05)),
-            np.float32(budget))
+            cap_res, used_res, idx, valid, *rest, host_args=host)
         metrics.set_gauge("nomad.solver.convex.iterations", iters)
         metrics.set_gauge("nomad.solver.convex.objective_gap", float(gap))
         metrics.incr("nomad.solver.convex.won" if won
@@ -838,11 +844,16 @@ class SolverPlacer:
                 sp.weights, prep.aff, dp.ids, dp.remaining,
                 np.zeros((gt.cap.shape[0],), np.int32))
         dev = self._dev_mats(gt, bname)
+        host = args
         if dev is not None:
             args = dev + args[2:]
             metrics.incr("nomad.solver.state_cache.twin_dispatches")
-        # every input on the device once; the carried state stays there
-        args = backend.on_device("chunked", args)
+        if bname != "sharded":
+            # every input on the device once; the carried state stays there
+            args = backend.on_device("chunked", args)
+        # (on the mesh the sharded scan splits the host arrays, or takes
+        # the twins' row blocks in place; its carried usage and placements
+        # stay row blocks on the shards)
         used, sp_counts, d_rem, placed = args[1], args[8], args[14], args[15]
         left = int(count)
         last_total = 0
@@ -850,14 +861,20 @@ class SolverPlacer:
             a = (args[0], used, args[2], np.int32(min(left, cover)),
                  *args[4:8], sp_counts, *args[9:14], d_rem, placed,
                  np.int32(prep.max_per_node))
+            # a sharded solve that loses a shard replays host arrays, never
+            # the twins: the first solve its own inputs from the host
+            run = functools.partial(
+                chunked_fn, host_args=(host[:2] + a[2:]) if used is args[1]
+                and bname == "sharded" else None)
             if left <= cover:   # one solve covers the rest of the ask
                 # nomadlint: disable=SYNC001 — the scan's single-sync seam
-                return chunked_fn(*a, finish=lambda out: out[0].cpu().numpy())
+                return run(*a, finish=lambda out: out[0].cpu().numpy())
             # a refill: only the placement total reaches the host
-            (placed, used, sp_counts, d_rem), total = chunked_fn(
+            (placed, used, sp_counts, d_rem), total = run(
+                *a,
                 # the refill's total: one sync per extra solve of an ask
                 # past one solve's cover — nomadlint: disable=SYNC001
-                *a, finish=lambda out: (out, int(out[0].sum())))
+                finish=lambda out: (out, int(out[0].sum())))
             left = int(count) - total
             if left <= 0 or total == last_total:
                 # done, or capacity exhausted

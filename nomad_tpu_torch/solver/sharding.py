@@ -41,12 +41,21 @@ normalized signature, declared with `sharded_program`'s in/out layouts):
 `sharded_fill_greedy` (K2 a shard), `sharded_fill_depth` (K1 a shard),
 `sharded_fused` (a shard's gather entry over the rows of `idx` it owns,
 then `fit_verdict` over them; the rows it does not own are combined by
-select, never by sum), `sharded_preempt_top_k` (the candidate axis
-split), and the explicit cross-shard reduces `cross_shard_top_k` and
-`sharded_spread_counts`. Still solo on the mesh's first device: the
-chunked scan, the convex solve and micro-batch windows (ROADMAP Queue 1).
-The reference's `sharded_explain_reduce` has no caller here: the placer
-explains on the host from the eval's one host copy.
+select, never by sum), `sharded_place_chunked` (the scan: one launch of
+csrc/chunked_shard.cu a shard a step, every shard ranking the step's
+offers itself), `sharded_convex` (the convex solve: one launch of
+csrc/convex_shard.cu a shard a reduction round, over the eval's rows
+gathered where their twin rows live, `gather_node_rows`),
+`sharded_preempt_top_k` (the candidate axis split),
+`sharded_eval_batch_fill_greedy` (evals over groups of shards, the node
+axis over each group's shards), and the explicit cross-shard reduces
+`cross_shard_top_k` and `sharded_spread_counts`. Micro-batch windows
+split their lanes over the shards where the lane count divides
+(`lane_sharding`, `split_lanes`); a fused window over sharded twins runs
+each shard's gather entry over the lanes' rows it owns
+(`sharded_fused_lanes`). The reference's `sharded_explain_reduce` has no
+caller here: the placer explains on the host from the eval's one host
+copy.
 """
 from __future__ import annotations
 
@@ -69,6 +78,9 @@ NODE = "node"       # split along axis 0 over the shards
 NODE_COLS = "node_cols"     # split along axis 1 (a [stanzas, N] matrix)
 REP = "rep"         # the whole value on every shard that reads it
 LEAD = "lead"       # the whole value on the mesh's first device
+EVALS = "evals"     # split along axis 0 over eval groups of shards
+EVALS_NODE = "evals_node"   # [E, N, ...]: evals over the groups, then the
+                            # node axis over each group's shards
 
 _mesh_lock = threading.Lock()
 _mesh_singleton: "Mesh | None" = None
@@ -152,6 +164,18 @@ class MeshLostError(RuntimeError):
     """Every shard of the device set is quarantined: the solver has no
     device left to run on (backend.tier raises it). Not a device error:
     nothing classifies, counts or replays it."""
+
+
+def lane_sharding(n_lanes: int, m: "Mesh | None" = None
+                  ) -> "Mesh | None":
+    """The mesh a window of `n_lanes` lanes splits its lane axis over (ref
+    `lane_sharding`): shard s solves lanes [s L/S, (s + 1) L/S). None
+    where there is no mesh or the lanes do not divide over its shards:
+    the window then runs solo on the mesh's first device."""
+    m = m if m is not None else mesh()
+    if m is None or n_lanes % m.size:
+        return None
+    return m
 
 
 def lead_id() -> int:
@@ -359,6 +383,18 @@ class NodeSharded:
         dev = self.mesh.lead
         return torch.cat([b.to(dev, non_blocking=True) for b in self.blocks])
 
+    def cpu(self) -> torch.Tensor:
+        """The whole tensor on the host (a copy a block): a sharded
+        solve's result at its host sync, as a tensor's .cpu() gives it."""
+        return torch.cat([b.cpu() for b in self.blocks])
+
+    def sum(self, dtype=None) -> torch.Tensor:
+        """The sum of every element, on the lead: each block's sum meets
+        there (a refill's placement total)."""
+        lead = self.mesh.lead
+        return torch.stack([b.sum(dtype=dtype).to(lead)
+                            for b in self.blocks]).sum()
+
     def __repr__(self) -> str:
         return f"NodeSharded({self.shape}, {self.dtype}, {self.mesh})"
 
@@ -427,6 +463,15 @@ def to_host(x) -> np.ndarray:
     return x.cpu().numpy()
 
 
+def at_lead(x):
+    """A sharded solve's node-axis RESULT (a NodeSharded placement or
+    verdict, never a twin) as one tensor on the mesh's first device, for
+    the eval's one host copy; a tensor passes through."""
+    if isinstance(x, NodeSharded):
+        return _at_lead(x.mesh, x.blocks)
+    return x
+
+
 class _Replicas:
     """A replicated input, copied to each distinct shard device once."""
 
@@ -483,6 +528,47 @@ def _select_at_lead(m: Mesh, parts, owners) -> torch.Tensor:
     for part, own in zip(parts[1:], owners[1:]):
         acc = torch.where(own, part.to(lead, non_blocking=True), acc)
     return acc
+
+
+def gather_node_rows(twins: tuple, idx, valid, m: Mesh) -> tuple:
+    """Rows `idx` of node-sharded twins (each a NodeSharded of R rows a
+    shard), in eval order, split over m's shards along the eval's bucket
+    axis: the block of shard d holds bucket rows [d B/S, (d + 1) B/S),
+    each gathered on the shard that owns its twin row and copied to d,
+    rows where `valid` is False zeroed (kernels.gather_rows's values). No
+    whole twin and no whole bucket meets on one device. -> one tuple of
+    blocks a twin."""
+    rows = twins[0].rows
+    idx_h = np.asarray(idx.cpu() if isinstance(idx, torch.Tensor) else idx,
+                       np.int64)
+    valid_h = np.asarray(valid.cpu() if isinstance(valid, torch.Tensor)
+                         else valid, bool)
+    b = idx_h.shape[0]
+    if b % m.size:
+        raise ValueError(f"a bucket of {b} rows does not split over "
+                         f"{m.size} shards")
+    r = b // m.size
+    owner = idx_h // rows
+    out = []
+    for twin in twins:
+        blocks = twin.blocks if _same_layout(twin, m) else \
+            node_blocks(twin, m)
+        width = tuple(twin.shape[1:])
+        mine = []
+        for d, dst in enumerate(m.devices):
+            sl = slice(d * r, (d + 1) * r)
+            acc = torch.zeros((r,) + width, dtype=twin.dtype,
+                              device=dst.device)
+            for s in np.unique(owner[sl][valid_h[sl]]):
+                pos = np.flatnonzero((owner[sl] == s) & valid_h[sl])
+                src = blocks[s]
+                got = src.index_select(0, _upload(idx_h[sl][pos] - s * rows,
+                                                  src.device))
+                acc.index_copy_(0, _upload(pos, dst.device),
+                                got.to(dst.device, non_blocking=True))
+            mine.append(acc)
+        out.append(tuple(mine))
+    return tuple(out)
 
 
 def sharded_program(m: Mesh, ins: tuple, out):
@@ -562,6 +648,15 @@ def sharded_spread_counts(m: Mesh, n_props: int):
 
 
 # ------------------------------------------------------ the sharded solves
+
+def split_lanes(m: Mesh, lanes_fn, parts: list) -> torch.Tensor:
+    """A micro-batch window's lanes split over `m` (lane_sharding): shard
+    s runs `lanes_fn(*parts[s])` (its lanes' stacked columns, on its
+    device: one launch of the depth-curve kernel and the tail over them),
+    and the rows meet on the lead in lane order -> placed i32[L, N]."""
+    with _launch_lock:
+        return _at_lead(m, _per_shard(m, lambda s, d: lanes_fn(*parts[s])))
+
 
 def sharded_fill_greedy(m: Mesh):
     """fill_greedy_binpack with the node axis sharded: K2's greedy entry
@@ -739,6 +834,223 @@ def sharded_fused(m: Mesh, kernel: str = "depth", k_max: int = 128,
                             owners)
         return run_greedy
     raise ValueError(f"unknown fused kernel {kernel!r}")
+
+
+def _fused_lanes_verdict(m: Mesh, caps, useds, idxs, valids, asks, placed,
+                         owners):
+    """fit_verdict over a window's lanes on each shard (the rows it owns),
+    combined by select on the lead -> fit bool[L, B]."""
+    from . import cuda_kernels
+    fits = _per_shard(m, lambda s, d: cuda_kernels.fit_verdict(
+        caps[s], useds[s], idxs[s], valids[s], asks.on(d.device),
+        placed.to(d.device, non_blocking=True))[1])
+    return _select_at_lead(m, fits, owners)
+
+
+def sharded_fused_lanes(k_max: int = 128, spread_algorithm: bool = False,
+                        depth_grid=None):
+    """A fused depth window over node-sharded twins (ref microbatch
+    `_fused_fn` under the mesh): on the mesh of the call (its generation's
+    survivors after a rebuild), each shard runs ONE launch of K1's gather
+    entry over every lane's rows of `idx` that it owns (the rest masked),
+    the per-row results meet on the lead by select, the [L, B] tail runs
+    once there, and each shard runs ONE fit_verdict launch over its own
+    rows. Where the mesh no longer takes the twins' layout (a rebuild
+    left a shard count the bucket does not split over), the window runs
+    solo on the first device. -> fn(cap_res, used_res, idx [L, B], valid,
+    ask [L, R'], counts, feasible, coll, desired, aff, mpn, jitter,
+    jitter_scales, jitter_samples) -> (placed i32[L, B], fit bool[L, B])
+    on the lead."""
+    from . import cuda_kernels, kernels
+
+    def run(cap_res, used_res, idx, valid, ask, counts, feasible, coll,
+            desired, aff, mpn, jitter, jitter_scales, jitter_samples):
+        m = mesh()
+        n_res = int(cap_res.shape[0])
+        if m is None or n_res % m.size:
+            # the window's columns lie on the solve device (the lead)
+            whole = tuple(t.lead() if isinstance(t, NodeSharded) else t
+                          for t in (cap_res, used_res))
+            if aff is None:
+                aff = torch.zeros(idx.shape, dtype=torch.float32,
+                                  device=idx.device)
+            return cuda_kernels.fused_eval_depth_lanes(
+                *whole, idx, valid, ask, counts, feasible, coll, desired,
+                aff, mpn, order_jitter=jitter, jitter_scales=jitter_scales,
+                jitter_samples=jitter_samples, k_max=k_max,
+                spread_algorithm=spread_algorithm, depth_grid=depth_grid)
+        caps = node_blocks(cap_res, m, torch.float32)
+        useds = node_blocks(used_res, m, torch.float32)
+        rows = int(caps[0].shape[0])
+        lead = m.lead
+        idx_l = _Replicas(idx, torch.int32).on(lead)
+        valid_l = _Replicas(valid, torch.bool).on(lead)
+        owner = torch.div(idx_l, rows, rounding_mode="floor")
+        owners, idxs, valids = [], [], []
+        for s, d in enumerate(m.devices):
+            own = owner == s
+            owners.append(own)
+            idxs.append(torch.where(own, idx_l - s * rows, 0)
+                        .to(torch.int32).to(d.device, non_blocking=True))
+            valids.append((valid_l & own).to(d.device, non_blocking=True))
+        asks = _Replicas(ask, torch.float32)
+        feas = _Replicas(feasible, torch.bool)
+        colls = _Replicas(coll, torch.int32)
+        affs = _Replicas(torch.zeros(tuple(idx.shape), dtype=torch.float32)
+                         if aff is None else aff, torch.float32)
+        outs = _per_shard(m, lambda s, d: cuda_kernels.depth_curve_gather(
+            caps[s], useds[s], idxs[s], valids[s], asks.on(d.device),
+            feas.on(d.device), colls.on(d.device), desired,
+            affs.on(d.device), mpn, k_max=k_max,
+            spread_algorithm=spread_algorithm, depth_grid=depth_grid))
+        d_star, k_star, k_cap = (_select_at_lead(m, col, owners)
+                                 for col in zip(*outs))
+        jit = None if jitter is None else \
+            _Replicas(jitter, torch.float32).on(lead)
+        placed = kernels._depth_order_take(d_star, k_star, k_cap, counts,
+                                           jit, jitter_scales,
+                                           jitter_samples)
+        return placed, _fused_lanes_verdict(m, caps, useds, idxs, valids,
+                                            asks, placed, owners)
+    return run
+
+
+def sharded_place_chunked(m: Mesh, max_steps: int = 256,
+                          spread_algorithm: bool = False):
+    """place_chunked with the node axis sharded (ref
+    `sharded_place_chunked`, the full production signature): each shard
+    holds its block of the running usage and placements and its own copy
+    of the spread counts and distinct quotas, and every step is one
+    launch a shard of the sharded step kernel (cuda_kernels.
+    chunked_shard; max_steps + 1 launches a shard queued at once, the
+    steps past the solve's end exiting on the device flag). Every shard
+    ranks the S offers of a step alike, so no merge runs on the lead.
+    Returns fn(cap, used, ask, count, feasible, job_collisions, desired,
+    sp_ids, sp_counts, sp_desired, sp_mode, sp_weights, aff, dp_ids,
+    dp_remaining, placed_init, max_per_node) -> (placed NodeSharded,
+    final_used NodeSharded, spread_counts, distinct_remaining), the
+    tables the first shard's copy (every shard's is the same)."""
+    from . import cuda_kernels
+
+    @sharded_program(m, ins=(NODE, NODE, REP, REP, NODE, NODE, REP,
+                             NODE_COLS, REP, REP, REP, REP, NODE, NODE_COLS,
+                             REP, NODE, REP),
+                     out=(NODE, NODE, REP, REP))
+    def run(cap, used, ask, count, feasible, job_collisions, desired, sp_ids,
+            sp_counts, sp_desired, sp_mode, sp_weights, aff, dp_ids,
+            dp_remaining, placed_init, max_per_node):
+        caps = node_blocks(cap, m, torch.float32)
+        rows = int(caps[0].shape[0])
+        if aff is None:
+            aff = np.zeros(rows * m.size, np.float32)
+        if placed_init is None:
+            placed_init = np.zeros(rows * m.size, np.int32)
+        reps = [_Replicas(a, t) for a, t in (
+            (ask, torch.float32), (sp_counts, torch.int32),
+            (sp_desired, torch.float32), (sp_mode, torch.int32),
+            (sp_weights, torch.float32), (dp_remaining, torch.int32))]
+        on = [[r.on(d.device) for d in m.devices] for r in reps]
+        out = cuda_kernels.chunked_shard(
+            caps, node_blocks(used, m, torch.float32), on[0], int(count),
+            node_blocks(feasible, m, torch.bool),
+            node_blocks(job_collisions, m, torch.int32), int(desired),
+            node_blocks(sp_ids, m, torch.int32, axis=1), on[1], on[2], on[3],
+            on[4], node_blocks(aff, m, torch.float32),
+            node_blocks(dp_ids, m, torch.int32, axis=1), on[5],
+            node_blocks(placed_init, m, torch.int32),
+            max_per_node=int(max_per_node), max_steps=max_steps,
+            spread_algorithm=spread_algorithm)
+        return (NodeSharded(out[0], m), NodeSharded(out[1], m), out[2][0],
+                out[3][0])
+    return run
+
+
+def sharded_convex(m: Mesh, spread_algorithm: bool = False,
+                   n_classes: int = 0):
+    """The convex eval (convex.convex_eval) with the resident twins
+    consumed partitioned (ref `sharded_convex`): the eval's bucket rows
+    split over the shards (gather_node_rows: each row gathered where its
+    twin row lives and sent to the shard that solves it), the sharded
+    solve (cuda_kernels.convex_solve_sharded: each round one launch a
+    shard, its waits one a block of rounds), K2's greedy entry on each
+    shard for the baseline, the rounding and the greedy merge on the
+    lead. Returns fn(*convex_eval's positional args) -> (placed
+    NodeSharded, fit NodeSharded, iterations, gap, convex_won), the
+    scalars on the lead (every shard holds the same)."""
+    from . import cuda_kernels
+    if n_classes:
+        raise ValueError("sharded_convex reduces no explain classes: the "
+                         "placer explains on the host")
+
+    @sharded_program(m, ins=(NODE, NODE, REP, REP, REP, REP, NODE, REP,
+                             NODE, NODE, NODE, REP, REP, REP, REP, REP),
+                     out=(NODE, NODE, REP, REP, REP))
+    def run(cap_res, used_res, idx, valid, ask, count, feasible, mpn, aff,
+            coll, class_ids, dh, max_iters, tolerance, fairness_weight,
+            quota_budget):
+        del class_ids, dh           # explain runs on the host
+        twins = tuple(t if isinstance(t, NodeSharded)
+                      else put_node_sharded(t, m, torch.float32)
+                      for t in (cap_res, used_res))
+        caps, useds = gather_node_rows(twins, idx, valid, m)
+        asks = _Replicas(ask, torch.float32)
+        placed, fit, iters, gap, won = cuda_kernels.convex_eval_sharded_fused(
+            caps, useds, [asks.on(d.device) for d in m.devices], int(count),
+            node_blocks(feasible, m, torch.bool), int(mpn),
+            node_blocks(aff, m, torch.float32),
+            node_blocks(coll, m, torch.int32), int(max_iters),
+            float(np.float32(tolerance)), float(np.float32(fairness_weight)),
+            float(np.float32(quota_budget)),
+            spread_algorithm=spread_algorithm)
+        return (NodeSharded(placed, m), NodeSharded(fit, m), iters, gap, won)
+    return run
+
+
+def sharded_eval_batch_fill_greedy(m: Mesh, eval_groups: int):
+    """Batched greedy solves (ref `sharded_eval_batch_fill_greedy`: vmap
+    over an eval axis data-parallel, the node axis model-parallel, on a
+    2-D evals x nodes mesh). The port's mesh is 1-D: its S shards form
+    `eval_groups` groups of S / eval_groups consecutive shards (the groups
+    must divide S and the evals); the evals split over the groups in
+    order, and each group's shards split the node axis. For each (eval,
+    shard) one launch of K2's greedy entry on the shard's block; each
+    eval's merge tail (the stable sort and prefix sums) on its group's
+    first shard. No caller in the placer, as in the reference. Returns
+    fn(cap [E, N, R'], used [E, N, R'], ask [E, R'], count [E], feasible
+    [E, N]) -> placed i32[E, N] on the lead."""
+    from . import cuda_kernels, kernels
+    if eval_groups < 1 or m.size % eval_groups:
+        raise ValueError(f"{eval_groups} eval groups do not divide "
+                         f"{m.size} shards")
+    per = m.size // eval_groups
+    groups = [Mesh(m.devices[g * per:(g + 1) * per])
+              for g in range(eval_groups)]
+
+    @sharded_program(m, ins=(EVALS_NODE, EVALS_NODE, EVALS, EVALS,
+                             EVALS_NODE), out=LEAD)
+    def run(cap, used, ask, count, feasible):
+        n_evals = int(cap.shape[0])
+        if n_evals % eval_groups:
+            raise ValueError(f"{n_evals} evals do not split over "
+                             f"{eval_groups} groups")
+        k = n_evals // eval_groups
+        counts = np.asarray(count.cpu() if isinstance(count, torch.Tensor)
+                            else count).reshape(-1)
+        rows = []
+        for e in range(n_evals):
+            g = groups[e // k]
+            caps = node_blocks(cap[e], g, torch.float32)
+            useds = node_blocks(used[e], g, torch.float32)
+            feas = node_blocks(feasible[e], g, torch.bool)
+            asks = _Replicas(ask[e], torch.float32)
+            capacity, key = zip(*_per_shard(
+                g, lambda s, d: cuda_kernels.score_capacity_greedy(
+                    caps[s], useds[s], asks.on(d.device), feas[s])))
+            rows.append(kernels._greedy_fill(
+                _at_lead(g, capacity), _at_lead(g, key),
+                int(counts[e])).to(m.lead, non_blocking=True))
+        return torch.stack(rows)
+    return run
 
 
 def sharded_preempt_top_k(m: Mesh):

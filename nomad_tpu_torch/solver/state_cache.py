@@ -719,12 +719,13 @@ class TensorCache:
 
 def _gather_sharded(cap_twin, used_twin, rows: np.ndarray, bucket: int,
                     gen: int = None) -> tuple:
-    """The eval's rows of the sharded twins, in eval order: each shard
-    gathers the rows it owns from its own block, the rows meet on the
-    mesh's first device into a zeroed `bucket`-row tensor (padding rows
-    zero, as the host np.pad path pads), and go back out as row blocks of
-    the eval's order (sharding.NodeSharded; a plain tensor on the lead
-    where `bucket` does not split over the shards). Under the launch
+    """The eval's rows of the sharded twins, in eval order, as row blocks
+    of the eval's bucket (sharding.NodeSharded; padding rows zero, as the
+    host np.pad path pads): each block gathered on the shards that own
+    its rows and sent to the shard that solves it
+    (sharding.gather_node_rows), so no whole row set meets on one
+    device. Where `bucket` does not split over the shards, the rows meet
+    in a zeroed tensor on the mesh's first device. Under the launch
     lock, behind the shards' `device.lost.d<N>` sites. A device loss
     rebuilds the mesh (backend.note_dispatch_failure) and returns
     (None, None): the eval is served from its host copies."""
@@ -735,9 +736,16 @@ def _gather_sharded(cap_twin, used_twin, rows: np.ndarray, bucket: int,
         with sharding.launch_lock():
             sharding.fire_device_loss_sites(m)
             roundtrip.note("gather")
+            rows = np.asarray(rows, np.int64)
+            if bucket % m.size == 0:
+                idx = np.zeros(bucket, np.int64)
+                idx[:rows.shape[0]] = rows
+                valid = np.arange(bucket) < rows.shape[0]
+                return tuple(sharding.NodeSharded(b, m)
+                             for b in sharding.gather_node_rows(
+                                 (cap_twin, used_twin), idx, valid, m))
             lead = m.lead
             r = cap_twin.rows
-            rows = np.asarray(rows, np.int64)
             out = []
             for twin in (cap_twin, used_twin):
                 buf = torch.zeros((bucket, twin.shape[1]), dtype=twin.dtype,
@@ -749,8 +757,7 @@ def _gather_sharded(cap_twin, used_twin, rows: np.ndarray, bucket: int,
                         0, _upload(rows[pos] - s * r, blk.device))
                     buf.index_copy_(0, _upload(pos, lead),
                                     got.to(lead, non_blocking=True))
-                out.append(sharding.put_node_sharded(buf, m)
-                           if bucket % m.size == 0 else buf)
+                out.append(buf)
             return tuple(out)
     except _device_errors() as e:
         backend.note_dispatch_failure("sharded", e, generation=gen)

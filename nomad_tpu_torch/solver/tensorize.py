@@ -513,7 +513,7 @@ def _build_from_objects(ctx, job, tg: TaskGroup, nodes: list[Node],
     )
 
 
-def stack_lanes(lane_args: list, dtypes: dict) -> tuple:
+def stack_lanes(lane_args: list, dtypes: dict, dev=None) -> tuple:
     """Column-stack a window's normalized arg tuples into ONE batched arg
     tuple of len(lane_args) rows on the solve device (ref
     tensorize.stack_lanes, less its padding to a fixed lane count): the
@@ -521,9 +521,11 @@ def stack_lanes(lane_args: list, dtypes: dict) -> tuple:
     numpy or tensors such as the state cache's twins) stack into
     [L, ...] tensors, every other position (a per-lane scalar) into a
     list of L host scalars. A column that is None in every lane stays
-    None; the queue key keeps None and array columns apart."""
+    None; the queue key keeps None and array columns apart. `dev`, when
+    given, is the device the columns go to (a shard's, for a window whose
+    lanes split over the mesh)."""
     from .device import solve_device
-    dev = solve_device()
+    dev = solve_device() if dev is None else dev
     cols = []
     for i in range(len(lane_args[0])):
         vals = [r[i] for r in lane_args]

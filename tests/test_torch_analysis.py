@@ -180,7 +180,7 @@ def test_sync001_fires_on_hot_path_syncs():
 
 
 def test_sync001_scope_and_exemptions():
-    # scope: only the two hot-path modules are patrolled
+    # scope: the two hot-path modules (and the kernel wrappers', below)
     assert rule_ids(SYNC001_BAD, path="solver/backend.py") == []
     assert rule_ids(SYNC001_BAD, path="server/plan_apply.py") == []
     good = """
@@ -211,6 +211,24 @@ def test_sync001_inline_suppression_at_the_seam():
         "        # nomadlint: disable=SYNC001 — the seam's scalar\n"
         "        n = total[-1].item()")
     assert rule_ids(src, path="solver/placer.py") == ["SYNC001"] * 7
+
+
+def test_sync001_patrols_the_kernel_wrappers_waits(tmp_path):
+    """solver/cuda_kernels.py is in scope: the sharded convex solve's one
+    wait a block of rounds is a marked seam, and a copy of the module with
+    that marker taken out fires at the wait."""
+    assert rule_ids(SYNC001_BAD, path="solver/cuda_kernels.py") == \
+        ["SYNC001"] * 9
+    with open(os.path.join(PORT, "solver", "cuda_kernels.py"),
+              encoding="utf-8") as fh:
+        lines = fh.read().splitlines(keepends=True)
+    assert rule_ids("".join(lines), path="solver/cuda_kernels.py") == []
+    at = [i for i, ln in enumerate(lines) if ln.strip() == "ev.synchronize()"]
+    assert len(at) == 1 and "disable=SYNC001" in lines[at[0] - 1]
+    del lines[at[0] - 1]
+    out = findings("".join(lines), path="solver/cuda_kernels.py")
+    assert [(f.rule, f.line) for f in out] == [("SYNC001", at[0])]
+    assert "convex_solve_sharded" in out[0].message
 
 
 def _seam_copy(tmp_path, drop=None):
@@ -427,14 +445,15 @@ def test_cvx001_inline_suppression():
 
 
 def test_convex_module_keeps_its_loops_marked():
-    """convex.py's loops are the plain version's and the reduction tree,
-    each marked; the card's solve stays one launch of the kernel."""
+    """convex.py's loops are the plain versions' (solo and sharded) and
+    the reduction trees (the solo kernel's and the shard partials'), each
+    marked; the card's solve stays launches of the kernels."""
     with open(os.path.join(PORT, "solver", "convex.py"),
               encoding="utf-8") as fh:
         text = fh.read()
     assert rule_ids(text, path="solver/convex.py") == []
     bare = text.replace("nomadlint: disable=CVX001", "cvx001 audited")
-    assert rule_ids(bare, path="solver/convex.py").count("CVX001") == 5
+    assert rule_ids(bare, path="solver/convex.py").count("CVX001") == 7
 
 
 # ------------------------------------------------------- the gate, REG002
@@ -532,12 +551,34 @@ def test_shard001_holds_the_ports_sharded_programs():
     path = os.path.join(PORT, "solver", "sharding.py")
     with open(path, encoding="utf-8") as fh:
         text = fh.read()
-    assert text.count("@sharded_program(") == 7
+    assert text.count("@sharded_program(") == 10
     assert rule_ids(text, path="solver/sharding.py") == []
     broken = text.replace("ins=(NODE, NODE, REP, REP, NODE, REP), out=LEAD",
                           "ins=(NODE, NODE, REP, REP, NODE), out=LEAD", 1)
     assert broken != text
     assert rule_ids(broken, path="solver/sharding.py") == ["SHARD001"]
+
+
+@pytest.mark.parametrize("layout,broken", [
+    # the sharded scan: 17 inputs, the reference's 4 outputs
+    ("REP, NODE, REP),\n                     out=(NODE, NODE, REP, REP))",
+     "REP, NODE),\n                     out=(NODE, NODE, REP, REP))"),
+    ("out=(NODE, NODE, REP, REP))", "out=(NODE, NODE, REP))"),
+    # the sharded convex: placed and fit on the node layout, 3 scalars
+    ("out=(NODE, NODE, REP, REP, REP))", "out=(NODE, NODE, REP, REP))"),
+    # the eval-batched greedy's 2-D layouts
+    ("EVALS_NODE), out=LEAD)", "), out=LEAD)"),
+])
+def test_shard001_holds_the_meshs_new_programs(layout, broken):
+    """The sharded scan's, the sharded convex's and the eval-batched
+    greedy's declared layouts: a copy of sharding.py with one of them
+    made to disagree with its program fires at that program."""
+    path = os.path.join(PORT, "solver", "sharding.py")
+    with open(path, encoding="utf-8") as fh:
+        text = fh.read()
+    assert text.count(layout) == 1, layout
+    out = findings(text.replace(layout, broken), path="solver/sharding.py")
+    assert [f.rule for f in out] == ["SHARD001"]
 
 
 # ------------------------------------------------------------------ MESH001

@@ -1107,3 +1107,101 @@ def test_sharded_depth_replays_a_lost_shard_on_the_card(dev, card_mesh):
     assert got.tobytes() == want.tobytes()
     assert sharding.quarantined() == frozenset({2})
     assert sharding.mesh().size == 3
+
+
+# ------------------------------------------------- the mesh's kernels
+
+def _blocks(x, shards, axis=0):
+    return list(torch.chunk(x, shards, dim=axis))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("name", [c for c in SCAN_CASES
+                                  if c not in ("split", "bucket65536")])
+def test_sharded_scan_kernel_matches_plain_and_the_solo_kernel(dev, name,
+                                                               shards):
+    """csrc/chunked_shard.cu on `shards` virtual shards of the card: each
+    shard's rows and tables bit-equal to kernels.chunked_shard_ref on the
+    same blocks, the whole bit-equal to the solo scan kernel; max_steps +
+    1 launches a shard, the steps past the solve's end early exits."""
+    args, kw = chunked_case(name)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+         if isinstance(a, np.ndarray) else a for a in args]
+    n = t[0].shape[0]
+    if n % shards:
+        pytest.skip(f"{n} rows do not split over {shards} shards")
+    sp = {k: kw[k] for k in ("max_steps", "max_per_node",
+                             "spread_algorithm") if k in kw}
+    blocks = [(_blocks(t[0].contiguous(), shards)), _blocks(t[1], shards),
+              [t[2]] * shards, t[3], _blocks(t[4], shards),
+              _blocks(t[5], shards), t[6], _blocks(t[7], shards, 1),
+              [t[8]] * shards, [t[9]] * shards, [t[10]] * shards,
+              [t[11]] * shards, _blocks(t[12], shards),
+              _blocks(t[13], shards, 1), [t[14]] * shards,
+              _blocks(torch.zeros(n, dtype=torch.int32, device=dev), shards)]
+    blocks = [[b.contiguous() for b in x] if isinstance(x, list) else x
+              for x in blocks]
+    before = cuda_kernels.LAUNCHES["chunked_shard"]
+    got = cuda_kernels.chunked_shard(*blocks, **sp)
+    torch.cuda.synchronize()
+    steps = kw.get("max_steps", 256)
+    assert cuda_kernels.LAUNCHES["chunked_shard"] == \
+        before + (steps + 1) * shards
+    want = kernels.chunked_shard_ref(*blocks, **sp)
+    for s in range(shards):
+        for g, w in zip(got[:4], want[:4]):
+            assert g[s].cpu().numpy().tobytes() == \
+                w[s].cpu().numpy().tobytes()
+    assert int(got[4][0, 2]) == want[4]
+    solo = cuda_kernels.chunked_scan(*t, **sp)
+    assert torch.equal(torch.cat(got[0]), solo[0])
+    assert torch.cat(got[1]).cpu().numpy().tobytes() == \
+        solo[1].cpu().numpy().tobytes()
+    assert torch.equal(got[2][0], solo[2]) and torch.equal(got[3][0], solo[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("name", CONVEX_CASES)
+def test_sharded_convex_kernel_matches_plain(dev, name, shards):
+    """csrc/convex_shard.cu on `shards` virtual shards: the iterate, u and
+    cost of every shard and the scalars bit-equal to
+    convex.convex_solve_sharded_ref; the sharded eval places as the solo
+    eval; a solve of up to 2 iterations waits once."""
+    cap, used, feas, coll, ask, count, kw = convex_fixture(name)
+    b = cap.shape[0]
+    aff = kw["affinity_boost"]
+    aff = np.zeros(b, np.float32) if aff is None else aff
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    cols = [t(cap), t(used), t(feas), t(coll), t(aff)]
+    a = (_blocks(cols[0], shards), _blocks(cols[1], shards),
+         [t(ask)] * shards, _blocks(cols[2], shards),
+         _blocks(cols[3], shards), _blocks(cols[4], shards), count,
+         kw["max_per_node"], kw["max_iters"], kw["tolerance"],
+         kw["fairness_weight"], kw["quota_budget"])
+    w0 = cuda_kernels.WAITS["convex_shard"]
+    got = cuda_kernels.convex_solve_sharded(
+        *a, spread_algorithm=kw["spread_algorithm"])
+    want = convex.convex_solve_sharded_ref(
+        *a, spread_algorithm=kw["spread_algorithm"])
+    for i in range(3):
+        for g, w in zip(got[i], want[i]):
+            assert g.cpu().numpy().tobytes() == w.cpu().numpy().tobytes()
+    for i in range(3, 6):
+        assert got[i].cpu().numpy().tobytes() == \
+            want[i].cpu().numpy().tobytes()
+    if int(got[4]) <= 2:
+        assert cuda_kernels.WAITS["convex_shard"] == w0 + 1
+    ev = cuda_kernels.convex_eval_sharded_fused(
+        a[0], a[1], a[2], count, a[3], kw["max_per_node"], a[5], a[4],
+        *a[8:], spread_algorithm=kw["spread_algorithm"])
+    idx = torch.arange(b, dtype=torch.int32, device=dev)
+    solo = cuda_kernels.convex_eval_fused(
+        cols[0], cols[1], idx, torch.ones(b, dtype=torch.bool, device=dev),
+        t(ask), count, cols[2], kw["max_per_node"], cols[4], cols[3], None,
+        False, kw["max_iters"], kw["tolerance"], kw["fairness_weight"],
+        kw["quota_budget"], spread_algorithm=kw["spread_algorithm"])
+    assert torch.equal(torch.cat(ev[0]), solo[0])

@@ -14,7 +14,10 @@
     the first solve raises, in process and in a spawned agent;
   * agent/http.py differs from the reference only where it names the
     port's UI package (:1370), and server/worker.py only where its loop
-    waits on a disabled broker instead of spinning;
+    waits on a disabled broker instead of spinning, and where it keeps
+    its eval while its scheduler runs and refuses the plans and eval
+    writes of an eval it no longer holds (Nomad's Plan.Submit and
+    Eval.Update token checks);
   * the analyzer's framework-neutral rule modules are byte copies, and
     its adapted modules (the framework, the CLI, the rules that name the
     package or its rule table) differ from the reference only at the
@@ -77,6 +80,57 @@ WORKER_WAIT = [
     "                with broker._lock:",
     "                    if not broker._enabled and not self._stop.is_set():",
     "                        broker._cond.wait(DEQUEUE_TIMEOUT)"]
+
+# the worker's blocks that differ from the reference: (first reference
+# line, reference lines replaced, the port's lines in their place)
+WORKER_ADAPTED = [
+    (24, 0, [
+        "",
+        "",
+        "class EvalNotHeld(RuntimeError):",
+        '    """The worker\'s eval is no longer outstanding under its token: the',
+        "    broker took it back (a flush at a leadership change, a nack timeout)",
+        "    and may have handed it to another worker, so this worker's plans and",
+        '    eval writes are refused."""']),
+    (57, 0, WORKER_WAIT),
+    # the eval's nack timer paused while its scheduler runs
+    (99, 0, [
+        "            # the broker keeps the eval while its scheduler runs: in",
+        "            # process a worker stops only with its server, so the nack",
+        "            # timer would only ever race a live one (a host binpack of",
+        "            # thousands of instances outlasts it under a busy interpreter)",
+        "            broker = self.server.eval_broker",
+        "            with broker._lock:",
+        "                rec = broker._unack.get(ev.id)",
+        '                if rec is not None and rec["token"] == token:',
+        '                    rec["deadline"] = float("inf")']),
+    # every write checks that the broker still has the eval outstanding
+    # under the worker's token
+    (154, 0, [
+        "    def _hold(self) -> None:",
+        '        """Refuse a write for an eval this worker no longer holds (ref',
+        "        plan_endpoint.go Submit and eval_endpoint.go Update/Create check",
+        "        the eval's token): an eval the broker took back is placed by",
+        '        another worker, and both plans would commit."""',
+        "        if self._eval is None or not self._eval_token:",
+        "            return",
+        "        if self.server.eval_broker.outstanding(self._eval.id) != \\",
+        "                self._eval_token:",
+        '            raise EvalNotHeld(f"eval {self._eval.id[:8]} is no longer "',
+        '                              f"held by worker-{self.id}")',
+        ""]),
+    (160, 0, ["        self._hold()"]),
+    # the plan's answer awaited with no deadline
+    (162, 1, [
+        "            # wait for the applier's answer (ref: no deadline): a plan",
+        "            # given up on while still queued commits later, under a retry",
+        "            # that places the same instances again",
+        "            result = self.server.planner.submit_plan(plan, timeout=None)"]),
+    # submit_plan_async, update_eval, create_eval
+    (189, 0, ["        self._hold()"]),
+    (194, 0, ["        self._hold()"]),
+    (200, 0, ["        self._hold()"]),
+]
 
 
 # the analyzer's adapted modules: (first reference line, reference lines
@@ -461,18 +515,20 @@ def test_convex_route_imports_neither_jax_nor_the_reference(rel):
                     "typing"}, sorted(tops)
 
 
-def _worker_waits(ref: bytes) -> bytes:
-    """The reference's worker.py with the port's one change: its loop
+def _worker_adapted(ref: bytes) -> bytes:
+    """The reference's worker.py with the port's two changes: its loop
     waits on a disabled broker instead of spinning (ROADMAP Queue 3
-    item 13)."""
+    item 13), and it holds its eval while it schedules and writes for it
+    only while it holds it (item 24)."""
     lines = ref.decode().splitlines(keepends=True)
-    at = lines.index("            if ev is None:\n") + 1
-    return "".join(lines[:at] + [ln + "\n" for ln in WORKER_WAIT] +
-                   lines[at:]).encode()
+    assert lines[55] == "            if ev is None:\n"
+    for at, n, new in reversed(WORKER_ADAPTED):
+        lines[at - 1:at - 1 + n] = [ln + "\n" for ln in new]
+    return "".join(lines).encode()
 
 
-# copies that differ from the reference by one stated change
-ADAPTED = {"server/worker.py": _worker_waits}
+# copies that differ from the reference by stated changes
+ADAPTED = {"server/worker.py": _worker_adapted}
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
@@ -600,6 +656,194 @@ def test_port_worker_waits_while_its_broker_is_off():
             w.join(5.0)
     assert not any(w._thread.is_alive() for w in srv.workers)
     assert len(calls) <= 20, len(calls)
+
+
+def _held_eval(srv):
+    """A batch job's eval dequeued by the server's one worker by hand:
+    the worker then holds it as its loop would."""
+    from nomad_tpu_torch import mock
+    for _ in range(4):
+        srv.node_register(mock.node())
+    job = mock.batch_job()
+    job.task_groups[0].count = 3
+    job.task_groups[0].networks = []
+    job.task_groups[0].tasks[0].resources.networks = []
+    srv.job_register(job)
+    ev, token = srv.eval_broker.dequeue(["batch"], timeout=5.0)
+    w = srv.workers[0]
+    w._eval, w._eval_token = ev, token
+    w._snapshot = srv.state.snapshot()
+    return w, ev, job
+
+
+def test_port_worker_refuses_writes_for_an_eval_it_no_longer_holds():
+    """A nack timeout redelivers the eval: the first worker's plan, eval
+    update and follow-up eval are refused, and nothing is committed."""
+    from nomad_tpu_torch.server import Server
+    from nomad_tpu_torch.server.worker import EvalNotHeld
+    from nomad_tpu_torch.structs import Plan
+    srv = Server(num_workers=1, gc_interval=9999)
+    srv.heartbeats.min_ttl = 3600.0
+    srv.start()
+    srv.workers[0].stop()
+    srv.workers[0].join()
+    try:
+        w, ev, job = _held_eval(srv)
+        srv.eval_broker._unack[ev.id]["deadline"] = 0.0
+        assert srv.eval_broker.check_nack_timeouts() == [ev.id]
+        again, token = srv.eval_broker.dequeue(["batch"], timeout=5.0)
+        assert again.id == ev.id and token != w._eval_token
+        plan = ev.make_plan(job)
+        submitted = []
+        inner = srv.planner.submit_plan
+        srv.planner.submit_plan = lambda p, **kw: submitted.append(p) \
+            or inner(p, **kw)
+        for write in (lambda: w.submit_plan(plan),
+                      lambda: w.submit_plan_async(plan),
+                      lambda: w.update_eval(ev),
+                      lambda: w.create_eval(ev.copy())):
+            with pytest.raises(EvalNotHeld):
+                write()
+        assert submitted == [] and srv.planner.queue.depth() == 0
+    finally:
+        srv.shutdown()
+
+
+def test_port_worker_waits_for_its_plans_answer():
+    """The worker waits on the applier with no deadline: a plan given up
+    on while queued would commit under the retry's second plan."""
+    from nomad_tpu_torch.server import Server
+    srv = Server(num_workers=1, gc_interval=9999)
+    srv.heartbeats.min_ttl = 3600.0
+    srv.start()
+    srv.workers[0].stop()
+    srv.workers[0].join()
+    try:
+        w, ev, job = _held_eval(srv)
+        seen = []
+        inner = srv.planner.submit_plan
+
+        def submit(p, **kw):
+            seen.append(kw)
+            return inner(p, **kw)
+        srv.planner.submit_plan = submit
+        assert w.submit_plan(ev.make_plan(job)) is not None
+        assert seen == [{"timeout": None}]
+    finally:
+        srv.shutdown()
+
+
+def test_long_schedule_keeps_its_eval():
+    """A scheduler that runs past the broker's nack timeout keeps its
+    eval: it is delivered once, and the job ends with its count of
+    allocations, each name once (the reference's worker loses it to a
+    second worker mid-schedule, and both plans commit)."""
+    import time as _time
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.server import Server
+    from nomad_tpu_torch.server import worker as worker_mod
+    srv = Server(num_workers=2, gc_interval=9999)
+    srv.heartbeats.min_ttl = 3600.0
+    srv.eval_broker.nack_timeout = 0.2
+    inner = worker_mod.new_scheduler
+    built = []
+
+    def slow(kind, state, planner):
+        sched = inner(kind, state, planner)
+        built.append(planner.id)
+        process = sched.process
+
+        def late(ev):
+            # a long solve: past the timeout, and past the leader loop's
+            # once-a-second sweep of timed-out evals
+            _time.sleep(2.5)
+            return process(ev)
+        sched.process = late
+        return sched
+    worker_mod.new_scheduler = slow
+    srv.start()
+    try:
+        for _ in range(4):
+            srv.node_register(mock.node())
+        job = mock.batch_job()
+        job.task_groups[0].count = 5
+        job.task_groups[0].networks = []
+        job.task_groups[0].tasks[0].resources.networks = []
+        eval_id = srv.job_register(job)["eval_id"]
+        deadline = _time.monotonic() + 30
+        while _time.monotonic() < deadline:
+            if srv.state.eval_by_id(eval_id).status == "complete" and \
+                    not srv.eval_broker._unack:
+                break
+            _time.sleep(0.02)
+        _time.sleep(1.5)
+        allocs = srv.state.allocs_by_job("default", job.id)
+        names = sorted(a.name for a in allocs)
+        assert srv.state.eval_by_id(eval_id).status == "complete"
+        assert len(built) == 1, built
+        assert len(allocs) == 5 and len(set(names)) == 5, names
+    finally:
+        worker_mod.new_scheduler = inner
+        srv.shutdown()
+
+
+def test_many_workers_past_the_nack_timeout_place_each_job_once():
+    """Stress: more workers than cores, a short switch interval, and every
+    scheduler slower than the nack timeout and the leader's sweep: each
+    job ends with its count, each name once, and no eval is swept."""
+    import time as _time
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.server import Server
+    from nomad_tpu_torch.server import worker as worker_mod
+    n_workers = 2 * (os.cpu_count() or 1) + 2
+    srv = Server(num_workers=n_workers, gc_interval=9999)
+    srv.heartbeats.min_ttl = 3600.0
+    srv.eval_broker.nack_timeout = 0.05
+    swept = []
+    sweep = srv.eval_broker.check_nack_timeouts
+    srv.eval_broker.check_nack_timeouts = lambda: swept.extend(sweep()) \
+        or []
+    inner = worker_mod.new_scheduler
+
+    def slow(kind, state, planner):
+        sched = inner(kind, state, planner)
+        process = sched.process
+
+        def late(ev):
+            _time.sleep(1.2)
+            return process(ev)
+        sched.process = late
+        return sched
+    worker_mod.new_scheduler = slow
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    srv.start()
+    try:
+        for _ in range(8):
+            srv.node_register(mock.node())
+        jobs = []
+        for _ in range(12):
+            job = mock.batch_job()
+            job.task_groups[0].count = 3
+            job.task_groups[0].networks = []
+            job.task_groups[0].tasks[0].resources.networks = []
+            jobs.append((job, srv.job_register(job)["eval_id"]))
+        deadline = _time.monotonic() + 60
+        while _time.monotonic() < deadline and not all(
+                srv.state.eval_by_id(e).status == "complete"
+                for _, e in jobs):
+            _time.sleep(0.05)
+        _time.sleep(1.5)
+        for job, eval_id in jobs:
+            names = [a.name for a in
+                     srv.state.allocs_by_job("default", job.id)]
+            assert srv.state.eval_by_id(eval_id).status == "complete"
+            assert len(names) == len(set(names)) == 3, names
+        assert swept == []
+    finally:
+        sys.setswitchinterval(switch)
+        worker_mod.new_scheduler = inner
+        srv.shutdown()
 
 
 _DEVICE = textwrap.dedent("""

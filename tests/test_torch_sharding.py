@@ -12,13 +12,16 @@ Differences from the reference, each pinned here:
   * a fault on the sharded rung raises out of the solve (and feeds the
     breaker, which only observes) where the reference demotes to its xla
     tier: card work never moves down a ladder (backend.py);
-  * the micro-batcher's lanes are not sharded over the mesh (the
-    reference's `lane_sharding`, ROADMAP Queue 1): a window runs solo on
-    the mesh's first device — test_windows_run_solo_on_the_first_shard
-    replaces test_microbatch_lanes_shard_over_the_mesh;
-  * the chunked scan and the convex solve run solo on the mesh's first
-    device (the reference's `sharded_place_chunked` and `sharded_convex`
-    wait, ROADMAP Queue 1): pinned by test_scan_and_convex_stay_solo_on_the_mesh.
+  * the micro-batcher's windows are not padded to a fixed lane count, so
+    a window splits its lanes over the mesh only where its live lane
+    count divides over the shards; else it runs solo on the mesh's first
+    device (test_windows_run_solo_on_the_first_shard; the split windows
+    are tests/test_torch_mesh_windows.py's);
+  * the chunked scan and the convex solve take the sharded tier at the
+    buckets the mesh takes (test_scan_and_convex_stay_solo_on_the_mesh;
+    their parity with the reference's sharded_place_chunked and
+    sharded_convex: tests/test_torch_sharded_scan.py and
+    tests/test_torch_sharded_convex.py).
 """
 import random
 import threading
@@ -235,7 +238,8 @@ def test_tier_follows_the_floor_and_the_override(monkeypatch):
     assert backend.select("depth", floor)[0] == "sharded"
     assert backend.select("greedy", floor)[0] == "sharded"
     assert backend.select("depth", floor // 2)[0] == "torch"
-    assert backend.select("chunked", floor)[0] == "torch"
+    assert backend.select("chunked", floor)[0] == "sharded"
+    assert backend.select("chunked", floor // 2)[0] == "torch"
     monkeypatch.setenv("NOMAD_SOLVER_BACKEND", "sharded")
     assert backend.select("depth", 64)[0] == "sharded"
     assert backend.select("depth", 60)[0] == "torch"    # does not divide
@@ -661,10 +665,12 @@ def _concurrently(fn, args_list) -> list:
 
 
 def test_windows_run_solo_on_the_first_shard(monkeypatch):
-    """Counterpart of test_microbatch_lanes_shard_over_the_mesh: the
-    port's coalesced window is one lane launch on the mesh's first
-    device, not sharded over the lanes, and it fires only the first
-    shard's device-loss site; its lanes equal their solo solves."""
+    """A window whose lane count does not divide over the shards (3 lanes
+    on 8: the reference's `lane_sharding` returns None) is one lane
+    launch on the mesh's first device and fires only the first shard's
+    device-loss site; its lanes equal their solo solves. Windows whose
+    lanes divide split over the shards:
+    tests/test_torch_mesh_windows.py."""
     monkeypatch.setattr(backend, "BATCH_MAX_COUNT", 2048)
     microbatch.configure(enabled=True, window_s=0.05)
     lanes = [_depth_args(64, c, seed=8 + c) for c in (20, 30, 40)]
@@ -707,12 +713,20 @@ def test_stream_small_solves_ride_batch_tier_on_mesh(monkeypatch):
 
 
 def test_scan_and_convex_stay_solo_on_the_mesh(low_floor):
-    """The reference shards its scan and its convex solve over the mesh
-    (sharded_place_chunked, sharded_convex); the port runs both solo on
-    the mesh's first device until they are ported (ROADMAP Queue 1)."""
-    assert backend.select("chunked", 512)[0] == "torch"
-    name, _ = backend.select_convex("greedy")
-    assert name == "torch"
+    """The scan and the convex solve stay solo on the mesh only where the
+    mesh does not take the bucket (it does not divide over the shards):
+    at a bucket it takes both select the sharded tier, as the
+    reference's sharded_place_chunked and sharded_convex do (their
+    parity: tests/test_torch_sharded_scan.py and
+    tests/test_torch_sharded_convex.py)."""
+    assert backend.select("chunked", 512)[0] == "sharded"
+    assert backend.select_convex("greedy", 512)[0] == "sharded"
+    assert backend.select("chunked", 500)[0] == "torch"
+    assert backend.select_convex("greedy", 500)[0] == "torch"
+    # sharded twins feed the sharded tier alone, solo twins a solo one
+    assert backend.select_convex("greedy", 512, twins_device="cpu") is None
+    assert backend.select_convex("greedy", 500, twins_device="cpu",
+                                 sharded_twins=True) is None
 
 
 # ---------------------------------------------------- the slice, whole
