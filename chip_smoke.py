@@ -5271,12 +5271,13 @@ def _timed_once(torch, fn) -> tuple:
 def _mesh_scan(np, torch, m, dev, floor_ms, on_card) -> dict:
     """The sharded scan on the web inputs (_scan_inputs: 16,384 rows,
     WEB_COUNT instances, 250 steps): the kernel (csrc/chunked_shard.cu,
-    one launch a shard a step) against its plain version on the same
-    blocks, each shard's rows and tables bit for bit; the sharded program
-    against the solo scan kernel, all four outputs bit for bit; the
-    launches (max_steps + 1 a shard) and how many exited early; device
-    ms per solve, wall per call, the plain version's one call, the solo
-    scan's, the bound and the floors."""
+    one launch a step for every shard of the card, a cluster of 8 CTAs a
+    shard) against its plain version on the same blocks, each shard's
+    rows and tables bit for bit; the sharded program against the solo
+    scan kernel, all four outputs bit for bit; the launches (max_steps + 1
+    a device) and how many exited early on each shard; device ms per
+    solve and µs per step, wall per call, the plain version's one call,
+    the solo scan's, the bound and the floors."""
     from nomad_tpu_torch.solver import cuda_kernels, kernels, sharding
     args, _ = _scan_inputs(np, torch, dev)
     blocks = _shard_scan_blocks(torch, m, args)
@@ -5294,20 +5295,20 @@ def _mesh_scan(np, torch, m, dev, floor_ms, on_card) -> dict:
               f"mesh chunked_shard: shard {s} differs from the plain "
               f"version")
     state = got[4].cpu()
-    steps, early = int(state[0, 2]), int(state[:, 5].sum())
-    check(steps == want[4] and bool((state[:, 2] == steps).all()),
-          f"mesh chunked_shard: steps {state[:, 2].tolist()}, plain "
-          f"{want[4]}")
+    steps, early = int(state[0, 2]), int(state[0, 5])
+    check(steps == want[4] and bool((state[:, 2] == steps).all())
+          and bool((state[:, 5] == early).all()),
+          f"mesh chunked_shard: steps {state[:, 2].tolist()}, early exits "
+          f"{state[:, 5].tolist()}, plain {want[4]} steps")
     fn = sharding.sharded_place_chunked(m)
     sh = fn(*args, None, 2 ** 30)
     solo = cuda_kernels.place_chunked(*args)
     check(_bit_equal([sh[0].cpu(), sh[1].cpu(), sh[2], sh[3]],
                      [solo[0], solo[1], solo[2], solo[3]]),
           "mesh sharded scan: differs from the solo scan kernel")
-    check(not on_card or (launches == 257 * m.size and early ==
-                          (256 - steps) * m.size),
+    check(not on_card or (launches == 257 and early == 256 - steps),
           f"mesh chunked_shard: {launches} launches, {early} early exits "
-          f"for {steps} steps on {m.size} shards")
+          f"a shard for {steps} steps on {m.size} shards")
     out = {"launches_per_solve": launches, "early_exits": early,
            "steps": steps, "shards": m.size, "max_abs_err": 0.0,
            "plain_ms": plain_ms, "floor_ms": floor_ms,
@@ -5320,32 +5321,38 @@ def _mesh_scan(np, torch, m, dev, floor_ms, on_card) -> dict:
         if not ms:
             ms, how = _queued_ms(torch, run, 5), "queued events"
         out.update(ms=ms, solve_device_ms=all_ms, timing=how,
+                   step_us=ms * 1e3 / (steps + 1),
                    call_ms=_median_ms(torch, lambda: fn(*args, None,
                                                         2 ** 30), 10),
                    solo_ms=_median_ms(torch,
                                       lambda: cuda_kernels.place_chunked(
                                           *args), 10),
                    dependency_floor_ms=steps * floor_ms,
-                   serial_floor_ms=(steps + 1) * m.size * floor_ms)
+                   launch_floor_ms=launches * floor_ms)
         out.update(_scan_bound(args, steps, out["placed"]))
     log(f"mesh chunked_shard ({m.size} virtual shards, {N_BUCKET} rows, "
         f"{WEB_COUNT} asked, {steps} steps): each shard's rows and tables "
         f"bit-equal to the plain version; the sharded scan bit-equal to "
         f"the solo scan kernel on all four outputs; {launches} launches "
-        f"({m.size} x 257, {early} exited early); "
+        f"(one a step for all {m.size} shards, {early} exited early on "
+        f"each shard); "
         + (f"{out['ms']} ms device per solve ({out['timing']}), "
+           f"{out['step_us']:.3f} us a step (over the {steps + 1} "
+           f"working launches), "
            f"{out['call_ms']} ms per call, solo scan {out['solo_ms']} ms, "
            f"plain {plain_ms} ms (one call); bound {out['bound_ms']} ms "
-           f"({out['bound_by']}), floor {steps} x {floor_ms} ms = "
-           f"{out['dependency_floor_ms']} ms (one card, shards serial: "
-           f"{out['serial_floor_ms']} ms)" if on_card else "on the CPU"))
+           f"({out['bound_by']}), floor {launches} x {floor_ms} ms = "
+           f"{out['launch_floor_ms']} ms (dependency {steps} x "
+           f"{floor_ms} ms = {out['dependency_floor_ms']} ms)"
+           if on_card else "on the CPU"))
     return out
 
 
 def _mesh_convex(np, torch, m, dev, floor_ms, on_card) -> dict:
     """The sharded convex solve on testing.convex_fixture("bench_binpack")
     (10,000 nodes, 16,384 rows): the kernel (csrc/convex_shard.cu, one
-    launch a shard a round) against its plain version, bit for bit (the
+    launch a round for every shard of the card, a cluster of 8 x 1,024
+    threads a shard) against its plain version, bit for bit (the
     iterate, u and cost of every shard, budget, iterations, gap); the
     sharded eval over node-sharded twins placing as the solo convex eval;
     the rounds and the waits; device ms per solve, wall per call, the
@@ -5386,7 +5393,7 @@ def _mesh_convex(np, torch, m, dev, floor_ms, on_card) -> dict:
           np.array_equal(fit.cpu().numpy(), solo[1]) and bool(won) == solo[4],
           "mesh sharded convex: placements differ from the solo eval")
     check(not on_card or (launches == cuda_kernels.CONVEX_FIRST_BLOCK
-                          * m.size and waits == 1),
+                          and waits == 1),
           f"mesh convex_shard: {launches} launches, {waits} waits")
     out = {"launches_per_solve": launches, "waits": waits,
            "iterations": iters, "rounds": rounds, "shards": m.size,
@@ -5401,19 +5408,20 @@ def _mesh_convex(np, torch, m, dev, floor_ms, on_card) -> dict:
         if not ms:
             ms, how = _queued_ms(torch, run, 10), "queued events"
         out.update(ms=ms, solve_device_ms=all_ms, timing=how,
+                   round_us=ms * 1e3 / rounds,
                    call_ms=_median_ms(torch, run, 30),
                    solo_ms=_median_ms(torch, lambda: cuda_kernels.convex_solve(
                        *solve, spread_algorithm=spread), 30),
-                   dependency_floor_ms=rounds * floor_ms,
-                   serial_floor_ms=rounds * m.size * floor_ms)
+                   dependency_floor_ms=rounds * floor_ms)
         out.update(_convex_bound(cap.shape[0], iters))
     log(f"mesh convex_shard ({m.size} virtual shards, {cap.shape[0]} rows, "
         f"{iters} iterations): each shard's iterate, u and cost and the "
         f"scalars bit-equal to the plain version; the sharded eval places "
         f"as the solo eval ({out['placed']} placed); {launches} launches "
-        f"({rounds} rounds of {m.size} do the work, the rest of the block "
-        f"exits early), {waits} wait(s); "
+        f"(one a round for all {m.size} shards; {rounds} rounds do the "
+        f"work, the rest of the block exits early), {waits} wait(s); "
         + (f"{out['ms']} ms device per solve ({out['timing']}), "
+           f"{out['round_us']:.3f} us a round, "
            f"{out['call_ms']} ms per call, solo solve {out['solo_ms']} ms, "
            f"plain {plain_ms} ms (one call); bound {out['bound_ms']} ms "
            f"({out['bound_by']}), floor {rounds} x {floor_ms} ms = "
@@ -6076,9 +6084,9 @@ def main() -> int:
                   "solo_8_ms", "iterations", "eval_device_ms",
                   "eval_call_ms", "plain_device_ms", "fused_window_ms",
                   "reductions", "reductions_prior", "gather_floor_ms",
-                  "lanes_ms", "timing", "serial_floor_ms",
-                  "launches_per_solve", "early_exits", "waits", "rounds",
-                  "solo_ms", "shards"):
+                  "lanes_ms", "timing", "launch_floor_ms", "step_us",
+                  "round_us", "launches_per_solve", "early_exits",
+                  "waits", "rounds", "solo_ms", "shards"):
             if k in r:
                 row[k] = r[k]
         rows.append(row)

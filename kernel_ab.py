@@ -35,9 +35,18 @@ kernels into its own build/kernels/. For each, one JSON line with:
                          the fused route's inputs (chip_smoke.py
                          `_fused_inputs`: 10,000 live rows of 16,384
                          through a shuffled idx)
+  shard_scan_ms,         the mesh's two kernels, each one's device time a
+  shard_convex_ms        solve on 4 virtual shards of the card (chip_smoke.py
+                         `_mesh_world`): `chunked_shard` on the scan's
+                         inputs above (250 steps), `convex_solve_sharded`
+                         on the convex fixture above (binpack, 39 rounds);
+                         every launch of the solve, however the checkout
+                         lays them out (one a shard a step, or one a step)
+  shard_launches         the launches of one such solve, of each
   timing                 how each *_ms above was taken, where not from a
-                         whole trace: "profiler (n of 30 launches)" or
-                         null (chip_smoke.py `_device_ms`)
+                         whole trace: "profiler (n of 30 launches)",
+                         "queued events" or null (chip_smoke.py
+                         `_device_ms`)
 
 then the card's name and power limit. Exits non-zero without a card.
 
@@ -139,7 +148,47 @@ def one(root: str) -> dict:
         "verdict_ms", lambda: cuda_kernels.fit_verdict(
             fin["cap"], fin["used"], fin["idx"], fin["valid"], fin["ask"],
             placed), "fit_verdict_kernel")
+    out.update(_shard_ms(np, torch, cs, cuda_kernels, dev, scan_args,
+                         timing))
     out["timing"] = timing
+    return out
+
+
+def _shard_ms(np, torch, cs, cuda_kernels, dev, scan_args, timing) -> dict:
+    """The mesh's two kernels on cs.MESH_SHARDS virtual shards of `dev`:
+    each one's device time a solve (the profiler's, over 5 solves of every
+    launch a solve makes; queued CUDA events where no trace records
+    them) and its launches a solve."""
+    from nomad_tpu_torch.solver import sharding
+    cs._mesh_world([str(dev)] * cs.MESH_SHARDS)
+    m = sharding.mesh()
+    blocks = cs._shard_scan_blocks(torch, m, scan_args)
+    solve, _, spread, _ = cs._convex_args(np, torch, dev, "bench_binpack")
+
+    def blk(x):
+        return list(sharding.node_blocks(x, m))
+    sargs = (blk(solve[0]), blk(solve[1]), [solve[2]] * m.size,
+             blk(solve[3]), blk(solve[4]), blk(solve[5])) + solve[6:]
+    out = {"shard_launches": {}}
+    for key, name, fn in (
+            ("shard_scan_ms", "chunked_shard",
+             lambda: cuda_kernels.chunked_shard(*blocks)),
+            ("shard_convex_ms", "convex_shard",
+             lambda: cuda_kernels.convex_solve_sharded(
+                 *sargs, spread_algorithm=spread))):
+        cuda_kernels.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        per = cuda_kernels.LAUNCHES[name]
+        ms, _, how = cs._device_ms(torch, fn, f"{name}_kernel", reps=5,
+                                   per_call=per, scale_missing=True)
+        if not ms:
+            ms, how = cs._queued_ms(torch, fn, 5), "queued events"
+        if how != "profiler":
+            timing[key] = how
+        out[key] = ms
+        out["shard_launches"][name] = per
+    cs._mesh_world(None)
     return out
 
 

@@ -4,8 +4,9 @@
 // (an arg-max, a radix select, and the radix select for keys stored in
 // node order with ties on the score word taken in storage order). Used by
 // the whole-scan kernel (chunked_scan.cu: one cluster a solve) and the
-// sharded scan's step (chunked_shard.cu: one block a shard a step), so
-// both pick exactly the winners the plain step's stable sort picks.
+// sharded scan's step (chunked_shard.cu: one launch a step, a cluster of
+// 8 CTAs a shard), so both pick exactly the winners the plain step's
+// stable sort picks.
 //
 // Every function here is called by all THREADS threads of a block.
 

@@ -41,13 +41,15 @@ of nomad_tpu/solver/pallas_kernels.py.
                   the host in one copy (fused_to_host)
   chunked_shard   csrc/chunked_shard.cu, the scan with its node axis
                   sharded (the reference's sharded_place_chunked): one
-                  launch a shard a step, max_steps + 1 a shard queued by
-                  one launcher call, each shard ranking every shard's
-                  offers itself
+                  launch a device a step, a cluster of 8 CTAs for each of
+                  its shards, max_steps + 1 a device queued by one
+                  launcher call, each shard ranking every shard's offers
+                  itself
   convex_shard    csrc/convex_shard.cu, the convex solve with its node
                   axis sharded (the reference's sharded_convex): one
-                  launch a shard a reduction round, queued in blocks of
-                  rounds with one wait a block (convex_solve_sharded)
+                  launch a device a reduction round, a cluster of 8 x
+                  1,024 threads for each of its shards, queued in blocks
+                  of rounds with one wait a block (convex_solve_sharded)
   chunked_step    csrc/chunked_step.cu, one scan step's score pass: the
                   score the scan kernel shares (csrc/chunked_score.cuh),
                   held bit for bit against the plain step; no placer path
@@ -177,7 +179,7 @@ _ARGTYPES = {
     "convex_solve_scratch_bytes": [_I],
     "chunked_shard_launch": [_P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P],
-    "chunked_shard_scratch_bytes": [_I, _I, _I, _I, _I, _I],
+    "chunked_shard_scratch_bytes": [_I, _I, _I, _I, _I],
     "chunked_shard_cand_bytes": [_I, _I, _I],
     "convex_shard_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
                             _F, _F, _I, _I, _P],
@@ -1014,9 +1016,8 @@ MAX_SHARDS = 16         # csrc/chunked_shard.cu, csrc/convex_shard.cu
 
 
 def _shard_layout(name: str, caps) -> tuple:
-    """(ctypes pointer table [S][NPTR], the shards' device ordinals, one
-    device for all) for a sharded launcher, after checking the shard
-    count."""
+    """(ctypes pointer table [S][NPTR], the shards' device ordinals) for a
+    sharded launcher, after checking the shard count."""
     n_shards = len(caps)
     if not 1 <= n_shards <= MAX_SHARDS:
         raise ValueError(f"{n_shards} shards: the kernel takes 1.."
@@ -1024,7 +1025,7 @@ def _shard_layout(name: str, caps) -> tuple:
     devs = [c.device for c in caps]
     ptrs = (ctypes.c_ulonglong * (n_shards * SHARD_PTRS[name]))()
     ordinals = (ctypes.c_int * n_shards)(*[d.index or 0 for d in devs])
-    return ptrs, ordinals, all(d == devs[0] for d in devs)
+    return ptrs, ordinals
 
 
 def _set_ptrs(ptrs, name: str, shard: int, values) -> None:
@@ -1041,12 +1042,13 @@ def chunked_shard(caps, useds, asks, count, feasibles, collisions,
                   spread_algorithm: bool = False) -> tuple:
     """The sharded scan: kernels.chunked_shard_ref's per-shard lists in
     and out, one launcher call queueing max_steps + 1 launches of the
-    sharded step kernel a shard (csrc/chunked_shard.cu) on CUDA tensors,
+    sharded step kernel a device (csrc/chunked_shard.cu: each launch a
+    cluster of 8 CTAs for every shard the device holds) on CUDA tensors,
     no host wait; the plain version on CPU tensors. -> (placed blocks,
     used blocks, spread_counts per shard, distinct_remaining per shard,
     state int32 [S, 8] on the first shard's device: column 2 the steps
-    run, column 5 the launches that exited early; read it only to
-    measure)."""
+    run, column 5 the launches that found the shard done and exited
+    early; read it only to measure)."""
     if caps[0].device.type == "cpu":
         out = kernels.chunked_shard_ref(
             caps, useds, asks, count, feasibles, collisions, desired_count,
@@ -1057,7 +1059,7 @@ def chunked_shard(caps, useds, asks, count, feasibles, collisions,
         state = torch.zeros((len(caps), 8), dtype=torch.int32)
         state[:, 2] = out[4]
         return out[:4] + (state,)
-    ptrs, ordinals, shared = _shard_layout("chunked_shard", caps)
+    ptrs, ordinals = _shard_layout("chunked_shard", caps)
     n_shards = len(caps)
     n = int(caps[0].shape[0])
     n_s, n_p = spread_counts[0].shape
@@ -1071,10 +1073,10 @@ def chunked_shard(caps, useds, asks, count, feasibles, collisions,
     chunk = min(max((count + max_steps - 1) // max_steps, 1),
                 min(n * n_shards, MAX_CHUNK))
     nbytes = int(_fn("chunked_shard", "scratch_bytes")(n, n_s, n_p, n_d,
-                                                         n_dp, chunk))
+                                                         n_dp))
     cbytes = int(_fn("chunked_shard", "cand_bytes")(n_shards, chunk,
                                                       n_s + n_d))
-    cand = None
+    cands = {}          # one candidate buffer a device, its shards' slots
     placed_out, used_out, sp_out, dp_out, scratch = [], [], [], [], []
     for s in range(n_shards):
         dev = caps[s].device
@@ -1099,8 +1101,10 @@ def chunked_shard(caps, useds, asks, count, feasibles, collisions,
         sp_out.append(torch.empty_like(spread_counts[s]))
         dp_out.append(torch.empty_like(distinct_remaining[s]))
         scratch.append(torch.empty((nbytes,), dtype=torch.uint8, device=dev))
-        if cand is None or not shared:
-            cand = torch.empty((cbytes,), dtype=torch.uint8, device=dev)
+        cand = cands.get(dev)
+        if cand is None:
+            cand = cands[dev] = torch.empty((cbytes,), dtype=torch.uint8,
+                                            device=dev)
         _set_ptrs(ptrs, "chunked_shard", s, (
             caps[s], used_out[s], asks[s], feasibles[s], collisions[s],
             placed_out[s], spread_ids[s], spread_counts[s],
@@ -1122,8 +1126,8 @@ def chunked_shard(caps, useds, asks, count, feasibles, collisions,
 
 # the sharded convex solve's rounds are queued in blocks, each ending in
 # one wait on the done flag: the first block covers a solve of two
-# iterations (3 + 18 x 2 launches a shard: the bench fixture's), each later
-# block twice the one before
+# iterations (3 + 18 x 2 rounds, a launch a device each: the bench
+# fixture's), each later block twice the one before
 CONVEX_FIRST_BLOCK = 3 + 18 * 2
 
 
@@ -1133,11 +1137,13 @@ def convex_solve_sharded(caps, useds, asks, feasibles, collisions,
                          spread_algorithm: bool = False) -> tuple:
     """The sharded convex solve (convex.convex_solve_sharded_ref's
     per-shard lists and returns): on CUDA tensors, rounds of the sharded
-    solve kernel (csrc/convex_shard.cu) queued in blocks of
-    CONVEX_FIRST_BLOCK, then twice as many, and so on, each block ending
-    in ONE wait on the lead shard's done flag (a solve of i iterations
-    takes 3 + 18 i rounds: one wait up to 2 iterations, 2 up to 5, 3 up to
-    12, ...); the plain version on CPU tensors. `WAITS` counts the waits.
+    solve kernel (csrc/convex_shard.cu: a round one launch a device, a
+    cluster of 8 x 1,024 threads for every shard it holds) queued in
+    blocks of CONVEX_FIRST_BLOCK rounds, then twice as many, and so on,
+    each block ending in ONE wait on the lead shard's done flag (a solve of
+    i iterations takes 3 + 18 i rounds: one wait up to 2 iterations, 2 up
+    to 5, 3 up to 12, ...); the plain version on CPU tensors. `WAITS`
+    counts the waits.
     -> (x blocks, u_int blocks, cost blocks, budget_int, iterations, gap),
     the scalars on the first shard's device."""
     if caps[0].device.type == "cpu":
@@ -1145,12 +1151,12 @@ def convex_solve_sharded(caps, useds, asks, feasibles, collisions,
             caps, useds, asks, feasibles, collisions, affinities, count,
             max_per_node, max_iters, tolerance, fairness_weight,
             quota_budget, spread_algorithm=spread_algorithm)
-    ptrs, ordinals, shared = _shard_layout("convex_shard", caps)
+    ptrs, ordinals = _shard_layout("convex_shard", caps)
     n_shards = len(caps)
     n = int(caps[0].shape[0])
     nbytes = int(_fn("convex_shard", "scratch_bytes")(n))
     done_at = int(_fn("convex_shard", "done_offset")())
-    slots = None
+    slots = {}          # one slot buffer a device, its shards' partials
     xs, us, costs, scalars, scratch = [], [], [], [], []
     for s in range(n_shards):
         dev = caps[s].device
@@ -1161,15 +1167,14 @@ def convex_solve_sharded(caps, useds, asks, feasibles, collisions,
         costs.append(torch.empty((n,), dtype=torch.float32, device=dev))
         us.append(torch.empty((n,), dtype=torch.int32, device=dev))
         scalars.append(torch.empty((4,), dtype=torch.int32, device=dev))
-        sc = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
-        sc[:64].zero_()
-        scratch.append(sc)
-        if slots is None or not shared:
-            slots = torch.empty((2 * n_shards * 8,), dtype=torch.float32,
-                                device=dev)
+        scratch.append(torch.empty((nbytes,), dtype=torch.uint8,
+                                   device=dev))
+        if dev not in slots:
+            slots[dev] = torch.empty((2 * n_shards * 8,),
+                                     dtype=torch.float32, device=dev)
         _set_ptrs(ptrs, "convex_shard", s, (
             caps[s], useds[s], asks[s], feasibles[s], collisions[s],
-            affinities[s], scratch[s], slots, xs[s], us[s], costs[s],
+            affinities[s], scratch[s], slots[dev], xs[s], us[s], costs[s],
             scalars[s], _stream(dev)))
     lead = caps[0].device
     done_h = torch.empty((1,), dtype=torch.int32, pin_memory=True)

@@ -42,10 +42,12 @@ normalized signature, declared with `sharded_program`'s in/out layouts):
 `sharded_fused` (a shard's gather entry over the rows of `idx` it owns,
 then `fit_verdict` over them; the rows it does not own are combined by
 select, never by sum), `sharded_place_chunked` (the scan: one launch of
-csrc/chunked_shard.cu a shard a step, every shard ranking the step's
-offers itself), `sharded_convex` (the convex solve: one launch of
-csrc/convex_shard.cu a shard a reduction round, over the eval's rows
-gathered where their twin rows live, `gather_node_rows`),
+csrc/chunked_shard.cu a device a step, a cluster of 8 CTAs for each of
+its shards, every shard ranking the step's offers itself),
+`sharded_convex` (the convex solve: one launch of csrc/convex_shard.cu a
+device a reduction round, a cluster of 8 x 1,024 threads for each of its
+shards, over the eval's rows gathered where their twin rows live,
+`gather_node_rows`),
 `sharded_preempt_top_k` (the candidate axis split),
 `sharded_eval_batch_fill_greedy` (evals over groups of shards, the node
 axis over each group's shards), and the explicit cross-shard reduces
@@ -921,10 +923,11 @@ def sharded_place_chunked(m: Mesh, max_steps: int = 256,
     `sharded_place_chunked`, the full production signature): each shard
     holds its block of the running usage and placements and its own copy
     of the spread counts and distinct quotas, and every step is one
-    launch a shard of the sharded step kernel (cuda_kernels.
-    chunked_shard; max_steps + 1 launches a shard queued at once, the
-    steps past the solve's end exiting on the device flag). Every shard
-    ranks the S offers of a step alike, so no merge runs on the lead.
+    launch a device of the sharded step kernel (cuda_kernels.
+    chunked_shard: a cluster of 8 CTAs for each shard the device holds;
+    max_steps + 1 launches a device queued at once, the steps past the
+    solve's end exiting on the device flag). Every shard ranks the S
+    offers of a step alike, so no merge runs on the lead.
     Returns fn(cap, used, ask, count, feasible, job_collisions, desired,
     sp_ids, sp_counts, sp_desired, sp_mode, sp_weights, aff, dp_ids,
     dp_remaining, placed_init, max_per_node) -> (placed NodeSharded,
@@ -972,7 +975,8 @@ def sharded_convex(m: Mesh, spread_algorithm: bool = False,
     split over the shards (gather_node_rows: each row gathered where its
     twin row lives and sent to the shard that solves it), the sharded
     solve (cuda_kernels.convex_solve_sharded: each round one launch a
-    shard, its waits one a block of rounds), K2's greedy entry on each
+    device, a cluster of 8 x 1,024 threads a shard; its waits one a block
+    of rounds), K2's greedy entry on each
     shard for the baseline, the rounding and the greedy merge on the
     lead. Returns fn(*convex_eval's positional args) -> (placed
     NodeSharded, fit NodeSharded, iterations, gap, convex_won), the

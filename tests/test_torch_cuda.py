@@ -1116,7 +1116,7 @@ def _blocks(x, shards, axis=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("shards", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("name", [c for c in SCAN_CASES
                                   if c not in ("split", "bucket65536")])
 def test_sharded_scan_kernel_matches_plain_and_the_solo_kernel(dev, name,
@@ -1124,7 +1124,8 @@ def test_sharded_scan_kernel_matches_plain_and_the_solo_kernel(dev, name,
     """csrc/chunked_shard.cu on `shards` virtual shards of the card: each
     shard's rows and tables bit-equal to kernels.chunked_shard_ref on the
     same blocks, the whole bit-equal to the solo scan kernel; max_steps +
-    1 launches a shard, the steps past the solve's end early exits."""
+    1 launches a solve (one a step for all the card's shards), the steps
+    past the solve's end early exits on every shard."""
     args, kw = chunked_case(name)
     t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
          if isinstance(a, np.ndarray) else a for a in args]
@@ -1146,14 +1147,14 @@ def test_sharded_scan_kernel_matches_plain_and_the_solo_kernel(dev, name,
     got = cuda_kernels.chunked_shard(*blocks, **sp)
     torch.cuda.synchronize()
     steps = kw.get("max_steps", 256)
-    assert cuda_kernels.LAUNCHES["chunked_shard"] == \
-        before + (steps + 1) * shards
+    assert cuda_kernels.LAUNCHES["chunked_shard"] == before + steps + 1
     want = kernels.chunked_shard_ref(*blocks, **sp)
     for s in range(shards):
         for g, w in zip(got[:4], want[:4]):
             assert g[s].cpu().numpy().tobytes() == \
                 w[s].cpu().numpy().tobytes()
     assert int(got[4][0, 2]) == want[4]
+    assert got[4][:, 5].tolist() == [steps - want[4]] * shards
     solo = cuda_kernels.chunked_scan(*t, **sp)
     assert torch.equal(torch.cat(got[0]), solo[0])
     assert torch.cat(got[1]).cpu().numpy().tobytes() == \
@@ -1162,15 +1163,19 @@ def test_sharded_scan_kernel_matches_plain_and_the_solo_kernel(dev, name,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("shards", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("name", CONVEX_CASES)
 def test_sharded_convex_kernel_matches_plain(dev, name, shards):
     """csrc/convex_shard.cu on `shards` virtual shards: the iterate, u and
     cost of every shard and the scalars bit-equal to
     convex.convex_solve_sharded_ref; the sharded eval places as the solo
-    eval; a solve of up to 2 iterations waits once."""
+    eval; a solve of up to 2 iterations waits once and takes
+    CONVEX_FIRST_BLOCK launches (one a round for all the card's
+    shards)."""
     cap, used, feas, coll, ask, count, kw = convex_fixture(name)
     b = cap.shape[0]
+    if b % shards:
+        pytest.skip(f"{b} rows do not split over {shards} shards")
     aff = kw["affinity_boost"]
     aff = np.zeros(b, np.float32) if aff is None else aff
 
@@ -1183,6 +1188,7 @@ def test_sharded_convex_kernel_matches_plain(dev, name, shards):
          kw["max_per_node"], kw["max_iters"], kw["tolerance"],
          kw["fairness_weight"], kw["quota_budget"])
     w0 = cuda_kernels.WAITS["convex_shard"]
+    l0 = cuda_kernels.LAUNCHES["convex_shard"]
     got = cuda_kernels.convex_solve_sharded(
         *a, spread_algorithm=kw["spread_algorithm"])
     want = convex.convex_solve_sharded_ref(
@@ -1195,6 +1201,8 @@ def test_sharded_convex_kernel_matches_plain(dev, name, shards):
             want[i].cpu().numpy().tobytes()
     if int(got[4]) <= 2:
         assert cuda_kernels.WAITS["convex_shard"] == w0 + 1
+        assert cuda_kernels.LAUNCHES["convex_shard"] == \
+            l0 + cuda_kernels.CONVEX_FIRST_BLOCK
     ev = cuda_kernels.convex_eval_sharded_fused(
         a[0], a[1], a[2], count, a[3], kw["max_per_node"], a[5], a[4],
         *a[8:], spread_algorithm=kw["spread_algorithm"])
