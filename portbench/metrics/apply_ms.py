@@ -1,0 +1,8 @@
+"""plan applier layer: nomad.plan.apply, its sum in the window over the evals processed
+in it (ms); nothing where the timer recorded nothing in the window."""
+
+TIMER = "nomad.plan.apply"
+
+
+def read(w):
+    return w.per_eval_ms(TIMER)

@@ -1,0 +1,8 @@
+"""solver host layer: nomad.solver.materialize, its sum in the window over the evals processed
+in it (ms); nothing where the timer recorded nothing in the window."""
+
+TIMER = "nomad.solver.materialize"
+
+
+def read(w):
+    return w.per_eval_ms(TIMER)

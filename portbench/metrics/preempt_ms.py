@@ -1,0 +1,8 @@
+"""solve layer: nomad.solver.preempt, its sum in the window over the evals processed
+in it (ms); nothing where the timer recorded nothing in the window."""
+
+TIMER = "nomad.solver.preempt"
+
+
+def read(w):
+    return w.per_eval_ms(TIMER)
