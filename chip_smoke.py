@@ -1545,12 +1545,13 @@ def main_path_phase(torch) -> dict:
     evals = [("big", BIG_COUNT, "depth_curve"),
              ("mid", MID_COUNT, "depth_curve_gather"),
              ("one", 1, "score_capacity_gather")]
-    rt = "nomad.solver.device_round_trips"
+    # the host's waits for the card's answer: one sample a host sync
+    syncs = "nomad.solver.device"
     out = {"evals": {}}
     cuda_kernels.reset_launches()                 # the main path's window
     with _applier(planner):
         for job_id, count, kname in evals:
-            rt0 = metrics.sample_count(rt)
+            s0 = metrics.sample_count(syncs)
             r = _drive(torch, fsm, planner,
                        _mk_batch_job(mock, job_id, count))
             c = r["counters"]
@@ -1567,10 +1568,9 @@ def main_path_phase(torch) -> dict:
                   f"{job_id}: {c['twin_dispatches']} dispatches rode the "
                   f"state cache's twins, {c['fused']} fused dispatches, "
                   f"{r['launches']['fit_verdict']} verdict launches")
-            r["round_trips_max"] = metrics.percentile(rt, 1.0, skip=rt0)
-            if not pipelined:
-                check(r["round_trips_max"] == 1,
-                      f"{job_id}: {r['round_trips_max']} round trips")
+            r["host_syncs"] = metrics.sample_count(syncs) - s0
+            check(r["host_syncs"] == (BIG_CHUNKS if pipelined else 1),
+                  f"{job_id}: {r['host_syncs']} host syncs")
             check(c["torch_depth"] == c["torch_greedy"] == 0,
                   f"{job_id}: the plain torch tier served a solve on the "
                   f"card")
@@ -1596,8 +1596,8 @@ def main_path_phase(torch) -> dict:
                 f"nomad.solver.explain.errors {c['explain_errors']}")
             log(f"main {job_id}: {r['committed']}/{count} committed in "
                 f"{r['wall_s']} s ({kname} launches +{rose}, pipelined "
-                f"{pipelined}, fused dispatches {c['fused']}, round trips "
-                f"{r['round_trips_max']}, overcommitted rows 0); layers "
+                f"{pipelined}, fused dispatches {c['fused']}, host syncs "
+                f"{r['host_syncs']}, overcommitted rows 0); layers "
                 f"{json.dumps(r['layers_s'])}; pipeline "
                 f"{json.dumps(r['pipeline_s'])}; cache {json.dumps(stats)}")
     out["launches"] = dict(cuda_kernels.LAUNCHES)  # read just after

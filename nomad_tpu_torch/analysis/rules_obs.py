@@ -30,7 +30,7 @@ import ast
 from .core import Rule, SourceModule, register
 
 _NAME_SINKS = ("incr", "add_sample", "set_gauge", "observe", "measure",
-               "describe")
+               "describe", "timed", "waited")
 
 # interpolated expressions considered bounded-cardinality: solver tiers,
 # backend/kernel routing names, scheduler types, breaker states, leader
@@ -39,7 +39,7 @@ _ALLOWED_NAMES = {"tier", "kernel", "backend", "step", "kind", "mode",
                   "state", "sched", "phase", "metric", "stat"}
 _ALLOWED_ATTRS = {"type", "platform"}
 
-_CM_SINKS = ("measure", "span", "use")
+_CM_SINKS = ("measure", "span", "use", "timed")
 
 
 def _is_metrics_call(mod: SourceModule, node: ast.Call,
@@ -53,7 +53,7 @@ def _is_metrics_call(mod: SourceModule, node: ast.Call,
     if len(parts) < 2 or parts[-1] not in sinks:
         return ""
     owner = parts[-2]
-    if owner in ("metrics", "trace", "tracer") or \
+    if owner in ("metrics", "trace", "tracer", "timing") or \
             d.startswith("nomad_tpu_torch.metrics") or \
             d.startswith("nomad_tpu_torch.obs"):
         return parts[-1]

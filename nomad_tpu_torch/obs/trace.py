@@ -253,6 +253,17 @@ class Tracer:
             if isinstance(top, Span):
                 top.attrs.update(attrs)
 
+    def accumulate(self, key: str, value: float) -> None:
+        """Add `value` to a numeric attribute of the current span (the
+        state store's lock waits sum into `lock_wait_s`)."""
+        if not self._enabled:
+            return
+        st = getattr(self._tls, "stack", None)
+        if st:
+            top = st[-1]
+            if isinstance(top, Span):
+                top.attrs[key] = top.attrs.get(key, 0.0) + value
+
     def annotate_list(self, key: str, value) -> None:
         """Append `value` to a list-valued attribute of the current span
         (demotion chains record every tier they fell through)."""
@@ -325,19 +336,18 @@ class Tracer:
             return None
         return tr.root.ctx()
 
-    def mark_dequeued(self, eval_id: str, **attrs) -> None:
-        """Record the broker queue-wait span: enqueue (trace start) to
-        dequeue. Called by the broker with the lock already held —
-        must stay allocation-light."""
-        if not self._enabled:
+    def link_eval(self, eval_id: str, span) -> None:
+        """Link the live trace of `eval_id` to `span`: the eval was
+        caused by that span's work (a client update's follow-up evals).
+        The link rides the eval's root span, so its record joins the
+        linked trace when the eval ends."""
+        if not self._enabled or not isinstance(span, Span):
             return
         with self._lock:
             tid = self._by_eval.get(eval_id)
             tr = self._live.get(tid) if tid else None
-        if tr is None or tr.root is None:
-            return
-        self.record_span("broker.wait", tr.root.ctx(), tr.t0_perf,
-                         t0_wall=tr.t0_wall, **attrs)
+            if tr is not None and tr.root is not None:
+                tr.root.links.append((span.trace_id, span.span_id))
 
     def end_eval(self, eval_id: str, status: str = STATUS_OK,
                  truncate: bool = False, owner=None, **attrs) -> None:
@@ -366,14 +376,24 @@ class Tracer:
             tr.attrs["truncated"] = True
         tr.root.end(status)
 
-    def begin_root(self, name: str, **attrs) -> Span:
+    def begin_root(self, name: str, head_sampled: bool = False,
+                   **attrs) -> Span:
         """A root span NOT tied to an eval (leader-establish barrier,
-        failover promotion, revoke). Always retained."""
+        failover promotion, revoke). Always retained, unless
+        `head_sampled`: then kept like an eval's trace (the head sample,
+        or a non-ok ending), so a frequent root (a client update) does
+        not push eval traces out of the store."""
         if not self._enabled:
             return NOOP_SPAN
         with self._lock:
             tid = self._new_id()
-            tr = _Trace(tid, "", name, sampled=True, retain=True)
+            if head_sampled:
+                rate = self._sample_rate * self._pressure_factor
+                sampled = rate >= 1.0 or self._rng.random() < rate
+            else:
+                sampled = True
+            tr = _Trace(tid, "", name, sampled=sampled,
+                        retain=not head_sampled)
             self._live[tid] = tr
             self.started += 1
             self._evict_live_locked()
@@ -686,9 +706,10 @@ current = tracer.current
 use = tracer.use
 annotate = tracer.annotate
 annotate_list = tracer.annotate_list
+accumulate = tracer.accumulate
 begin_eval = tracer.begin_eval
 eval_ctx = tracer.eval_ctx
-mark_dequeued = tracer.mark_dequeued
+link_eval = tracer.link_eval
 end_eval = tracer.end_eval
 begin_root = tracer.begin_root
 start_span = tracer.start_span

@@ -293,7 +293,6 @@ class RpcClient:
                         except (ConnectionError, OSError,
                                 TimeoutError) as e2:
                             self.breaker.record_failure(e.leader_addr)
-                            metrics.incr("nomad.rpc.failovers")
                             last_err = e2
                             continue
                     last_err = e
@@ -303,7 +302,6 @@ class RpcClient:
                     last_err = e  # stale-leader forward: try next server
                 except (ConnectionError, OSError, TimeoutError) as e:
                     self.breaker.record_failure(addr)
-                    metrics.incr("nomad.rpc.failovers")
                     last_err = e
         if deadline - clock.time() <= 0 and \
                 (last_err is None or self.retry.max_attempts > 1):

@@ -36,7 +36,6 @@ import threading
 from typing import Optional
 
 from .. import chrono
-from ..metrics import metrics
 
 # breaker knobs — module-level so tests/operators can tune without
 # plumbing constructor args through every call site (read at call time,
@@ -126,7 +125,6 @@ class RpcBreaker:
             if e["probing"]:
                 return False            # a probe is already in flight
             e["probing"] = True
-            metrics.incr("nomad.rpc.breaker_probe")
             return True
 
     def record_success(self, addr: str) -> None:
@@ -134,8 +132,6 @@ class RpcBreaker:
             e = self._addrs.get(addr)
             if e is None:
                 return
-            if e["open_until"] is not None:
-                metrics.incr("nomad.rpc.breaker_closed")
             e["failures"].clear()
             e["open_until"] = None
             e["probing"] = False
@@ -149,14 +145,12 @@ class RpcBreaker:
                 e["probing"] = False
                 e["open_until"] = now + BREAKER_COOLDOWN_S
                 e["failures"] = [now]
-                metrics.incr("nomad.rpc.breaker_open")
                 return
             window = [t for t in e["failures"] if t > now - BREAKER_WINDOW_S]
             window.append(now)
             e["failures"] = window
             if e["open_until"] is None and len(window) >= BREAKER_THRESHOLD:
                 e["open_until"] = now + BREAKER_COOLDOWN_S
-                metrics.incr("nomad.rpc.breaker_open")
 
     def state(self, addr: str) -> str:
         now = self.clock.monotonic()

@@ -95,7 +95,6 @@ class CoreScheduler:
             # eval and re-reaps it later — counting up front would
             # overstate reaps in the bench robustness block
             metrics.incr("nomad.broker.dead_letter_reaped")
-            metrics.add_sample("nomad.broker.dead_letter_backoff", wait)
             try:
                 broker.ack(ev.id, token)
             except ValueError:

@@ -241,7 +241,6 @@ class DurableRaftDir:
         os.fsync(fileobj.fileno())
         self._last_sync = time.monotonic()
         self.fsyncs += 1
-        metrics.incr("nomad.durable.fsyncs")
 
     def _sync_dir(self) -> None:
         """Journal directory entries (renames/creates) themselves."""
@@ -255,7 +254,6 @@ class DurableRaftDir:
         finally:
             os.close(dfd)
         self.fsyncs += 1
-        metrics.incr("nomad.durable.fsyncs")
 
     # ----------------------------------------------------- atomic blobs
 
@@ -336,7 +334,6 @@ class DurableRaftDir:
             self._dirty_tail = True
             raise
         self.appends += 1
-        metrics.incr("nomad.durable.appends")
         if len(entries) > 1:
             # group-commit amortization telemetry (ISSUE 20): N frames
             # rode ONE append/sync window — the serial write path would
@@ -402,7 +399,6 @@ class DurableRaftDir:
                 # a power loss that reverts the un-journaled rename
                 # still finds a complete previous generation
                 dir_synced = False
-                metrics.incr("nomad.durable.dir_sync_errors")
                 self.logger(f"durable: manifest dir sync failed "
                             f"(commit stands, old generation kept): "
                             f"{e!r}")
@@ -426,7 +422,6 @@ class DurableRaftDir:
         self._log_name = log_name
         self._next_index = first_index + len(entries)
         self.manifest_commits += 1
-        metrics.incr("nomad.durable.manifest_commits")
         if dir_synced:
             for old in (old_log,
                         old_snap if old_snap != snap_name else ""):

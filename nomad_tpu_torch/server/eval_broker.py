@@ -35,7 +35,7 @@ from typing import Callable, Optional
 
 from .. import faults
 from ..metrics import metrics, record_swallowed_error
-from ..obs import trace
+from ..obs import timing, trace
 from ..structs import (
     Evaluation, TRIGGER_FAILED_FOLLOW_UP, TRIGGER_NODE_UPDATE, new_id,
 )
@@ -121,6 +121,9 @@ class EvalBroker:
         self._outstanding_jobs: dict[tuple[str, str], str] = {}  # -> eval_id
         self._ready_jobs: dict[tuple[str, str], str] = {}        # -> eval_id
         self._unack: dict[str, dict] = {}              # eval_id -> {token, deadline}
+        # eval_id -> perf_counter at its first enqueue, read at dequeue
+        # as nomad.broker.wait (delay and job-pending time included)
+        self._enqueued: dict[str, float] = {}
 
         # delayed evals: (wait_until, seq, eval)
         self._delay_heap: list = []
@@ -181,6 +184,7 @@ class EvalBroker:
         self._outstanding_jobs.clear()
         self._unack.clear()
         self._dequeue_count.clear()
+        self._enqueued.clear()
         self._delay_heap = []
         self._shed_entries.clear()
         self._waiting_follow_ups = 0
@@ -311,6 +315,7 @@ class EvalBroker:
         # is a NEW eval (the follow-up) with its own trace
         trace.end_eval(eval_id, "shed", owner=id(self),
                        priority=ev.priority, shed_seq=seq)
+        self._enqueued.pop(eval_id, None)
         self._cond.notify_all()
         return victim is incoming_key
 
@@ -347,6 +352,7 @@ class EvalBroker:
         trace.begin_eval(ev.id, "eval", owner=id(self), job=ev.job_id,
                          type=ev.type, trigger=ev.triggered_by,
                          priority=ev.priority)
+        self._enqueued.setdefault(ev.id, time.perf_counter())
         now = time.time()
         cap, ttl = self._overload_knobs()
         parking = bool((ev.wait_until_unix and ev.wait_until_unix > now)
@@ -463,9 +469,7 @@ class EvalBroker:
             # cancel never happens) — the bound exists only as a
             # runaway-memory backstop, so it is ids-only, far above any
             # real storm (one entry per superseded eval between two
-            # ~1s leader ticks), and every trim is COUNTED
-            metrics.incr("nomad.broker.node_update_coalesce_dropped",
-                         len(self._coalesced) - 65536)
+            # ~1s leader ticks)
             del self._coalesced[:-65536]
         metrics.incr("nomad.broker.node_update_coalesced")
         return True
@@ -486,8 +490,6 @@ class EvalBroker:
         with self._lock:
             self._coalesced[:0] = eval_ids
             if len(self._coalesced) > 65536:
-                metrics.incr("nomad.broker.node_update_coalesce_dropped",
-                             len(self._coalesced) - 65536)
                 del self._coalesced[:-65536]
 
     # ------------------------------------------------------------- dequeue
@@ -503,9 +505,13 @@ class EvalBroker:
                 best = self._pick_locked(schedulers)
                 if best is not None:
                     self._notify_inflight()
-                    trace.mark_dequeued(
-                        best[0].id,
-                        deliveries=self._dequeue_count.get(best[0].id, 1))
+                    eval_id = best[0].id
+                    t0 = self._enqueued.pop(eval_id, None)
+                    if t0 is not None:
+                        timing.waited(
+                            "nomad.broker.wait", "broker.wait", t0,
+                            trace.eval_ctx(eval_id),
+                            deliveries=self._dequeue_count.get(eval_id, 1))
                     return best
                 if deadline is not None:
                     remaining = deadline - time.time()
@@ -690,6 +696,7 @@ class EvalBroker:
             removed = drained + follows
             for ev in removed:
                 self._dequeue_count.pop(ev.id, None)
+                self._enqueued.pop(ev.id, None)
                 job_key = (ev.namespace, ev.job_id)
                 if self._ready_jobs.get(job_key) == ev.id:
                     del self._ready_jobs[job_key]
@@ -700,9 +707,6 @@ class EvalBroker:
                         del self._pending[job_key]
                     self.stats["total_pending"] -= 1
                     self._enqueue_locked(nxt)
-            if drained:
-                metrics.incr("nomad.broker.dead_letter_drained",
-                             len(drained))
             metrics.set_gauge("nomad.broker.failed_queue_depth",
                               self.stats["total_failed"])
             self._cond.notify_all()

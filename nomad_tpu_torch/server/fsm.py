@@ -179,7 +179,11 @@ class NomadFSM:
             s.delete_evals(index, payload["eval_ids"],
                            payload.get("alloc_ids", []))
         elif msg_type == ALLOC_CLIENT_UPDATE:
-            s.update_allocs_from_client(index, payload["allocs"])
+            from ..obs import timing
+            with timing.timed("nomad.fsm.alloc_client_update", "fsm.apply",
+                              index=index, type="alloc_client_update",
+                              allocs=len(payload["allocs"])):
+                s.update_allocs_from_client(index, payload["allocs"])
         elif msg_type == ALLOC_UPDATE_DESIRED_TRANSITION:
             s.update_alloc_desired_transitions(
                 index, payload["transitions"], payload.get("evals", []))

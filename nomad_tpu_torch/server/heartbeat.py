@@ -132,7 +132,6 @@ class HeartbeatTimers:
                     continue
                 self._deadlines[node.id] = now + self._ttl() + grace
                 armed += 1
-        metrics.set_gauge("nomad.heartbeat.initialized", armed)
         return armed
 
     def _run(self) -> None:
@@ -406,7 +405,6 @@ class FlapDamper:
             deadline = now + hold
             self._held[node_id] = deadline
             metrics.incr("nomad.heartbeat.flap_held")
-            metrics.add_sample("nomad.heartbeat.flap_hold_s", hold)
             return deadline
 
     def due(self, now: Optional[float] = None) -> list[str]:

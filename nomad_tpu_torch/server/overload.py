@@ -173,10 +173,6 @@ class OverloadController:
             self._cfg(f"ingress_{endpoint_class}_rate", 0.0), burst)
         wait = bucket.take()
         if wait > 0.0:
-            metrics.incr("nomad.ingress.rejected")
-            # the three literal endpoint classes (write/read/blocking)
-            # nomadlint: disable=OBS001 — bounded per-class breakdown
-            metrics.incr(f"nomad.ingress.rejected.{endpoint_class}")
             raise RateLimitExceeded(endpoint_class, wait)
 
     @staticmethod
@@ -227,7 +223,6 @@ class OverloadController:
             if changed:
                 self.transitions += 1
         metrics.set_gauge("nomad.pressure.state", _PRESSURE_LEVEL[state])
-        metrics.set_gauge("nomad.broker.depth", broker_depth)
         if changed:
             metrics.incr("nomad.pressure.transitions")
             self._apply_brownout(state)

@@ -54,7 +54,7 @@ import numpy as np
 
 from .. import faults
 from ..metrics import metrics
-from ..obs import trace
+from ..obs import timing, trace
 from ..rpc.codec import NotLeaderError
 from ..state import StateStore
 from ..structs import (
@@ -445,8 +445,8 @@ class Planner:
             self._inflight = batch
             t_drain = time.perf_counter()
             for pending in batch:
-                trace.record_span("plan.queue_wait", pending.ctx,
-                                  pending.t0, drained=len(batch))
+                timing.waited("nomad.plan.queue_wait", "plan.queue_wait",
+                              pending.t0, pending.ctx, drained=len(batch))
             try:
                 # the batch's fence: captured ONCE at drain, checked
                 # atomically at the raft append — a step-down anywhere in
@@ -655,16 +655,12 @@ class Planner:
                     {"index": getattr(result, "alloc_index", 0),
                      "rejected": len(result.rejected_nodes)}
             # per-plan commit attribution in the EVAL's own trace,
-            # linked to the shared raft-apply span it rode (fan-in),
-            # plus the disposition-labeled commit-wait histogram
+            # linked to the shared raft-apply span it rode (fan-in)
             trace.record_span(
                 "plan.commit_wait", pctx, t_batch,
                 links=(commit_ctx,)
                 if commit_ctx is not None and id(result) in committed_ids
                 else (), status=status, batch=len(plans), **attrs)
-            metrics.observe("nomad.plan.commit_wait_seconds",
-                            time.perf_counter() - t_batch,
-                            labels={"disposition": status})
         return out
 
     # --------------------------------------------------- batch evaluation

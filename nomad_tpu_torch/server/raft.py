@@ -657,7 +657,6 @@ class RaftNode:
                     # replication or the FSM — memory and disk stay one
                     # object (any flushed prefix is superseded on the
                     # next append at the same indexes)
-                    metrics.incr("nomad.raft.persist_errors")
                     for p in accepted:
                         p.error = persist_err
                         p.done.set()
@@ -987,7 +986,6 @@ class RaftNode:
                     # second grant there) and retry next deadline
                     self.current_term = prev_term
                     self.voted_for = prev_vote
-                    metrics.incr("nomad.raft.persist_errors")
                     self.logger(f"raft: vote persist failed, campaign "
                                 f"aborted: {e!r}")
                     deadline = self._election_deadline()
@@ -1070,7 +1068,6 @@ class RaftNode:
                 # roll the entries back and step down — the next
                 # election re-tries (possibly on healed disk)
                 del self.log[-len(establish):]
-                metrics.incr("nomad.raft.persist_errors")
                 self.logger(f"raft: establishment append failed, "
                             f"stepping down: {e!r}")
                 self._step_down_locked(self.current_term)
@@ -1110,7 +1107,6 @@ class RaftNode:
             # Vote safety is unaffected — any future grant/campaign
             # re-persists term+vote atomically BEFORE acting, and is
             # itself withheld when that persist fails
-            metrics.incr("nomad.raft.persist_errors")
             self.logger(f"raft: meta persist failed during step-down "
                         f"(continuing as follower): {e!r}")
         if was_leader:
@@ -1290,7 +1286,6 @@ class RaftNode:
                         # adopted in memory and the LOG is the
                         # authority at restore — the meta peers field
                         # is a cache rebuilt from snapshot + log
-                        metrics.incr("nomad.raft.persist_errors")
                         self.logger(f"raft: config apply persist "
                                     f"failed at {idx}: {ex!r}")
                     i += 1
@@ -1325,7 +1320,6 @@ class RaftNode:
                         # the manifest still names the old consistent
                         # generation, memory is already compacted, and
                         # the next apply batch retries
-                        metrics.incr("nomad.raft.compact_failed")
                         self.logger(
                             f"raft: compaction persist failed "
                             f"(retrying next batch): {ex!r}")
@@ -1405,7 +1399,6 @@ class RaftNode:
                         # persisted grant and free this term's vote)
                         self.voted_for = prev_vote
                         granted = False
-                        metrics.incr("nomad.raft.persist_errors")
                         self.logger(f"raft: vote persist failed, grant "
                                     f"withheld: {e!r}")
                         return {"term": self.current_term,
@@ -1471,7 +1464,6 @@ class RaftNode:
                     self._append_to_disk(appended)
             except Exception as e:   # noqa: BLE001
                 persist_ok = False
-                metrics.incr("nomad.raft.persist_errors")
                 self.logger(f"raft: follower persist failed: {e!r}")
                 if truncated:
                     # a failed conflict rewrite must not leave memory

@@ -15,7 +15,7 @@ from typing import Callable, Optional
 
 from .. import faults
 from ..metrics import metrics, record_swallowed_error
-from ..obs import trace
+from ..obs import timing, trace
 from ..rpc.codec import NotLeaderError
 from ..state import StateStore
 from ..structs import (
@@ -2082,7 +2082,17 @@ class Server:
 
     def node_update_allocs(self, allocs: list[Allocation]) -> dict:
         """Client pushes alloc status (ref node_endpoint.go UpdateAlloc):
-        terminal transitions trigger new evals."""
+        terminal transitions trigger new evals. Timed whole as
+        `nomad.client.update_alloc` (Nomad's Node.UpdateAlloc), the root
+        of a trace of its own that the follow-up evals link to."""
+        with timing.timed("nomad.client.update_alloc", "client.update_alloc",
+                          root=True, allocs=len(allocs)) as sp:
+            out = self._node_update_allocs(allocs)
+            for eval_id in out["eval_ids"]:
+                trace.link_eval(eval_id, sp)
+        return out
+
+    def _node_update_allocs(self, allocs: list[Allocation]) -> dict:
         index = self.raft.apply(ALLOC_CLIENT_UPDATE, {"allocs": allocs})
         evals = []
         seen = set()

@@ -13,7 +13,7 @@ from typing import Optional
 
 from .. import faults
 from ..metrics import metrics, record_swallowed_error
-from ..obs import trace
+from ..obs import timing, trace
 from ..scheduler import new_scheduler
 from ..structs import Evaluation, Plan, PlanResult, EVAL_STATUS_FAILED
 from .eval_broker import EvalBroker
@@ -97,9 +97,6 @@ class Worker:
                 try:
                     faults.fire("worker.expire")
                     metrics.incr("nomad.worker.eval_expired")
-                    metrics.observe(
-                        "nomad.worker.invoke_seconds", 0.0,
-                        labels={"type": ev.type, "disposition": "expired"})
                     trace.end_eval(
                         ev.id, "expired", owner=broker_owner,
                         deadline_unix=ev.deadline_unix,
@@ -110,7 +107,6 @@ class Worker:
                     # a nack-timeout sweep) must not kill the worker loop
                     record_swallowed_error("worker.expire", e)
                 continue
-            t_inv = time.perf_counter()
             # the broker keeps the eval while its scheduler runs: in
             # process a worker stops only with its server, so the nack
             # timer would only ever race a live one (a host binpack of
@@ -126,12 +122,6 @@ class Worker:
                                    type=ev.type):
                     self._invoke_scheduler(ev)
             except Exception as e:      # noqa: BLE001
-                # labeled histogram (ISSUE 7): invoke latency by
-                # scheduler type + disposition — bounded dimensions
-                metrics.observe("nomad.worker.invoke_seconds",
-                                time.perf_counter() - t_inv,
-                                labels={"type": ev.type,
-                                        "disposition": "error"})
                 # the nack path survives the exception, but it must not
                 # be invisible: a sick device/tier shows up here first
                 # (ISSUE 3 — counted per scheduler type for triage)
@@ -147,9 +137,6 @@ class Worker:
                 except ValueError:
                     pass
                 continue
-            metrics.observe("nomad.worker.invoke_seconds",
-                            time.perf_counter() - t_inv,
-                            labels={"type": ev.type, "disposition": "ok"})
             trace.end_eval(ev.id, "ok", owner=broker_owner)
             try:
                 self.server.eval_broker.ack(ev.id, token)
@@ -163,14 +150,17 @@ class Worker:
             self.server.core_scheduler.process(ev)
             return
         wait_index = max(ev.modify_index, ev.snapshot_index)
-        with metrics.measure("nomad.worker.wait_for_index"), \
-                trace.span("worker.wait_for_index", index=wait_index):
+        with timing.timed("nomad.worker.wait_for_index",
+                          "worker.wait_for_index", index=wait_index):
             self._snapshot = self.server.state.snapshot_min_index(
                 wait_index, timeout=5.0)
         sched = new_scheduler(ev.type, self._snapshot, self)
-        # ref worker.go:553 `nomad.worker.invoke_scheduler_<type>`
-        with metrics.measure(f"nomad.worker.invoke_scheduler_{ev.type}"), \
-                trace.span("scheduler.process", type=ev.type):
+        # ref worker.go:553 `nomad.worker.invoke_scheduler_<type>`; the
+        # thread's CPU seconds over the same block under a name outside
+        # that prefix, which counts the evals processed
+        with timing.timed(f"nomad.worker.invoke_scheduler_{ev.type}",
+                          "scheduler.process",
+                          cpu="nomad.worker.invoke_cpu", type=ev.type):
             sched.process(ev)
 
     # ------------------------------------------------- Planner interface
@@ -194,8 +184,7 @@ class Worker:
                                   self._snapshot.latest_index()
                                   if self._snapshot else 0)
         self._hold()
-        with metrics.measure("nomad.worker.submit_plan"), \
-                trace.span("plan.submit"):
+        with timing.timed("nomad.worker.submit_plan", "plan.submit"):
             # wait for the applier's answer (ref: no deadline): a plan
             # given up on while still queued commits later, under a retry
             # that places the same instances again
@@ -227,7 +216,6 @@ class Worker:
                                   self._snapshot.latest_index()
                                   if self._snapshot else 0)
         self._hold()
-        metrics.incr("nomad.worker.submit_plan_async")
         return self.server.planner.submit_plan_async(plan)
 
     def update_eval(self, ev: Evaluation) -> None:

@@ -116,6 +116,7 @@ import torch
 
 from .. import faults
 from ..metrics import metrics
+from ..obs import timing
 from . import device as _device, roundtrip
 
 # Health-breaker knobs: N device errors inside the window open the tier
@@ -448,6 +449,14 @@ def async_dispatch():
         _dispatch_ctx.on = prev
 
 
+def host_sync():
+    """Time a solve's wait for the card's answer at one host sync: a
+    `nomad.solver.device` sample (its count is the host syncs of the
+    eval) and a `solver.device_wait` span. On the CPU tier it times the
+    same seam, where there is nothing to wait for."""
+    return timing.timed("nomad.solver.device", "solver.device_wait")
+
+
 def to_host(out):
     """A chain result (a tensor, a sharding.NodeSharded, or a tuple of
     them) on the host: the solve's sync. Numpy arrays pass through."""
@@ -484,8 +493,9 @@ def _chain(kernel: str, tier: str, fn, dev):
                     faults.fire(sharding.solo_loss_site(dev))
                 out = fn(*args)
                 if not async_mode:
-                    out = finish(out) if finish is not None \
-                        else to_host(out)
+                    with host_sync():
+                        out = finish(out) if finish is not None \
+                            else to_host(out)
         except device_error_types() as e:
             note_dispatch_failure(tier, e)
             raise
@@ -770,8 +780,9 @@ def _sharded_chain(kernel: str, snap, k_max: int, spread_algorithm: bool,
                 sharding.fire_device_loss_sites(m)
                 out = fn(*args)
                 if not async_mode:
-                    out = finish(out) if finish is not None \
-                        else to_host(out)
+                    with host_sync():
+                        out = finish(out) if finish is not None \
+                            else to_host(out)
         except device_error_types() as e:
             if note_dispatch_failure("sharded", e, generation=gen):
                 return _replay(kernel,
@@ -875,9 +886,10 @@ def _convex_sharded_chain(kernel: str, snap, spread_algorithm: bool):
                 faults.fire("solver.dispatch.sharded")
                 sharding.fire_device_loss_sites(m)
                 placed, fit, iters, gap, won = fn(*args)
-                host = convex.to_host((sharding.at_lead(placed),
-                                       sharding.at_lead(fit), iters, gap,
-                                       won))
+                with host_sync():
+                    host = convex.to_host((sharding.at_lead(placed),
+                                           sharding.at_lead(fit), iters,
+                                           gap, won))
         except device_error_types() as e:
             metrics.incr("nomad.solver.dispatch_errors.convex")
             depth = getattr(_dispatch_ctx, "replay_depth", 0)
@@ -933,9 +945,10 @@ def _convex_chain(kernel: str, tier: str, dev, spread_algorithm: bool):
             with trace.span("solver.dispatch.convex", tier=tier,
                             convex=True, kernel=kernel):
                 _fire_convex_sites(tier, dev)
-                host = convex.to_host(impl(
-                    *on_device("convex", args, dev),
-                    spread_algorithm=spread_algorithm))
+                out = impl(*on_device("convex", args, dev),
+                           spread_algorithm=spread_algorithm)
+                with host_sync():
+                    host = convex.to_host(out)
         except device_error_types() as e:
             metrics.incr("nomad.solver.dispatch_errors.convex")
             note_dispatch_failure(tier, e)
@@ -1105,9 +1118,10 @@ def _fused_chain(kernel: str, tier: str, dev, k_max: int,
                 faults.fire(f"solver.dispatch.{tier}")
                 if tier == "cuda":
                     faults.fire(sharding.solo_loss_site(dev))
-                out = cuda_kernels.fused_to_host(*_fused_call(
-                    kernel, impl, dev, k_max, spread_algorithm, depth_grid,
-                    args))
+                res = _fused_call(kernel, impl, dev, k_max,
+                                  spread_algorithm, depth_grid, args)
+                with host_sync():
+                    out = cuda_kernels.fused_to_host(*res)
         except device_error_types() as e:
             metrics.incr("nomad.solver.dispatch_errors.fused")
             note_dispatch_failure(tier, e)
@@ -1141,7 +1155,9 @@ def _fused_sharded_chain(kernel: str, snap, k_max: int,
                 faults.fire("solver.dispatch.fused")
                 faults.fire("solver.dispatch.sharded")
                 sharding.fire_device_loss_sites(m)
-                out = cuda_kernels.fused_to_host(*fn(*args))
+                res = fn(*args)
+                with host_sync():
+                    out = cuda_kernels.fused_to_host(*res)
         except device_error_types() as e:
             metrics.incr("nomad.solver.dispatch_errors.fused")
             if note_dispatch_failure("sharded", e, generation=gen) and \

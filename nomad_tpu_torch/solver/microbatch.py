@@ -206,7 +206,10 @@ class MicroBatcher:
         if leader:
             self._lead(key, run)
         else:
-            req.event.wait(self.window_s() + FOLLOWER_TIMEOUT)
+            # the lane's wait for the card's answer: the window's sync
+            from . import backend
+            with backend.host_sync():
+                req.event.wait(self.window_s() + FOLLOWER_TIMEOUT)
         # per-lane wait span in the EVAL's own trace, linked to the shared
         # dispatch span it rode: enqueue -> result
         trace.record_span(
@@ -312,24 +315,29 @@ class MicroBatcher:
                     sharding.fire_device_loss_sites(split)
                 else:
                     sharding.fire_device_loss_sites(lead_only=True)
-                # the window's one sync
+                # the window's one sync, the leader's wait for the card
                 if fused:
-                    # nomadlint: disable=SYNC001 — the fused window's sync
-                    out = tuple(zip(*cuda_kernels.fused_to_host(
-                        *lanes_fn(*twins, *cols))))
+                    res = lanes_fn(*twins, *cols)
+                    with backend.host_sync():
+                        # nomadlint: disable=SYNC001 — fused window sync
+                        out = tuple(zip(*cuda_kernels.fused_to_host(*res)))
                 elif split is None:
                     cols = stack_lanes([r.args for r in lanes],
                                        backend._ARG_DTYPES["depth"])
-                    # nomadlint: disable=SYNC001 — the window's one sync
-                    out = lanes_fn(*cols).cpu()
+                    res = lanes_fn(*cols)
+                    with backend.host_sync():
+                        # nomadlint: disable=SYNC001 — the window's one sync
+                        out = res.cpu()
                 else:
                     k = len(lanes) // split.size
                     parts = [stack_lanes(
                         [r.args for r in lanes[s * k:(s + 1) * k]],
                         backend._ARG_DTYPES["depth"], dev=d.device)
                         for s, d in enumerate(split.devices)]
-                    # nomadlint: disable=SYNC001 — the window's one sync
-                    out = sharding.split_lanes(split, lanes_fn, parts).cpu()
+                    res = sharding.split_lanes(split, lanes_fn, parts)
+                    with backend.host_sync():
+                        # nomadlint: disable=SYNC001 — the window's one sync
+                        out = res.cpu()
                 break
             except backend.device_error_types() as e:
                 # a device LOSS that rebuilt the mesh replays the identical

@@ -98,7 +98,7 @@ from ..structs import (
 from ..scheduler.stack import SelectOptions
 from . import backend, device as _device, explain as explain_mod
 from . import microbatch, roundtrip, sharding
-from ..obs import trace
+from ..obs import timing
 from .buckets import node_bucket, pow2
 from .tensorize import (
     build_group_tensors, _lower_affinities, _lower_distinct, _lower_spreads,
@@ -254,9 +254,9 @@ class SolverPlacer:
             if mi < 0:           # serial path (ineligible or declined)
                 # a declined pipeline hands its prep over: tensorize,
                 # shuffle, and the per-eval RNG draws must not run twice
-                with metrics.measure("nomad.solver.solve"), \
-                        trace.span("solver.solve", tg=tg_name,
-                                   count=len(missings)):
+                with timing.timed("nomad.solver.solve", "solver.solve",
+                                  cpu="nomad.solver.solve_cpu",
+                                  tg=tg_name, count=len(missings)):
                     placed_map = self._solve_group(tg, nodes, len(missings),
                                                    prep=prep)
                 node_iter = [(node, k) for node, k in placed_map if k > 0]
@@ -264,8 +264,8 @@ class SolverPlacer:
                 # need no per-alloc exact pass: stamp out the allocations
                 # in one batch with shared (immutable-by-convention)
                 # resource/metric objects
-                with metrics.measure("nomad.solver.materialize"), \
-                        trace.span("solver.materialize", tg=tg_name):
+                with timing.timed("nomad.solver.materialize",
+                                  "solver.materialize", tg=tg_name):
                     if node_iter and self._is_simple(tg):
                         mi = self._place_batch_simple(missings, tg,
                                                       node_iter,
@@ -288,11 +288,9 @@ class SolverPlacer:
                 # capacity exhausted: batched preemption pass (masked
                 # victim selection over every candidate node at once on
                 # the device, exact host verify)
-                with metrics.measure("nomad.solver.preempt"), \
-                        trace.span("solver.preempt", tg=tg_name):
+                with timing.timed("nomad.solver.preempt",
+                                  "solver.preempt", tg=tg_name):
                     rest = self._preempt_batch(tg, rest, deployment_id)
-            metrics.incr("nomad.solver.placements_batched",
-                         len(missings) - len(rest))
             leftovers.extend(rest)
 
         # host fallback for anything the batched pass couldn't place
@@ -300,7 +298,6 @@ class SolverPlacer:
         # nodes, non-simple preemption); rate logged per eval
         total = len(list(destructive)) + len(list(place))
         sched.solver_stats = {"total": total, "host_fallback": len(leftovers)}
-        metrics.incr("nomad.solver.placements_total", total)
         metrics.incr("nomad.solver.placements_host_fallback", len(leftovers))
         if leftovers and self.ctx.logger:
             self.ctx.logger(
@@ -533,15 +530,10 @@ class SolverPlacer:
         n = prep.n
         kernel = ("chunked" if prep.use_scan
                   else "depth" if prep.use_depth else "greedy")
-        metrics.incr(
-            "nomad.solver.kernel.place_chunked" if prep.use_scan
-            else "nomad.solver.kernel.fill_depth" if prep.use_depth
-            else "nomad.solver.kernel.fill_greedy_binpack")
-        with metrics.measure("nomad.solver.device"):
-            if prep.use_scan:
-                placed_h = self._scan_dispatch(prep, tg, count)
-            else:
-                placed_h = self._dispatch(prep, tg, count)
+        if prep.use_scan:
+            placed_h = self._scan_dispatch(prep, tg, count)
+        else:
+            placed_h = self._dispatch(prep, tg, count)
         placed = placed_h[:n]
         if prep.use_scan and prep.distincts:
             placed = self._trim_distinct(prep, placed)
@@ -878,8 +870,9 @@ class SolverPlacer:
             left = int(count) - total
             if left <= 0 or total == last_total:
                 # done, or capacity exhausted
-                # nomadlint: disable=SYNC001 — the scan's single-sync seam
-                return placed.cpu().numpy()
+                with backend.host_sync():
+                    # nomadlint: disable=SYNC001 — the scan's one sync
+                    return placed.cpu().numpy()
             last_total = total
 
     @staticmethod
@@ -992,9 +985,9 @@ class SolverPlacer:
         sched = self.sched
         count = len(missings)
         _, n_chunks, _ = self._pipeline_knobs()
-        with metrics.measure("nomad.solver.solve"), \
-                trace.span("solver.solve", tg=tg.name, count=count,
-                           pipelined=True):
+        with timing.timed("nomad.solver.solve", "solver.solve",
+                          cpu="nomad.solver.solve_cpu", tg=tg.name,
+                          count=count, pipelined=True):
             prep = self._prep_solve(tg, nodes, count)
             # deterministic full-curve depth solves only: the jittered
             # sampled-grid regime caps each SOLVE's per-node take at
@@ -1005,7 +998,6 @@ class SolverPlacer:
             if prep is None or not prep.use_depth or \
                     prep.depth_grid is not None or prep.gt.distinct_hosts:
                 return None, prep
-            metrics.incr("nomad.solver.kernel.fill_depth")
             bname, depth_fn = backend.select(
                 "depth", prep.gt.cap.shape[0], k_max=prep.k_max,
                 spread_algorithm=prep.spread_alg,
@@ -1063,11 +1055,14 @@ class SolverPlacer:
         mi = 0
         chunk_done: list = []    # materialized padded chunk results
         for ci, chunk in enumerate(chunks):
-            with metrics.measure("nomad.solver.solve"):
+            with timing.timed("nomad.solver.solve", "solver.solve",
+                              cpu="nomad.solver.solve_cpu", tg=tg.name,
+                              chunk=ci):
                 try:
-                    # the pipeline's designed per-chunk sync point
-                    # nomadlint: disable=SYNC001 — chunk seam
-                    placed_pad = chunk.numpy()
+                    with backend.host_sync():
+                        # the pipeline's designed per-chunk sync point
+                        # nomadlint: disable=SYNC001 — chunk seam
+                        placed_pad = chunk.numpy()
                 except backend.device_error_types() as e:
                     backend.note_dispatch_failure(bname, e)
                     # the chunks already submitted resolve first, so the
@@ -1087,9 +1082,9 @@ class SolverPlacer:
             is_last = ci == len(chunks) - 1
             node_iter = self._placed_node_iter(prep.gt.nodes, placed)
             target = plan.node_allocation if is_last else {}
-            with metrics.measure("nomad.solver.materialize"), \
-                    trace.span("solver.materialize", tg=tg.name,
-                               pipelined=True):
+            with timing.timed("nomad.solver.materialize",
+                              "solver.materialize", tg=tg.name,
+                              pipelined=True):
                 mi = self._stamp_slice(shared, ids, names, prev_ids,
                                        node_iter, mi, len(missings), target)
             if not is_last and target:

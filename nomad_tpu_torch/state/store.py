@@ -25,6 +25,7 @@ from typing import Callable, Iterable, Optional
 from .usage_index import UsageIndex
 
 from ..metrics import record_swallowed_error
+from ..obs.timing import TimedRLock
 from ..structs import (
     Allocation, Deployment, Evaluation, Job, Node, SchedulerConfiguration,
     ALLOC_CLIENT_LOST, ALLOC_CLIENT_FAILED, ALLOC_CLIENT_RUNNING,
@@ -44,7 +45,8 @@ RPC_DEDUP_CAP = 4096
 
 class StateStore:
     def __init__(self):
-        self._lock = threading.RLock()
+        # its contended acquisitions are timed (nomad.state.lock_wait)
+        self._lock = TimedRLock("nomad.state.lock_wait")
         self._cond = threading.Condition(self._lock)
         self._index = 0                       # latest applied index
         self._table_index: dict[str, int] = {}
@@ -1234,8 +1236,7 @@ class StateStore:
         alloc_updates (stops), alloc_placements, alloc_preemptions,
         deployment, deployment_updates, eval_id, nodes_to_preempt.
         """
-        from ..metrics import metrics
-        with self._lock, metrics.measure("nomad.state.upsert_plan_results"):
+        with self._lock:
             idx = self._bump("allocs", index)
             summary_cache: dict = {}
             now = time.time()

@@ -610,6 +610,29 @@ def test_mesh001_fires_on_the_ports_sharded_wrappers():
     assert rule_ids(MESH001_PORT_EXCEPT_BAD, path="server/x.py") == []
 
 
+def test_obs001_polices_the_timing_helper():
+    """obs/timing.py's calls feed the registry and the tracer: OBS001
+    holds their sample names to bounded dimensions and their context
+    managers to a `with`, as it holds metrics.* and trace.*."""
+    bad = textwrap.dedent("""
+        from ..obs import timing
+        def f(ev, t0, ctx):
+            with timing.timed(f"nomad.x.{ev.id}", "x"):
+                pass
+            timing.waited(f"nomad.y.{ev.id}", "y", t0, ctx)
+            timing.timed("nomad.z", "z")
+    """)
+    assert rule_ids(bad).count("OBS001") == 3
+    good = textwrap.dedent("""
+        from ..obs import timing
+        def f(ev, t0, ctx):
+            with timing.timed(f"nomad.x.{ev.type}", "x", id=ev.id):
+                pass
+            timing.waited("nomad.y", "y", t0, ctx, eval=ev.id)
+    """)
+    assert "OBS001" not in rule_ids(good)
+
+
 def test_nomadlint_gate_whole_port():
     """The acceptance gate: `python -m nomad_tpu_torch.analysis
     nomad_tpu_torch` exits 0 on the shipped tree within 30 s."""

@@ -8,8 +8,11 @@
   * each module it copies verbatim from nomad_tpu is byte-equal to its
     original (the reference is frozen, so drift is a port fault), and
     the adapted copies differ only where they name the port's package
-    (rpc/codec.py's allow-list, server/server.py:57) and where
-    server/server.py's standby warmup waits while its server leads;
+    (rpc/codec.py's allow-list, server/server.py:57), where
+    server/server.py's standby warmup waits while its server leads and
+    where it times a client update, and, for the copies that time their
+    sites through obs/timing.py or leave out registry names nothing
+    reads, at their pinned blocks (TELEMETRY_ADAPTED);
   * with no card and no use_device("cpu") or NOMAD_SOLVER_DEVICE=cpu,
     the first solve raises, in process and in a spawned agent;
   * agent/http.py differs from the reference only where it names the
@@ -40,24 +43,19 @@ REF = ROOT / "nomad_tpu"
 
 # modules the port carries over byte for byte (paths under each package)
 VERBATIM = (
-    ["metrics.py", "chrono.py", "mock.py", "api_codec.py",
-     "obs/__init__.py", "obs/trace.py", "state/__init__.py",
-     "state/store.py", "state/usage_index.py", "rpc/__init__.py",
-     "rpc/dedup.py", "rpc/server.py", "rpc/client.py", "rpc/retry.py",
-     "server/__init__.py", "server/fsm.py", "server/plan_apply.py",
-     "server/lifecycle.py", "server/blocked_evals.py",
-     "server/eval_broker.py", "server/worker.py", "server/periodic.py",
-     "server/heartbeat.py", "server/core_sched.py",
-     "server/deployment_watcher.py", "server/drainer.py",
-     "server/volume_watcher.py", "server/event_broker.py",
-     "server/overload.py", "server/search.py", "server/acl_endpoint.py",
-     "integrations/__init__.py", "integrations/connect.py",
-     "integrations/services.py", "integrations/secrets.py",
-     "integrations/template.py", "solver/roundtrip.py", "tlsutil.py",
-     "rpc/virtual.py", "server/durable.py", "server/raft.py",
-     "server/gossip.py", "cli.py", "ui/__init__.py", "ui/index.html",
-     "agent/__init__.py", "agent/agent.py", "agent/config_file.py",
-     "agent/monitor.py", "analysis/rules_lint.py", "analysis/rules_dur.py",
+    ["metrics.py", "chrono.py", "mock.py", "api_codec.py", "obs/__init__.py",
+     "state/__init__.py", "state/usage_index.py", "rpc/__init__.py",
+     "rpc/dedup.py", "rpc/server.py", "server/__init__.py",
+     "server/lifecycle.py", "server/blocked_evals.py", "server/worker.py",
+     "server/periodic.py", "server/deployment_watcher.py", "server/drainer.py",
+     "server/volume_watcher.py", "server/event_broker.py", "server/search.py",
+     "server/acl_endpoint.py", "integrations/__init__.py",
+     "integrations/connect.py", "integrations/services.py",
+     "integrations/secrets.py", "integrations/template.py",
+     "solver/roundtrip.py", "tlsutil.py", "rpc/virtual.py", "server/gossip.py",
+     "cli.py", "ui/__init__.py", "ui/index.html", "agent/__init__.py",
+     "agent/agent.py", "agent/config_file.py", "agent/monitor.py",
+     "analysis/rules_lint.py", "analysis/rules_dur.py",
      "analysis/rules_lead.py", "analysis/rules_lock.py",
      "analysis/rules_perf.py", "analysis/rules_queue.py",
      "analysis/rules_read.py", "analysis/rules_rpc.py",
@@ -70,66 +68,92 @@ VERBATIM = (
     + sorted(f"scheduler/{p.name}" for p in (REF / "scheduler").glob("*.py"))
 )
 
-# the lines the port's worker loop adds after `if ev is None:`
-WORKER_WAIT = [
-    "                # a disabled broker (every follower's) answers at once:",
-    "                # wait on its condition, which enabling it (leadership)",
-    "                # notifies, instead of spinning on the interpreter lock",
-    "                # that the server's Raft threads need",
-    "                broker = self.server.eval_broker",
-    "                with broker._lock:",
-    "                    if not broker._enabled and not self._stop.is_set():",
-    "                        broker._cond.wait(DEQUEUE_TIMEOUT)"]
-
 # the worker's blocks that differ from the reference: (first reference
-# line, reference lines replaced, the port's lines in their place)
+# line, reference lines replaced, the port's lines in their place) — the
+# loop's wait on a disabled broker, the eval held while its scheduler
+# runs and its writes refused once it is not, the plan's answer awaited
+# with no deadline, the sites timed through obs/timing.py, and the
+# registry names nothing reads left out
 WORKER_ADAPTED = [
+    (16, 1, [
+        'from ..obs import timing, trace',
+    ]),
     (24, 0, [
-        "",
-        "",
-        "class EvalNotHeld(RuntimeError):",
+        '',
+        '',
+        'class EvalNotHeld(RuntimeError):',
         '    """The worker\'s eval is no longer outstanding under its token: the',
-        "    broker took it back (a flush at a leadership change, a nack timeout)",
+        '    broker took it back (a flush at a leadership change, a nack timeout)',
         "    and may have handed it to another worker, so this worker's plans and",
-        '    eval writes are refused."""']),
-    (57, 0, WORKER_WAIT),
-    # the eval's nack timer paused while its scheduler runs
-    (99, 0, [
-        "            # the broker keeps the eval while its scheduler runs: in",
-        "            # process a worker stops only with its server, so the nack",
-        "            # timer would only ever race a live one (a host binpack of",
-        "            # thousands of instances outlasts it under a busy interpreter)",
-        "            broker = self.server.eval_broker",
-        "            with broker._lock:",
-        "                rec = broker._unack.get(ev.id)",
+        '    eval writes are refused."""',
+    ]),
+    (57, 0, [
+        "                # a disabled broker (every follower's) answers at once:",
+        '                # wait on its condition, which enabling it (leadership)',
+        '                # notifies, instead of spinning on the interpreter lock',
+        "                # that the server's Raft threads need",
+        '                broker = self.server.eval_broker',
+        '                with broker._lock:',
+        '                    if not broker._enabled and not self._stop.is_set():',
+        '                        broker._cond.wait(DEQUEUE_TIMEOUT)',
+    ]),
+    (85, 3, []),
+    (98, 1, [
+        '            # the broker keeps the eval while its scheduler runs: in',
+        '            # process a worker stops only with its server, so the nack',
+        '            # timer would only ever race a live one (a host binpack of',
+        '            # thousands of instances outlasts it under a busy interpreter)',
+        '            broker = self.server.eval_broker',
+        '            with broker._lock:',
+        '                rec = broker._unack.get(ev.id)',
         '                if rec is not None and rec["token"] == token:',
-        '                    rec["deadline"] = float("inf")']),
-    # every write checks that the broker still has the eval outstanding
-    # under the worker's token
-    (154, 0, [
-        "    def _hold(self) -> None:",
+        '                    rec["deadline"] = float("inf")',
+    ]),
+    (105, 6, []),
+    (126, 3, []),
+    (142, 2, [
+        '        with timing.timed("nomad.worker.wait_for_index",',
+        '                          "worker.wait_for_index", index=wait_index):',
+    ]),
+    (147, 3, [
+        '        # ref worker.go:553 `nomad.worker.invoke_scheduler_<type>`; the',
+        "        # thread's CPU seconds over the same block under a name outside",
+        '        # that prefix, which counts the evals processed',
+        '        with timing.timed(f"nomad.worker.invoke_scheduler_{ev.type}",',
+        '                          "scheduler.process",',
+        '                          cpu="nomad.worker.invoke_cpu", type=ev.type):',
+    ]),
+    (153, 0, [
+        '',
+        '    def _hold(self) -> None:',
         '        """Refuse a write for an eval this worker no longer holds (ref',
-        "        plan_endpoint.go Submit and eval_endpoint.go Update/Create check",
+        '        plan_endpoint.go Submit and eval_endpoint.go Update/Create check',
         "        the eval's token): an eval the broker took back is placed by",
         '        another worker, and both plans would commit."""',
-        "        if self._eval is None or not self._eval_token:",
-        "            return",
-        "        if self.server.eval_broker.outstanding(self._eval.id) != \\",
-        "                self._eval_token:",
+        '        if self._eval is None or not self._eval_token:',
+        '            return',
+        '        if self.server.eval_broker.outstanding(self._eval.id) != \\',
+        '                self._eval_token:',
         '            raise EvalNotHeld(f"eval {self._eval.id[:8]} is no longer "',
         '                              f"held by worker-{self.id}")',
-        ""]),
-    (160, 0, ["        self._hold()"]),
-    # the plan's answer awaited with no deadline
-    (162, 1, [
+    ]),
+    (160, 3, [
+        '        self._hold()',
+        '        with timing.timed("nomad.worker.submit_plan", "plan.submit"):',
         "            # wait for the applier's answer (ref: no deadline): a plan",
-        "            # given up on while still queued commits later, under a retry",
-        "            # that places the same instances again",
-        "            result = self.server.planner.submit_plan(plan, timeout=None)"]),
-    # submit_plan_async, update_eval, create_eval
-    (189, 0, ["        self._hold()"]),
-    (194, 0, ["        self._hold()"]),
-    (200, 0, ["        self._hold()"]),
+        '            # given up on while still queued commits later, under a retry',
+        '            # that places the same instances again',
+        '            result = self.server.planner.submit_plan(plan, timeout=None)',
+    ]),
+    (189, 1, [
+        '        self._hold()',
+    ]),
+    (194, 0, [
+        '        self._hold()',
+    ]),
+    (200, 0, [
+        '        self._hold()',
+    ]),
 ]
 
 
@@ -248,7 +272,14 @@ ANALYSIS_ADAPTED = {
         (14, 1, [
             "     ATTRIBUTES (nomad_tpu_torch/obs), which are bounded by the trace store's",
         ]),
-        (57, 2, [
+        (33, 1, [
+            '               "describe", "timed", "waited")',
+        ]),
+        (42, 1, [
+            '_CM_SINKS = ("measure", "span", "use", "timed")',
+        ]),
+        (56, 3, [
+            '    if owner in ("metrics", "trace", "tracer", "timing") or \\',
             '            d.startswith("nomad_tpu_torch.metrics") or \\',
             '            d.startswith("nomad_tpu_torch.obs"):',
         ]),
@@ -256,6 +287,9 @@ ANALYSIS_ADAPTED = {
             '            f"attribute (nomad_tpu_torch/obs), or allowlist a provably "',
         ]),
     ],
+
+
+
     'analysis/rules_registry.py': [
         (5, 5, [
             'rule ids vs the analysis/RULES.md table (and their',
@@ -271,6 +305,204 @@ ANALYSIS_ADAPTED = {
         ]),
     ],
 }
+
+
+# the copies that time their sites through obs/timing.py (the broker
+# and plan queue waits, the FSM's client update, the store's lock) or
+# leave out registry names nothing reads: the blocks that differ from
+# the reference, as ANALYSIS_ADAPTED's
+TELEMETRY_ADAPTED = {
+    'obs/trace.py': [
+        (256, 0, [
+            '    def accumulate(self, key: str, value: float) -> None:',
+            '        """Add `value` to a numeric attribute of the current span (the',
+            '        state store\'s lock waits sum into `lock_wait_s`)."""',
+            '        if not self._enabled:',
+            '            return',
+            '        st = getattr(self._tls, "stack", None)',
+            '        if st:',
+            '            top = st[-1]',
+            '            if isinstance(top, Span):',
+            '                top.attrs[key] = top.attrs.get(key, 0.0) + value',
+            '',
+        ]),
+        (328, 5, [
+            '    def link_eval(self, eval_id: str, span) -> None:',
+            '        """Link the live trace of `eval_id` to `span`: the eval was',
+            "        caused by that span's work (a client update's follow-up evals).",
+            "        The link rides the eval's root span, so its record joins the",
+            '        linked trace when the eval ends."""',
+            '        if not self._enabled or not isinstance(span, Span):',
+        ]),
+        (337, 4, [
+            '            if tr is not None and tr.root is not None:',
+            '                tr.root.links.append((span.trace_id, span.span_id))',
+        ]),
+        (369, 1, [
+            '    def begin_root(self, name: str, head_sampled: bool = False,',
+            '                   **attrs) -> Span:',
+        ]),
+        (371, 1, [
+            '        failover promotion, revoke). Always retained, unless',
+            "        `head_sampled`: then kept like an eval's trace (the head sample,",
+            '        or a non-ok ending), so a frequent root (a client update) does',
+            '        not push eval traces out of the store."""',
+        ]),
+        (376, 1, [
+            '            if head_sampled:',
+            '                rate = self._sample_rate * self._pressure_factor',
+            '                sampled = rate >= 1.0 or self._rng.random() < rate',
+            '            else:',
+            '                sampled = True',
+            '            tr = _Trace(tid, "", name, sampled=sampled,',
+            '                        retain=not head_sampled)',
+        ]),
+        (689, 0, [
+            'accumulate = tracer.accumulate',
+        ]),
+        (691, 1, [
+            'link_eval = tracer.link_eval',
+        ]),
+    ],
+    'rpc/client.py': [
+        (296, 1, []),
+        (306, 1, []),
+    ],
+    'rpc/retry.py': [
+        (39, 1, []),
+        (129, 1, []),
+        (137, 2, []),
+        (152, 1, []),
+        (159, 1, []),
+    ],
+    'server/core_sched.py': [
+        (98, 1, []),
+    ],
+    'server/durable.py': [
+        (244, 1, []),
+        (258, 1, []),
+        (339, 1, []),
+        (405, 1, []),
+        (429, 1, []),
+    ],
+    'server/eval_broker.py': [
+        (38, 1, [
+            'from ..obs import timing, trace',
+        ]),
+        (124, 0, [
+            '        # eval_id -> perf_counter at its first enqueue, read at dequeue',
+            '        # as nomad.broker.wait (delay and job-pending time included)',
+            '        self._enqueued: dict[str, float] = {}',
+        ]),
+        (184, 0, [
+            '        self._enqueued.clear()',
+        ]),
+        (314, 0, [
+            '        self._enqueued.pop(eval_id, None)',
+        ]),
+        (350, 0, [
+            '        self._enqueued.setdefault(ev.id, time.perf_counter())',
+        ]),
+        (466, 3, [
+            '            # ~1s leader ticks)',
+        ]),
+        (489, 2, []),
+        (506, 3, [
+            '                    eval_id = best[0].id',
+            '                    t0 = self._enqueued.pop(eval_id, None)',
+            '                    if t0 is not None:',
+            '                        timing.waited(',
+            '                            "nomad.broker.wait", "broker.wait", t0,',
+            '                            trace.eval_ctx(eval_id),',
+            '                            deliveries=self._dequeue_count.get(eval_id, 1))',
+        ]),
+        (693, 0, [
+            '                self._enqueued.pop(ev.id, None)',
+        ]),
+        (703, 3, []),
+    ],
+    'server/fsm.py': [
+        (182, 1, [
+            '            from ..obs import timing',
+            '            with timing.timed("nomad.fsm.alloc_client_update", "fsm.apply",',
+            '                              index=index, type="alloc_client_update",',
+            '                              allocs=len(payload["allocs"])):',
+            '                s.update_allocs_from_client(index, payload["allocs"])',
+        ]),
+    ],
+    'server/heartbeat.py': [
+        (135, 1, []),
+        (409, 1, []),
+    ],
+    'server/overload.py': [
+        (176, 4, []),
+        (230, 1, []),
+    ],
+    'server/plan_apply.py': [
+        (57, 1, [
+            'from ..obs import timing, trace',
+        ]),
+        (448, 2, [
+            '                timing.waited("nomad.plan.queue_wait", "plan.queue_wait",',
+            '                              pending.t0, pending.ctx, drained=len(batch))',
+        ]),
+        (658, 2, [
+            '            # linked to the shared raft-apply span it rode (fan-in)',
+        ]),
+        (665, 3, []),
+    ],
+    'server/raft.py': [
+        (660, 1, []),
+        (990, 1, []),
+        (1073, 1, []),
+        (1113, 1, []),
+        (1293, 1, []),
+        (1328, 1, []),
+        (1408, 1, []),
+        (1474, 1, []),
+    ],
+    'state/store.py': [
+        (28, 0, [
+            'from ..obs.timing import TimedRLock',
+        ]),
+        (47, 1, [
+            '        # its contended acquisitions are timed (nomad.state.lock_wait)',
+            '        self._lock = TimedRLock("nomad.state.lock_wait")',
+        ]),
+        (1237, 2, [
+            '        with self._lock:',
+        ]),
+    ],
+}
+
+
+# server.py's blocks: its backend module's name (:57), its standby
+# warmup loop waiting while its server leads (:1023), and the client
+# update timed whole as the root of a trace of its own
+SERVER_ADAPTED = [
+    (18, 1, [
+        'from ..obs import timing, trace',
+    ]),
+    (57, 1, [
+        '    backend = sys.modules.get("nomad_tpu_torch.solver.backend")',
+    ]),
+    (1023, 1, [
+        '                continue        # leading: warm once a follower again',
+    ]),
+    (2085, 1, [
+        '        terminal transitions trigger new evals. Timed whole as',
+        "        `nomad.client.update_alloc` (Nomad's Node.UpdateAlloc), the root",
+        '        of a trace of its own that the follow-up evals link to."""',
+        '        with timing.timed("nomad.client.update_alloc", "client.update_alloc",',
+        '                          root=True, allocs=len(allocs)) as sp:',
+        '            out = self._node_update_allocs(allocs)',
+        '            for eval_id in out["eval_ids"]:',
+        '                trace.link_eval(eval_id, sp)',
+        '        return out',
+        '',
+        '    def _node_update_allocs(self, allocs: list[Allocation]) -> dict:',
+    ]),
+]
 
 
 _EVAL = textwrap.dedent("""
@@ -552,6 +784,11 @@ def test_analyzer_copy_differs_only_at_its_pinned_lines(rel):
     assert _changed_blocks(rel) == ANALYSIS_ADAPTED[rel]
 
 
+@pytest.mark.parametrize("rel", sorted(TELEMETRY_ADAPTED))
+def test_telemetry_copy_differs_only_at_its_pinned_blocks(rel):
+    assert _changed_blocks(rel) == TELEMETRY_ADAPTED[rel]
+
+
 def test_rpc_codec_differs_only_in_its_package_allow_list():
     ref = (REF / "rpc/codec.py").read_text().splitlines()
     port = (PORT / "rpc/codec.py").read_text().splitlines()
@@ -562,22 +799,13 @@ def test_rpc_codec_differs_only_in_its_package_allow_list():
 
 
 def test_server_differs_only_in_its_backend_module_name():
-    """server.py names the port's backend module (:57), and its standby
+    """server.py names the port's backend module (:57), its standby
     warmup loop waits while its server leads instead of returning
     (:1023), so a leader that established below the warmup floor warms
-    once it is a follower again (ROADMAP Queue 3 item 15)."""
-    ref = (REF / "server/server.py").read_text().splitlines()
-    port = (PORT / "server/server.py").read_text().splitlines()
-    diff = [(i + 1, a, b) for i, (a, b) in enumerate(zip(ref, port))
-            if a != b]
-    assert len(ref) == len(port)
-    assert diff == [(57, '    backend = sys.modules.get("nomad_tpu.solver.backend")',
-                     '    backend = sys.modules.get('
-                     '"nomad_tpu_torch.solver.backend")'),
-                    (1023, '                return          # the leader '
-                     'establish path owns warmup',
-                     '                continue        # leading: warm once '
-                     'a follower again')]
+    once it is a follower again (ROADMAP Queue 3 item 15), and it times a
+    client update whole (`nomad.client.update_alloc`) as the root of a
+    trace of its own: the blocks of SERVER_ADAPTED and no others."""
+    assert _changed_blocks("server/server.py") == SERVER_ADAPTED
 
 
 def test_port_server_warms_as_a_standby_once_it_stops_leading(monkeypatch):
