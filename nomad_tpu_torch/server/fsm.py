@@ -182,8 +182,9 @@ class NomadFSM:
             from ..obs import timing
             with timing.timed("nomad.fsm.alloc_client_update", "fsm.apply",
                               index=index, type="alloc_client_update",
-                              allocs=len(payload["allocs"])):
-                s.update_allocs_from_client(index, payload["allocs"])
+                              allocs=len(payload["allocs"])) as sp:
+                sp.annotate(jobs=s.update_allocs_from_client(
+                    index, payload["allocs"]))
         elif msg_type == ALLOC_UPDATE_DESIRED_TRANSITION:
             s.update_alloc_desired_transitions(
                 index, payload["transitions"], payload.get("evals", []))

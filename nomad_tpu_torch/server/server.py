@@ -2096,8 +2096,13 @@ class Server:
         index = self.raft.apply(ALLOC_CLIENT_UPDATE, {"allocs": allocs})
         evals = []
         seen = set()
+        # only a failed or complete alloc can make an eval: their stored
+        # records in one read of the store
+        stored_by_id = self.state.allocs_by_ids(
+            [a.id for a in allocs if a.client_status in (
+                ALLOC_CLIENT_FAILED, ALLOC_CLIENT_COMPLETE)])
         for alloc in allocs:
-            stored = self.state.alloc_by_id(alloc.id)
+            stored = stored_by_id.get(alloc.id)
             if stored is None or stored.job is None:
                 continue
             key = (stored.namespace, stored.job_id)

@@ -16,10 +16,12 @@ evals by job) are plain dicts maintained transactionally with the write lock.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from collections import OrderedDict
 from contextlib import contextmanager
+from operator import attrgetter
 from typing import Callable, Iterable, Optional
 
 from .usage_index import UsageIndex
@@ -41,6 +43,14 @@ from ..structs.summary import JobSummary, TaskGroupSummary
 # client's retry window at chaos write rates while keeping the snapshot
 # blob contribution trivial (token + int per entry)
 RPC_DEDUP_CAP = 4096
+
+# every field of an Allocation in one call, for a field-wise shallow copy
+# (`copy.copy` of a slotted dataclass takes the slow __reduce_ex__ path)
+# that passes them all to the constructor in order, so none may be init=False
+if not all(f.init for f in dataclasses.fields(Allocation)):
+    raise TypeError("Allocation has an init=False field: the client "
+                    "update's shallow copy cannot pass it")
+_alloc_fields = attrgetter(*(f.name for f in dataclasses.fields(Allocation)))
 
 
 class StateStore:
@@ -1089,16 +1099,23 @@ class StateStore:
             self._commit()
 
     def update_allocs_from_client(self, index: int,
-                                  allocs: list[Allocation]) -> None:
+                                  allocs: list[Allocation]) -> int:
         """Client status updates: merge client-owned fields onto stored allocs
-        (ref state_store.go UpdateAllocsFromClient/nestedUpdateAllocFromClient)."""
+        (ref state_store.go UpdateAllocsFromClient/nestedUpdateAllocFromClient).
+        A job's summary is copied and its status computed once an update,
+        not once an alloc. Returns the number of jobs the update touched."""
         with self._lock:
             idx = self._bump("allocs", index)
+            summaries: dict = {}
+            touched: set[tuple[str, str]] = set()
             for update in allocs:
                 existing = self.allocs.get(update.id)
                 if existing is None:
                     continue
-                alloc = existing.copy()
+                # a shallow copy: the nested records this update does not
+                # write are shared with the stored alloc, which no writer
+                # changes in place
+                alloc = Allocation(*_alloc_fields(existing))
                 alloc.client_status = update.client_status
                 alloc.client_description = update.client_description
                 alloc.task_states = dict(update.task_states)
@@ -1135,18 +1152,22 @@ class StateStore:
                 alloc.modify_time_unix = update.modify_time_unix or time.time()
                 self.allocs[alloc.id] = alloc
                 self.usage.set_alloc(alloc)
-                self._reconcile_summary(idx, existing, alloc)
+                self._reconcile_summary(idx, existing, alloc, summaries)
                 self._emit("Allocation", "AllocationUpdated", idx, alloc)
-                # job status may flip (e.g. batch job completes)
-                job = self.jobs.get((alloc.namespace, alloc.job_id))
+                touched.add((alloc.namespace, alloc.job_id))
+            # job status may flip (e.g. batch job completes): once a job
+            # an update (ref state_store.go setJobStatuses)
+            for key in touched:
+                job = self.jobs.get(key)
                 if job is not None:
                     status = self._compute_job_status(job)
                     if status != job.status:
                         job = job.copy()
                         job.status = status
                         job.modify_index = idx
-                        self.jobs[(job.namespace, job.id)] = job
+                        self.jobs[key] = job
             self._commit()
+            return len(touched)
 
     def update_alloc_desired_transitions(
             self, index: int, transitions: dict[str, object],
@@ -1174,6 +1195,13 @@ class StateStore:
     def alloc_by_id(self, alloc_id: str) -> Optional[Allocation]:
         with self._lock:
             return self.allocs.get(alloc_id)
+
+    def allocs_by_ids(self, alloc_ids: Iterable[str]) -> dict[str, Allocation]:
+        """The stored allocs of `alloc_ids` (unknown ids left out), read
+        under one hold of the lock."""
+        with self._lock:
+            allocs = self.allocs
+            return {aid: allocs[aid] for aid in alloc_ids if aid in allocs}
 
     def allocs_by_node(self, node_id: str) -> list[Allocation]:
         with self._lock:

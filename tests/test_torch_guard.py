@@ -10,9 +10,10 @@
     the adapted copies differ only where they name the port's package
     (rpc/codec.py's allow-list, server/server.py:57), where
     server/server.py's standby warmup waits while its server leads and
-    where it times a client update, and, for the copies that time their
-    sites through obs/timing.py or leave out registry names nothing
-    reads, at their pinned blocks (TELEMETRY_ADAPTED);
+    where it times a client update and reads its allocs in one call,
+    and, for the copies that time their sites through obs/timing.py,
+    leave out registry names nothing reads or pay a client update's
+    per-job work once, at their pinned blocks (TELEMETRY_ADAPTED);
   * with no card and no use_device("cpu") or NOMAD_SOLVER_DEVICE=cpu,
     the first solve raises, in process and in a spawned agent;
   * agent/http.py differs from the reference only where it names the
@@ -309,8 +310,9 @@ ANALYSIS_ADAPTED = {
 
 # the copies that time their sites through obs/timing.py (the broker
 # and plan queue waits, the FSM's client update, the store's lock) or
-# leave out registry names nothing reads: the blocks that differ from
-# the reference, as ANALYSIS_ADAPTED's
+# leave out registry names nothing reads, and the store's client update
+# that pays its per-job work once an update: the blocks that differ
+# from the reference, as ANALYSIS_ADAPTED's
 TELEMETRY_ADAPTED = {
     'obs/trace.py': [
         (256, 0, [
@@ -426,8 +428,9 @@ TELEMETRY_ADAPTED = {
             '            from ..obs import timing',
             '            with timing.timed("nomad.fsm.alloc_client_update", "fsm.apply",',
             '                              index=index, type="alloc_client_update",',
-            '                              allocs=len(payload["allocs"])):',
-            '                s.update_allocs_from_client(index, payload["allocs"])',
+            '                              allocs=len(payload["allocs"])) as sp:',
+            '                sp.annotate(jobs=s.update_allocs_from_client(',
+            '                    index, payload["allocs"]))',
         ]),
     ],
     'server/heartbeat.py': [
@@ -462,12 +465,71 @@ TELEMETRY_ADAPTED = {
         (1474, 1, []),
     ],
     'state/store.py': [
+        (19, 0, [
+            'import dataclasses',
+        ]),
+        (23, 0, [
+            'from operator import attrgetter',
+        ]),
         (28, 0, [
             'from ..obs.timing import TimedRLock',
+        ]),
+        (44, 0, [
+            '# every field of an Allocation in one call, for a field-wise shallow copy',
+            '# (`copy.copy` of a slotted dataclass takes the slow __reduce_ex__ path)',
+            '# that passes them all to the constructor in order, so none may be init=False',
+            'if not all(f.init for f in dataclasses.fields(Allocation)):',
+            '    raise TypeError("Allocation has an init=False field: the client "',
+            '                    "update\'s shallow copy cannot pass it")',
+            '_alloc_fields = attrgetter(*(f.name for f in dataclasses.fields(Allocation)))',
+            '',
         ]),
         (47, 1, [
             '        # its contended acquisitions are timed (nomad.state.lock_wait)',
             '        self._lock = TimedRLock("nomad.state.lock_wait")',
+        ]),
+        (1090, 1, [
+            '                                  allocs: list[Allocation]) -> int:',
+        ]),
+        (1092, 1, [
+            '        (ref state_store.go UpdateAllocsFromClient/nestedUpdateAllocFromClient).',
+            "        A job's summary is copied and its status computed once an update,",
+            '        not once an alloc. Returns the number of jobs the update touched."""',
+        ]),
+        (1095, 0, [
+            '            summaries: dict = {}',
+            '            touched: set[tuple[str, str]] = set()',
+        ]),
+        (1099, 1, [
+            '                # a shallow copy: the nested records this update does not',
+            '                # write are shared with the stored alloc, which no writer',
+            '                # changes in place',
+            '                alloc = Allocation(*_alloc_fields(existing))',
+        ]),
+        (1136, 1, [
+            '                self._reconcile_summary(idx, existing, alloc, summaries)',
+        ]),
+        (1138, 2, [
+            '                touched.add((alloc.namespace, alloc.job_id))',
+            '            # job status may flip (e.g. batch job completes): once a job',
+            '            # an update (ref state_store.go setJobStatuses)',
+            '            for key in touched:',
+            '                job = self.jobs.get(key)',
+        ]),
+        (1146, 1, [
+            '                        self.jobs[key] = job',
+        ]),
+        (1148, 0, [
+            '            return len(touched)',
+        ]),
+        (1175, 0, [
+            '',
+            '    def allocs_by_ids(self, alloc_ids: Iterable[str]) -> dict[str, Allocation]:',
+            '        """The stored allocs of `alloc_ids` (unknown ids left out), read',
+            '        under one hold of the lock."""',
+            '        with self._lock:',
+            '            allocs = self.allocs',
+            '            return {aid: allocs[aid] for aid in alloc_ids if aid in allocs}',
         ]),
         (1237, 2, [
             '        with self._lock:',
@@ -477,8 +539,9 @@ TELEMETRY_ADAPTED = {
 
 
 # server.py's blocks: its backend module's name (:57), its standby
-# warmup loop waiting while its server leads (:1023), and the client
-# update timed whole as the root of a trace of its own
+# warmup loop waiting while its server leads (:1023), the client update
+# timed whole as the root of a trace of its own, and its follow-up
+# evals' allocs read in one hold of the store's lock
 SERVER_ADAPTED = [
     (18, 1, [
         'from ..obs import timing, trace',
@@ -501,6 +564,16 @@ SERVER_ADAPTED = [
         '        return out',
         '',
         '    def _node_update_allocs(self, allocs: list[Allocation]) -> dict:',
+    ]),
+    (2089, 0, [
+        '        # only a failed or complete alloc can make an eval: their stored',
+        '        # records in one read of the store',
+        '        stored_by_id = self.state.allocs_by_ids(',
+        '            [a.id for a in allocs if a.client_status in (',
+        '                ALLOC_CLIENT_FAILED, ALLOC_CLIENT_COMPLETE)])',
+    ]),
+    (2090, 1, [
+        '            stored = stored_by_id.get(alloc.id)',
     ]),
 ]
 
@@ -804,7 +877,8 @@ def test_server_differs_only_in_its_backend_module_name():
     (:1023), so a leader that established below the warmup floor warms
     once it is a follower again (ROADMAP Queue 3 item 15), and it times a
     client update whole (`nomad.client.update_alloc`) as the root of a
-    trace of its own: the blocks of SERVER_ADAPTED and no others."""
+    trace of its own and reads the allocs its follow-up evals need in one
+    call: the blocks of SERVER_ADAPTED and no others."""
     assert _changed_blocks("server/server.py") == SERVER_ADAPTED
 
 
