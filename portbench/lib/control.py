@@ -10,14 +10,16 @@ it overfills; a run under the control comes out not correct.
 The control of the placements (`first_fit_solve`) puts a solve in the
 program's place that stays within capacity but scores nothing: each
 solve's instances go to the nodes in the solve's own row order, each
-filled to what it holds. The applier accepts every plan; the reference
-of the placements has to find the nodes it chose differently.
+filled to what it holds, on every route (the greedy and depth solves
+and the chunked scan). The applier accepts every plan; the reference of
+the placements has to find the nodes it chose differently.
 
 And the faults a run can have, each planted in the plan results the
 store commits: the plan committed as if nothing was placed (the state
 left unchanged), half of the placements left out, and every placement
 of a plan moved onto its first node (an answer altered where it is
-produced).
+produced); and one planted in the solve (SOLVE_FAULTS): the scan's
+spread term dropped.
 """
 from __future__ import annotations
 
@@ -100,19 +102,37 @@ def first_fit_solve(run):
         gt = prep.gt
         return _first_fit(gt.cap, gt.used, gt.ask, count, gt.feasible)
 
-    def select(kernel, *a, **kw):
-        name, fn = orig_select(kernel, *a, **kw)
-        if kernel != "depth":
-            return name, fn
-
-        def first_fit(cap, used, ask, count, feasible, *rest, **kw2):
+    def first_fit(fn):
+        def run(cap, used, ask, count, feasible, *rest, **kw):
             import torch
-            out = fn(cap, used, ask, count, feasible, *rest, **kw2)
+            out = fn(cap, used, ask, count, feasible, *rest, **kw)
             placed = _first_fit(*(_host(x) for x in (cap, used, ask)),
                                 count, _host(feasible))
             dev = out.device if hasattr(out, "device") else "cpu"
             return torch.from_numpy(placed).to(dev)
-        return name, first_fit
+        return run
+
+    def first_fit_scan(fn):
+        """The scan's answer (placed, used, spread counts, distinct
+        quotas) with its placements and usage those of the first fit,
+        on top of the placements it carried in."""
+        def run(cap, used, ask, count, feasible, *rest, finish=None, **kw):
+            import torch
+            out = fn(cap, used, ask, count, feasible, *rest,
+                     finish=lambda o: o, **kw)
+            placed = _first_fit(*(_host(x) for x in (cap, used, ask)),
+                                count, _host(feasible))
+            add = torch.from_numpy(placed).to(out[0].device)
+            new = (rest[10] + add, used + add[:, None].to(used.dtype) * ask,
+                   *out[2:])
+            return finish(new) if finish is not None else \
+                backend.to_host(new)
+        return run
+
+    def select(kernel, *a, **kw):
+        name, fn = orig_select(kernel, *a, **kw)
+        wrap = {"depth": first_fit, "chunked": first_fit_scan}.get(kernel)
+        return name, (fn if wrap is None else wrap(fn))
     placer.SolverPlacer._dispatch = dispatch
     backend.select = select
 
@@ -120,3 +140,32 @@ def first_fit_solve(run):
         placer.SolverPlacer._dispatch = orig_dispatch
         backend.select = orig_select
     return undo
+
+
+def no_spread_solve(run):
+    """Plant a fault in the program's scan, installed as first_fit_solve
+    is: every spread stanza it is given marked as padding, so it scores
+    binpack and anti-affinity alone. Returns what undoes it."""
+    from nomad_tpu_torch.solver import backend
+    orig_select = backend.select
+
+    def select(kernel, *a, **kw):
+        name, fn = orig_select(kernel, *a, **kw)
+        if kernel != "chunked":
+            return name, fn
+
+        def run(*args, **kw2):
+            args = list(args)
+            mode = args[10]                 # sp_mode: -1 is a pad stanza
+            args[10] = mode.new_full(mode.shape, -1) \
+                if hasattr(mode, "new_full") else np.full_like(mode, -1)
+            return fn(*args, **kw2)
+        return name, run
+    backend.select = select
+
+    def undo():
+        backend.select = orig_select
+    return undo
+
+
+SOLVE_FAULTS = {"no_spread": no_spread_solve}

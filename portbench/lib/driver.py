@@ -147,6 +147,7 @@ class Run:
         self.commits: list = []       # (index, placed, ended, evicted)
         self.client_ends: list = []   # (index, alloc ids)
         self.proposals: list = []     # every plan the workers submitted
+        self.allocs = None            # the committed allocations (finish)
 
     # ------------------------------------------------------------ program
 
@@ -501,9 +502,13 @@ class Run:
         """The reference of the solve layer over the passes the clients'
         register evals made (placement.judge)."""
         sched = self.config["spec"]["server"]["scheduler"]
-        pipeline = {"min_count": int(sched["plan_pipeline_min_count"]),
-                    "chunks": int(sched["plan_pipeline_chunks"])} \
-            if sched.get("plan_pipeline_enabled", True) else None
+        if not sched.get("plan_pipeline_enabled", True):
+            pipeline = None
+        elif "plan_pipeline_min_count" in sched:
+            pipeline = {"min_count": int(sched["plan_pipeline_min_count"]),
+                        "chunks": int(sched["plan_pipeline_chunks"])}
+        else:
+            pipeline = placement.UNSTATED
         waited = {e["eval_id"] for e in self.evals
                   if e["kind"] == "register"}
         passes = [p for p in placement.group(self.proposals)
@@ -511,7 +516,8 @@ class Run:
         return placement.judge(self.fleet, allocs, self.jobs, passes,
                                self.row_of, pipeline,
                                int(self.mix.get("compare_passes", 0)),
-                               self.seed)
+                               self.seed,
+                               sched.get("scheduler_algorithm", "tpu-batch"))
 
     def finish(self) -> dict:
         import torch
@@ -524,12 +530,13 @@ class Run:
         if self.undo_solve_hook is not None:
             self.undo_solve_hook()
         log(f"server stopped at {time.perf_counter() - self.t_start:.2f} s")
-        allocs = self._extract()
+        allocs = self.allocs = self._extract()
         limits = self.mix["limits"]
         t0 = time.perf_counter()
         numbers = reference.judge(
             self.fleet, allocs, self.jobs, self.evals,
-            {k: v for k, v in limits.items() if k != "misplaced_pct"})
+            {k: v for k, v in limits.items() if k != "misplaced_pct"},
+            run=self, bench_dir=self.bench_dir)
         t1 = time.perf_counter()
         log(f"{len(allocs)} allocations judged in {t1 - t0:.2f} s")
         if "misplaced_pct" in limits:

@@ -24,6 +24,9 @@ the scheduler's published rules:
     deterministic regime) solves in `plan_pipeline_chunks` chunks, each on
     the usage the chunks before it left.
 
+A pass of a job whose record has a spread goes to the chunked scan, as
+the placer routes it: scan.py works it out.
+
 The eval id and the snapshot index are the program's: the reference
 follows the program's random stream and the state it planned from, and
 works out everything else itself. It imports nothing of the program.
@@ -35,6 +38,8 @@ import random
 
 import numpy as np
 
+from . import scan
+
 F32 = np.float32
 BINPACK_MAX_SCORE = F32(18.0)
 MAX_PER_NODE = 2 ** 30
@@ -42,6 +47,8 @@ BIG = F32(1e9)
 DEPTH_GRID = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192,
               256, 384, 512)
 NODE_BUCKET_FLOOR = 8
+# judge's `pipeline` where the configuration does not state the pipeline
+UNSTATED = "unstated"
 
 
 def node_bucket(n: int) -> int:
@@ -278,14 +285,52 @@ def group(proposals: list) -> list:
     return list(passes.values())
 
 
+def _spread_stanza(fleet, rec: dict, cand: np.ndarray, rows: np.ndarray,
+                   n_pad: int, live_rows: np.ndarray) -> scan.Stanza:
+    """The record's spread on the eval's padded node axis: each row's
+    value, and the job's live instances on each value at the snapshot,
+    as the property set counts them."""
+    sp = rec["spread"]
+    attr = scan.ATTRIBUTES.get(sp["attribute"])
+    if attr is None:
+        raise ValueError(f"the fleet table holds no {sp['attribute']}")
+    of = getattr(fleet, attr)
+    live: dict = {}
+    for r in live_rows.tolist():
+        if of[r]:
+            live[of[r]] = live.get(of[r], 0) + 1
+    # the universe: every value of a candidate node and of a live one
+    st = scan.lower([of[r] for r in cand.tolist()], live, sp,
+                    float(sp["weight"]), int(rec["count"]))
+    by_row = dict(zip(cand.tolist(), st.ids.tolist()))
+    st.ids = np.asarray([by_row[r] for r in rows.tolist()]
+                        + [-1] * (n_pad - len(rows)), np.int64)
+    return st
+
+
+def _scan_route(rec: dict, algorithm: str) -> bool:
+    """Whether the placer sends the job's passes to the chunked scan; a
+    ValueError for what the scan's reference does not cover."""
+    if rec.get("distinct_property") or rec.get("affinities"):
+        raise ValueError("the reference covers no distinct_property and "
+                         "no affinity")
+    if algorithm == "spread":
+        raise ValueError("the reference covers the binpack algorithms only")
+    return bool(rec.get("spread"))
+
+
 def judge(fleet, allocs, jobs: dict, passes: list, row_of: dict,
-          pipeline: dict, sample: int, seed: int) -> dict:
+          pipeline, sample: int, seed: int,
+          algorithm: str = "tpu-batch") -> dict:
     """Work out again each sampled pass of a job the records know, and
     count the instances the program put where the reference does not,
     node by node up to an exchange of nodes alike in every input.
     -> {"misplaced": instances, "compared": instances, "passes": n}.
     `sample` 0 compares every pass; else that many, drawn from the seed,
-    with the pass of the most instances always in."""
+    with the pass of the most instances always in. `pipeline` is
+    UNSTATED where the configuration does not state the plan pipeline:
+    a binpack pass then raises ValueError (a scan pass is never
+    pipelined)."""
     todo = [p for p in passes if p.job_id in jobs and p.counts]
     if sample and len(todo) > sample:
         big = max(range(len(todo)), key=lambda i: sum(todo[i].counts.values()))
@@ -326,10 +371,20 @@ def judge(fleet, allocs, jobs: dict, passes: list, row_of: dict,
         co = np.pad(coll[rows], (0, pad))
         ask = np.asarray([rec["cpu_mhz"], rec["memory_mb"], rec["disk_mb"]],
                          F32)
+        on_scan = _scan_route(rec, algorithm)
+        stanza = _spread_stanza(fleet, rec, cand, rows, n_pad,
+                                allocs.row[live & mine]) if on_scan else None
         want = np.zeros(n_fleet, np.int64)
         if count > 0:
-            placed = solve(c, u, ask, count, feas, co, int(rec["count"]),
-                           jseed, rec["type"] == "batch", pipeline)
+            if on_scan:
+                placed = scan.solve(c, u, ask, count, feas, co,
+                                    int(rec["count"]), [stanza])
+            elif pipeline is UNSTATED:
+                raise ValueError("the configuration states no plan "
+                                 "pipeline for a binpack pass")
+            else:
+                placed = solve(c, u, ask, count, feas, co, int(rec["count"]),
+                               jseed, rec["type"] == "batch", pipeline)
             want[rows] = placed[:len(rows)]
         got = np.zeros(n_fleet, np.int64)
         for nid, k in p.counts.items():
@@ -338,11 +393,16 @@ def judge(fleet, allocs, jobs: dict, passes: list, row_of: dict,
                 out["misplaced"] += k
                 continue
             got[r] += k
-        # nodes alike in capacity, usage and the job's own instances
-        # score alike; which of them the random order puts first is no
-        # part of the score (and a float32 tie there is no fault)
+        # nodes alike in capacity, usage, the job's own instances and,
+        # on the scan, the spread's value score alike; which of them the
+        # random order puts first is no part of the score (and a float32
+        # tie there is no fault)
         inputs = np.concatenate([cap64[cand], used[cand],
                                  coll[cand, None]], axis=1)
+        if on_scan:
+            value = np.empty(n_fleet, np.int64)
+            value[rows] = stanza.ids[:len(rows)]
+            inputs = np.concatenate([inputs, value[cand, None]], axis=1)
         alike = np.unique(inputs, axis=0, return_inverse=True)[1].ravel()
         out["misplaced"] += int(np.delete(got, cand).sum())
         out["misplaced"] += misplaced(got[cand], want[cand], alike)

@@ -32,12 +32,19 @@ limit; `correct` holds where every number is within its limit.
                    ${meta.rack}, between the most and the fewest
                    instances that the eval put in one rack, of the racks
                    that hold a node in the job's datacenters
+
+A limit with no reader here is read by checks/<limit>.py, found by its
+name (spec.check_reader): read(run), given the harness's Run once the
+window has closed (its fleet, jobs, evals, committed allocs, proposed
+plans, configuration and mix).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from . import spec
 
 LIVE = np.iinfo(np.int64).max          # the end index of a live allocation
 TOL = 1e-6
@@ -191,9 +198,10 @@ def rack_skew(fleet_rack: list, fleet_dc: list, allocs: Allocs,
 
 
 def judge(fleet, allocs: Allocs, jobs: dict, evals: list,
-          limits: dict) -> dict:
+          limits: dict, run=None, bench_dir=spec.BENCH_DIR) -> dict:
     """{number: {"value": v, "limit": l}} for every number `limits`
-    names (a cell's configuration and mix decide which apply)."""
+    names (a cell's configuration and mix decide which apply); a number
+    with no reader here is checks/<name>.py's read(run)."""
     cap = fleet.capacity()
     readers = {
         "over_capacity": lambda: over_capacity(cap, allocs, jobs),
@@ -206,7 +214,10 @@ def judge(fleet, allocs: Allocs, jobs: dict, evals: list,
         "rack_skew": lambda: rack_skew(fleet.rack, fleet.dc, allocs, jobs,
                                        evals),
     }
-    return {k: {"value": readers[k](), "limit": lim}
+    found = {k: spec.check_reader(k, bench_dir) for k in limits
+             if k not in readers}
+    return {k: {"value": readers[k]() if k in readers
+                else found[k].read(run), "limit": lim}
             for k, lim in limits.items()}
 
 

@@ -8,6 +8,7 @@ here from its name and never listed in code:
     traffic/<mix>.json                       the traffic mix's parameters
     metrics/<metric>.py                      one per-layer metric's reader
     rooflines/<kernel>.py                    one hand kernel's bytes and ops
+    checks/<limit>.py                        one correctness number's reader
 """
 from __future__ import annotations
 
@@ -68,6 +69,16 @@ def metric_reader(name: str, bench_dir: Path = BENCH_DIR):
     if not path.is_file():
         raise SpecError(f"no reader {path} for per-layer metric {name!r}")
     return _module(path, f"portbench_metric_{name.replace('.', '_')}")
+
+
+def check_reader(name: str, bench_dir: Path = BENCH_DIR):
+    """checks/<name>.py: a module with read(run) -> number, the number a
+    mix's limit `name` holds a run to (reference.judge)."""
+    path = bench_dir / "checks" / f"{name}.py"
+    if not path.is_file():
+        raise SpecError(f"no reader {path} for check {name!r}")
+    return _module(path, "portbench_check_" + name.replace(".", "_")
+                   .replace("-", "_"))
 
 
 def rooflines(bench_dir: Path = BENCH_DIR) -> dict:

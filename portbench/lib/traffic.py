@@ -29,8 +29,8 @@ A mix holds:
                    with type, cpu_mhz, memory_mb, disk_mb, priority,
                    datacenters
     limits         the reference's numbers this mix is judged by, each
-                   with its limit (reference.py, and misplaced_pct,
-                   placement.py)
+                   with its limit (reference.py or checks/<limit>.py,
+                   and misplaced_pct, placement.py and scan.py)
     compare_passes how many of the register evals' passes the reference
                    of the placements works out again, drawn from the
                    seed with the largest always in (0 or absent: all)

@@ -5,7 +5,9 @@ import shutil
 
 import pytest
 
-from portbench.lib import driver, spec
+import numpy as np
+
+from portbench.lib import driver, fleet, reference, spec
 
 BENCH = spec.load_benchmark()
 CELLS = [w["name"] for w in BENCH["workloads"]]
@@ -42,6 +44,8 @@ def test_unknown_names_are_refused():
         spec.traffic("no-such-mix")
     with pytest.raises(spec.SpecError):
         spec.metric_reader("no_such_metric")
+    with pytest.raises(spec.SpecError):
+        spec.check_reader("no_such_check")
 
 
 def test_per_layer_metrics_follow_their_workloads_key():
@@ -100,3 +104,32 @@ def test_a_cell_added_as_files_alone_is_found(tmp_path):
     assert "dummy_metric" in names
     reader = spec.metric_reader("dummy_metric", root / "portbench")
     assert reader.read(None) == 42.0
+
+
+def test_a_check_added_as_a_file_is_read_by_the_reference(tmp_path):
+    """A limit that reference.judge has no reader for is read by
+    checks/<limit>.py, given the run; a limit with no such file is
+    refused, naming the file looked for."""
+    (tmp_path / "checks").mkdir()
+    (tmp_path / "checks" / "late-stops.py").write_text(
+        "def read(run):\n    return len(run['stops']) * 2\n")
+    assert spec.check_reader("late-stops", tmp_path).read(
+        {"stops": [1]}) == 2
+    fl = fleet.make({"nodes": 2, "cpu_mhz_choices": [1000],
+                     "memory_mb_choices": [1000], "disk_mb": 1000,
+                     "reserved": {"cpu_mhz": 0, "memory_mb": 0,
+                                  "disk_mb": 0},
+                     "datacenters": ["dc1"], "racks": 0,
+                     "node_classes": 1}, 1)
+    none = reference.Allocs(name=np.zeros(0, np.int64),
+                            row=np.zeros(0, np.int64))
+    got = reference.judge(fl, none, {}, [], {"unplaced": 0,
+                                             "late-stops": 3},
+                          run={"stops": [1, 2]}, bench_dir=tmp_path)
+    assert got == {"unplaced": {"value": 0, "limit": 0},
+                   "late-stops": {"value": 4, "limit": 3}}
+    assert not reference.correct(got)
+    with pytest.raises(spec.SpecError,
+                       match=str(tmp_path / "checks" / "lost-writes.py")):
+        reference.judge(fl, none, {}, [], {"lost-writes": 0}, run=None,
+                        bench_dir=tmp_path)
